@@ -1,0 +1,575 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Builds the CUDA kernels from ``src/repro_torch/csrc`` (into
+``build/kernels/``), holds each kernel against its plain PyTorch version on
+the card, then drives the main path: one full Set1 slice (501 lines x 251
+points x 1,000 observations, slice 201, 21 windows) through
+``PDFComputer(PDFConfig(), SeismicSimulation()).run_slice(201)``, with the
+4-type default (L = 64) and with 10 types at L = 20. Each slice run must
+launch each kernel once per window, repeat bitwise, and agree with the
+port's plain PyTorch backend under the parity rules. Last comes a timing of
+each kernel at the Set1 window shape beside its bound.
+
+Any failed check raises, so the exit code is non-zero. The line before the
+last is a JSON object of per-kernel numbers; the last line is
+``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
+checkout of the repository, it exits with code 2 and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# Parity rules between two moment formulas (the ROADMAP's, from the
+# reference's kernel tests): the fused slice's shifted sums against the
+# reference backend's two-pass moments.
+MOM_TOL = dict(rtol=2e-3, atol=2e-3)
+ERR_TOL = dict(rtol=1e-4, atol=5e-4)
+
+# K1 against its plain version. Both do the same float operations
+# (-fmad=false); only the order of each row's sums differs. vmin and vmax
+# are order-free, so exact. mean and var are held far below what a biased
+# variance gives (n/(n-1) dropped: 1e-3 relative at n = 1,000), which the
+# check must reject (a planted fault, every run). skew and kurt cancel
+# between their shifted power sums, so they get an absolute term. On an
+# H100 the largest differences at these shapes were 1.5e-7 (mean) and 1e-6
+# (var) relative, 3.8e-6 (skew) and 3.1e-5 (kurt) absolute.
+K1_STATS = ("mean", "var", "skew", "kurt", "vmin", "vmax")
+K1_TOL = {
+    "mean": dict(rtol=1e-5, atol=0.0),
+    "var": dict(rtol=1e-4, atol=0.0),
+    "skew": dict(rtol=1e-4, atol=1e-4),
+    "kurt": dict(rtol=1e-4, atol=5e-4),
+    "vmin": dict(rtol=0.0, atol=0.0),
+    "vmax": dict(rtol=0.0, atol=0.0),
+}
+EDGE_TOL = dict(rtol=1e-6, atol=1e-3)
+
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 and float64
+# (outside the tensor cores) op/s.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+F64_OPS_PER_S = 34e12
+
+SET1_SLICE = 201  # configs/pdf_seismic.py: slice_index
+SET1_WINDOWS = 21  # ceil(501 lines / 25 lines per window)
+
+
+class SmokeFailure(AssertionError):
+    pass
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise SmokeFailure(what)
+
+
+def log(*args) -> None:
+    print(*args, flush=True)
+
+
+def sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+# ---------------------------------------------------------------------------
+# kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def diff_report(torch, got, want, rtol, atol) -> tuple[int, float, float]:
+    """(entries outside ``atol + rtol * |want|`` or not NaN where the other
+    is, max abs difference, max relative difference) over the entries that
+    are NaN in neither. A difference where ``want`` is 0 is infinitely
+    relative."""
+    got, want = got.double().cpu(), want.double().cpu()
+    nan_g, nan_w = torch.isnan(got), torch.isnan(want)
+    n_bad = int((nan_g != nan_w).sum())
+    ok = ~(nan_g | nan_w)
+    if not bool(ok.any()):
+        return n_bad, 0.0, 0.0
+    diff, ref = (got - want).abs()[ok], want.abs()[ok]
+    n_bad += int((diff > atol + rtol * ref).sum())
+    rel = torch.where(diff == 0, torch.zeros_like(diff), diff / ref)
+    return n_bad, float(diff.max()), float(rel.max())
+
+
+def close_report(torch, got, want, rtol, atol, what) -> float:
+    """allclose with an identical NaN pattern, or raise; returns the max abs
+    difference over the entries that are not NaN."""
+    n_bad, max_abs, max_rel = diff_report(torch, got, want, rtol, atol)
+    check(n_bad == 0, f"{what}: {n_bad} entries outside rtol={rtol} atol={atol} or NaN "
+                      f"patterns differ (max abs diff {max_abs}, max rel diff {max_rel})")
+    return max_abs
+
+
+def k1_report(torch, stats, want) -> dict:
+    """Per stat of K1: (entries outside K1_TOL, max abs, max rel difference)."""
+    return {s: diff_report(torch, stats[:, i], want[:, i], **K1_TOL[s])
+            for i, s in enumerate(K1_STATS)}
+
+
+def kernel_cases(np, sim, slice_i):
+    """Comparison inputs: a full and the ragged last window of a real slice,
+    and seeded synthetics (normal rows reach gamma's Wilson-Hilferty branch,
+    wider ones its exact branch at k ~ 900; one observation; constant rows)."""
+    from repro_torch.core.regions import Window
+
+    g = sim.geometry
+    rng = np.random.default_rng(0)
+    return [
+        ("window", sim.load_window(Window(slice_i, 0, 25))),
+        ("last_window", sim.load_window(Window(slice_i, g.lines_per_slice - 1, g.lines_per_slice))),
+        ("normal_37x513", rng.normal(3000.0, 10.0, (37, 513)).astype(np.float32)),
+        ("gamma_mid_k_64x1000", rng.normal(3000.0, 100.0, (64, 1000)).astype(np.float32)),
+        ("tiny_5x1", rng.normal(3000.0, 10.0, (5, 1)).astype(np.float32)),
+        ("constant_5x100", np.full((5, 100), 7.0, np.float32)),
+    ]
+
+
+def compare_kernels(np, torch, cases, dev):
+    """Each kernel against its plain version on the same tensors: K1 stats
+    and edges, K2 errors for 4 and 10 types at L = 64 and 20; each launch
+    repeated must be bitwise equal; a biased variance planted in K1's
+    output must be rejected. Returns K1's worst (abs, rel) difference per
+    stat and K2's max abs difference."""
+    from repro_torch.core import distributions as dists
+    from repro_torch.core import pdf_error as pe
+    from repro_torch.kernels.fitpdf import kernel
+
+    worst_k1 = {s: (0.0, 0.0) for s in K1_STATS}
+    err_edges = err_k2 = 0.0
+    for name, arr in cases:
+        x = torch.from_numpy(arr).to(dev)
+        n = x.shape[1]
+        planted = n > 1 and bool((x.amax(1) > x.amin(1)).any())  # a variance to bias
+        for num_bins in (64, 20):
+            stats, edges = kernel.moments_edges_stats(x, num_bins)
+            stats2, edges2 = kernel.moments_edges_stats(x, num_bins)
+            p_stats, p_edges = kernel.moments_edges_stats_plain(x, num_bins)
+            sync(torch, dev)
+            check(torch.equal(stats, stats2) and torch.equal(edges, edges2),
+                  f"[K1] {name}: repeat launch differs")
+            rep = k1_report(torch, stats, p_stats)
+            for s, (_, a, r) in rep.items():
+                worst_k1[s] = (max(worst_k1[s][0], a), max(worst_k1[s][1], r))
+            bad = {s: v for s, v in rep.items() if v[0]}
+            check(not bad, f"[K1] {name} L={num_bins}: stats outside K1_TOL "
+                           f"(stat: entries, max abs, max rel) {bad}")
+            err_edges = max(err_edges, close_report(torch, edges, p_edges, **EDGE_TOL,
+                                                    what=f"[K1] {name} edges"))
+            if planted:
+                biased = stats.clone()
+                biased[:, 1] *= (n - 1) / n
+                check(k1_report(torch, biased, p_stats)["var"][0] > 0,
+                      f"[K1] {name}: a biased variance (n/(n-1) dropped) passes the check")
+        log(f"[K1] {name} {tuple(arr.shape)}: stats within K1_TOL and edges (rtol 1e-6, "
+            f"atol 1e-3) of the plain version, repeat bitwise; "
+            + ("planted biased variance rejected" if planted else "no variance to bias"))
+
+        stats, _ = kernel.moments_edges_stats_plain(x, 64)
+        m = dists.Moments(*(stats[:, i].contiguous() for i in range(6)))
+        for types in (dists.TYPES_4, dists.TYPES_10):
+            params = dists.fit_all(types, m).reshape(len(x), -1).contiguous()
+            for num_bins in (64, 20):
+                edges = pe.interval_edges(m.vmin, m.vmax, num_bins)
+                args = (x, m.vmin, m.vmax, edges, params, types, num_bins)
+                got = kernel.fit_error_counts(*args)
+                got2 = kernel.fit_error_counts(*args)
+                want = kernel.fit_error_counts_plain(*args)
+                sync(torch, dev)
+                check(torch.equal(torch.nan_to_num(got, nan=-1.0), torch.nan_to_num(got2, nan=-1.0)),
+                      f"[K2] {name} T={len(types)} L={num_bins}: repeat launch differs")
+                err_k2 = max(err_k2, close_report(
+                    torch, got, want, **ERR_TOL, what=f"[K2] {name} T={len(types)} L={num_bins}"))
+        log(f"[K2] {name} {tuple(arr.shape)}: errors (rtol 1e-4, atol 5e-4) match the plain "
+            f"version for 4 and 10 types at L=64 and 20, NaN pattern equal, repeat bitwise; "
+            f"max abs diff so far {err_k2}")
+    log("[K1] worst difference from the plain version over all cases, per stat "
+        "(max abs, max rel): " + ", ".join(f"{s} ({a}, {r})" for s, (a, r) in worst_k1.items())
+        + f"; edges max abs {err_edges}")
+    return worst_k1, err_k2
+
+
+# ---------------------------------------------------------------------------
+# the main path: one slice through PDFComputer
+# ---------------------------------------------------------------------------
+
+
+def slice_parity(np, torch, fused, ref, sim, slice_i, cfg, dev, what):
+    """Hold the fused slice to the reference-backend slice: moments at the
+    moments tolerance; type_idx equal except where the two chosen types'
+    Eq.-5 errors (recomputed on the plain path from the reference moments)
+    are within the error tolerance, i.e. a tie; params (moments tolerance)
+    and error where the types agree; Eq.-6 averages within atol."""
+    from repro_torch.core import distributions as dists
+    from repro_torch.core import pdf_error as pe
+    from repro_torch.core.regions import Window
+    from repro_torch.kernels.fitpdf.kernel import fit_error_counts_plain
+
+    for name in ("mean", "std", "skew", "kurt"):
+        close_report(torch, torch.from_numpy(getattr(fused, name)),
+                     torch.from_numpy(getattr(ref, name)), **MOM_TOL, what=f"{what} {name}")
+    same = fused.type_idx == ref.type_idx
+    diff_pts = np.flatnonzero(~same)
+    ppl = sim.geometry.points_per_line
+    for line in sorted(set((diff_pts // ppl).tolist())):
+        vals = torch.from_numpy(sim.load_window(Window(slice_i, line, line + 1))).to(dev)
+        m = dists.moments_from_values(vals)
+        params = dists.fit_all(cfg.types, m).reshape(len(vals), -1)
+        edges = pe.interval_edges(m.vmin, m.vmax, cfg.num_bins)
+        errs = fit_error_counts_plain(vals, m.vmin, m.vmax, edges, params,
+                                      cfg.types, cfg.num_bins).cpu().numpy()
+        for pt in diff_pts[diff_pts // ppl == line]:
+            a, b = errs[pt % ppl][fused.type_idx[pt]], errs[pt % ppl][ref.type_idx[pt]]
+            check(abs(a - b) <= ERR_TOL["atol"] + ERR_TOL["rtol"] * abs(b),
+                  f"{what}: point {pt} picks type {fused.type_idx[pt]} over "
+                  f"{ref.type_idx[pt]} with Eq.-5 errors {a} vs {b}")
+    sel = torch.from_numpy(same)
+    close_report(torch, torch.from_numpy(fused.params)[sel], torch.from_numpy(ref.params)[sel],
+                 **MOM_TOL, what=f"{what} params")
+    close_report(torch, torch.from_numpy(fused.error)[sel], torch.from_numpy(ref.error)[sel],
+                 **ERR_TOL, what=f"{what} error")
+    check(abs(fused.avg_error - ref.avg_error) <= ERR_TOL["atol"],
+          f"{what}: avg_error {fused.avg_error} vs {ref.avg_error}")
+    return int(same.sum()), len(diff_pts)
+
+
+def run_slice_phase(np, torch, sim, slice_i, types, num_bins, dev, expect_launches):
+    """One slice through the entry point, counted; again, bitwise; and once
+    on the reference backend for the parity check. Returns (launches, wall)."""
+    from repro_torch.core.executor import RESULT_FIELDS
+    from repro_torch.core.pipeline import PDFComputer, PDFConfig
+    from repro_torch.kernels.fitpdf import kernel
+
+    label = f"{len(types)}types_L{num_bins}"
+    cfg = PDFConfig(types=types, num_bins=num_bins)
+    log(f"[slice {label}] slice {slice_i}: {sim.geometry}, {sim.config.num_simulations} "
+        f"observations, method={cfg.method}, mode={cfg.mode}, fit_backend={cfg.fit_backend}, "
+        f"window_lines={cfg.window_lines}")
+
+    # The main path, with every kernel's count from zero for exactly this run.
+    sync(torch, dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    kernel.moments_edges_stats.launches = 0
+    kernel.fit_error_counts.launches = 0
+    t0 = time.perf_counter()
+    res = PDFComputer(cfg, sim, device=dev).run_slice(slice_i)
+    sync(torch, dev)
+    wall = time.perf_counter() - t0
+    launches = {"moments_edges_stats": kernel.moments_edges_stats.launches,
+                "fit_error_counts": kernel.fit_error_counts.launches}
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+    for name, n in launches.items():
+        check(n == expect_launches,
+              f"[slice {label}] {name} launched {n} times, expected {expect_launches}")
+
+    g = sim.geometry
+    check(res.type_idx.shape == (g.points_per_slice,), f"[slice {label}] type_idx shape")
+    check(res.params.shape == (g.points_per_slice, 3), f"[slice {label}] params shape")
+    for f in RESULT_FIELDS[1:]:
+        check(bool(np.isfinite(getattr(res, f)).all()), f"[slice {label}] {f} not finite")
+    check(bool(((res.type_idx >= 0) & (res.type_idx < len(types))).all()),
+          f"[slice {label}] type_idx out of range")
+    comp_ms = sorted(s.compute_seconds * 1e3 for s in res.stats)
+    hist = np.bincount(res.type_idx, minlength=len(types))
+    log(f"[slice {label}] windows={len(res.stats)} wall_s={wall} "
+        f"median_window_compute_ms={comp_ms[len(comp_ms) // 2]} "
+        f"load_s={res.total_load_seconds} wait_s={res.total_wait_seconds} "
+        f"max_memory_allocated_bytes={peak} avg_error={res.avg_error}")
+    log(f"[slice {label}] launches {json.dumps(launches)} type_histogram "
+        f"{json.dumps({t: int(c) for t, c in zip(types, hist)})}")
+
+    again = PDFComputer(cfg, sim, device=dev).run_slice(slice_i)
+    for f in RESULT_FIELDS:
+        check(np.array_equal(getattr(res, f), getattr(again, f)),
+              f"[slice {label}] repeat run differs in {f}")
+    check(res.avg_error == again.avg_error, f"[slice {label}] repeat avg_error differs")
+    log(f"[slice {label}] repeat run bitwise equal")
+
+    t0 = time.perf_counter()
+    ref_cfg = PDFConfig(types=types, num_bins=num_bins, fit_backend="reference")
+    ref = PDFComputer(ref_cfg, sim, device=dev).run_slice(slice_i)
+    sync(torch, dev)
+    ref_wall = time.perf_counter() - t0
+    n_same, n_diff = slice_parity(np, torch, res, ref, sim, slice_i, cfg, dev, f"[slice {label}]")
+    log(f"[slice {label}] reference backend (plain PyTorch on the same device) wall_s={ref_wall} "
+        f"avg_error={ref.avg_error}; type_idx equal at {n_same}/{len(res.type_idx)} points, "
+        f"the other {n_diff} are ties within the error tolerance; parity ok")
+    return launches, wall
+
+
+# ---------------------------------------------------------------------------
+# timing at the Set1 window shape
+# ---------------------------------------------------------------------------
+
+
+def time_cuda(torch, fn, reps, flush) -> float:
+    """Median ms of ``fn()`` over ``reps`` runs, CUDA events around each,
+    with L2 flushed before each (the main path's K1 reads a freshly copied
+    window)."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def bound_ms(bytes_moved: int, f32_ops: int, f64_ops: int = 0) -> tuple[float, str]:
+    """The least time for the work: bytes over the HBM rate, float32 and
+    float64 operations each over their peak, whichever is largest."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = max(f32_ops / F32_OPS_PER_S, f64_ops / F64_OPS_PER_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def loop_trips(np, count, step, max_iter):
+    """Trip counts of a loop run on ``count`` entries at once: ``step(idx,
+    i)`` runs trip ``i`` on the entries ``idx`` still looping and says which
+    of them break after it."""
+    trips = np.zeros(count, np.int64)
+    idx = np.arange(count)
+    for i in range(1, max_iter + 1):
+        if not len(idx):
+            break
+        trips[idx] += 1
+        idx = idx[~step(idx, i)]
+    return trips
+
+
+def special_function_ops(np, params, edges, types) -> int:
+    """Float64 operations K2's incomplete gamma and beta do on these inputs.
+    Each CDF evaluation's loop is replayed in float64 as csrc/fitpdf.cu runs
+    it (gammainc_lower, betacf) to count its trips; a trip, and the set-up
+    of an evaluation, count the operations written in the source, a
+    division or a transcendental as one."""
+    tiny, ops = 1e-300, 0
+    for t, name in enumerate(types):
+        p0, p1, p2 = (np.broadcast_to(params[:, 3 * t + j, None], edges.shape) for j in range(3))
+        with np.errstate(all="ignore"):
+            if name == "gamma":  # cdf_eval case 5
+                xs = np.maximum(edges, np.float32(0)) / p1
+                sel = (edges > 0) & ~(p0 > np.float32(1e4))
+                a = np.minimum(p0[sel], np.float32(1e4)).astype(np.float64)
+                x = np.minimum(xs[sel], np.float32(2e4)).astype(np.float64)
+                keep = ~np.isnan(a) & (x > 0) & np.isfinite(x)
+                a, x = a[keep], x[keep]
+                ser = x < a + 1.0
+                sa, sx = a[ser], x[ser]
+                ap, dl = sa.copy(), 1.0 / sa
+                sm = dl.copy()
+
+                def series(idx, i):
+                    ap[idx] += 1.0
+                    dl[idx] *= sx[idx] / ap[idx]
+                    sm[idx] += dl[idx]
+                    return np.abs(dl[idx]) < np.abs(sm[idx]) * 1e-16
+
+                ca, cx = a[~ser], x[~ser]
+                b = cx + 1.0 - ca
+                c, d = np.full_like(b, 1.0 / tiny), 1.0 / b
+
+                def fraction(idx, i):
+                    an = -i * (i - ca[idx])
+                    b[idx] += 2.0
+                    dd = an * d[idx] + b[idx]
+                    dd = np.where(np.abs(dd) < tiny, tiny, dd)
+                    cc = b[idx] + an / c[idx]
+                    cc = np.where(np.abs(cc) < tiny, tiny, cc)
+                    d[idx], c[idx] = 1.0 / dd, cc
+                    return np.abs(d[idx] * cc - 1.0) < 1e-16
+
+                ops += 8 * len(a) + 6 * int(loop_trips(np, len(sa), series, 4000).sum()) \
+                    + 15 * int(loop_trips(np, len(ca), fraction, 4000).sum())
+            elif name == "student_t":  # cdf_eval case 8, betainc
+                tt = (edges - p0) / p1
+                xb = (p2 / (p2 + tt * tt)).astype(np.float64)
+                a = (np.float32(0.5) * p2).astype(np.float64)
+                keep = ~np.isnan(a) & ~np.isnan(xb) & (xb > 0) & (xb < 1)
+                a, xb = a[keep], xb[keep]
+                swap = xb > (a + 1.0) / (a + 0.5 + 2.0)
+                ba, bb = np.where(swap, 0.5, a), np.where(swap, a, 0.5)
+                bx = np.where(swap, 1.0 - xb, xb)
+                qab, qap, qam = ba + bb, ba + 1.0, ba - 1.0
+                d = 1.0 - qab * bx / qap
+                d = 1.0 / np.where(np.abs(d) < tiny, tiny, d)
+                c = np.ones_like(d)
+
+                def half(idx, aa):
+                    dd = 1.0 + aa * d[idx]
+                    dd = np.where(np.abs(dd) < tiny, tiny, dd)
+                    cc = 1.0 + aa / c[idx]
+                    cc = np.where(np.abs(cc) < tiny, tiny, cc)
+                    d[idx], c[idx] = 1.0 / dd, cc
+
+                def betacf(idx, m):
+                    m2 = 2.0 * m
+                    a_, b_, x_ = ba[idx], bb[idx], bx[idx]
+                    half(idx, m * (b_ - m) * x_ / ((qam[idx] + m2) * (a_ + m2)))
+                    half(idx, -(a_ + m) * (qab[idx] + m) * x_ / ((a_ + m2) * (qap[idx] + m2)))
+                    return np.abs(d[idx] * c[idx] - 1.0) < 1e-16
+
+                ops += 14 * len(a) + 37 * int(loop_trips(np, len(a), betacf, 300).sum())
+    return ops
+
+
+def time_kernels(np, torch, x, dev, launches, worst_k1, err_k2):
+    """CUDA-event medians of K1 and K2 (and their plain versions) on one
+    window; returns the kernel rows of the summary line."""
+    from repro_torch.core import distributions as dists
+    from repro_torch.core import pdf_error as pe
+    from repro_torch.kernels.fitpdf import kernel
+
+    p, n = x.shape
+    flush = torch.empty(128 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
+    L = 64
+    k1 = time_cuda(torch, lambda: kernel.moments_edges_stats(x, L), 50, flush)
+    k1_plain = time_cuda(torch, lambda: kernel.moments_edges_stats_plain(x, L), 10, flush)
+    # Bytes: the window read once, stats and edges written once. Operations:
+    # ~10 per value (shift, three products, four sums, min, max).
+    b1, by1 = bound_ms(4 * (p * n + 8 * p + p * (L + 1)), 10 * p * n)
+    err_stat = max(worst_k1, key=lambda s: worst_k1[s][0])
+    log(f"[time] K1 moments_edges_stats ({p}, {n}) L={L}: kernel {k1} ms, plain {k1_plain} ms, "
+        f"bound {b1} ms by {by1}; no single PyTorch call computes this function; its max abs "
+        f"difference from the plain version, {worst_k1[err_stat][0]}, is in {err_stat}")
+    rows = [dict(name="moments_edges_stats", route="cuda", source="src/repro_torch/csrc/fitpdf.cu",
+                 replaces="src/repro/kernels/fitpdf/kernel.py:112",
+                 launches=launches["moments_edges_stats"], max_abs_err=worst_k1[err_stat][0],
+                 ms=k1, plain_ms=k1_plain, bound_ms=b1, bound_by=by1, library_ms=None)]
+
+    stats, _ = kernel.moments_edges_stats(x, L)
+    m = dists.Moments(*(stats[:, i].contiguous() for i in range(6)))
+    k2 = {}
+    for types, L in ((dists.TYPES_4, 64), (dists.TYPES_10, 20)):
+        t = len(types)
+        params = dists.fit_all(types, m).reshape(p, -1).contiguous()
+        edges = pe.interval_edges(m.vmin, m.vmax, L)
+        args = (x, m.vmin, m.vmax, edges, params, types, L)
+        ms = time_cuda(torch, lambda: kernel.fit_error_counts(*args), 50, flush)
+        plain = time_cuda(torch, lambda: kernel.fit_error_counts_plain(*args), 5, flush)
+        # Bytes: window, vmin/vmax, edges and params read once, errors written
+        # once. Float32 operations: 4 per value for the bin, ~30 per CDF
+        # evaluation, 3 per mass term. Float64: the incomplete gamma and beta
+        # loops, counted on this window's data.
+        f64 = special_function_ops(np, params.cpu().numpy(), edges.cpu().numpy(), types)
+        b, by = bound_ms(4 * (p * n + 2 * p + p * (L + 1) + 3 * t * p + t * p),
+                         4 * p * n + 30 * p * t * (L + 1) + 3 * p * t * L, f64)
+        k2[(t, L)] = (ms, plain, b, by)
+        log(f"[time] K2 fit_error_counts ({p}, {n}) T={t} L={L}: kernel {ms} ms, plain {plain} ms, "
+            f"bound {b} ms by {by} (float64 special-function operations {f64}, "
+            f"{f64 / F64_OPS_PER_S * 1e3} ms at the float64 peak); no single PyTorch call "
+            f"computes this function")
+    ms, plain, b, by = k2[(4, 64)]
+    rows.append(dict(name="fit_error_counts", route="cuda", source="src/repro_torch/csrc/fitpdf.cu",
+                     replaces="src/repro/kernels/fitpdf/kernel.py:231",
+                     launches=launches["fit_error_counts"], max_abs_err=err_k2,
+                     ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=None))
+    return rows
+
+
+def profile_slice(torch, sim, slice_i, dev, wall_unprofiled):
+    """The 4-type slice once more under torch.profiler: device time by
+    kernel, and the device's busy share of the unprofiled wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.pipeline import PDFComputer, PDFConfig
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        PDFComputer(PDFConfig(), sim, device=dev).run_slice(slice_i)
+        sync(torch, dev)
+
+    def dev_us(e):
+        for attr in ("self_device_time_total", "self_cuda_time_total"):
+            if hasattr(e, attr):
+                return getattr(e, attr)
+        return 0.0
+
+    kern = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                  key=dev_us, reverse=True)
+    busy_ms = sum(dev_us(e) for e in kern) / 1e3
+    if not kern or busy_ms == 0:
+        log("[profile] the profiler saw no device time: device busy share not measured")
+        return
+    log(f"[profile] slice {slice_i} 4types_L64: device busy {busy_ms} ms over "
+        f"{len(kern)} kernel/copy names; unprofiled wall {wall_unprofiled * 1e3} ms; "
+        f"device idle share {1 - busy_ms / (wall_unprofiled * 1e3)}")
+    for e in kern[:12]:
+        log(f"[profile]   {dev_us(e) / 1e3:10.3f} ms  x{e.count:<5d} {e.key[:90]}")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
+        print(f"chip_smoke: {ROOT} is not a checkout of the repository "
+              "(src/repro_torch is missing)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+
+    from repro_torch.core import distributions as dists
+    from repro_torch.data.simulation import SeismicSimulation
+    from repro_torch.kernels import _build
+
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    log(smi)
+    log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)} "
+        f"count {torch.cuda.device_count()}")
+
+    t0 = time.perf_counter()
+    _build.library("fitpdf")
+    log(f"[build] csrc/fitpdf.cu with nvcc {' '.join(_build.NVCC_FLAGS)} into "
+        f"{_build.BUILD_DIR.relative_to(ROOT)} in {time.perf_counter() - t0} s")
+
+    sim = SeismicSimulation()  # Set1: CubeGeometry(501, 501, 251), 1,000 observations
+    cases = kernel_cases(np, sim, SET1_SLICE)
+    worst_k1, err_k2 = compare_kernels(np, torch, cases, dev)
+
+    launches4, wall4 = run_slice_phase(np, torch, sim, SET1_SLICE, dists.TYPES_4, 64, dev,
+                                       SET1_WINDOWS)
+    launches10, wall10 = run_slice_phase(np, torch, sim, SET1_SLICE, dists.TYPES_10, 20, dev,
+                                         SET1_WINDOWS)
+
+    profile_slice(torch, sim, SET1_SLICE, dev, wall4)
+
+    x = torch.from_numpy(cases[0][1]).to(dev)  # a Set1 window, (6275, 1000)
+    rows = time_kernels(np, torch, x, dev, launches4, worst_k1, err_k2)
+    log(f"[summary] {smi}: Set1 slice {SET1_SLICE} wall_s 4types_L64={wall4} "
+        f"10types_L20={wall10}; launches 10types_L20 {json.dumps(launches10)}")
+
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

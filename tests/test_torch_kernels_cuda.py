@@ -1,0 +1,106 @@
+"""The CUDA kernels of repro_torch against their plain PyTorch versions.
+
+These need a CUDA device and ``nvcc`` (the kernels compile on first use),
+so they carry the ``cuda`` marker and skip elsewhere. This file imports no
+JAX, so it also runs where only the port is installed:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import distributions as td
+from repro_torch.core import pdf_error as tpe
+from repro_torch.kernels.fitpdf import kernel as tk
+
+pytestmark = pytest.mark.cuda
+
+SHAPES = [(1, 64), (7, 100), (37, 513), (64, 1000), (129, 2048), (5, 1), (6275, 1000)]
+
+# K1 against its plain version, per stat (the same as chip_smoke.py's
+# K1_TOL): only the order of each row's sums differs, so mean and var are
+# held well below a biased variance's 1/n, and vmin/vmax are exact.
+K1_TOL = [(1e-5, 0.0), (1e-4, 0.0), (1e-4, 1e-4), (1e-4, 5e-4), (0.0, 0.0), (0.0, 0.0)]
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    return torch.device("cuda", 0)
+
+
+def _close(got, want, rtol, atol):
+    got, want = got.cpu().double(), want.cpu().double()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol, equal_nan=True)
+
+
+def _window(shape, seed):
+    return np.random.default_rng(seed).normal(3000.0, 10.0, shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("num_bins", [20, 64])
+def test_moments_edges_stats_kernel(dev, shape, num_bins):
+    x = torch.from_numpy(_window(shape, seed=shape[0])).to(dev)
+    before = tk.moments_edges_stats.launches
+    stats, edges = tk.moments_edges_stats(x, num_bins)
+    again = tk.moments_edges_stats(x, num_bins)
+    p_stats, p_edges = tk.moments_edges_stats_plain(x, num_bins)
+    torch.cuda.synchronize()
+    assert tk.moments_edges_stats.launches == before + 2
+    assert torch.equal(stats, again[0]) and torch.equal(edges, again[1])
+    for i, (rtol, atol) in enumerate(K1_TOL):
+        _close(stats[:, i], p_stats[:, i], rtol=rtol, atol=atol)
+    _close(edges, p_edges, rtol=1e-6, atol=1e-3)
+    n = shape[1]
+    if n > 1:  # a biased variance (n/(n-1) dropped) must not pass
+        with pytest.raises(AssertionError):
+            _close(stats[:, 1] * ((n - 1) / n), p_stats[:, 1], *K1_TOL[1])
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("types", [td.TYPES_4, td.TYPES_10], ids=["4types", "10types"])
+@pytest.mark.parametrize("num_bins", [20, 64])
+def test_fit_error_counts_kernel(dev, shape, types, num_bins):
+    x = torch.from_numpy(_window(shape, seed=shape[1])).to(dev)
+    m = td.moments_from_values(x)
+    params = td.fit_all(types, m).reshape(shape[0], -1).contiguous()
+    edges = tpe.interval_edges(m.vmin, m.vmax, num_bins)
+    args = (x, m.vmin, m.vmax, edges, params, types, num_bins)
+    before = tk.fit_error_counts.launches
+    got = tk.fit_error_counts(*args)
+    again = tk.fit_error_counts(*args)
+    want = tk.fit_error_counts_plain(*args)
+    torch.cuda.synchronize()
+    assert tk.fit_error_counts.launches == before + 2
+    assert torch.equal(torch.nan_to_num(got, nan=-1.0), torch.nan_to_num(again, nan=-1.0))
+    _close(got, want, rtol=1e-4, atol=5e-4)
+
+
+def test_degenerate_window_nan_pattern(dev):
+    x = torch.full((5, 100), 7.0, device=dev)
+    m = td.moments_from_values(x)
+    params = td.fit_all(td.TYPES_10, m).reshape(5, -1).contiguous()
+    edges = tpe.interval_edges(m.vmin, m.vmax, 16)
+    args = (x, m.vmin, m.vmax, edges, params, td.TYPES_10, 16)
+    got, want = tk.fit_error_counts(*args), tk.fit_error_counts_plain(*args)
+    assert bool(torch.isnan(want).any())
+    _close(got, want, rtol=0, atol=1e-5)
+
+
+def test_kernel_rejects_mixed_devices(dev):
+    x = torch.from_numpy(_window((4, 10), seed=0)).to(dev)
+    m = td.moments_from_values(x)
+    params = td.fit_all(td.TYPES_4, m).reshape(4, -1).contiguous()
+    edges = tpe.interval_edges(m.vmin, m.vmax, 8)
+    with pytest.raises(ValueError):
+        tk.fit_error_counts(x, m.vmin.cpu(), m.vmax, edges, params, td.TYPES_4, 8)
+    with pytest.raises(ValueError):
+        tk.moments_edges_stats(x.t(), 8)  # not contiguous
+    with pytest.raises(ValueError):
+        tk.fit_error_counts(x, m.vmin, m.vmax, tpe.interval_edges(m.vmin, m.vmax, 4000),
+                            params, td.TYPES_4, 4000)  # shared memory per block

@@ -1,0 +1,207 @@
+"""Port vs reference: whole slices through ``PDFComputer``.
+
+A small seismic cube (4 slices of 12 lines x 30 points, 200 observations,
+window_lines=5, so every slice ends in a ragged 2-line window) goes through
+``repro.core.pipeline.PDFComputer`` and the port's, on the CPU, for 4 and 10
+candidate types and both of the port's backends. Within the port: prefetch
+on and off are bitwise equal, and persist + resume re-runs nothing."""
+
+import dataclasses
+import json
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import distributions as rd
+from repro.core import pipeline as rp
+from repro.core import regions as r_regions
+from repro.data import simulation as r_sim
+from repro.kernels import fitpdf as rfp
+from repro_torch.core import executor as tex
+from repro_torch.core import pipeline as tp
+from repro_torch.core import regions as t_regions
+from repro_torch.data import simulation as t_sim
+
+DIMS, OBS, WINDOW_LINES = (4, 12, 30), 200, 5
+SLICES = (0, 1, 2, 3)  # one per seismic layer type
+MOM_TOL = dict(rtol=2e-3, atol=2e-3)
+ERR_TOL = dict(rtol=1e-4, atol=5e-4)
+FIELDS = ("type_idx", "params", "error", "mean", "std", "skew", "kurt")
+
+
+def _ref_source():
+    return r_sim.SeismicSimulation(r_sim.SimulationConfig(
+        geometry=r_regions.CubeGeometry(*DIMS), num_simulations=OBS))
+
+
+def _port_source():
+    return t_sim.SeismicSimulation(t_sim.SimulationConfig(
+        geometry=t_regions.CubeGeometry(*DIMS), num_simulations=OBS))
+
+
+def _port(types=rd.TYPES_4, fit_backend="fused", num_bins=64, **kw):
+    cfg = tp.PDFConfig(types=types, num_bins=num_bins, window_lines=WINDOW_LINES,
+                       fit_backend=fit_backend)
+    return tp.PDFComputer(cfg, _port_source(), device="cpu", **kw)
+
+
+@pytest.fixture(scope="module")
+def reference_results():
+    """The reference's results per candidate set, plus its per-type errors
+    (for the tie rule), computed once."""
+    out = {}
+    src = _ref_source()
+    for types in (rd.TYPES_4, rd.TYPES_10):
+        cfg = rp.PDFConfig(types=types, window_lines=WINDOW_LINES)
+        res = rp.PDFComputer(cfg, src).run(SLICES)
+        errs = {}
+        for s in SLICES:
+            v = jnp.asarray(np.concatenate([
+                src.load_window(w) for w in r_regions.iter_windows(src.geometry, s, WINDOW_LINES)]))
+            m = rfp.moments(v, 64)
+            errs[s] = np.asarray(rfp.fit_errors(v, m, rd.fit_all(types, m), types, 64))
+        out[len(types)] = (res, errs)
+    return out
+
+
+@pytest.mark.parametrize("fit_backend", ["fused", "reference"])
+@pytest.mark.parametrize("types", [rd.TYPES_4, rd.TYPES_10], ids=["4types", "10types"])
+def test_slices_match_reference(reference_results, fit_backend, types):
+    ref, ref_errs = reference_results[len(types)]
+    got = _port(types, fit_backend).run(SLICES)
+    for s in SLICES:
+        r, t = ref[s], got[s]
+        for name in ("mean", "std", "skew", "kurt"):
+            np.testing.assert_allclose(getattr(t, name), getattr(r, name), **MOM_TOL, err_msg=name)
+        # type_idx: equal wherever the reference's best and second-best
+        # errors are further apart than the error tolerance; elsewhere (on
+        # the normal layer, student_t at nu = 50 ties with normal) the
+        # port's pick must be within the tolerance of the best.
+        errs = np.where(np.isfinite(ref_errs[s]), ref_errs[s], 1e30)
+        srt = np.sort(errs, axis=1)
+        tol = ERR_TOL["atol"] + ERR_TOL["rtol"] * srt[:, 0]
+        clear = srt[:, 1] - srt[:, 0] > tol
+        np.testing.assert_array_equal(t.type_idx[clear], r.type_idx[clear])
+        picked = np.take_along_axis(errs, t.type_idx[:, None].astype(np.int64), axis=1)[:, 0]
+        assert (picked - srt[:, 0] <= tol).all()
+        same = t.type_idx == r.type_idx
+        np.testing.assert_allclose(t.params[same], r.params[same], **MOM_TOL)
+        np.testing.assert_allclose(t.error[same], r.error[same], **ERR_TOL)
+        assert abs(t.avg_error - r.avg_error) <= 5e-4
+        assert t.type_idx.dtype == np.int32 and t.params.dtype == np.float32
+        assert [tuple(w.window) for w in t.stats] == [tuple(w.window) for w in r.stats]
+        assert t.slice_i == s and t.error_bound_satisfied is None
+
+
+def test_seismic_slices_find_their_layer_type():
+    res = _port(rd.TYPES_4).run(SLICES)
+    src = _port_source()
+    for s in SLICES:
+        assert np.mean(res[s].type_idx == src.true_type_index(s)) > 0.9
+
+
+@pytest.mark.parametrize("fit_backend", ["fused", "reference"])
+def test_prefetch_on_off_bitwise(fit_backend):
+    a = _port(rd.TYPES_10, fit_backend,
+              exec_config=tp.ExecutorConfig(prefetch=False, async_persist=False)).run_slice(2)
+    b = _port(rd.TYPES_10, fit_backend,
+              exec_config=tp.ExecutorConfig(prefetch=True, prefetch_depth=3)).run_slice(2)
+    for f in FIELDS:
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f), err_msg=f)
+    assert a.avg_error == b.avg_error
+
+
+def test_persist_and_resume(tmp_path):
+    comp = _port(out_dir=tmp_path)
+    first = comp.run_slice(1)
+    assert len(first.stats) == 3  # lines 0-5, 5-10, 10-12
+    mark = json.loads((tmp_path / "slice1_watermark.json").read_text())
+    assert mark == {"next_line": 12, "complete": True}
+    resumed = _port(out_dir=tmp_path).run_slice(1, resume=True)
+    assert resumed.stats == [] and comp.last_report.units == 3
+    for f in FIELDS:
+        np.testing.assert_array_equal(getattr(resumed, f), getattr(first, f), err_msg=f)
+
+    # A crash after the first window: resume re-runs exactly the other two.
+    (tmp_path / "slice1_watermark.json").write_text(json.dumps({"next_line": 5}))
+    for f in tmp_path.glob("slice1_window_0000[5-9].npz"):
+        f.unlink()
+    (tmp_path / "slice1_window_00010.npz").unlink()
+    partial = _port(out_dir=tmp_path, exec_config=tp.ExecutorConfig(async_persist=False))
+    again = partial.run_slice(1, resume=True)
+    assert [w.window.line_start for w in again.stats] == [5, 10]
+    assert partial.last_report.units == 2
+    for f in FIELDS:
+        np.testing.assert_array_equal(getattr(again, f), getattr(first, f), err_msg=f)
+    assert partial.executor.watermark(1) == 12
+
+
+def test_persisted_files_match_reference_format(tmp_path):
+    rp.PDFComputer(rp.PDFConfig(window_lines=WINDOW_LINES), _ref_source(),
+                   out_dir=tmp_path / "ref").run_slice(3)
+    _port(out_dir=tmp_path / "port").run_slice(3)
+    ref_files = sorted(p.name for p in (tmp_path / "ref").iterdir())
+    port_files = sorted(p.name for p in (tmp_path / "port").iterdir())
+    assert port_files == ref_files
+    for name in port_files:
+        if name.endswith(".npz"):
+            r, t = np.load(tmp_path / "ref" / name), np.load(tmp_path / "port" / name)
+            # The reference also stamps its spec hash; the port has none yet.
+            assert set(r.files) - set(t.files) == {"spec_hash"}
+            for k in t.files:
+                assert t[k].dtype == r[k].dtype and t[k].shape == r[k].shape, k
+        else:
+            r = json.loads((tmp_path / "ref" / name).read_text())
+            t = json.loads((tmp_path / "port" / name).read_text())
+            r.pop("spec_hash")
+            assert t == r
+
+
+def test_report_and_error_bound():
+    cfg = tp.PDFConfig(window_lines=WINDOW_LINES, error_bound=10.0)
+    comp = tp.PDFComputer(cfg, _port_source(), device="cpu")
+    res = comp.run_slice(0)
+    assert res.error_bound_satisfied is True
+    rep = comp.last_report
+    assert rep.units == 3 and rep.wall_seconds > 0 and rep.persist_seconds == 0.0
+    assert 0.0 <= rep.load_hidden_fraction <= 1.0
+    assert res.total_compute_seconds > 0 and res.total_load_seconds > 0
+    assert np.isclose(res.avg_error, float(res.error.mean()))
+
+
+def test_no_device_and_no_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tp.PDFComputer(tp.PDFConfig(), _port_source())
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(method="grouping"), "item 6"),
+    (dict(method="ml"), "item 7"),
+    (dict(method="sampling"), "item 8"),
+    (dict(select_backend="device"), "item 6"),
+    (dict(fit_backend="kernels"), "K3"),
+])
+def test_unported_options_raise_at_construction(kw, match):
+    cfg = tp.PDFConfig(**kw)  # valid configuration, as in the reference
+    with pytest.raises(NotImplementedError, match=match):
+        tp.PDFComputer(cfg, _port_source(), device="cpu")
+
+
+def test_config_fields_and_defaults_match_reference():
+    ref = {f.name: f.default for f in dataclasses.fields(rp.PDFConfig)}
+    got = {f.name: f.default for f in dataclasses.fields(tp.PDFConfig)}
+    assert got == ref
+    assert tex.METHODS == rp.METHODS and tex.SELECT_BACKENDS == rp.SELECT_BACKENDS
+    ec_ref = rp.ExecutorConfig()
+    ec = tp.ExecutorConfig()
+    assert (ec.prefetch, ec.prefetch_depth, ec.async_persist) == \
+        (ec_ref.prefetch, ec_ref.prefetch_depth, ec_ref.async_persist)
+    for bad in (dict(num_bins=1), dict(window_lines=0), dict(method="x"),
+                dict(error_bound=0.0), dict(fit_backend="x"), dict(rep_bucket=0)):
+        with pytest.raises(ValueError):
+            tp.PDFConfig(**bad)
+    with pytest.raises(ValueError):
+        tp.ExecutorConfig(prefetch_depth=0)
