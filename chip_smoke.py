@@ -3,15 +3,29 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from ``src/repro_torch/csrc`` (into
+Builds the CUDA kernels from ``src/repro_torch/csrc`` (``fitpdf``,
+``moments`` and ``hist``, one ``nvcc`` each, all at once, into
 ``build/kernels/``), holds each kernel against its plain PyTorch version on
-the card, then drives the main path: one full Set1 slice (501 lines x 251
-points x 1,000 observations, slice 201, 21 windows) through
-``PDFComputer(PDFConfig(), SeismicSimulation()).run_slice(201)``, with the
-4-type default (L = 64) and with 10 types at L = 20. Each slice run must
-launch each kernel once per window, repeat bitwise, and agree with the
-port's plain PyTorch backend under the parity rules. Last comes a timing of
-each kernel at the Set1 window shape beside its bound.
+the card, then drives the paths through the entry point, each on one full
+Set1 slice (501 lines x 251 points x 1,000 observations, slice 201, 21
+windows) with ``PDFComputer(PDFConfig(...), SeismicSimulation()).run_slice(201)``
+and every kernel's launch count set to 0 just before it:
+
+* baseline on the fused backend (K1 + K2), 4 types at L = 64 and 10 types
+  at L = 20: once per window each, bitwise repeat, parity with the port's
+  plain PyTorch backend;
+* grouping on the kernels backend (K3 + K4): once per window each, bitwise
+  repeat, parity with grouping on the plain backend;
+* reuse on the kernels backend: K4 once per window with a cache miss, cache
+  hits, prefetch on and off bitwise equal;
+* baseline on the kernels backend in faithful mode: K4 once per type and
+  window, held against fused mode;
+* grouping on the fused backend with host and with device Select: bitwise
+  equal, the device path through K2's ``row_indices`` prologue.
+
+Then the baseline slice and the two grouping slices run once more under
+``torch.profiler`` (device time by kernel, device idle share), and last
+comes a timing of each kernel at the Set1 window shape beside its bound.
 
 Any failed check raises, so the exit code is non-zero. The line before the
 last is a JSON object of per-kernel numbers; the last line is
@@ -62,6 +76,7 @@ F64_OPS_PER_S = 34e12
 
 SET1_SLICE = 201  # configs/pdf_seismic.py: slice_index
 SET1_WINDOWS = 21  # ceil(501 lines / 25 lines per window)
+KERNEL_SOURCES = ("fitpdf", "moments", "hist")  # src/repro_torch/csrc/<name>.cu
 
 
 class SmokeFailure(AssertionError):
@@ -201,9 +216,241 @@ def compare_kernels(np, torch, cases, dev):
     return worst_k1, err_k2
 
 
+def representatives(torch, x):
+    """A real grouped representative list of window ``x``: the lowest row
+    of each (mu, sigma) key group, as device Select finds it."""
+    from repro_torch.core import distributions as dists
+    from repro_torch.core import grouping as grp
+
+    m = dists.moments_from_values(x)
+    groups = grp.group_device(grp.quantize_keys(m.mean, m.var))
+    return grp.compact_representatives(groups.rep_for_point, groups.is_rep)[0]
+
+
+def compare_new_kernels(np, torch, cases, dev):
+    """K3 against its plain version (K1_TOL) and bitwise against K1's stats;
+    K4's counts exactly equal to the scatter histogram at L = 64, 20 and 8,
+    rows summing to n; K2 with ``row_indices`` (the window's grouped
+    representatives, and a list with repeats) bitwise equal to K2 on the
+    gathered rows and within the error tolerance of the plain version.
+    Returns K3's worst (abs, rel) per stat and K2-with-rows' max abs
+    difference from the plain version."""
+    from repro_torch.core import distributions as dists
+    from repro_torch.core import pdf_error as pe
+    from repro_torch.kernels.fitpdf import kernel
+    from repro_torch.kernels.hist import kernel as hk
+    from repro_torch.kernels.moments import kernel as mk
+
+    worst_k3 = {s: (0.0, 0.0) for s in K1_STATS}
+    err_rows = 0.0
+    for name, arr in cases:
+        x = torch.from_numpy(arr).to(dev)
+        p, n = x.shape
+        stats, again = mk.moments_stats(x), mk.moments_stats(x)
+        k1_stats, _ = kernel.moments_edges_stats(x, 64)
+        want = mk.moments_stats_plain(x)
+        sync(torch, dev)
+        check(torch.equal(stats, again), f"[K3] {name}: repeat launch differs")
+        check(torch.equal(stats[:, :6], k1_stats[:, :6]),
+              f"[K3] {name}: stats differ from K1's stats[:, :6]")
+        rep = k1_report(torch, stats, want)
+        for s, (_, a, r) in rep.items():
+            worst_k3[s] = (max(worst_k3[s][0], a), max(worst_k3[s][1], r))
+        bad = {s: v for s, v in rep.items() if v[0]}
+        check(not bad, f"[K3] {name}: stats outside K1_TOL (stat: entries, max abs, max rel) {bad}")
+
+        for num_bins in (64, 20, 8):
+            counts = hk.hist_counts(x, want[:, 4].contiguous(), want[:, 5].contiguous(), num_bins)
+            plain = hk.hist_counts_plain(x, want[:, 4], want[:, 5], num_bins)
+            sync(torch, dev)
+            check(torch.equal(counts, plain), f"[K4] {name} L={num_bins}: counts differ "
+                  f"from the scatter histogram at {int((counts != plain).sum())} entries")
+            check(bool((counts.sum(1) == n).all()), f"[K4] {name} L={num_bins}: a row does not sum to n")
+
+        m = dists.Moments(*(want[:, i].contiguous() for i in range(6)))
+        reps = representatives(torch, x)
+        repeats = torch.from_numpy(np.random.default_rng(p).integers(0, p, 2 * p + 1)).to(dev)
+        for idx in (reps, repeats):
+            sub = dists.Moments(*(f[idx] for f in m))
+            for types, num_bins in ((dists.TYPES_4, 64), (dists.TYPES_10, 20)):
+                params = dists.fit_all(types, sub).reshape(len(idx), -1).contiguous()
+                edges = pe.interval_edges(sub.vmin, sub.vmax, num_bins)
+                args = (sub.vmin, sub.vmax, edges, params, types, num_bins)
+                got = kernel.fit_error_counts(x, *args, row_indices=idx)
+                gathered = kernel.fit_error_counts(x[idx].contiguous(), *args)
+                plain = kernel.fit_error_counts_plain(x[idx], *args)
+                sync(torch, dev)
+                check(torch.equal(torch.nan_to_num(got, nan=-1.0), torch.nan_to_num(gathered, nan=-1.0)),
+                      f"[K2 rows] {name} T={len(types)} L={num_bins}: row_indices launch differs "
+                      f"from the launch on the gathered rows")
+                err_rows = max(err_rows, close_report(
+                    torch, got, plain, **ERR_TOL, what=f"[K2 rows] {name} T={len(types)} L={num_bins}"))
+        log(f"[K3/K4/K2 rows] {name} {tuple(arr.shape)}: K3 within K1_TOL of its plain version, "
+            f"bitwise equal to K1's stats, repeat bitwise; K4 counts exact at L=64, 20, 8; K2 with "
+            f"row_indices ({len(reps)} representatives, then {len(repeats)} rows with repeats) "
+            f"bitwise equal to K2 on the gathered rows")
+    log("[K3] worst difference from the plain version over all cases, per stat "
+        "(max abs, max rel): " + ", ".join(f"{s} ({a}, {r})" for s, (a, r) in worst_k3.items())
+        + f"; [K2 rows] max abs difference from the plain version {err_rows}")
+    return worst_k3, err_rows
+
+
 # ---------------------------------------------------------------------------
-# the main path: one slice through PDFComputer
+# the paths: one slice through PDFComputer each
 # ---------------------------------------------------------------------------
+
+
+def launch_counters():
+    """Every kernel wrapper's launch count, by kernel name."""
+    from repro_torch.kernels.fitpdf import kernel
+    from repro_torch.kernels.hist import kernel as hk
+    from repro_torch.kernels.moments import kernel as mk
+
+    return {"moments_edges_stats": (kernel.moments_edges_stats, "launches"),
+            "fit_error_counts": (kernel.fit_error_counts, "launches"),
+            "fit_error_counts_row_indices": (kernel.fit_error_counts, "row_index_launches"),
+            "moments_stats": (mk.moments_stats, "launches"),
+            "hist_counts": (hk.hist_counts, "launches")}
+
+
+def drive(np, torch, cfg, sim, slice_i, dev, label, exec_config=None):
+    """One slice through the entry point with every launch count set to 0
+    just before it and read just after; checks the result's shapes, range
+    and finiteness and logs wall, launches, sums of ``num_fitted`` and
+    ``cache_hits`` and the median window compute. Returns (result,
+    launches, wall seconds)."""
+    from repro_torch.core.executor import RESULT_FIELDS
+    from repro_torch.core.pipeline import PDFComputer
+
+    counters = launch_counters()
+    sync(torch, dev)
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    t0 = time.perf_counter()
+    res = PDFComputer(cfg, sim, device=dev, exec_config=exec_config).run_slice(slice_i)
+    sync(torch, dev)
+    wall = time.perf_counter() - t0
+    launches = {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
+
+    g = sim.geometry
+    check(res.type_idx.shape == (g.points_per_slice,), f"[{label}] type_idx shape")
+    check(res.params.shape == (g.points_per_slice, 3), f"[{label}] params shape")
+    for f in RESULT_FIELDS[1:]:
+        check(bool(np.isfinite(getattr(res, f)).all()), f"[{label}] {f} not finite")
+    check(bool(((res.type_idx >= 0) & (res.type_idx < len(cfg.types))).all()),
+          f"[{label}] type_idx out of range")
+    comp_ms = sorted(s.compute_seconds * 1e3 for s in res.stats)
+    log(f"[{label}] method={cfg.method} fit_backend={cfg.fit_backend} "
+        f"select_backend={cfg.select_backend} mode={cfg.mode} T={len(cfg.types)} L={cfg.num_bins}: "
+        f"windows={len(res.stats)} wall_s={wall} median_window_compute_ms={comp_ms[len(comp_ms) // 2]} "
+        f"sum_num_fitted={sum(s.num_fitted for s in res.stats)} "
+        f"sum_cache_hits={sum(s.cache_hits for s in res.stats)} avg_error={res.avg_error}; "
+        f"launches {json.dumps(launches)}")
+    return res, launches, wall
+
+
+def check_launches(launches, expect, label):
+    """Each named kernel launched exactly as expected; the others not at all."""
+    for name, n in launches.items():
+        want = expect.get(name, 0)
+        check(n == want, f"[{label}] {name} launched {n} times, expected {want}")
+
+
+def bitwise_equal(np, a, b) -> bool:
+    from repro_torch.core.executor import RESULT_FIELDS
+
+    return all(np.array_equal(getattr(a, f), getattr(b, f)) for f in RESULT_FIELDS) \
+        and a.avg_error == b.avg_error
+
+
+def grouped_phases(np, torch, sim, slice_i, dev):
+    """The grouping and reuse paths and the kernels backend's faithful mode,
+    4 types at L = 64. Returns the launches of the runs that carry K3, K4
+    and K2's prologue, and the walls."""
+    from repro_torch.core.executor import RESULT_FIELDS
+    from repro_torch.core.pipeline import ExecutorConfig, PDFConfig
+
+    W = SET1_WINDOWS
+    walls = {}
+
+    # grouping on the kernels backend: K3 and K4 once per window.
+    cfg = PDFConfig(method="grouping", fit_backend="kernels")
+    grp_k, launches_k, walls["grouping_kernels"] = drive(
+        np, torch, cfg, sim, slice_i, dev, "grouping kernels")
+    check_launches(launches_k, {"moments_stats": W, "hist_counts": W}, "grouping kernels")
+    again, _, _ = drive(np, torch, cfg, sim, slice_i, dev, "grouping kernels repeat")
+    check(bitwise_equal(np, grp_k, again), "[grouping kernels] repeat run differs")
+    ref_cfg = PDFConfig(method="grouping", fit_backend="reference")
+    grp_ref, _, _ = drive(np, torch, ref_cfg, sim, slice_i, dev, "grouping reference")
+    n_same, n_diff = slice_parity(np, torch, grp_k, grp_ref, sim, slice_i, cfg, dev,
+                                  "[grouping kernels]")
+    # The reference backend's two-pass moments may merge two near-identical
+    # generator cells that the shifted sums keep apart (or the reverse), so
+    # the group counts are logged, not held equal; K3 and K1 share one
+    # formula, so the fused backend's counts are held equal below.
+    log(f"[grouping kernels] repeat bitwise; parity with the reference backend ok "
+        f"(type_idx equal at {n_same} points, {n_diff} ties); sum_num_fitted "
+        f"{sum(s.num_fitted for s in grp_k.stats)} (reference backend "
+        f"{sum(s.num_fitted for s in grp_ref.stats)})")
+
+    # reuse on the kernels backend: K4 only where a window has cache misses.
+    cfg = PDFConfig(method="reuse", fit_backend="kernels")
+    reuse, launches, walls["reuse_kernels"] = drive(np, torch, cfg, sim, slice_i, dev, "reuse kernels")
+    missed = sum(1 for s in reuse.stats if s.num_fitted)
+    check_launches(launches, {"moments_stats": W, "hist_counts": missed}, "reuse kernels")
+    hits = sum(s.cache_hits for s in reuse.stats)
+    check(hits > 0, "[reuse kernels] no cache hit in the slice")
+    serial, _, _ = drive(np, torch, cfg, sim, slice_i, dev, "reuse kernels serial",
+                         exec_config=ExecutorConfig(prefetch=False, async_persist=False))
+    check(bitwise_equal(np, reuse, serial), "[reuse kernels] prefetch on and off differ")
+    check([(s.num_fitted, s.cache_hits) for s in reuse.stats]
+          == [(s.num_fitted, s.cache_hits) for s in serial.stats],
+          "[reuse kernels] prefetch on and off differ in num_fitted or cache_hits")
+    slice_parity(np, torch, reuse, grp_k, sim, slice_i, cfg, dev, "[reuse kernels]")
+    log(f"[reuse kernels] {missed} of {W} windows had cache misses, {hits} cache hits; prefetch "
+        f"on and off bitwise equal; parity with grouping ok, bitwise equal to it: "
+        f"{bitwise_equal(np, reuse, grp_k)}")
+
+    # baseline on the kernels backend, faithful mode: K4 once per type and window.
+    cfg = PDFConfig(fit_backend="kernels", mode="faithful")
+    faithful, launches, walls["baseline_kernels_faithful"] = drive(
+        np, torch, cfg, sim, slice_i, dev, "baseline kernels faithful")
+    check_launches(launches, {"moments_stats": W, "hist_counts": len(cfg.types) * W},
+                   "baseline kernels faithful")
+    fused_cfg = PDFConfig(fit_backend="kernels")
+    fused, launches, walls["baseline_kernels"] = drive(
+        np, torch, fused_cfg, sim, slice_i, dev, "baseline kernels")
+    check_launches(launches, {"moments_stats": W, "hist_counts": W}, "baseline kernels")
+    same = bitwise_equal(np, faithful, fused)
+    if not same:
+        slice_parity(np, torch, faithful, fused, sim, slice_i, cfg, dev, "[baseline kernels faithful]")
+    diffs = {f: float(np.max(np.abs(getattr(faithful, f).astype(np.float64)
+                                    - getattr(fused, f).astype(np.float64))))
+             for f in RESULT_FIELDS}
+    log(f"[baseline kernels faithful] against fused mode: bitwise equal {same}; max abs "
+        f"difference per field {json.dumps(diffs)}")
+
+    # grouping on the fused backend: host Select against device Select.
+    runs = {}
+    for select in ("host", "device"):
+        cfg = PDFConfig(method="grouping", select_backend=select)
+        label = f"grouping fused {select}"
+        runs[select], launches, walls[f"grouping_fused_{select}"] = drive(
+            np, torch, cfg, sim, slice_i, dev, label)
+        expect = {"moments_edges_stats": W, "fit_error_counts": W}
+        if select == "device":
+            expect["fit_error_counts_row_indices"] = W
+            launches_rows = launches
+        check_launches(launches, expect, label)
+    check(bitwise_equal(np, runs["host"], runs["device"]),
+          "[grouping fused] device Select differs from host Select")
+    for select in ("host", "device"):
+        check([s.num_fitted for s in runs[select].stats] == [s.num_fitted for s in grp_k.stats],
+              f"[grouping fused {select}] per-window num_fitted differs from the kernels backend's")
+    slice_parity(np, torch, runs["host"], grp_ref, sim, slice_i, cfg, dev, "[grouping fused]")
+    log("[grouping fused] device Select bitwise equal to host Select, every window through "
+        "K2's row_indices prologue; parity with grouping on the reference backend ok")
+    return launches_k, launches_rows, walls
 
 
 def slice_parity(np, torch, fused, ref, sim, slice_i, cfg, dev, what):
@@ -246,67 +493,35 @@ def slice_parity(np, torch, fused, ref, sim, slice_i, cfg, dev, what):
 
 
 def run_slice_phase(np, torch, sim, slice_i, types, num_bins, dev, expect_launches):
-    """One slice through the entry point, counted; again, bitwise; and once
-    on the reference backend for the parity check. Returns (launches, wall)."""
-    from repro_torch.core.executor import RESULT_FIELDS
-    from repro_torch.core.pipeline import PDFComputer, PDFConfig
-    from repro_torch.kernels.fitpdf import kernel
+    """Baseline on the fused backend: one slice through the entry point,
+    counted; again, bitwise; and once on the reference backend for the
+    parity check. Returns (launches, wall)."""
+    from repro_torch.core.pipeline import PDFConfig
 
-    label = f"{len(types)}types_L{num_bins}"
+    label = f"slice {len(types)}types_L{num_bins}"
     cfg = PDFConfig(types=types, num_bins=num_bins)
-    log(f"[slice {label}] slice {slice_i}: {sim.geometry}, {sim.config.num_simulations} "
-        f"observations, method={cfg.method}, mode={cfg.mode}, fit_backend={cfg.fit_backend}, "
-        f"window_lines={cfg.window_lines}")
-
-    # The main path, with every kernel's count from zero for exactly this run.
-    sync(torch, dev)
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(dev)
-    kernel.moments_edges_stats.launches = 0
-    kernel.fit_error_counts.launches = 0
-    t0 = time.perf_counter()
-    res = PDFComputer(cfg, sim, device=dev).run_slice(slice_i)
-    sync(torch, dev)
-    wall = time.perf_counter() - t0
-    launches = {"moments_edges_stats": kernel.moments_edges_stats.launches,
-                "fit_error_counts": kernel.fit_error_counts.launches}
-    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
-    for name, n in launches.items():
-        check(n == expect_launches,
-              f"[slice {label}] {name} launched {n} times, expected {expect_launches}")
-
-    g = sim.geometry
-    check(res.type_idx.shape == (g.points_per_slice,), f"[slice {label}] type_idx shape")
-    check(res.params.shape == (g.points_per_slice, 3), f"[slice {label}] params shape")
-    for f in RESULT_FIELDS[1:]:
-        check(bool(np.isfinite(getattr(res, f)).all()), f"[slice {label}] {f} not finite")
-    check(bool(((res.type_idx >= 0) & (res.type_idx < len(types))).all()),
-          f"[slice {label}] type_idx out of range")
-    comp_ms = sorted(s.compute_seconds * 1e3 for s in res.stats)
+    log(f"[{label}] slice {slice_i}: {sim.geometry}, {sim.config.num_simulations} "
+        f"observations, window_lines={cfg.window_lines}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    res, launches, wall = drive(np, torch, cfg, sim, slice_i, dev, label)
+    check_launches(launches, {"moments_edges_stats": expect_launches,
+                              "fit_error_counts": expect_launches}, label)
+    peak = torch.cuda.max_memory_allocated(dev)
     hist = np.bincount(res.type_idx, minlength=len(types))
-    log(f"[slice {label}] windows={len(res.stats)} wall_s={wall} "
-        f"median_window_compute_ms={comp_ms[len(comp_ms) // 2]} "
-        f"load_s={res.total_load_seconds} wait_s={res.total_wait_seconds} "
-        f"max_memory_allocated_bytes={peak} avg_error={res.avg_error}")
-    log(f"[slice {label}] launches {json.dumps(launches)} type_histogram "
+    log(f"[{label}] load_s={res.total_load_seconds} wait_s={res.total_wait_seconds} "
+        f"max_memory_allocated_bytes={peak} type_histogram "
         f"{json.dumps({t: int(c) for t, c in zip(types, hist)})}")
 
-    again = PDFComputer(cfg, sim, device=dev).run_slice(slice_i)
-    for f in RESULT_FIELDS:
-        check(np.array_equal(getattr(res, f), getattr(again, f)),
-              f"[slice {label}] repeat run differs in {f}")
-    check(res.avg_error == again.avg_error, f"[slice {label}] repeat avg_error differs")
-    log(f"[slice {label}] repeat run bitwise equal")
+    again, _, _ = drive(np, torch, cfg, sim, slice_i, dev, f"{label} repeat")
+    check(bitwise_equal(np, res, again), f"[{label}] repeat run differs")
+    log(f"[{label}] repeat run bitwise equal")
 
-    t0 = time.perf_counter()
     ref_cfg = PDFConfig(types=types, num_bins=num_bins, fit_backend="reference")
-    ref = PDFComputer(ref_cfg, sim, device=dev).run_slice(slice_i)
-    sync(torch, dev)
-    ref_wall = time.perf_counter() - t0
-    n_same, n_diff = slice_parity(np, torch, res, ref, sim, slice_i, cfg, dev, f"[slice {label}]")
-    log(f"[slice {label}] reference backend (plain PyTorch on the same device) wall_s={ref_wall} "
-        f"avg_error={ref.avg_error}; type_idx equal at {n_same}/{len(res.type_idx)} points, "
-        f"the other {n_diff} are ties within the error tolerance; parity ok")
+    ref, _, _ = drive(np, torch, ref_cfg, sim, slice_i, dev, f"{label} reference")
+    n_same, n_diff = slice_parity(np, torch, res, ref, sim, slice_i, cfg, dev, f"[{label}]")
+    log(f"[{label}] reference backend (plain PyTorch on the same device): type_idx equal at "
+        f"{n_same}/{len(res.type_idx)} points, the other {n_diff} are ties within the error "
+        f"tolerance; parity ok")
     return launches, wall
 
 
@@ -486,16 +701,86 @@ def time_kernels(np, torch, x, dev, launches, worst_k1, err_k2):
     return rows
 
 
-def profile_slice(torch, sim, slice_i, dev, wall_unprofiled):
-    """The 4-type slice once more under torch.profiler: device time by
-    kernel, and the device's busy share of the unprofiled wall time."""
+def time_new_kernels(np, torch, x, dev, launches_k, launches_rows, worst_k3, err_rows):
+    """CUDA-event medians of K3, K4 (L = 64) and K2 with ``row_indices`` on
+    the window's grouped representatives (T = 4, L = 64), beside their
+    plain versions and bounds; returns their rows of the summary line."""
+    from repro_torch.core import distributions as dists
+    from repro_torch.core import pdf_error as pe
+    from repro_torch.kernels.fitpdf import kernel
+    from repro_torch.kernels.hist import kernel as hk
+    from repro_torch.kernels.moments import kernel as mk
+
+    p, n = x.shape
+    L = 64
+    flush = torch.empty(128 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
+    rows = []
+
+    k3 = time_cuda(torch, lambda: mk.moments_stats(x), 50, flush)
+    k3_plain = time_cuda(torch, lambda: mk.moments_stats_plain(x), 10, flush)
+    # Bytes: the window read once, the stats written once; ~10 float32
+    # operations per value, as K1.
+    b3, by3 = bound_ms(4 * (p * n + 8 * p), 10 * p * n)
+    err_stat = max(worst_k3, key=lambda s: worst_k3[s][0])
+    log(f"[time] K3 moments_stats ({p}, {n}): kernel {k3} ms, plain {k3_plain} ms, bound {b3} ms "
+        f"by {by3}; no single PyTorch call computes this function")
+    rows.append(dict(name="moments_stats", route="cuda", source="src/repro_torch/csrc/moments.cu",
+                     replaces="src/repro/kernels/moments/kernel.py:77",
+                     launches=launches_k["moments_stats"], max_abs_err=worst_k3[err_stat][0],
+                     ms=k3, plain_ms=k3_plain, bound_ms=b3, bound_by=by3, library_ms=None))
+
+    stats = mk.moments_stats(x)
+    vmin, vmax = stats[:, 4].contiguous(), stats[:, 5].contiguous()
+    k4 = time_cuda(torch, lambda: hk.hist_counts(x, vmin, vmax, L), 50, flush)
+    k4_plain = time_cuda(torch, lambda: hk.hist_counts_plain(x, vmin, vmax, L), 10, flush)
+    # Bytes: the window, vmin and vmax read once, the counts written once;
+    # ~4 float32 operations per value for its bin.
+    b4, by4 = bound_ms(4 * (p * n + 2 * p + p * L), 4 * p * n)
+    log(f"[time] K4 hist_counts ({p}, {n}) L={L}: kernel {k4} ms, plain {k4_plain} ms, bound {b4} ms "
+        f"by {by4}; no single PyTorch call computes this function")
+    rows.append(dict(name="hist_counts", route="cuda", source="src/repro_torch/csrc/hist.cu",
+                     replaces="src/repro/kernels/hist/kernel.py:50",
+                     launches=launches_k["hist_counts"], max_abs_err=0.0,
+                     ms=k4, plain_ms=k4_plain, bound_ms=b4, bound_by=by4, library_ms=None))
+
+    types = dists.TYPES_4
+    t = len(types)
+    idx = representatives(torch, x)
+    g = len(idx)
+    m = dists.Moments(*(stats[idx, i].contiguous() for i in range(6)))
+    params = dists.fit_all(types, m).reshape(g, -1).contiguous()
+    edges = pe.interval_edges(m.vmin, m.vmax, L)
+    args = (m.vmin, m.vmax, edges, params, types, L)
+    k2r = time_cuda(torch, lambda: kernel.fit_error_counts(x, *args, row_indices=idx), 50, flush)
+    k2r_plain = time_cuda(torch, lambda: kernel.fit_error_counts_plain(x[idx], *args), 10, flush)
+    # Bytes: the G representative rows, their vmin, vmax, edges, params and
+    # indices read once, the errors written once (no float64 work at T = 4).
+    b2r, by2r = bound_ms(4 * (g * n + 2 * g + g * (L + 1) + 3 * t * g + t * g) + 8 * g,
+                         4 * g * n + 30 * g * t * (L + 1) + 3 * g * t * L,
+                         special_function_ops(np, params.cpu().numpy(), edges.cpu().numpy(), types))
+    log(f"[time] K2 fit_error_counts with row_indices, {g} representatives of ({p}, {n}) T={t} "
+        f"L={L}: kernel {k2r} ms, plain (gather, then plain K2) {k2r_plain} ms, bound {b2r} ms by "
+        f"{by2r}; no single PyTorch call computes this function")
+    rows.append(dict(name="fit_error_counts_row_indices", route="cuda",
+                     source="src/repro_torch/csrc/fitpdf.cu",
+                     replaces="src/repro/kernels/fitpdf/ops.py:79",
+                     launches=launches_rows["fit_error_counts_row_indices"], max_abs_err=err_rows,
+                     ms=k2r, plain_ms=k2r_plain, bound_ms=b2r, bound_by=by2r, library_ms=None))
+    return rows
+
+
+def profile_slice(torch, cfg, label, sim, slice_i, dev, wall_unprofiled):
+    """One slice of ``cfg`` once more under torch.profiler: device time by
+    kernel (in all and a launch, inside the pipeline, with no host work
+    between the events), and the device's busy share of the unprofiled
+    wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core.pipeline import PDFComputer, PDFConfig
+    from repro_torch.core.pipeline import PDFComputer
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        PDFComputer(PDFConfig(), sim, device=dev).run_slice(slice_i)
+        PDFComputer(cfg, sim, device=dev).run_slice(slice_i)
         sync(torch, dev)
 
     def dev_us(e):
@@ -510,11 +795,12 @@ def profile_slice(torch, sim, slice_i, dev, wall_unprofiled):
     if not kern or busy_ms == 0:
         log("[profile] the profiler saw no device time: device busy share not measured")
         return
-    log(f"[profile] slice {slice_i} 4types_L64: device busy {busy_ms} ms over "
+    log(f"[profile {label}] slice {slice_i}: device busy {busy_ms} ms over "
         f"{len(kern)} kernel/copy names; unprofiled wall {wall_unprofiled * 1e3} ms; "
         f"device idle share {1 - busy_ms / (wall_unprofiled * 1e3)}")
     for e in kern[:12]:
-        log(f"[profile]   {dev_us(e) / 1e3:10.3f} ms  x{e.count:<5d} {e.key[:90]}")
+        log(f"[profile {label}]   {dev_us(e) / 1e3:10.3f} ms  x{e.count:<5d} "
+            f"{dev_us(e) / 1e3 / max(e.count, 1):.4f} ms a launch  {e.key[:80]}")
 
 
 def main() -> int:
@@ -531,6 +817,7 @@ def main() -> int:
     import numpy as np
 
     from repro_torch.core import distributions as dists
+    from repro_torch.core.pipeline import PDFConfig
     from repro_torch.data.simulation import SeismicSimulation
     from repro_torch.kernels import _build
 
@@ -544,25 +831,36 @@ def main() -> int:
         f"count {torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    _build.library("fitpdf")
-    log(f"[build] csrc/fitpdf.cu with nvcc {' '.join(_build.NVCC_FLAGS)} into "
-        f"{_build.BUILD_DIR.relative_to(ROOT)} in {time.perf_counter() - t0} s")
+    _build.build(*KERNEL_SOURCES)
+    log(f"[build] csrc/{{{','.join(KERNEL_SOURCES)}}}.cu, one nvcc each, all at once, with "
+        f"{' '.join(_build.NVCC_FLAGS)} into {_build.BUILD_DIR.relative_to(ROOT)} in "
+        f"{time.perf_counter() - t0} s")
 
     sim = SeismicSimulation()  # Set1: CubeGeometry(501, 501, 251), 1,000 observations
     cases = kernel_cases(np, sim, SET1_SLICE)
     worst_k1, err_k2 = compare_kernels(np, torch, cases, dev)
+    worst_k3, err_rows = compare_new_kernels(np, torch, cases, dev)
 
     launches4, wall4 = run_slice_phase(np, torch, sim, SET1_SLICE, dists.TYPES_4, 64, dev,
                                        SET1_WINDOWS)
     launches10, wall10 = run_slice_phase(np, torch, sim, SET1_SLICE, dists.TYPES_10, 20, dev,
                                          SET1_WINDOWS)
 
-    profile_slice(torch, sim, SET1_SLICE, dev, wall4)
+    launches_k, launches_rows, walls = grouped_phases(np, torch, sim, SET1_SLICE, dev)
+
+    for label, cfg, wall in (
+            ("baseline fused", PDFConfig(), wall4),
+            ("grouping kernels", PDFConfig(method="grouping", fit_backend="kernels"),
+             walls["grouping_kernels"]),
+            ("grouping fused device", PDFConfig(method="grouping", select_backend="device"),
+             walls["grouping_fused_device"])):
+        profile_slice(torch, cfg, label, sim, SET1_SLICE, dev, wall)
 
     x = torch.from_numpy(cases[0][1]).to(dev)  # a Set1 window, (6275, 1000)
     rows = time_kernels(np, torch, x, dev, launches4, worst_k1, err_k2)
+    rows += time_new_kernels(np, torch, x, dev, launches_k, launches_rows, worst_k3, err_rows)
     log(f"[summary] {smi}: Set1 slice {SET1_SLICE} wall_s 4types_L64={wall4} "
-        f"10types_L20={wall10}; launches 10types_L20 {json.dumps(launches10)}")
+        f"10types_L20={wall10} {json.dumps(walls)}; launches 10types_L20 {json.dumps(launches10)}")
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

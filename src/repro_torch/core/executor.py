@@ -1,26 +1,33 @@
 """Staged PDF executor: load / compute / persist as decoupled stages.
 
-Port of ``repro.core.executor`` for the baseline method:
+Port of ``repro.core.executor`` for the baseline, grouping and reuse
+methods, with host or device Select:
 
   load stage     ``WindowPrefetcher`` (data/loader.py) loads window *k+1* from
                  the data source and copies it to the device while the device
                  is still fitting window *k*.
-  compute stage  the main thread: moments, then Algorithm 3 over the window
+  compute stage  the main thread: moments, then the Select step (§5.1-5.2:
+                 grouping dedups the window on (mu, sigma) keys and fits one
+                 representative per group; reuse also looks each group up
+                 in a cache that spans windows and slices), then Algorithm 3
                  on the device — identical operations, in identical order,
                  with prefetch on or off, so results are bitwise equal.
   persist stage  a single writer thread appends per-window ``.npz`` files and
                  the watermark off the critical path, in submission order;
                  ``close()`` flushes before the executor returns or re-raises.
 
+Select runs on the host (np.unique over int64 keys) or on the device
+(``select_backend='device'``: ``torch.unique`` over the same keys, and on
+the fused backend K2 reads the representatives through its ``row_indices``
+prologue); the two are bitwise equal.
+
 The ``.npz`` and watermark format is the reference's. Not ported yet: the
-other methods (grouping, reuse, ML, sampling; ROADMAP queue 1 items 6-8),
-device Select (item 6), and retry, speculation and quarantine (item 12) —
-a load error propagates to the caller.
+ML and sampling methods (ROADMAP queue 1 items 7-8), and retry, speculation
+and quarantine (item 12) — a load error propagates to the caller.
 """
 
 from __future__ import annotations
 
-import functools
 import json
 import queue
 import threading
@@ -34,7 +41,10 @@ import torch
 
 from repro_torch.core import distributions as dists
 from repro_torch.core import fitting
+from repro_torch.core import grouping as grp
 from repro_torch.core import regions
+from repro_torch.core.grouping import DEFAULT_TOL
+from repro_torch.core.reuse import ReuseCache
 from repro_torch.data.loader import WindowPrefetcher
 
 METHODS = (
@@ -43,17 +53,11 @@ METHODS = (
 SAMPLERS = ("random", "kmeans")
 SELECT_BACKENDS = ("host", "device")
 
-# repro.core.grouping.DEFAULT_TOL: the (mu, sigma) quantum of the grouping
-# methods, carried so a reference PDFConfig converts field for field.
-DEFAULT_TOL = 1e-6
-
 # Where each method that this executor does not run yet is to come from.
 _NOT_PORTED = {
-    "grouping": "ROADMAP queue 1 item 6 (grouping and reuse)",
-    "reuse": "ROADMAP queue 1 item 6 (grouping and reuse)",
     "ml": "ROADMAP queue 1 item 7 (ML prediction)",
-    "grouping_ml": "ROADMAP queue 1 items 6-7 (grouping, ML prediction)",
-    "reuse_ml": "ROADMAP queue 1 items 6-7 (reuse, ML prediction)",
+    "grouping_ml": "ROADMAP queue 1 item 7 (ML prediction)",
+    "reuse_ml": "ROADMAP queue 1 item 7 (ML prediction)",
     "sampling": "ROADMAP queue 1 item 8 (sampling)",
 }
 
@@ -69,8 +73,9 @@ class PDFConfig:
     rep_bucket: int = 256  # padding bucket for representative batches
     error_bound: float | None = None  # the paper's bounded-error constraint
     # Device-work implementation (fitting.FIT_BACKENDS): 'reference' (plain
-    # torch chain), 'kernels' (not ported), 'fused' (the two CUDA kernels of
-    # kernels/fitpdf — the default hot path).
+    # torch chain), 'kernels' (the chain on the K3 moments and K4 histogram
+    # kernels), 'fused' (the two CUDA kernels of kernels/fitpdf — the default
+    # hot path).
     fit_backend: str = "fused"
     select_backend: str = "host"
     # method='sampling' (§5.4) knobs, carried for the reference's field set.
@@ -181,21 +186,6 @@ class ExecutorReport:
     @property
     def load_hidden_fraction(self) -> float:
         return self.load_hidden_seconds / self.load_seconds if self.load_seconds > 0 else 0.0
-
-
-@functools.lru_cache(maxsize=64)
-def _fit_fns(types: tuple, num_bins: int, mode: str, fit_backend: str):
-    """The compute stage's two device functions for one configuration."""
-    backend = fitting.get_fit_backend(fit_backend, num_bins)
-
-    def moments_f(values):
-        return backend.moments(values)
-
-    def fit_all_f(values, moments):
-        r = backend.fit_all(values, moments, types, num_bins, mode)
-        return r.type_idx, r.params, r.error
-
-    return moments_f, fit_all_f
 
 
 class _StagedWindow(NamedTuple):
@@ -313,6 +303,8 @@ class StagedExecutor:
 
     ``data_source`` must expose ``geometry: regions.CubeGeometry`` and
     ``load_window(window) -> np.ndarray (num_points, n_obs) float32``.
+    The reuse cache lives on the executor, so windows — and consecutive
+    slices and ``run_slice`` calls — share it.
     """
 
     def __init__(
@@ -324,23 +316,20 @@ class StagedExecutor:
         exec_config: ExecutorConfig | None = None,
         spec_hash: str | None = None,
     ):
-        if config.method != "baseline":
+        if config.method in _NOT_PORTED:
             raise NotImplementedError(
                 f"method {config.method!r} is not ported yet: "
                 f"{_NOT_PORTED[config.method]}")
-        if config.select_backend != "host":
-            raise NotImplementedError(
-                "select_backend='device' is not ported yet: ROADMAP queue 1 "
-                "item 6 (grouping and reuse, device Select)")
         self.config = config
         self.data = data_source
         self.device = torch.device(device)
         self.out_dir = Path(out_dir) if out_dir else None
         self.exec_config = exec_config or ExecutorConfig()
         self.spec_hash = spec_hash
-        self._moments, self._fit_all = _fit_fns(
-            tuple(config.types), config.num_bins, config.mode, config.fit_backend
-        )
+        self._backend = fitting.get_fit_backend(config.fit_backend, config.num_bins)
+        self.cache = ReuseCache()
+        self._key_buf: np.ndarray | None = None  # cached (P, 2) quantize buffer
+        self._key_tmp: np.ndarray | None = None
         self.last_report: ExecutorReport | None = None
 
     # -- load stage -----------------------------------------------------------
@@ -358,20 +347,111 @@ class StagedExecutor:
 
     def _fit(self, values: torch.Tensor, moments: dists.Moments):
         """Fit every row of ``values``; returns np arrays (type, params, err)."""
-        t, p, e = self._fit_all(values, moments)
-        return t.cpu().numpy(), p.cpu().numpy(), e.cpu().numpy()
+        cfg = self.config
+        r = self._backend.fit_all(values, moments, tuple(cfg.types), cfg.num_bins, cfg.mode)
+        return r.type_idx.cpu().numpy(), r.params.cpu().numpy(), r.error.cpu().numpy()
+
+    def _quantized_keys(self, moments: dists.Moments) -> np.ndarray:
+        """Host Select's (mu, sigma) keys (``grp.quantize_keys_host``) in a
+        cached (P, 2) buffer, one allocation per window size."""
+        mean = moments.mean.cpu().numpy()
+        var = moments.var.cpu().numpy()
+        p = mean.shape[0]
+        if self._key_buf is None or self._key_buf.shape[0] != p:
+            self._key_buf = np.empty((p, 2), dtype=np.int64)
+            self._key_tmp = np.empty((p,), dtype=np.float64)
+        return grp.quantize_keys_host(
+            mean, var, self.config.group_tol, out=self._key_buf, tmp=self._key_tmp)
+
+    def _select_and_fit(self, values: torch.Tensor, moments: dists.Moments):
+        """The Select step (§5.1-5.2): per-point (type, params, error) plus
+        ``(num_fitted, cache_hits)``. Baseline fits every row; the grouping
+        and reuse methods dedup on 'host' (np.unique) or 'device'
+        (``torch.unique``), with bitwise equal results."""
+        if self.config.method == "baseline":
+            t, p, e = self._fit(values, moments)
+            return t, p, e, values.shape[0], 0
+        if self.config.select_backend == "device":
+            return self._select_device(values, moments)
+        keys = self._quantized_keys(moments)
+        groups = grp.group_host(keys)
+        rep_t, rep_p, rep_e, fitted, cache_hits = self._fit_representatives(
+            values, moments, keys[groups.rep_indices], groups.rep_indices)
+        inv = groups.inverse
+        return rep_t[inv], rep_p[inv], rep_e[inv], fitted, cache_hits
+
+    def _fit_representatives(self, values: torch.Tensor, moments: dists.Moments,
+                             rep_keys: np.ndarray, rep_rows: np.ndarray):
+        """Fit one row per group — the Select core of both backends.
+
+        ``rep_keys`` (G, 2) int64 is each group's cache identity, ``rep_rows``
+        (G,) the representatives' window rows. The reuse method looks them
+        up in the cache first; the misses are fitted as one batch padded to
+        ``rep_bucket * 2^k`` rows, as the reference pads them, and inserted.
+        Returns per-group ``(rep_t, rep_p, rep_e, fitted, cache_hits)``."""
+        reuse = self.config.method == "reuse"
+        g = len(rep_rows)
+        if reuse:
+            hit, cached = self.cache.lookup_window(rep_keys)
+            cache_hits = int(hit.sum())
+        else:
+            hit, cached, cache_hits = np.zeros((g,), dtype=bool), np.zeros((g, 5)), 0
+        todo = rep_rows[~hit]
+
+        rep_t = np.zeros((g,), dtype=np.int32)
+        rep_p = np.zeros((g, 3), dtype=np.float32)
+        rep_e = np.zeros((g,), dtype=np.float32)
+        rep_t[hit] = cached[hit, 0].astype(np.int32)
+        rep_p[hit] = cached[hit, 1:4]
+        rep_e[hit] = cached[hit, 4]
+
+        if len(todo):
+            padded = grp.pad_representatives(todo, self.config.rep_bucket)
+            idx = torch.from_numpy(padded).to(values.device)
+            t, p, e = self._fit(*fitting.gather_rows(values, moments, idx))
+            t, p, e = t[: len(todo)], p[: len(todo)], e[: len(todo)]
+            rep_t[~hit], rep_p[~hit], rep_e[~hit] = t, p, e
+            if reuse:
+                self.cache.insert_window(
+                    rep_keys[~hit],
+                    np.concatenate([t[:, None], p, e[:, None]], axis=-1).astype(np.float64))
+        return rep_t, rep_p, rep_e, len(todo), cache_hits
+
+    def _select_device(self, values: torch.Tensor, moments: dists.Moments):
+        """Device Select: the keys, the dedup and the compaction stay on the
+        window's device; only the group count comes to the host. Grouping
+        then fits the G representatives and scatters per point on the
+        device (on the fused backend K2 reads them through ``row_indices``).
+        Reuse keeps the host cache: the (G, 2) representative keys and rows
+        and the (P,) slot map come down, and the misses go through the same
+        padded fit as on the host path, so results and cache contents equal
+        the host path's."""
+        cfg = self.config
+        keys = grp.quantize_keys(moments.mean, moments.var, cfg.group_tol)
+        groups = grp.group_device(keys)
+        gather_idx, point_slot = grp.compact_representatives(groups.rep_for_point, groups.is_rep)
+        if cfg.method == "grouping":
+            r = fitting.fit_all_rows(self._backend, values, moments, gather_idx,
+                                     tuple(cfg.types), cfg.num_bins, cfg.mode)
+            out = (grp.scatter_group_results(f, point_slot).cpu().numpy() for f in r)
+            return (*out, groups.num_groups, 0)
+        rep_t, rep_p, rep_e, fitted, cache_hits = self._fit_representatives(
+            values, moments, keys[gather_idx].cpu().numpy(), gather_idx.cpu().numpy())
+        inv = point_slot.cpu().numpy()
+        return rep_t[inv], rep_p[inv], rep_e[inv], fitted, cache_hits
 
     def _compute_window(self, item: _StagedWindow):
-        """The compute-stage body for one staged window: moments, Algorithm 3,
-        and the copy of the results to the host (which waits for the device,
-        so ``compute_seconds`` covers the window's device work)."""
+        """The compute-stage body for one staged window: moments, Select and
+        Algorithm 3, and the copy of the results to the host (which waits
+        for the device, so ``compute_seconds`` covers the window's device
+        work)."""
         t0 = time.perf_counter()
-        moments = self._moments(item.values)
-        t, p, e = self._fit(item.values, moments)
+        moments = self._backend.moments(item.values)
+        t, p, e, fitted, hits = self._select_and_fit(item.values, moments)
         mom_np = (moments.mean.cpu().numpy(),
                   np.sqrt(np.maximum(moments.var.cpu().numpy(), 0)),
                   moments.skew.cpu().numpy(), moments.kurt.cpu().numpy())
-        return t, p, e, mom_np, time.perf_counter() - t0
+        return t, p, e, mom_np, fitted, hits, time.perf_counter() - t0
 
     # -- run loop --------------------------------------------------------------
 
@@ -439,7 +519,7 @@ class StagedExecutor:
                 # wait_s: the only load-stage time the device was blocked on
                 # (serially the whole load runs inline, so wait == load).
                 wait_s = time.perf_counter() - w0
-                t, p, e, mom_np, comp_s = self._compute_window(item)
+                t, p, e, mom_np, fitted, hits, comp_s = self._compute_window(item)
 
                 w = item.unit.window
                 o = outs[w.slice_i]
@@ -448,7 +528,7 @@ class StagedExecutor:
                 for name, col in zip(("mean", "std", "skew", "kurt"), mom_np):
                     o[name][lo:hi] = col
 
-                ws = WindowStats(w, hi - lo, hi - lo, item.load_seconds, comp_s, 0, wait_s)
+                ws = WindowStats(w, hi - lo, fitted, item.load_seconds, comp_s, hits, wait_s)
                 stats[w.slice_i].append(ws)
                 load_total += item.load_seconds
                 wait_total += wait_s

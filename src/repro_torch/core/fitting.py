@@ -1,7 +1,8 @@
 """Algorithm 3 (fit all candidate types, keep the least Eq.-5 error).
 
-Port of ``repro.core.fitting``, for the baseline slice. Both modes run
-batched over a window of points:
+Port of ``repro.core.fitting`` (Algorithm 3; Algorithm 4's
+``fit_predicted`` comes with the ML methods). Both modes run batched over a
+window of points:
 
 * ``mode='faithful'`` reproduces the paper's cost structure: the O(n)
   histogram pass runs once per candidate type.
@@ -12,8 +13,9 @@ The *fit backend* selects how the device work is implemented
 (``FIT_BACKENDS``):
 
 * ``reference`` — the plain PyTorch chain (scatter-add histogram).
-* ``kernels``   — the chain with separate moments and histogram kernels;
-  not ported yet (ROADMAP queue 2, K3 and K4).
+* ``kernels``   — the chain with the moments kernel (K3,
+  ``kernels/moments``) and the histogram kernel (K4, ``kernels/hist``)
+  swapped in; the CDF masses stay PyTorch.
 * ``fused``     — the two-launch path (``kernels/fitpdf``): K1 emits the
   moments, K2 streams the window once more and reduces histogram, CDF
   masses and Eq.-5 error in its epilogue. The default executor path.
@@ -92,6 +94,44 @@ def compute_pdf_and_error(
     return select_best(params_all, errs)
 
 
+def gather_rows(
+    values: torch.Tensor, moments: dists.Moments, row_indices: torch.Tensor
+) -> tuple[torch.Tensor, dists.Moments]:
+    """Representative gather: the window's value rows and every moment
+    field at ``row_indices``."""
+    return values[row_indices], dists.Moments(*(f[row_indices] for f in moments))
+
+
+def fit_all_rows(
+    backend: "FitBackend",
+    values: torch.Tensor,
+    moments: dists.Moments,
+    row_indices: torch.Tensor,
+    types: Sequence[str],
+    num_bins: int,
+    mode: str = "fused",
+) -> FitResult:
+    """Algorithm 3 restricted to the ``row_indices`` rows of the window (the
+    grouping representatives).
+
+    On the fused backend (not faithful) the gather rides into K2 as its
+    ``row_indices`` prologue: only the moments are gathered, and the kernel
+    reads the representatives' rows of the full window. Other backends, and
+    ``mode='faithful'``, gather with ``gather_rows`` and run their
+    ``fit_all``. Both run the same per-row operations on the same rows, so
+    the results are bitwise equal."""
+    if backend.name == "fused" and mode != "faithful":
+        from repro_torch.kernels.fitpdf import ops as fops
+
+        sub_mom = dists.Moments(*(f[row_indices] for f in moments))
+        params_all = dists.fit_all(types, sub_mom)
+        errs = fops.fit_errors(values, sub_mom, params_all, types, num_bins,
+                               row_indices=row_indices)
+        return select_best(params_all, errs)
+    sub_vals, sub_mom = gather_rows(values, moments, row_indices)
+    return backend.fit_all(sub_vals, sub_mom, types, num_bins, mode)
+
+
 class FitBackend(NamedTuple):
     """One implementation of the per-window device work.
 
@@ -125,9 +165,16 @@ def get_fit_backend(name: str = "fused", num_bins: int = 64) -> FitBackend:
         return FitBackend(name, dists.moments_from_values, hist, fit_all)
 
     if name == "kernels":
-        raise NotImplementedError(
-            "fit_backend='kernels' needs the moments and histogram kernels "
-            "(K3 moments_stats, K4 hist_counts), ROADMAP queue 2")
+        from repro_torch.kernels.hist import ops as hops
+        from repro_torch.kernels.moments import ops as mops
+
+        def fit_all(values, moments, types, num_bins, mode="fused"):
+            return compute_pdf_and_error(
+                values, moments, types, num_bins, mode=mode,
+                histogram_fn=hops.histogram,
+            )
+
+        return FitBackend(name, mops.moments, hops.histogram, fit_all)
 
     if name == "fused":
         from repro_torch.kernels.fitpdf import ops as fops

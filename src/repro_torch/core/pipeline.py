@@ -78,6 +78,12 @@ class PDFComputer:
         return self._executor
 
     @property
+    def cache(self):
+        """The reuse cache (§5.2.1): it lives on the executor, so it spans
+        windows and consecutive slices."""
+        return self._executor.cache
+
+    @property
     def last_report(self) -> ExecutorReport | None:
         """Per-stage totals of the most recent run (overlap evidence)."""
         return self._executor.last_report

@@ -12,10 +12,17 @@
 //
 // Both read the (P, n) float32 window once and are bound by those bytes. The
 // TPU kernels' sequential observation-chunk grid axis becomes a loop inside a
-// warp: one warp owns one row, eight rows per 256-thread block. Lanes stride
-// over the row (coalesced loads); the float sums are reduced with a fixed
-// __shfl_xor_sync butterfly, so results are bitwise reproducible. The only
-// atomics are integer histogram adds in shared memory, which are exact.
+// warp: one warp owns one row, eight rows per 256-thread block. The float
+// sums are reduced with a fixed __shfl_xor_sync butterfly, so results are
+// bitwise reproducible. The only atomics are integer histogram adds in shared
+// memory, which are exact. K1's row loop lives in row_moments.cuh (shared
+// with K3, moments.cu), K2's histogram phase in row_hist.cuh (shared with
+// K4, hist.cu).
+//
+// fit_error_counts takes an optional row_indices (int64, null = identity):
+// output row r then reads window row row_indices[r], the grouping methods'
+// representative gather (repro/kernels/fitpdf/ops.py:79-128) done as the
+// kernel's own address computation, with no gathered copy in memory.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
 //        -shared -Xcompiler -fPIC (no fast math; -fmad=false keeps each float
@@ -23,31 +30,13 @@
 // Interface: plain C functions loaded with ctypes. Each launches on the given
 // stream, allocates nothing and returns cudaGetLastError() of its launch.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "row_hist.cuh"
+#include "row_moments.cuh"
 
 namespace {
 
-constexpr int kRows = 8;  // rows per block, one warp per row
-constexpr int kThreads = kRows * 32;
-constexpr unsigned kFull = 0xffffffffu;
-constexpr float kEps = 1e-12f;
 constexpr float kGammaWilsonHilfertyK = 1e4f;
 constexpr int kMaxIter = 4000;  // incomplete gamma at k <= 1e4 needs < 1000
-
-// jnp.maximum / jnp.minimum / jnp.clip semantics: a NaN operand gives NaN
-// (fmaxf / fminf would drop it, and the reference keeps the NaN of a
-// degenerate row).
-__device__ __forceinline__ float max_nan(float a, float b) {
-  return (a != a || b != b) ? a + b : (a > b ? a : b);
-}
-__device__ __forceinline__ float min_nan(float a, float b) {
-  return (a != a || b != b) ? a + b : (a < b ? a : b);
-}
-__device__ __forceinline__ float clip_nan(float v, float lo, float hi) {
-  return min_nan(max_nan(v, lo), hi);
-}
 
 // ---------------------------------------------------------------------------
 // Special functions, in double, rounded to float by the caller. They run
@@ -187,78 +176,14 @@ __device__ float cdf_eval(int code, float p0, float p1, float p2, float x) {
 }
 
 // ---------------------------------------------------------------------------
-// moments_edges_stats
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(kThreads)
-moments_edges_kernel(const float* __restrict__ x, float* __restrict__ stats,
-                     float* __restrict__ edges, int P, int n, int L) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long row = (long long)blockIdx.x * kRows + warp;
-  if (row >= P) return;
-  const float* xr = x + row * (long long)n;
-
-  // Shift by the row's first observation: kills the float32 cancellation of
-  // raw power sums (the reference kernel's formula, not the two-pass one).
-  const float shift = __ldg(xr);
-  float s1 = 0.0f, s2 = 0.0f, s3 = 0.0f, s4 = 0.0f;
-  float mn = INFINITY, mx = -INFINITY;
-  for (int j = lane; j < n; j += 32) {
-    const float v = __ldg(xr + j);
-    const float d = v - shift;
-    const float d2 = d * d;
-    const float d3 = d2 * d;
-    s1 += d;
-    s2 += d2;
-    s3 += d3;
-    s4 += d3 * d;
-    mn = min_nan(mn, v);
-    mx = max_nan(mx, v);
-  }
-  // Fixed-order butterfly: every lane ends with the same bits.
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    s1 += __shfl_xor_sync(kFull, s1, off);
-    s2 += __shfl_xor_sync(kFull, s2, off);
-    s3 += __shfl_xor_sync(kFull, s3, off);
-    s4 += __shfl_xor_sync(kFull, s4, off);
-    mn = min_nan(mn, __shfl_xor_sync(kFull, mn, off));
-    mx = max_nan(mx, __shfl_xor_sync(kFull, mx, off));
-  }
-
-  // Finalize (kernel.py:86-100, operation by operation).
-  const float nf = (float)n;
-  const float md = s1 / nf;
-  const float e2 = s2 / nf, e3 = s3 / nf, e4 = s4 / nf;
-  const float mdsq = md * md;
-  const float m2 = max_nan(e2 - mdsq, 0.0f);
-  const float m3 = e3 - 3.0f * md * e2 + 2.0f * (md * mdsq);
-  const float m4 = e4 - 4.0f * md * e3 + 6.0f * md * md * e2 - 3.0f * (mdsq * mdsq);
-  const float mean = shift + md;
-  const float var = m2 * nf / max_nan(nf - 1.0f, 1.0f);
-  const float sig = sqrtf(max_nan(m2, kEps));
-  const float skew = m3 / (sig * (sig * sig));
-  const float m2c = max_nan(m2, kEps);
-  const float kurt = m4 / (m2c * m2c) - 3.0f;
-  if (lane < 8) {
-    const float out[8] = {mean, var, skew, kurt, mn, mx, 0.0f, 0.0f};
-    stats[row * 8 + lane] = out[lane];
-  }
-  // Eq.-5 edges, vmin + span * k / L (pdf_error.interval_edges' order).
-  const float span = max_nan(mx - mn, kEps);
-  float* er = edges + row * (long long)(L + 1);
-  for (int k = lane; k <= L; k += 32) er[k] = mn + span * (float)k / (float)L;
-}
-
-// ---------------------------------------------------------------------------
 // fit_error_counts
 // ---------------------------------------------------------------------------
 
 __global__ void __launch_bounds__(kThreads)
-fit_error_kernel(const float* __restrict__ x, const float* __restrict__ vmin,
-                 const float* __restrict__ vmax, const float* __restrict__ edges,
-                 const float* __restrict__ params, float* __restrict__ err,
-                 int P, int n, int L, int T, unsigned long long codes) {
+fit_error_kernel(const float* __restrict__ x, const int64_t* __restrict__ row_indices,
+                 const float* __restrict__ vmin, const float* __restrict__ vmax,
+                 const float* __restrict__ edges, const float* __restrict__ params,
+                 float* __restrict__ err, int P, int n, int L, int T, unsigned long long codes) {
   extern __shared__ int smem[];  // int hist[kRows][L], then float cdf[kRows][L+1]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long row = (long long)blockIdx.x * kRows + warp;
@@ -266,22 +191,8 @@ fit_error_kernel(const float* __restrict__ x, const float* __restrict__ vmin,
   int* hist = smem + warp * L;
   float* cdfv = reinterpret_cast<float*>(smem + kRows * L) + warp * (L + 1);
 
-  for (int k = lane; k < L; k += 32) hist[k] = 0;
-  __syncwarp();
-
-  // Histogram: floor((x - lo) / span * L), clipped in float, then cast
-  // (kernel.py:178-179); IEEE-rounded intrinsics pin each step.
-  const float* xr = x + row * (long long)n;
-  const float lo = vmin[row];
-  const float span = max_nan(vmax[row] - lo, kEps);
-  const float fl = (float)L, top = (float)(L - 1);
-  for (int j = lane; j < n; j += 32) {
-    const float v = __ldg(xr + j);
-    float b = floorf(__fmul_rn(__fdiv_rn(__fsub_rn(v, lo), span), fl));
-    b = clip_nan(b, 0.0f, top);
-    atomicAdd(hist + (int)b, 1);  // (int)NaN is 0 on the device
-  }
-  __syncwarp();
+  const long long src = row_indices ? (long long)row_indices[row] : row;
+  warp_row_histogram(x + src * (long long)n, n, vmin[row], vmax[row], L, hist, lane);
 
   // Epilogue: CDF at the edges, masses, sum_k |freq_k / n - mass_k|.
   const float nf = (float)(n > 1 ? n : 1);
@@ -316,21 +227,20 @@ int fitpdf_moments_edges_stats(const float* x, float* stats, float* edges,
                                int P, int n, int L, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  const unsigned blocks = (unsigned)((P + kRows - 1) / kRows);
-  moments_edges_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(x, stats, edges, P, n, L);
+  row_moments_kernel<true><<<row_blocks(P), kThreads, 0, (cudaStream_t)stream>>>(
+      x, stats, edges, P, n, L);
   return (int)cudaGetLastError();
 }
 
-int fitpdf_fit_error_counts(const float* x, const float* vmin, const float* vmax,
-                            const float* edges, const float* params, float* err,
-                            int P, int n, int L, int T, unsigned long long codes,
+int fitpdf_fit_error_counts(const float* x, const int64_t* row_indices, const float* vmin,
+                            const float* vmax, const float* edges, const float* params,
+                            float* err, int P, int n, int L, int T, unsigned long long codes,
                             int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  const unsigned blocks = (unsigned)((P + kRows - 1) / kRows);
   const size_t smem = fitpdf_fit_error_smem_bytes(L);
-  fit_error_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      x, vmin, vmax, edges, params, err, P, n, L, T, codes);
+  fit_error_kernel<<<row_blocks(P), kThreads, smem, (cudaStream_t)stream>>>(
+      x, row_indices, vmin, vmax, edges, params, err, P, n, L, T, codes);
   return (int)cudaGetLastError();
 }
 

@@ -11,7 +11,8 @@ The flags are fixed: ``sm_90a`` (Hopper), ``-O3``, never fast math, and
 operation as their plain PyTorch versions do (no fused multiply-adds).
 
 Nothing is compiled when this module is imported: ``library(name)`` builds
-on first use.
+on first use, and ``build(*names)`` builds several sources at once, one
+``nvcc`` process each, all started together.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-_lock = threading.Lock()
+_lock = threading.RLock()
 _libs: dict[str, ctypes.CDLL] = {}
 
 
@@ -58,15 +59,33 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def _compile(name: str, out: Path) -> None:
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{proc.stdout}")
-    os.replace(tmp, out)  # atomic: a reader never sees a half-written library
+def build(*names: str) -> None:
+    """Compile every ``csrc/<name>.cu`` whose library is missing, one
+    ``nvcc`` process per source, all running at once; raises after all have
+    ended if any failed."""
+    with _lock:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        jobs, failed = [], []
+        try:
+            for name in dict.fromkeys(names):
+                out = _target(name)
+                if out.exists():
+                    continue
+                tmp = out.with_suffix(f".{os.getpid()}.tmp")
+                cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+                proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True)
+                jobs.append((name, out, tmp, proc))
+        finally:  # every started nvcc is waited for, even if a later start failed
+            for name, out, tmp, proc in jobs:
+                log = proc.communicate()[0]
+                if proc.returncode != 0:
+                    tmp.unlink(missing_ok=True)
+                    failed.append(f"nvcc failed for csrc/{name}.cu:\n{log}")
+                else:
+                    os.replace(tmp, out)  # atomic: a reader never sees a half-written library
+        if failed:
+            raise RuntimeError("\n".join(failed))
 
 
 def library(name: str) -> ctypes.CDLL:
@@ -74,8 +93,6 @@ def library(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            out = _target(name)
-            if not out.exists():
-                _compile(name, out)
-            lib = _libs[name] = ctypes.CDLL(str(out))
+            build(name)
+            lib = _libs[name] = ctypes.CDLL(str(_target(name)))
         return lib

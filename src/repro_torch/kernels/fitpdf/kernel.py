@@ -24,6 +24,13 @@
     and reduces sum |freq/n - mass| in a fixed order; only (P, T) floats are
     written. The incomplete gamma and beta run in double on the device.
 
+    ``row_indices`` (G,) int64 is the grouping methods' representative
+    gather (``repro/kernels/fitpdf/ops.py:79-128``): output row r reads
+    window row ``row_indices[r]`` while vmin, vmax, edges and params are
+    already per representative. The kernel computes that address itself, so
+    no gathered copy of the G rows is made; its bound is the G rows read.
+    The result is bitwise equal to a launch on ``values[row_indices]``.
+
 Each wrapper dispatches on the tensor's device: a CPU tensor gets the plain
 PyTorch version (``*_plain``, the same arithmetic, the CPU tests' path), a
 CUDA tensor gets the kernel or an exception. Each counts its launches in
@@ -39,68 +46,22 @@ import torch
 
 from repro_torch.core import distributions as dists
 from repro_torch.core import pdf_error as pe
+from repro_torch.kernels import _launch
+from repro_torch.kernels.moments.kernel import NUM_STATS, moments_stats_plain
 
-NUM_STATS = 8  # mean, var(unbiased), skew, kurt, min, max, (2 pad lanes)
-_EPS = 1e-12
 # The kernels' type codes index this tuple (csrc/fitpdf.cu: cdf_eval).
 _TYPE_CODES = {name: i for i, name in enumerate(dists.TYPES_10)}
 _MAX_TYPES = 16  # four bits per type code in one 64-bit word
-_SMEM_LIMIT = 48 * 1024  # dynamic shared memory a block gets without opting in
-
-_lib: ctypes.CDLL | None = None
 
 
-def _library() -> ctypes.CDLL:
-    """Build (first use only) and bind ``csrc/fitpdf.cu``."""
-    global _lib
-    if _lib is None:
-        from repro_torch.kernels._build import library
-
-        lib = library("fitpdf")
-        vp, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.fitpdf_moments_edges_stats.argtypes = [vp, vp, vp, i32, i32, i32, i32, vp]
-        lib.fitpdf_moments_edges_stats.restype = i32
-        lib.fitpdf_fit_error_counts.argtypes = [
-            vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, ctypes.c_ulonglong, i32, vp]
-        lib.fitpdf_fit_error_counts.restype = i32
-        lib.fitpdf_fit_error_smem_bytes.argtypes = [i32]
-        lib.fitpdf_fit_error_smem_bytes.restype = ctypes.c_size_t
-        lib.fitpdf_error_string.argtypes = [i32]
-        lib.fitpdf_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
-
-
-def _raise_if_failed(lib: ctypes.CDLL, rc: int, what: str) -> None:
-    if rc != 0:
-        msg = lib.fitpdf_error_string(rc).decode()
-        raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
-
-
-def _check_values(values: torch.Tensor) -> None:
-    if values.dtype != torch.float32:
-        raise TypeError(f"values must be float32, got {values.dtype}")
-    if values.ndim != 2 or values.shape[1] < 1:
-        raise ValueError(f"values must be (P, n) with n >= 1, got {tuple(values.shape)}")
-    if values.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"values on unsupported device {values.device}")
-    if values.shape[0] >= 2**31 or values.shape[1] >= 2**31:
-        raise ValueError(f"values shape {tuple(values.shape)} exceeds int32 extents")
-
-
-def _check_operand(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, values on {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _stream(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def _library():
+    vp, i32 = _launch.VP, _launch.I32
+    return _launch.bind("fitpdf", {
+        "fitpdf_moments_edges_stats": ([vp, vp, vp, i32, i32, i32, i32, vp], i32),
+        "fitpdf_fit_error_counts": (
+            [vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, ctypes.c_ulonglong, i32, vp], i32),
+        "fitpdf_fit_error_smem_bytes": ([i32], _launch.SIZE_T),
+    })
 
 
 # ---------------------------------------------------------------------------
@@ -109,43 +70,20 @@ def _stream(device: torch.device) -> ctypes.c_void_p:
 
 
 def moments_edges_stats_plain(values: torch.Tensor, num_bins: int):
-    """Plain PyTorch version of K1: the shifted power sums of the reference
-    kernel (one full-row sum per power), then its finalize, line by line."""
-    p, n = values.shape
-    shift = values[:, :1]
-    d = values - shift
-    d2 = d * d
-    d3 = d2 * d
-    s1, s2, s3, s4 = d.sum(1), d2.sum(1), d3.sum(1), (d3 * d).sum(1)
-    mn, mx = torch.amin(values, dim=1), torch.amax(values, dim=1)
-
-    nf = float(n)
-    md = s1 / nf  # mean of shifted values
-    e2, e3, e4 = s2 / nf, s3 / nf, s4 / nf
-    mdsq = md * md
-    m2 = torch.clamp(e2 - mdsq, min=0.0)
-    m3 = e3 - 3.0 * md * e2 + 2.0 * (md * mdsq)
-    m4 = e4 - 4.0 * md * e3 + 6.0 * md * md * e2 - 3.0 * (mdsq * mdsq)
-    mean = shift[:, 0] + md
-    var = m2 * nf / max(nf - 1.0, 1.0)
-    sig = torch.sqrt(torch.clamp(m2, min=_EPS))
-    skew = m3 / (sig * (sig * sig))
-    m2c = torch.clamp(m2, min=_EPS)
-    kurt = m4 / (m2c * m2c) - 3.0
-    zero = torch.zeros_like(mean)
-    stats = torch.stack([mean, var, skew, kurt, mn, mx, zero, zero], dim=1)
-    return stats, pe.interval_edges(mn, mx, num_bins)
+    """Plain PyTorch version of K1: K3's plain stats (the reference kernel's
+    shifted power sums and finalize) and the Eq.-5 edges of their range."""
+    stats = moments_stats_plain(values)
+    return stats, pe.interval_edges(stats[:, 4], stats[:, 5], num_bins)
 
 
 def moments_edges_stats(values: torch.Tensor, num_bins: int):
     """values (P, n) f32 -> (stats (P, 8), edges (P, L+1)) f32."""
-    _check_values(values)
+    _launch.check_values(values)
     if num_bins < 1:
         raise ValueError(f"num_bins must be >= 1, got {num_bins}")
     if values.device.type == "cpu":
         return moments_edges_stats_plain(values, num_bins)
-    if not values.is_contiguous():
-        raise ValueError("values must be contiguous")
+    _launch.check_contiguous(values)
     p, n = values.shape
     stats = torch.empty((p, NUM_STATS), dtype=torch.float32, device=values.device)
     edges = torch.empty((p, num_bins + 1), dtype=torch.float32, device=values.device)
@@ -153,8 +91,8 @@ def moments_edges_stats(values: torch.Tensor, num_bins: int):
         lib = _library()
         rc = lib.fitpdf_moments_edges_stats(
             values.data_ptr(), stats.data_ptr(), edges.data_ptr(),
-            p, n, num_bins, values.device.index or 0, _stream(values.device))
-        _raise_if_failed(lib, rc, "moments_edges_stats")
+            p, n, num_bins, _launch.device_index(values.device), _launch.stream(values.device))
+        _launch.raise_if_failed(lib, "fitpdf", rc, "moments_edges_stats")
         moments_edges_stats.launches += 1
     return stats, edges
 
@@ -194,39 +132,49 @@ def _type_codes(types: Sequence[str]) -> int:
     return codes
 
 
-def fit_error_counts(values, vmin, vmax, edges, params,
-                     types: Sequence[str], num_bins: int) -> torch.Tensor:
-    """values (P, n), vmin/vmax (P,), edges (P, L+1), params (P, 3T) f32
-    -> Eq.-5 errors (P, T) f32."""
-    _check_values(values)
-    p, n = values.shape
+def fit_error_counts(values, vmin, vmax, edges, params, types: Sequence[str],
+                     num_bins: int, row_indices: torch.Tensor | None = None) -> torch.Tensor:
+    """values (P, n), vmin/vmax (G,), edges (G, L+1), params (G, 3T) f32
+    -> Eq.-5 errors (G, T) f32, where G = P without ``row_indices`` and
+    G = len(row_indices) with them (row r reads ``values[row_indices[r]]``)."""
+    _launch.check_values(values)
     t = len(types)
     codes = _type_codes(types)
     if num_bins < 1:
         raise ValueError(f"num_bins must be >= 1, got {num_bins}")
-    _check_operand("vmin", vmin, (p,), values.device)
-    _check_operand("vmax", vmax, (p,), values.device)
-    _check_operand("edges", edges, (p, num_bins + 1), values.device)
-    _check_operand("params", params, (p, 3 * t), values.device)
+    g = values.shape[0] if row_indices is None else row_indices.shape[0]
+    if row_indices is not None:
+        if row_indices.ndim != 1:
+            raise ValueError(f"row_indices must be 1-D, got {tuple(row_indices.shape)}")
+        _launch.check_operand("row_indices", row_indices, (g,), values.device, torch.int64)
+    _launch.check_operand("vmin", vmin, (g,), values.device)
+    _launch.check_operand("vmax", vmax, (g,), values.device)
+    _launch.check_operand("edges", edges, (g, num_bins + 1), values.device)
+    _launch.check_operand("params", params, (g, 3 * t), values.device)
     if values.device.type == "cpu":
-        return fit_error_counts_plain(values, vmin, vmax, edges, params, types, num_bins)
-    if not values.is_contiguous():
-        raise ValueError("values must be contiguous")
+        rows = values if row_indices is None else values[row_indices]
+        return fit_error_counts_plain(rows, vmin, vmax, edges, params, types, num_bins)
+    _launch.check_contiguous(values)
     lib = _library()
-    smem = lib.fitpdf_fit_error_smem_bytes(num_bins)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(
-            f"num_bins={num_bins} needs {smem} B of shared memory per block, "
-            f"more than the kernel's {_SMEM_LIMIT} B")
-    err = torch.empty((p, t), dtype=torch.float32, device=values.device)
-    if p:
+    _launch.check_smem(lib.fitpdf_fit_error_smem_bytes(num_bins), num_bins)
+    if row_indices is not None and g and bool(
+            ((row_indices < 0) | (row_indices >= values.shape[0])).any()):
+        raise IndexError(f"row_indices out of range for {values.shape[0]} rows")
+    err = torch.empty((g, t), dtype=torch.float32, device=values.device)
+    if g:
         rc = lib.fitpdf_fit_error_counts(
-            values.data_ptr(), vmin.data_ptr(), vmax.data_ptr(), edges.data_ptr(),
-            params.data_ptr(), err.data_ptr(), p, n, num_bins, t, codes,
-            values.device.index or 0, _stream(values.device))
-        _raise_if_failed(lib, rc, "fit_error_counts")
+            values.data_ptr(), None if row_indices is None else row_indices.data_ptr(),
+            vmin.data_ptr(), vmax.data_ptr(), edges.data_ptr(), params.data_ptr(),
+            err.data_ptr(), g, values.shape[1], num_bins, t, codes,
+            _launch.device_index(values.device), _launch.stream(values.device))
+        _launch.raise_if_failed(lib, "fitpdf", rc, "fit_error_counts")
         fit_error_counts.launches += 1
+        if row_indices is not None:
+            fit_error_counts.row_index_launches += 1
     return err
 
 
 fit_error_counts.launches = 0
+# The launches that read their rows through ``row_indices`` (a subset of
+# ``launches``): the grouping methods' device Select path.
+fit_error_counts.row_index_launches = 0

@@ -40,20 +40,29 @@ def fit_errors(
     params_all: torch.Tensor,
     types: Sequence[str],
     num_bins: int,
+    row_indices: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """(..., n) values + (..., T, 3) params -> (..., T) Eq.-5 errors, in one
     launch: the histogram, CDF masses and Eq.-5 reduction never leave the
-    kernel."""
+    kernel.
+
+    ``row_indices`` (G,) int64 is the representative gather of the grouping
+    methods' device Select: ``values`` stays the full window while
+    ``moments`` and ``params_all`` are already per representative (leading
+    shape (G,)); the kernel reads each representative's row of the window
+    itself. Bitwise equal to passing ``values[row_indices]``."""
     t = len(types)
     edges = pe.interval_edges(moments.vmin, moments.vmax, num_bins)
-    shape = values.shape
+    n = values.shape[-1]
+    lead = values.shape[:-1] if row_indices is None else row_indices.shape
     errs = fit_error_counts(
-        values.reshape(-1, shape[-1]),
+        values.reshape(-1, n),
         moments.vmin.reshape(-1).contiguous(),
         moments.vmax.reshape(-1).contiguous(),
         edges.reshape(-1, num_bins + 1).contiguous(),
         params_all.reshape(-1, t * 3).contiguous(),
         tuple(types),
         num_bins,
+        row_indices=row_indices,
     )
-    return errs.reshape(shape[:-1] + (t,))
+    return errs.reshape(lead + (t,))

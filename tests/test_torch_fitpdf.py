@@ -161,7 +161,7 @@ def assert_types_match(got_t, got_err, want_t, want_errs):
 
 
 @pytest.mark.parametrize("mode", ["fused", "faithful"])
-@pytest.mark.parametrize("backend", ["reference", "fused"])
+@pytest.mark.parametrize("backend", ["reference", "kernels", "fused"])
 def test_fit_backends_match_reference(mode, backend):
     v = _window((23, 300), seed=5)
     rb = rfit.get_fit_backend(backend, 20)
@@ -183,10 +183,12 @@ def test_fit_backends_match_reference(mode, backend):
 
 def test_backend_registry():
     assert tfit.FIT_BACKENDS == rfit.FIT_BACKENDS
-    for name in ("reference", "fused"):
+    for name in ("reference", "kernels", "fused"):
         assert tfit.get_fit_backend(name, 16).name == name
-    with pytest.raises(NotImplementedError, match="K3"):
-        tfit.get_fit_backend("kernels", 16)
+    from repro_torch.kernels import hist, moments
+
+    kernels = tfit.get_fit_backend("kernels", 16)
+    assert kernels.moments is moments.moments and kernels.histogram is hist.histogram
     with pytest.raises(ValueError):
         tfit.get_fit_backend("nope", 16)
     with pytest.raises(ValueError):

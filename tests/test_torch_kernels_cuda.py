@@ -13,7 +13,10 @@ import torch
 
 from repro_torch.core import distributions as td
 from repro_torch.core import pdf_error as tpe
+from repro_torch.core import grouping as tg
 from repro_torch.kernels.fitpdf import kernel as tk
+from repro_torch.kernels.hist import kernel as thk
+from repro_torch.kernels.moments import kernel as tmk
 
 pytestmark = pytest.mark.cuda
 
@@ -104,3 +107,97 @@ def test_kernel_rejects_mixed_devices(dev):
     with pytest.raises(ValueError):
         tk.fit_error_counts(x, m.vmin, m.vmax, tpe.interval_edges(m.vmin, m.vmax, 4000),
                             params, td.TYPES_4, 4000)  # shared memory per block
+
+
+def _with_constant_row(arr):
+    arr = arr.copy()
+    arr[0] = 7.0  # vmin == vmax: every count in bin 0, the NaN rows of uniform
+    return arr
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_moments_stats_kernel(dev, shape):
+    """K3 within K1_TOL of its plain version, and bitwise equal to K1's
+    stats: one kernel template, the edges compiled out."""
+    x = torch.from_numpy(_with_constant_row(_window(shape, seed=shape[0] + 1))).to(dev)
+    before = tmk.moments_stats.launches
+    stats = tmk.moments_stats(x)
+    again = tmk.moments_stats(x)
+    k1_stats, _ = tk.moments_edges_stats(x, 64)
+    want = tmk.moments_stats_plain(x)
+    torch.cuda.synchronize()
+    assert tmk.moments_stats.launches == before + 2
+    assert stats.shape == (shape[0], tmk.NUM_STATS)
+    assert torch.equal(stats, again)
+    assert torch.equal(stats, k1_stats)
+    for i, (rtol, atol) in enumerate(K1_TOL):
+        _close(stats[:, i], want[:, i], rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("num_bins", [8, 20, 64])
+def test_hist_counts_kernel(dev, shape, num_bins):
+    """K4's counts equal the scatter histogram's exactly, rows sum to n, a
+    constant row counts everything in bin 0."""
+    x = torch.from_numpy(_with_constant_row(_window(shape, seed=shape[1] + 2))).to(dev)
+    vmin, vmax = x.amin(1), x.amax(1)
+    before = thk.hist_counts.launches
+    got = thk.hist_counts(x, vmin, vmax, num_bins)
+    want = thk.hist_counts_plain(x, vmin, vmax, num_bins)
+    torch.cuda.synchronize()
+    assert thk.hist_counts.launches == before + 1
+    assert torch.equal(got, want)
+    assert torch.equal(got.sum(1), torch.full((shape[0],), float(shape[1]), device=dev))
+    assert got[0, 0] == shape[1]
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("types", [td.TYPES_4, td.TYPES_10], ids=["4types", "10types"])
+def test_fit_error_counts_row_indices(dev, shape, types):
+    """K2 with a representative list (lowest row of each key group, then a
+    list with repeats) is bitwise equal to K2 on the gathered rows, and
+    within the error tolerance of the plain version."""
+    arr = _with_constant_row(_window(shape, seed=shape[0] + 3))
+    arr[1::3] = arr[0]  # duplicate rows, so the groups have several members
+    x = torch.from_numpy(arr).to(dev)
+    m = td.moments_from_values(x)
+    groups = tg.group_device(tg.quantize_keys(m.mean, m.var))
+    reps, _ = tg.compact_representatives(groups.rep_for_point, groups.is_rep)
+    repeats = torch.from_numpy(
+        np.random.default_rng(shape[0]).integers(0, shape[0], 2 * shape[0] + 1)).to(dev)
+    for idx in (reps, repeats):
+        sub = td.Moments(*(f[idx] for f in m))
+        params = td.fit_all(types, sub).reshape(len(idx), -1).contiguous()
+        edges = tpe.interval_edges(sub.vmin, sub.vmax, 20)
+        args = (sub.vmin, sub.vmax, edges, params, types, 20)
+        before = (tk.fit_error_counts.launches, tk.fit_error_counts.row_index_launches)
+        got = tk.fit_error_counts(x, *args, row_indices=idx)
+        gathered = tk.fit_error_counts(x[idx].contiguous(), *args)
+        want = tk.fit_error_counts_plain(x[idx], *args)
+        torch.cuda.synchronize()
+        assert (tk.fit_error_counts.launches, tk.fit_error_counts.row_index_launches) == \
+            (before[0] + 2, before[1] + 1)
+        assert got.shape == (len(idx), len(types))
+        assert torch.equal(torch.nan_to_num(got, nan=-1.0), torch.nan_to_num(gathered, nan=-1.0))
+        _close(got, want, rtol=1e-4, atol=5e-4)
+
+
+def test_new_kernels_reject_bad_inputs(dev):
+    x = torch.from_numpy(_window((6, 40), seed=0)).to(dev)
+    vmin, vmax = x.amin(1), x.amax(1)
+    with pytest.raises(TypeError):
+        tmk.moments_stats(x.double())
+    with pytest.raises(ValueError):
+        tmk.moments_stats(x.t())  # not contiguous
+    with pytest.raises(ValueError):
+        thk.hist_counts(x, vmin.cpu(), vmax, 8)
+    with pytest.raises(ValueError):
+        thk.hist_counts(x, vmin, vmax, 4000)  # shared memory per block
+    m = td.moments_from_values(x)
+    params = td.fit_all(td.TYPES_4, m).reshape(6, -1).contiguous()
+    edges = tpe.interval_edges(m.vmin, m.vmax, 8)
+    args = (m.vmin, m.vmax, edges, params, td.TYPES_4, 8)
+    with pytest.raises(IndexError):
+        tk.fit_error_counts(x, *args, row_indices=torch.arange(1, 7, device=dev))
+    with pytest.raises(TypeError):
+        tk.fit_error_counts(x, *args, row_indices=torch.arange(6, device=dev, dtype=torch.int32))

@@ -2,9 +2,11 @@
 
 A small seismic cube (4 slices of 12 lines x 30 points, 200 observations,
 window_lines=5, so every slice ends in a ragged 2-line window) goes through
-``repro.core.pipeline.PDFComputer`` and the port's, on the CPU, for 4 and 10
-candidate types and both of the port's backends. Within the port: prefetch
-on and off are bitwise equal, and persist + resume re-runs nothing."""
+``repro.core.pipeline.PDFComputer`` and the port's, on the CPU: baseline for
+4 and 10 candidate types, grouping and reuse (host Select, the reference's
+default fused backend) for 4, against each of the port's backends. Within
+the port, bitwise: prefetch on and off, device and host Select, faithful
+and fused mode; persist + resume re-runs nothing."""
 
 import dataclasses
 import json
@@ -41,10 +43,18 @@ def _port_source():
         geometry=t_regions.CubeGeometry(*DIMS), num_simulations=OBS))
 
 
-def _port(types=rd.TYPES_4, fit_backend="fused", num_bins=64, **kw):
+def _port(types=rd.TYPES_4, fit_backend="fused", num_bins=64, method="baseline",
+          select_backend="host", mode="fused", **kw):
     cfg = tp.PDFConfig(types=types, num_bins=num_bins, window_lines=WINDOW_LINES,
-                       fit_backend=fit_backend)
+                       fit_backend=fit_backend, method=method,
+                       select_backend=select_backend, mode=mode)
     return tp.PDFComputer(cfg, _port_source(), device="cpu", **kw)
+
+
+def _bitwise(a, b):
+    for f in FIELDS:
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f), err_msg=f)
+    assert a.avg_error == b.avg_error
 
 
 @pytest.fixture(scope="module")
@@ -66,11 +76,15 @@ def reference_results():
     return out
 
 
-@pytest.mark.parametrize("fit_backend", ["fused", "reference"])
-@pytest.mark.parametrize("types", [rd.TYPES_4, rd.TYPES_10], ids=["4types", "10types"])
-def test_slices_match_reference(reference_results, fit_backend, types):
-    ref, ref_errs = reference_results[len(types)]
-    got = _port(types, fit_backend).run(SLICES)
+@pytest.fixture(scope="module")
+def grouped_reference():
+    """The reference's grouping and reuse runs (host Select, 4 types)."""
+    src = _ref_source()
+    return {m: rp.PDFComputer(rp.PDFConfig(window_lines=WINDOW_LINES, method=m), src).run(SLICES)
+            for m in ("grouping", "reuse")}
+
+
+def _assert_slices_match(ref, ref_errs, got):
     for s in SLICES:
         r, t = ref[s], got[s]
         for name in ("mean", "std", "skew", "kurt"):
@@ -93,6 +107,83 @@ def test_slices_match_reference(reference_results, fit_backend, types):
         assert t.type_idx.dtype == np.int32 and t.params.dtype == np.float32
         assert [tuple(w.window) for w in t.stats] == [tuple(w.window) for w in r.stats]
         assert t.slice_i == s and t.error_bound_satisfied is None
+
+
+@pytest.mark.parametrize("fit_backend", ["fused", "reference"])
+@pytest.mark.parametrize("types", [rd.TYPES_4, rd.TYPES_10], ids=["4types", "10types"])
+def test_slices_match_reference(reference_results, fit_backend, types):
+    ref, ref_errs = reference_results[len(types)]
+    _assert_slices_match(ref, ref_errs, _port(types, fit_backend).run(SLICES))
+
+
+@pytest.mark.parametrize("fit_backend", ["kernels", "fused", "reference"])
+@pytest.mark.parametrize("method", ["grouping", "reuse"])
+def test_grouped_slices_match_reference(reference_results, grouped_reference, method,
+                                        fit_backend):
+    """Grouping and reuse against the reference's host Select: the parity
+    rules per point, and per window the same number of fitted
+    representatives and cache hits (rows of one generator cell are
+    identical, so both packages find the same groups)."""
+    ref = grouped_reference[method]
+    got = _port(fit_backend=fit_backend, method=method).run(SLICES)
+    _assert_slices_match(ref, reference_results[4][1], got)
+    for s in SLICES:
+        assert [(w.num_fitted, w.cache_hits) for w in got[s].stats] == \
+            [(w.num_fitted, w.cache_hits) for w in ref[s].stats]
+        assert sum(w.num_fitted for w in got[s].stats) < len(got[s].type_idx)
+    if method == "reuse":
+        assert sum(w.cache_hits for s in SLICES for w in got[s].stats) > 0
+
+
+@pytest.mark.parametrize("fit_backend", ["kernels", "fused", "reference"])
+@pytest.mark.parametrize("method", ["grouping", "reuse"])
+def test_device_select_bitwise_matches_host(method, fit_backend):
+    host = _port(fit_backend=fit_backend, method=method).run(SLICES)
+    device = _port(fit_backend=fit_backend, method=method, select_backend="device").run(SLICES)
+    for s in SLICES:
+        _bitwise(host[s], device[s])
+        assert [(w.num_fitted, w.cache_hits) for w in host[s].stats] == \
+            [(w.num_fitted, w.cache_hits) for w in device[s].stats]
+
+
+@pytest.mark.parametrize("method", ["baseline", "grouping"])
+def test_faithful_matches_fused_on_kernels(method):
+    """Faithful mode (K4 once per type on a fresh unit-scaled copy) gives
+    fused mode's results bit for bit."""
+    a = _port(rd.TYPES_10, "kernels", num_bins=20, method=method, mode="faithful").run_slice(1)
+    b = _port(rd.TYPES_10, "kernels", num_bins=20, method=method).run_slice(1)
+    _bitwise(a, b)
+
+
+@pytest.mark.parametrize("fit_backend", ["kernels", "fused"])
+def test_reuse_prefetch_on_off_bitwise(fit_backend):
+    """The reuse cache fills in window order on the compute thread, so
+    prefetch does not change what it holds or returns."""
+    a = _port(fit_backend=fit_backend, method="reuse", select_backend="device",
+              exec_config=tp.ExecutorConfig(prefetch=False, async_persist=False))
+    b = _port(fit_backend=fit_backend, method="reuse", select_backend="device",
+              exec_config=tp.ExecutorConfig(prefetch=True, prefetch_depth=3))
+    ra, rb = a.run(SLICES), b.run(SLICES)
+    for s in SLICES:
+        _bitwise(ra[s], rb[s])
+        assert [w.cache_hits for w in ra[s].stats] == [w.cache_hits for w in rb[s].stats]
+    assert (a.cache.size, a.cache.hits, a.cache.lookups) == \
+        (b.cache.size, b.cache.hits, b.cache.lookups)
+
+
+def test_reuse_cache_spans_slices():
+    """The cache lives on the executor: a second run of the same slice on
+    one PDFComputer hits on every representative and fits nothing."""
+    comp = _port(method="reuse")
+    first = comp.run_slice(2)
+    size = comp.cache.size
+    assert size == sum(w.num_fitted for w in first.stats)
+    again = comp.run_slice(2)
+    assert [w.num_fitted for w in again.stats] == [0] * len(again.stats)
+    assert [w.cache_hits for w in again.stats] == \
+        [w.num_fitted + w.cache_hits for w in first.stats]
+    assert comp.cache.size == size
+    _bitwise(first, again)
 
 
 def test_seismic_slices_find_their_layer_type():
@@ -178,11 +269,11 @@ def test_no_device_and_no_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(method="grouping"), "item 6"),
+    (dict(method="grouping_ml"), "item 7"),
     (dict(method="ml"), "item 7"),
     (dict(method="sampling"), "item 8"),
-    (dict(select_backend="device"), "item 6"),
-    (dict(fit_backend="kernels"), "K3"),
+    (dict(method="reuse_ml", select_backend="device"), "item 7"),
+    (dict(method="sampling", sampler="kmeans", fit_backend="kernels"), "item 8"),
 ])
 def test_unported_options_raise_at_construction(kw, match):
     cfg = tp.PDFConfig(**kw)  # valid configuration, as in the reference
