@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``src/repro_torch/csrc`` (``fitpdf``,
-``moments`` and ``hist``, one ``nvcc`` each, all at once, into
+``moments``, ``hist`` and ``band_attn``, one ``nvcc`` each, all at once, into
 ``build/kernels/``), holds each kernel against its plain PyTorch version on
 the card, then drives the paths through the entry point, each on one full
 Set1 slice (501 lines x 251 points x 1,000 observations, slice 201, 21
@@ -24,8 +24,25 @@ and every kernel's launch count set to 0 just before it:
   equal, the device path through K2's ``row_indices`` prologue.
 
 Then the baseline slice and the two grouping slices run once more under
-``torch.profiler`` (device time by kernel, device idle share), and last
-comes a timing of each kernel at the Set1 window shape beside its bound.
+``torch.profiler`` (device time by kernel, device idle share), and a timing
+of each kernel at the Set1 window shape beside its bound.
+
+Last comes the LM serving path (``band_attn``, K5):
+
+* K5 against its plain version at the serving shape (B 4, S 4096, H 16,
+  KV 8, hd 256, W 1024, bf16), a ragged S = 4000 and an S = 700 < W:
+  within a bf16 ulp, repeats bitwise, launches counted, and a window off
+  by one rejected by the same check;
+* gemma3-12b at full width cut to 12 layers (10 local, 2 global), random
+  weights from a seeded generator on the card: ``generate`` on 4 prompts
+  of 4,096 tokens and 16 greedy tokens with the counts set to 0 (10 K5
+  launches), a prefill alone twice (bitwise equal logits), the decode steps
+  alone (no K5 launch, the same tokens), and the prefill's logits and first
+  token held against the plain masked path and float32 compute;
+* one prefill and one decode step under ``torch.profiler`` (K5's share,
+  device idle share) and
+  K5's time beside its bound, its plain version and SDPA with the band as
+  a mask.
 
 Any failed check raises, so the exit code is non-zero. The line before the
 last is a JSON object of per-kernel numbers; the last line is
@@ -73,10 +90,29 @@ EDGE_TOL = dict(rtol=1e-6, atol=1e-3)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 F64_OPS_PER_S = 34e12
+BF16_OPS_PER_S = 989e12  # dense, tensor cores
 
 SET1_SLICE = 201  # configs/pdf_seismic.py: slice_index
 SET1_WINDOWS = 21  # ceil(501 lines / 25 lines per window)
-KERNEL_SOURCES = ("fitpdf", "moments", "hist")  # src/repro_torch/csrc/<name>.cu
+KERNEL_SOURCES = ("fitpdf", "moments", "hist", "band_attn")  # src/repro_torch/csrc/<name>.cu
+
+# The LM serving path: gemma3-12b at full width (configs/gemma3_12b.py) with
+# the banded path on, cut to 12 of its 48 layers (two repeats of the 5 local
+# + 1 global pattern: 10 local layers, so 10 K5 launches a prefill).
+LM_ARCH = "gemma3-12b"
+LM_LAYERS = 12
+LM_LOCAL_LAYERS = 10
+LM_BATCH = 4  # serve_decode's default
+LM_PROMPT = 4096
+LM_TOKENS = 16
+# K5 against its plain version, bf16 out: both compute the row in float32
+# and round once; only the order of the sums differs (float32, ~1e-6 of the
+# output), so they may round to neighbouring bf16 values: one bf16 ulp is at
+# most 2**-7 of the value, and 2e-5 (the repo's float32 attention
+# tolerance) covers the float32 difference where the value is near 0.
+K5_TOL = dict(rtol=2.0**-7, atol=2e-5)
+# (B, S, H, KV, hd, W): the serving shape, a ragged S and an S < W.
+K5_CASES = ((4, 4096, 16, 8, 256, 1024), (4, 4000, 16, 8, 256, 1024), (4, 700, 16, 8, 256, 1024))
 
 
 class SmokeFailure(AssertionError):
@@ -302,6 +338,7 @@ def compare_new_kernels(np, torch, cases, dev):
 
 def launch_counters():
     """Every kernel wrapper's launch count, by kernel name."""
+    from repro_torch.kernels.band_attn import kernel as bk
     from repro_torch.kernels.fitpdf import kernel
     from repro_torch.kernels.hist import kernel as hk
     from repro_torch.kernels.moments import kernel as mk
@@ -310,7 +347,17 @@ def launch_counters():
             "fit_error_counts": (kernel.fit_error_counts, "launches"),
             "fit_error_counts_row_indices": (kernel.fit_error_counts, "row_index_launches"),
             "moments_stats": (mk.moments_stats, "launches"),
-            "hist_counts": (hk.hist_counts, "launches")}
+            "hist_counts": (hk.hist_counts, "launches"),
+            "banded_attention_kernel": (bk.banded_attention_kernel, "launches")}
+
+
+def zero_counts() -> None:
+    for fn, attr in launch_counters().values():
+        setattr(fn, attr, 0)
+
+
+def read_counts() -> dict:
+    return {name: getattr(fn, attr) for name, (fn, attr) in launch_counters().items()}
 
 
 def drive(np, torch, cfg, sim, slice_i, dev, label, exec_config=None):
@@ -322,15 +369,13 @@ def drive(np, torch, cfg, sim, slice_i, dev, label, exec_config=None):
     from repro_torch.core.executor import RESULT_FIELDS
     from repro_torch.core.pipeline import PDFComputer
 
-    counters = launch_counters()
     sync(torch, dev)
-    for fn, attr in counters.values():
-        setattr(fn, attr, 0)
+    zero_counts()
     t0 = time.perf_counter()
     res = PDFComputer(cfg, sim, device=dev, exec_config=exec_config).run_slice(slice_i)
     sync(torch, dev)
     wall = time.perf_counter() - t0
-    launches = {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
+    launches = read_counts()
 
     g = sim.geometry
     check(res.type_idx.shape == (g.points_per_slice,), f"[{label}] type_idx shape")
@@ -769,12 +814,26 @@ def time_new_kernels(np, torch, x, dev, launches_k, launches_rows, worst_k3, err
     return rows
 
 
+def device_us(e) -> float:
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(e, attr):
+            return getattr(e, attr)
+    return 0.0
+
+
+def device_events(prof) -> list:
+    """The profile's device-side rows (kernels, copies), longest first."""
+    from torch.autograd import DeviceType
+
+    return sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                  key=device_us, reverse=True)
+
+
 def profile_slice(torch, cfg, label, sim, slice_i, dev, wall_unprofiled):
     """One slice of ``cfg`` once more under torch.profiler: device time by
     kernel (in all and a launch, inside the pipeline, with no host work
     between the events), and the device's busy share of the unprofiled
     wall time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.pipeline import PDFComputer
@@ -783,14 +842,8 @@ def profile_slice(torch, cfg, label, sim, slice_i, dev, wall_unprofiled):
         PDFComputer(cfg, sim, device=dev).run_slice(slice_i)
         sync(torch, dev)
 
-    def dev_us(e):
-        for attr in ("self_device_time_total", "self_cuda_time_total"):
-            if hasattr(e, attr):
-                return getattr(e, attr)
-        return 0.0
-
-    kern = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-                  key=dev_us, reverse=True)
+    kern = device_events(prof)
+    dev_us = device_us
     busy_ms = sum(dev_us(e) for e in kern) / 1e3
     if not kern or busy_ms == 0:
         log("[profile] the profiler saw no device time: device busy share not measured")
@@ -801,6 +854,261 @@ def profile_slice(torch, cfg, label, sim, slice_i, dev, wall_unprofiled):
     for e in kern[:12]:
         log(f"[profile {label}]   {dev_us(e) / 1e3:10.3f} ms  x{e.count:<5d} "
             f"{dev_us(e) / 1e3 / max(e.count, 1):.4f} ms a launch  {e.key[:80]}")
+
+# ---------------------------------------------------------------------------
+# the LM serving path: K5, then gemma3-12b prefill + greedy decode
+# ---------------------------------------------------------------------------
+
+
+def band_pairs(s: int, w: int) -> int:
+    """Valid (query, key) pairs of one (b, h): the sum over i of min(i + 1, w)."""
+    return s * (s + 1) // 2 if s <= w else w * (w + 1) // 2 + (s - w) * w
+
+
+def band_inputs(np, torch, dev):
+    """bf16 q, k, v at the serving shape, drawn with numpy from a seed as
+    the reference's kernel test draws them (q, k ~ 0.5 N(0, 1), v ~ N(0, 1))."""
+    b, s, h, kvh, hd, _ = K5_CASES[0]
+    rng = np.random.default_rng(0)
+
+    def draw(shape, std):
+        x = rng.standard_normal(shape, dtype=np.float32)
+        x *= std
+        return torch.from_numpy(x).to(dev).to(torch.bfloat16)
+
+    return draw((b, s, h, hd), 0.5), draw((b, s, kvh, hd), 0.5), draw((b, s, kvh, hd), 1.0)
+
+
+def compare_band_attn(np, torch, dev):
+    """K5 against its plain version at K5_CASES (each a prefix of one seeded
+    draw): within K5_TOL, a repeat bitwise equal, the launch count up by one
+    a launch, and where S > W a window off by one (the plain version at
+    W - 1) rejected by the same check. Returns (the serving inputs, the max
+    abs difference over the cases)."""
+    from repro_torch.kernels.band_attn import kernel as bk
+    from repro_torch.kernels.band_attn.ref import banded_attention_ref
+
+    qkv = band_inputs(np, torch, dev)
+    worst = 0.0
+    for case in K5_CASES:
+        b, s, h, kvh, hd, w = case
+        q, k, v = (t[:, :s].contiguous() for t in qkv)
+        before = bk.banded_attention_kernel.launches
+        got = bk.banded_attention_kernel(q, k, v, w)
+        check(bk.banded_attention_kernel.launches == before + 1, f"[K5] {case}: launch not counted")
+        again = bk.banded_attention_kernel(q, k, v, w)
+        check(bk.banded_attention_kernel.launches == before + 2, f"[K5] {case}: launch not counted")
+        want = banded_attention_ref(q, k, v, w)
+        sync(torch, dev)
+        check(got.dtype == torch.bfloat16 and got.shape == q.shape, f"[K5] {case}: output {got.dtype} "
+              f"{tuple(got.shape)}")
+        check(torch.equal(got, again), f"[K5] {case}: repeat launch differs")
+        check(bool(torch.isfinite(got).all()), f"[K5] {case}: non-finite output")
+        n_bad, max_abs, max_rel = diff_report(torch, got, want, **K5_TOL)
+        check(n_bad == 0, f"[K5] {case}: {n_bad} entries outside {K5_TOL} (max abs {max_abs}, "
+                          f"max rel {max_rel})")
+        n_diff = int((got != want).sum())
+        planted = "no window edge at S <= W"
+        if s > w:
+            off = banded_attention_ref(q, k, v, w - 1)
+            n_off = diff_report(torch, got, off, **K5_TOL)[0]
+            check(n_off > 0, f"[K5] {case}: the plain version at window W - 1 passes the check")
+            planted = f"the plain version at W - 1 rejected ({n_off} entries outside)"
+            del off
+        worst = max(worst, max_abs)
+        log(f"[K5] (B, S, H, KV, hd, W) = {case} bf16: within rtol 2**-7 atol 2e-5 of the plain "
+            f"version (max abs {max_abs}, max rel {max_rel}, {n_diff} of {got.numel()} outputs not "
+            f"bitwise equal), repeat bitwise, launches counted; {planted}")
+        del got, again, want
+    torch.cuda.empty_cache()
+    return qkv, worst
+
+
+def lm_config():
+    from repro_torch.configs import registry
+
+    return registry.get(LM_ARCH).replace(num_layers=LM_LAYERS, block_local_attn=True)
+
+
+def serve_phase(np, torch, dev, smi):
+    """gemma3-12b at full width, 12 layers, random weights from a seeded
+    generator on the card; LM_BATCH prompts of LM_PROMPT random tokens.
+    Drives ``generate`` (prefill + LM_TOKENS greedy steps) once with the
+    counts set to 0 (10 K5 launches); then a prefill alone twice (10 each,
+    bitwise equal logits), the decode steps alone (0 launches, generate's
+    tokens again), and the same prefill on the plain masked path and in
+    float32 compute. Returns the model, config, prompt and numbers."""
+    from repro_torch.launch.serve_decode import generate
+    from repro_torch.models import transformer as T
+
+    cfg = lm_config()
+    check(sum(1 for bd in cfg.layer_defs() if bd.window) == LM_LOCAL_LAYERS, "[lm] local layer count")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = T.init_params(cfg, gen, dev)
+    prompt = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), generator=gen, device=dev)
+    sync(torch, dev)
+    n_params = T.count_params(model)
+    log(f"[lm] {cfg.name} d_model={cfg.d_model} heads={cfg.q_heads}/{cfg.kv_heads} head_dim="
+        f"{cfg.head_dim} d_ff={cfg.d_ff} vocab={cfg.vocab}, {cfg.num_layers} of 48 layers "
+        f"({LM_LOCAL_LAYERS} local with window {cfg.pattern[0].window}, "
+        f"{cfg.num_layers - LM_LOCAL_LAYERS} global), block_local_attn, params {n_params} in "
+        f"{cfg.param_dtype} ({n_params * 4} B), compute {cfg.compute_dtype}; init on the card in "
+        f"{time.perf_counter() - t0} s; batch {LM_BATCH} x prompt {LM_PROMPT} + {LM_TOKENS} tokens")
+    max_len = LM_PROMPT + LM_TOKENS
+
+    T.prefill(model, prompt[:, :2 * cfg.pattern[0].window], cfg)  # warm-up: cuBLAS, allocator
+    sync(torch, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    tokens = generate(cfg, model, prompt, LM_TOKENS)
+    sync(torch, dev)
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    check_launches(launches, {"banded_attention_kernel": LM_LOCAL_LAYERS}, "lm generate")
+    check(tokens.shape == (LM_BATCH, LM_TOKENS) and tokens.dtype == torch.int32, "[lm] tokens shape")
+    check(bool(((tokens >= 0) & (tokens < cfg.vocab)).all()), "[lm] token out of range")
+
+    zero_counts()
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    logits, caches = T.prefill(model, prompt, cfg, max_len=max_len)
+    sync(torch, dev)
+    prefill_s = time.perf_counter() - t0
+    check(read_counts()["banded_attention_kernel"] == LM_LOCAL_LAYERS, "[lm] K5 launches per prefill")
+    again, _ = T.prefill(model, prompt, cfg, max_len=max_len)
+    check(logits.shape == (LM_BATCH, cfg.vocab) and bool(torch.isfinite(logits).all()),
+          "[lm] prefill logits shape or finiteness")
+    check(torch.equal(logits, again), "[lm] prefill logits do not repeat bitwise")
+    del again
+
+    zero_counts()
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    decoded, steps_ms = [], []
+    for i in range(LM_TOKENS):
+        decoded.append(tok)
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        step_logits, caches = T.decode_step(model, tok, caches, LM_PROMPT + i, cfg)
+        tok = torch.argmax(step_logits, -1).to(torch.int32)
+        sync(torch, dev)
+        steps_ms.append((time.perf_counter() - t0) * 1e3)
+        check(bool(torch.isfinite(step_logits).all()), f"[lm] decode step {i}: non-finite logits")
+    check(read_counts()["banded_attention_kernel"] == 0, "[lm] K5 launched by a decode step")
+    check(torch.equal(torch.stack(decoded, 1), tokens), "[lm] decode steps differ from generate's tokens")
+    del caches, step_logits
+    decode_ms = sorted(steps_ms)[len(steps_ms) // 2]
+
+    # The same prefill on the plain masked path (bf16), and in float32 compute.
+    zero_counts()
+    plain, _ = T.prefill(model, prompt, cfg.replace(block_local_attn=False), max_len=max_len)
+    f32, _ = T.prefill(model, prompt, cfg.replace(block_local_attn=False, compute_dtype=torch.float32),
+                       max_len=max_len)
+    check(read_counts()["banded_attention_kernel"] == 0, "[lm] K5 launched on the plain path")
+    d_band = float((logits - plain).abs().max())
+    d_bf16 = float((plain - f32).abs().max())
+    # Tolerance: the banded path (K5, float32 weights and sum) may move the
+    # logits at most twice as far from the plain bf16 path as bf16 compute
+    # itself moves them from float32 compute.
+    tol = 2.0 * d_bf16
+    check(d_band <= tol, f"[lm] banded vs plain prefill logits differ by {d_band}, more than {tol}")
+    top2 = torch.topk(plain, 2, dim=-1).values
+    sure = (top2[:, 0] - top2[:, 1]) > tol
+    same = torch.argmax(logits, -1) == torch.argmax(plain, -1)
+    check(bool(same[sure].all()), f"[lm] first greedy token differs from the plain path where its "
+                                  f"top-2 margin exceeds {tol}")
+    log(f"[lm] prefill logits: banded (K5) vs plain masked path max abs {d_band}; plain bf16 vs "
+        f"float32 compute {d_bf16}; tolerance {tol}; max |logit| {float(plain.abs().max())}; first "
+        f"token equal in {int(same.sum())}/{LM_BATCH} rows ({int(sure.sum())} with a top-2 margin "
+        f"above the tolerance); vs float32 equal in "
+        f"{int((torch.argmax(f32, -1) == torch.argmax(plain, -1)).sum())}/{LM_BATCH}")
+    del plain, f32, logits
+    torch.cuda.empty_cache()
+
+    nums = dict(generate_s=wall, prefill_s=prefill_s, decode_ms_per_token=decode_ms,
+                tokens_per_s=LM_BATCH * LM_TOKENS / wall, decode_tokens_per_s=LM_BATCH / decode_ms * 1e3,
+                prefill_tokens_per_s=LM_BATCH * LM_PROMPT / prefill_s, max_memory_allocated_bytes=peak,
+                logits_band_vs_plain=d_band, logits_bf16_vs_f32=d_bf16)
+    log(f"[lm] {smi}: generate {wall} s for {LM_BATCH} x {LM_TOKENS} tokens ({nums['tokens_per_s']} "
+        f"tokens/s with the prefill); prefill {prefill_s} s ({nums['prefill_tokens_per_s']} prompt "
+        f"tokens/s); decode {decode_ms} ms a step, median of {LM_TOKENS} ({nums['decode_tokens_per_s']} "
+        f"tokens/s); max_memory_allocated {peak} B; launches {json.dumps(launches)}; sample "
+        f"{tokens[0, :8].tolist()}")
+    return model, cfg, prompt, launches, nums
+
+
+def profile_lm(torch, model, cfg, prompt, dev, prefill_s, decode_ms):
+    """One prefill, then one decode step, each under torch.profiler: device
+    time by kernel, K5's share of the prefill's, and the device's idle
+    share of the unprofiled prefill wall and decode step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import transformer as T
+
+    out = {}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        logits, caches = T.prefill(model, prompt, cfg, max_len=LM_PROMPT + LM_TOKENS)
+        sync(torch, dev)
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_d:
+        T.decode_step(model, tok, caches, LM_PROMPT, cfg)
+        sync(torch, dev)
+    for label, p, wall_ms in (("prefill", prof, prefill_s * 1e3), ("decode step", prof_d, decode_ms)):
+        kern = device_events(p)
+        busy_ms = sum(device_us(e) for e in kern) / 1e3
+        if not kern or busy_ms == 0:
+            log(f"[profile lm {label}] the profiler saw no device time: device busy share not measured")
+            continue
+        k5_ms = sum(device_us(e) for e in kern if "band_attn" in e.key) / 1e3
+        out[label] = dict(busy_ms=busy_ms, k5_ms=k5_ms, idle_share=1 - busy_ms / wall_ms)
+        log(f"[profile lm {label}] device busy {busy_ms} ms over {len(kern)} kernel/copy names "
+            f"({sum(e.count for e in kern)} launches); unprofiled wall {wall_ms} ms; device idle share "
+            f"{1 - busy_ms / wall_ms}; K5 {k5_ms} ms, {k5_ms / busy_ms} of the device time")
+        for e in kern[:15]:
+            log(f"[profile lm {label}]   {device_us(e) / 1e3:10.3f} ms  x{e.count:<5d} "
+                f"{device_us(e) / 1e3 / max(e.count, 1):.4f} ms a launch  {e.key[:90]}")
+    return out
+
+
+def time_band_attn(np, torch, qkv, dev, launches, max_abs_err):
+    """CUDA-event medians of K5, its plain version and SDPA with the band
+    as a boolean mask (the yardstick: one PyTorch call computing the same
+    function; the port never calls it) at the serving shape."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.band_attn import kernel as bk
+    from repro_torch.kernels.band_attn.ref import banded_attention_ref
+
+    q, k, v = qkv
+    b, s, h, hd = q.shape
+    kvh, w = k.shape[2], K5_CASES[0][-1]
+    flush = torch.empty(128 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
+    ms = time_cuda(torch, lambda: bk.banded_attention_kernel(q, k, v, w), 20, flush)
+    plain = time_cuda(torch, lambda: banded_attention_ref(q, k, v, w), 5, flush)
+    i = torch.arange(s, device=dev)
+    band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - w)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band, enable_gqa=True)
+
+    lib = time_cuda(torch, sdpa, 20, flush)
+    lib_err = float((sdpa().transpose(1, 2).float() - bk.banded_attention_kernel(q, k, v, w).float())
+                    .abs().max())
+    flops = 4 * hd * band_pairs(s, w) * b * h
+    nbytes = q.element_size() * (2 * b * s * h * hd + 2 * b * s * kvh * hd)
+    t_ops, t_bytes = flops / BF16_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    bound, by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    log(f"[time] K5 banded_attention_kernel (B, S, H, KV, hd, W) = {(b, s, h, kvh, hd, w)} bf16: "
+        f"kernel {ms} ms, plain {plain} ms, SDPA with a boolean band mask {lib} ms (max abs "
+        f"{lib_err} from K5); bound {bound} ms by {by} ({flops} FLOPs at the bf16 peak {t_ops} ms, "
+        f"{nbytes} B {t_bytes} ms); {flops / (ms * 1e-3) / 1e12} TFLOP/s achieved")
+    return dict(name="banded_attention_kernel", route="cuda", source="src/repro_torch/csrc/band_attn.cu",
+                replaces="src/repro/kernels/band_attn/kernel.py:28",
+                launches=launches["banded_attention_kernel"], max_abs_err=max_abs_err,
+                ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=lib)
 
 
 def main() -> int:
@@ -822,6 +1130,7 @@ def main() -> int:
     from repro_torch.kernels import _build
 
     dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 products in full float32
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -861,6 +1170,16 @@ def main() -> int:
     rows += time_new_kernels(np, torch, x, dev, launches_k, launches_rows, worst_k3, err_rows)
     log(f"[summary] {smi}: Set1 slice {SET1_SLICE} wall_s 4types_L64={wall4} "
         f"10types_L20={wall10} {json.dumps(walls)}; launches 10types_L20 {json.dumps(launches10)}")
+    del x, cases
+
+    # The LM serving path.
+    qkv, err_k5 = compare_band_attn(np, torch, dev)
+    model, cfg, prompt, launches_lm, lm = serve_phase(np, torch, dev, smi)
+    prof = profile_lm(torch, model, cfg, prompt, dev, lm["prefill_s"], lm["decode_ms_per_token"])
+    del model
+    torch.cuda.empty_cache()
+    rows.append(time_band_attn(np, torch, qkv, dev, launches_lm, err_k5))
+    log(f"[summary lm] {smi}: {json.dumps(lm)}; profile {json.dumps(prof)}")
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

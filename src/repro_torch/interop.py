@@ -1,9 +1,11 @@
 """Carry the reference package's state into the port.
 
-This system's state is data, configuration and fit results, not weights:
-the data is regenerated bitwise from the same source (``data/simulation``),
-and these two functions carry the rest. Both take plain Python and numpy
-values, so neither package imports the other.
+The PDF pipeline's state is data, configuration and fit results: the data
+is regenerated bitwise from the same source (``data/simulation``), and
+``pdf_config_from_dict`` and ``moments_from_numpy`` carry the rest. The LM
+serving path's state is its weights: ``lm_params_from_numpy`` carries the
+reference's parameter tree into the port's ``Transformer``. All take plain
+Python and numpy values, so neither package imports the other.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import Mapping, Sequence
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.core.distributions import Moments
 from repro_torch.core.executor import PDFConfig
 
@@ -41,3 +44,59 @@ def moments_from_numpy(fields: Sequence, device: torch.device | str) -> Moments:
     return Moments(*(
         torch.tensor(np.asarray(a, dtype=np.float32), device=device) for a in arrays
     ))
+
+
+def _flatten(tree, prefix: str, out: dict) -> None:
+    if isinstance(tree, Mapping):
+        for key, sub in tree.items():
+            _flatten(sub, f"{prefix}.{key}" if prefix else str(key), out)
+    else:
+        out[prefix] = tree
+
+
+def lm_params_from_numpy(tree: Mapping, cfg: ArchConfig, device: torch.device | str):
+    """The port's ``Transformer`` for ``cfg`` on ``device``, holding the
+    reference's parameters ``tree`` (``jax.tree.map(np.asarray, params)``
+    of ``repro.models.transformer.init_params``).
+
+    ``tree["prefix"][i]`` becomes layer i; each leaf of
+    ``tree["groups"][j]`` is stacked over the repeats, and its slice r
+    becomes layer ``len(cfg.prefix) + r * len(cfg.pattern) + j``. Raises on
+    a missing or unexpected leaf and on a shape that differs."""
+    from repro_torch.models.transformer import Transformer
+
+    flat: dict[str, np.ndarray] = {}
+    top = {k: v for k, v in tree.items() if k not in ("prefix", "groups")}
+    _flatten(top, "", flat)
+    prefix, groups = list(tree.get("prefix", [])), list(tree.get("groups", []))
+    n_pre, n_pat = len(cfg.prefix), len(cfg.pattern)
+    if len(prefix) != n_pre or len(groups) != n_pat:
+        raise ValueError(f"tree has {len(prefix)} prefix blocks and {len(groups)} pattern groups; "
+                         f"{cfg.name} has {n_pre} and {n_pat}")
+    for i, blk in enumerate(prefix):
+        _flatten(blk, f"layers.{i}", flat)
+    for j, grp in enumerate(groups):
+        stacked: dict[str, np.ndarray] = {}
+        _flatten(grp, "", stacked)
+        for name, arr in stacked.items():
+            arr = np.asarray(arr)
+            if arr.ndim == 0 or arr.shape[0] != cfg.num_repeats:
+                raise ValueError(f"groups[{j}].{name}: shape {arr.shape} is not stacked over "
+                                 f"{cfg.num_repeats} repeats")
+            for r in range(cfg.num_repeats):
+                flat[f"layers.{n_pre + r * n_pat + j}.{name}"] = arr[r]
+
+    model = Transformer(cfg, device)
+    params = dict(model.named_parameters())
+    missing, extra = sorted(set(params) - set(flat)), sorted(set(flat) - set(params))
+    if missing or extra:
+        raise ValueError(f"parameter trees differ: missing {missing}, unexpected {extra}")
+    with torch.no_grad():
+        for name, p in params.items():
+            arr = np.asarray(flat[name])
+            if arr.shape != tuple(p.shape):
+                raise ValueError(f"{name}: shape {arr.shape}, the port expects {tuple(p.shape)}")
+            if arr.dtype.kind != "f" or arr.dtype.itemsize < 4:  # bfloat16 has no numpy type
+                arr = arr.astype(np.float32)
+            p.copy_(torch.tensor(arr))
+    return model

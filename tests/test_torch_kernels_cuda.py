@@ -14,6 +14,8 @@ import torch
 from repro_torch.core import distributions as td
 from repro_torch.core import pdf_error as tpe
 from repro_torch.core import grouping as tg
+from repro_torch.kernels.band_attn import kernel as tbk
+from repro_torch.kernels.band_attn import banded_attention, banded_attention_ref
 from repro_torch.kernels.fitpdf import kernel as tk
 from repro_torch.kernels.hist import kernel as thk
 from repro_torch.kernels.moments import kernel as tmk
@@ -201,3 +203,73 @@ def test_new_kernels_reject_bad_inputs(dev):
         tk.fit_error_counts(x, *args, row_indices=torch.arange(1, 7, device=dev))
     with pytest.raises(TypeError):
         tk.fit_error_counts(x, *args, row_indices=torch.arange(6, device=dev, dtype=torch.int32))
+
+
+# K5 against its plain version. (B, S, H, KV, hd, W): GQA, MHA, ragged
+# tails, G = 3, S < W, S = 1, and hd 256 / 136 / 40 (the kernel's per-lane
+# dimension count 8, 5 and 2, the last two partly filled).
+BAND_CASES = [
+    (2, 64, 4, 2, 16, 16),
+    (1, 48, 8, 8, 32, 16),
+    (2, 50, 4, 2, 16, 16),
+    (1, 128, 6, 2, 64, 32),
+    (1, 8, 2, 1, 8, 16),
+    (1, 1, 2, 1, 8, 4),
+    (2, 700, 4, 2, 256, 1024),
+    (1, 2500, 4, 2, 256, 1024),
+    (2, 300, 4, 4, 40, 100),
+    (1, 129, 2, 1, 136, 64),
+]
+# float32: the repo's attention tolerance; bf16: both round a float32 row
+# once, so one bf16 ulp (at most 2**-7 of the value) plus the float32
+# summation-order difference (chip_smoke.py's K5_TOL).
+BAND_TOL = {torch.float32: dict(rtol=0.0, atol=2e-5), torch.bfloat16: dict(rtol=2.0**-7, atol=2e-5)}
+
+
+def _band_inputs(case, dtype, dev):
+    b, s, h, kv, hd, _ = case
+    rng = np.random.default_rng(s * 1000 + hd)
+    return tuple(torch.from_numpy((std * rng.standard_normal(shape)).astype(np.float32)).to(dev).to(dtype)
+                 for shape, std in (((b, s, h, hd), 0.5), ((b, s, kv, hd), 0.5), ((b, s, kv, hd), 1.0)))
+
+
+@pytest.mark.parametrize("case", BAND_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_banded_attention_kernel(dev, case, dtype):
+    q, k, v = _band_inputs(case, dtype, dev)
+    w = case[-1]
+    before = tbk.banded_attention_kernel.launches
+    got = banded_attention(q, k, v, w)
+    again = tbk.banded_attention_kernel(q, k, v, w)
+    want = banded_attention_ref(q, k, v, w)
+    torch.cuda.synchronize()
+    assert tbk.banded_attention_kernel.launches == before + 2
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), want.float(), **BAND_TOL[dtype])
+    if case[1] > w:  # a window off by one must not pass
+        with pytest.raises(AssertionError):
+            torch.testing.assert_close(got.float(), banded_attention_ref(q, k, v, w - 1).float(),
+                                       **BAND_TOL[dtype])
+
+
+def test_banded_attention_kernel_rejects(dev):
+    """A CUDA tensor the kernel does not take raises; nothing falls back."""
+    q, k, v = _band_inputs((1, 64, 4, 2, 16, 16), torch.bfloat16, dev)
+    before = tbk.banded_attention_kernel.launches
+    with pytest.raises(TypeError):
+        banded_attention(q.half(), k.half(), v.half(), 16)
+    with pytest.raises(TypeError):
+        banded_attention(q.double(), k.double(), v.double(), 16)
+    for hd in (12, 264):
+        shapes = [(1, 64, 4, hd), (1, 64, 2, hd), (1, 64, 2, hd)]
+        with pytest.raises(ValueError):
+            banded_attention(*(torch.zeros(sh, dtype=torch.bfloat16, device=dev) for sh in shapes), 16)
+    with pytest.raises(ValueError):
+        tbk.banded_attention_kernel(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, 16)
+    base = torch.zeros(q.numel() + 8, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):  # 2 bytes off a 16-byte boundary
+        tbk.banded_attention_kernel(base[1:1 + q.numel()].view(q.shape), k, v, 16)
+    with pytest.raises(ValueError):
+        banded_attention(q, k.cpu(), v, 16)
+    assert tbk.banded_attention_kernel.launches == before
