@@ -31,8 +31,10 @@ Last comes the LM serving path (``band_attn``, K5):
 
 * K5 against its plain version at the serving shape (B 4, S 4096, H 16,
   KV 8, hd 256, W 1024, bf16), a ragged S = 4000 and an S = 700 < W:
-  within a bf16 ulp, repeats bitwise, launches counted, and a window off
-  by one rejected by the same check;
+  each output row's relative distance from the float32 truth within twice
+  that of the plain version with the oracle's bf16 weights, repeats
+  bitwise, launches counted, and a window off by one rejected by the same
+  gate;
 * gemma3-12b at full width cut to 12 layers (10 local, 2 global), random
   weights from a seeded generator on the card: ``generate`` on 4 prompts
   of 4,096 tokens and 16 greedy tokens with the counts set to 0 (10 K5
@@ -105,12 +107,16 @@ LM_LOCAL_LAYERS = 10
 LM_BATCH = 4  # serve_decode's default
 LM_PROMPT = 4096
 LM_TOKENS = 16
-# K5 against its plain version, bf16 out: both compute the row in float32
-# and round once; only the order of the sums differs (float32, ~1e-6 of the
-# output), so they may round to neighbouring bf16 values: one bf16 ulp is at
-# most 2**-7 of the value, and 2e-5 (the repo's float32 attention
-# tolerance) covers the float32 difference where the value is near 0.
-K5_TOL = dict(rtol=2.0**-7, atol=2e-5)
+# K5 in bf16 against the plain version, per query row: the bf16 kernel
+# rounds the softmax weights to bf16 for the P V product, as the
+# reference's oracle does (repro/kernels/band_attn/ref.py:24), so a per-entry
+# tolerance no longer holds near 0. The gate is ref.row_errors, the
+# relative 2-norm distance of each output row from the plain version on
+# the float32 inputs (output kept in float32): the kernel's worst row may
+# be at most K5_TOL times the worst row of the plain version with the
+# oracle's rounding (round_weights=True). The plain version at window
+# W - 1 must fail the same gate.
+K5_TOL = 2.0
 # (B, S, H, KV, hd, W): the serving shape, a ragged S and an S < W.
 K5_CASES = ((4, 4096, 16, 8, 256, 1024), (4, 4000, 16, 8, 256, 1024), (4, 700, 16, 8, 256, 1024))
 
@@ -575,10 +581,10 @@ def run_slice_phase(np, torch, sim, slice_i, types, num_bins, dev, expect_launch
 # ---------------------------------------------------------------------------
 
 
-def time_cuda(torch, fn, reps, flush) -> float:
-    """Median ms of ``fn()`` over ``reps`` runs, CUDA events around each,
-    with L2 flushed before each (the main path's K1 reads a freshly copied
-    window)."""
+def cuda_times(torch, fn, reps, flush) -> list:
+    """ms of ``fn()`` in each of ``reps`` runs after 3 warm-ups, CUDA events
+    around each, with L2 flushed before each (the main path's K1 reads a
+    freshly copied window)."""
     for _ in range(3):
         fn()
     times = []
@@ -590,8 +596,17 @@ def time_cuda(torch, fn, reps, flush) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
-    times.sort()
-    return times[len(times) // 2]
+    return times
+
+
+def median(xs) -> float:
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def time_cuda(torch, fn, reps, flush) -> float:
+    """Median ms of ``fn()`` over ``reps`` runs (``cuda_times``)."""
+    return median(cuda_times(torch, fn, reps, flush))
 
 
 def bound_ms(bytes_moved: int, f32_ops: int, f64_ops: int = 0) -> tuple[float, str]:
@@ -881,12 +896,13 @@ def band_inputs(np, torch, dev):
 
 def compare_band_attn(np, torch, dev):
     """K5 against its plain version at K5_CASES (each a prefix of one seeded
-    draw): within K5_TOL, a repeat bitwise equal, the launch count up by one
+    draw): its worst row within K5_TOL times that of the plain version with
+    the oracle's rounding, a repeat bitwise equal, the launch count up by one
     a launch, and where S > W a window off by one (the plain version at
-    W - 1) rejected by the same check. Returns (the serving inputs, the max
-    abs difference over the cases)."""
+    W - 1) rejected by the same gate. Returns (the serving inputs, the max
+    abs difference from the plain version over the cases)."""
     from repro_torch.kernels.band_attn import kernel as bk
-    from repro_torch.kernels.band_attn.ref import banded_attention_ref
+    from repro_torch.kernels.band_attn.ref import banded_attention_ref, row_errors
 
     qkv = band_inputs(np, torch, dev)
     worst = 0.0
@@ -898,29 +914,35 @@ def compare_band_attn(np, torch, dev):
         check(bk.banded_attention_kernel.launches == before + 1, f"[K5] {case}: launch not counted")
         again = bk.banded_attention_kernel(q, k, v, w)
         check(bk.banded_attention_kernel.launches == before + 2, f"[K5] {case}: launch not counted")
-        want = banded_attention_ref(q, k, v, w)
         sync(torch, dev)
         check(got.dtype == torch.bfloat16 and got.shape == q.shape, f"[K5] {case}: output {got.dtype} "
               f"{tuple(got.shape)}")
         check(torch.equal(got, again), f"[K5] {case}: repeat launch differs")
         check(bool(torch.isfinite(got).all()), f"[K5] {case}: non-finite output")
-        n_bad, max_abs, max_rel = diff_report(torch, got, want, **K5_TOL)
-        check(n_bad == 0, f"[K5] {case}: {n_bad} entries outside {K5_TOL} (max abs {max_abs}, "
-                          f"max rel {max_rel})")
+        del again
+        truth = banded_attention_ref(q.float(), k.float(), v.float(), w)
+        e_got = float(row_errors(got, truth).max())
+        e_oracle = float(row_errors(banded_attention_ref(q, k, v, w, round_weights=True), truth).max())
+        limit = K5_TOL * e_oracle
+        check(e_got <= limit, f"[K5] {case}: worst row {e_got} above {K5_TOL} x the oracle "
+                              f"rounding's {e_oracle}")
+        want = banded_attention_ref(q, k, v, w)
+        max_abs = float((got.float() - want.float()).abs().max())
         n_diff = int((got != want).sum())
+        del want
         planted = "no window edge at S <= W"
         if s > w:
-            off = banded_attention_ref(q, k, v, w - 1)
-            n_off = diff_report(torch, got, off, **K5_TOL)[0]
-            check(n_off > 0, f"[K5] {case}: the plain version at window W - 1 passes the check")
-            planted = f"the plain version at W - 1 rejected ({n_off} entries outside)"
-            del off
+            e_off = float(row_errors(banded_attention_ref(q, k, v, w - 1), truth).max())
+            check(e_off > limit, f"[K5] {case}: the plain version at window W - 1 passes the gate "
+                                 f"(worst row {e_off} <= {limit})")
+            planted = f"the plain version at W - 1 rejected (worst row {e_off})"
         worst = max(worst, max_abs)
-        log(f"[K5] (B, S, H, KV, hd, W) = {case} bf16: within rtol 2**-7 atol 2e-5 of the plain "
-            f"version (max abs {max_abs}, max rel {max_rel}, {n_diff} of {got.numel()} outputs not "
-            f"bitwise equal), repeat bitwise, launches counted; {planted}")
-        del got, again, want
-    torch.cuda.empty_cache()
+        log(f"[K5] (B, S, H, KV, hd, W) = {case} bf16: worst row |got - truth| / |truth| {e_got}, "
+            f"limit {limit} ({K5_TOL} x the oracle rounding's {e_oracle}); max abs from the plain "
+            f"version {max_abs} ({n_diff} of {got.numel()} outputs not bitwise equal); repeat bitwise, "
+            f"launches counted; {planted}")
+        del got, truth
+        torch.cuda.empty_cache()
     return qkv, worst
 
 
@@ -1009,9 +1031,9 @@ def serve_phase(np, torch, dev, smi):
     check(read_counts()["banded_attention_kernel"] == 0, "[lm] K5 launched on the plain path")
     d_band = float((logits - plain).abs().max())
     d_bf16 = float((plain - f32).abs().max())
-    # Tolerance: the banded path (K5, float32 weights and sum) may move the
-    # logits at most twice as far from the plain bf16 path as bf16 compute
-    # itself moves them from float32 compute.
+    # Tolerance: the banded path (K5: bf16 weights, float32 softmax and
+    # sum) may move the logits at most twice as far from the plain bf16 path
+    # as bf16 compute itself moves them from float32 compute.
     tol = 2.0 * d_bf16
     check(d_band <= tol, f"[lm] banded vs plain prefill logits differ by {d_band}, more than {tol}")
     top2 = torch.topk(plain, 2, dim=-1).values
@@ -1072,10 +1094,36 @@ def profile_lm(torch, model, cfg, prompt, dev, prefill_s, decode_ms):
     return out
 
 
+def sdpa_backends(torch, fn, dev) -> dict:
+    """Which SDPA backends take ``fn``'s inputs (each alone through
+    ``sdpa_kernel``), and the device kernels three calls of ``fn`` launch
+    under torch.profiler, longest first."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.profiler import ProfilerActivity, profile
+
+    takes = []
+    for name in ("CUDNN_ATTENTION", "FLASH_ATTENTION", "EFFICIENT_ATTENTION", "MATH"):
+        try:
+            with sdpa_kernel(getattr(SDPBackend, name)):
+                fn()
+                sync(torch, dev)
+            takes.append(name)
+        except RuntimeError:
+            pass
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fn()
+        sync(torch, dev)
+    return dict(takes=takes, kernels=[e.key[:100] for e in device_events(prof)][:4])
+
+
 def time_band_attn(np, torch, qkv, dev, launches, max_abs_err):
     """CUDA-event medians of K5, its plain version and SDPA with the band
     as a boolean mask (the yardstick: one PyTorch call computing the same
-    function; the port never calls it) at the serving shape."""
+    function; the port never calls it) at the serving shape, in turns
+    (K5, plain, SDPA, then K5 and SDPA again: each median over both turns),
+    with K5's share of its bound and useful TFLOP/s, and the kernels SDPA
+    launched."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.band_attn import kernel as bk
@@ -1085,30 +1133,43 @@ def time_band_attn(np, torch, qkv, dev, launches, max_abs_err):
     b, s, h, hd = q.shape
     kvh, w = k.shape[2], K5_CASES[0][-1]
     flush = torch.empty(128 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
-    ms = time_cuda(torch, lambda: bk.banded_attention_kernel(q, k, v, w), 20, flush)
-    plain = time_cuda(torch, lambda: banded_attention_ref(q, k, v, w), 5, flush)
     i = torch.arange(s, device=dev)
     band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - w)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
+    def kernel():
+        return bk.banded_attention_kernel(q, k, v, w)
+
     def sdpa():
         return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band, enable_gqa=True)
 
-    lib = time_cuda(torch, sdpa, 20, flush)
-    lib_err = float((sdpa().transpose(1, 2).float() - bk.banded_attention_kernel(q, k, v, w).float())
-                    .abs().max())
+    ms_runs = [cuda_times(torch, kernel, 20, flush)]
+    plain = time_cuda(torch, lambda: banded_attention_ref(q, k, v, w), 5, flush)
+    lib_runs = [cuda_times(torch, sdpa, 20, flush)]
+    ms_runs.append(cuda_times(torch, kernel, 20, flush))
+    lib_runs.append(cuda_times(torch, sdpa, 20, flush))
+    ms, lib = median(ms_runs[0] + ms_runs[1]), median(lib_runs[0] + lib_runs[1])
+    lib_err = float((sdpa().transpose(1, 2).float() - kernel().float()).abs().max())
+    lib_backends = sdpa_backends(torch, sdpa, dev)
     flops = 4 * hd * band_pairs(s, w) * b * h
     nbytes = q.element_size() * (2 * b * s * h * hd + 2 * b * s * kvh * hd)
     t_ops, t_bytes = flops / BF16_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     bound, by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    tflops = flops / (ms * 1e-3) / 1e12
+    attrs = bk.tc_attributes(hd, h, kvh) if dev.type == "cuda" else {}
+    log(f"[K5] the bf16 kernel's instantiation for hd {hd}, {h}/{kvh} heads: {json.dumps(attrs)} "
+        f"(registers a thread, local memory bytes a thread: 0 means no spills, dynamic shared memory "
+        f"bytes a block)")
     log(f"[time] K5 banded_attention_kernel (B, S, H, KV, hd, W) = {(b, s, h, kvh, hd, w)} bf16: "
-        f"kernel {ms} ms, plain {plain} ms, SDPA with a boolean band mask {lib} ms (max abs "
-        f"{lib_err} from K5); bound {bound} ms by {by} ({flops} FLOPs at the bf16 peak {t_ops} ms, "
-        f"{nbytes} B {t_bytes} ms); {flops / (ms * 1e-3) / 1e12} TFLOP/s achieved")
+        f"kernel {ms} ms (medians of its two turns {[median(t) for t in ms_runs]}), plain {plain} ms, "
+        f"SDPA with a boolean band mask {lib} ms (turns {[median(t) for t in lib_runs]}; max abs {lib_err} from K5; backends that take it {lib_backends['takes']}, kernels of the default {lib_backends['kernels']}); bound {bound} ms "
+        f"by {by} ({flops} FLOPs at the bf16 peak {t_ops} ms, {nbytes} B {t_bytes} ms); "
+        f"{100 * bound / ms} % of bound, {tflops} TFLOP/s useful; K5 / SDPA {ms / lib}")
     return dict(name="banded_attention_kernel", route="cuda", source="src/repro_torch/csrc/band_attn.cu",
                 replaces="src/repro/kernels/band_attn/kernel.py:28",
                 launches=launches["banded_attention_kernel"], max_abs_err=max_abs_err,
-                ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=lib)
+                ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=lib,
+                bound_share=bound / ms, tflops=tflops, library_kernels=lib_backends["kernels"], **attrs)
 
 
 def main() -> int:

@@ -1,42 +1,70 @@
-// Hopper (sm_90a) kernel of the LM serving path: repro_torch.kernels.band_attn.
+// Hopper (sm_90a) kernels of the LM serving path: repro_torch.kernels.band_attn.
 //
 // band_attn  replaces repro/kernels/band_attn/kernel.py::banded_attention_kernel
 //            (Pallas, pallas_call at l.92): causal sliding-window GQA
-//            attention. q (B, S, H, hd), k/v (B, S, KV, hd), float32 or
-//            bfloat16; key j is valid for query i iff i - W < j <= i and
-//            j < S; head h reads kv head h / (H / KV). Scores, softmax and
-//            the weighted sum are float32; out (B, S, H, hd) in q's type.
+//            attention. q (B, S, H, hd), k/v (B, S, KV, hd), bfloat16 or
+//            float32; key j is valid for query i iff i - W < j <= i and
+//            j < S; head h reads kv head h / (H / KV). The softmax is
+//            float32; out (B, S, H, hd) in q's type.
 //
 // Bound on an H100 at the serving shape (B 4, S 4096, H 16, KV 8, hd 256,
 // W 1024, bf16): the useful work is 4 * hd FLOPs per valid (query, key)
 // pair (q.k and p*v), and a (b, h) has W(W+1)/2 + (S-W)W = 3,670,528 valid
 // pairs, so 2.41e11 FLOPs: 0.243 ms at the 989 TFLOP/s bf16 tensor-core
 // peak. The bytes are q, k, v and out read or written once, 402.7 MB, 0.120
-// ms at 3.35 TB/s. So it is bound by operations at 0.243 ms. This kernel
-// runs its arithmetic in float32 on the CUDA cores (67 TFLOP/s), which
-// cannot beat about 3.6 ms; tensor cores (mma / wgmma) are later work.
+// ms at 3.35 TB/s. So it is bound by operations at 0.243 ms, and only the
+// tensor cores can come near it: the CUDA cores' 67 TFLOP/s of float32
+// cannot beat about 3.6 ms.
 //
 // The TPU kernel holds (W, 2W) float32 score tiles in VMEM: 8 MB at
-// W = 1024, far above a block's 227 KB of shared memory. This one is an
-// online softmax instead. A block owns one (b, h) and a tile of kBQ = 64
-// query rows (8 warps x 8 rows); it walks the key tiles of kBK = 32 keys
-// from max(0, q0 - W + 1) to its last query, so it reads only the band.
-// The q tile sits in shared memory as float32 (read by every key tile);
-// each key/value tile is copied in as it comes (input type). Per key tile:
-// lane j of a warp takes key j and computes its 8 rows' scores (q rows
-// broadcast from shared memory, 16-byte loads; the k row stride is padded
-// by 16 bytes so the lanes' loads hit distinct banks), then each row's
+// W = 1024, far above a block's 227 KB of shared memory. Both routes here
+// are an online softmax over tiles of the band instead.
+//
+// bfloat16 (band_attn_tc_kernel), on the tensor cores:
+// * A block takes one 64-row query tile of NWG query heads that share a kv
+//   head (NWG = 2 when H / KV is even, so both heads of a gemma3 group;
+//   else 1), one warpgroup (128 threads) a head. Each K/V tile in shared
+//   memory feeds all NWG warpgroups.
+// * It walks key tiles of 64 from max(0, q0 - W + 1) to its last query:
+//   ceil((64 + W - 1) / 64) tiles, about 6 % more pairs than the band's.
+//   Only a tile that holds an invalid pair (the band's two edge tiles, the
+//   tail beyond S) is masked; interior tiles take no mask.
+// * S = Q K^T is wgmma m64n64k16 with Q and K read from shared memory
+//   through matrix descriptors; O += P V is wgmma m64nNk16 with P from
+//   registers and V from shared memory in the transposed (MN-major) B
+//   layout, N = the head dim padded to 16 in chunks of 256/128/64/32/16.
+//   Both accumulate in float32. Tiles are in the no-swizzle core-matrix
+//   layout (8 rows x 16 bytes, 128 contiguous bytes); hd is padded to a
+//   multiple of 16 with zero columns in shared memory (written once), not
+//   with a padded copy in device memory.
+// * The online softmax stays in float32 registers: each thread holds two
+//   rows' running max and partial sum; the row max goes through a fixed
+//   xor-shuffle over the 4 threads of a row, the sum once at the end. P is
+//   rounded to bf16 only as the operand of P V, as the reference's oracle
+//   rounds its weights to q's type (repro/kernels/band_attn/ref.py:24).
+// * K/V tiles are double-buffered: tile k+1 is copied with cp.async
+//   (zero-filled beyond S) while tile k's products run; one
+//   cp.async.wait_group, fence.proxy.async and __syncthreads a tile.
+// * The output goes through shared memory (the Q tile's space) so the
+//   stores to device memory are 16 bytes a thread.
+// * No atomics and a fixed order of summation: a repeat is bitwise equal.
+// Shared memory (NWG + 4) x 64 x HDP x 2 bytes: 196,608 B at hd 256.
+//
+// float32 (band_attn_kernel), on the CUDA cores, where tensor cores would
+// give up the accuracy the caller asked for: a block owns one (b, h) and a
+// tile of kBQ = 64 query rows (8 warps x 8 rows); it walks key tiles of
+// kBK = 32 keys over the band. The q tile sits in shared memory; each key
+// tile is copied in as it comes. Per key tile: lane j of a warp takes key
+// j and computes its 8 rows' scores (16-byte loads; the k row stride is
+// padded by 16 bytes so the lanes' loads hit distinct banks), each row's
 // running max and sum are updated with a fixed xor-shuffle butterfly, and
 // p * v is added key by key into a float32 accumulator of 8 rows x hd
-// spread over the lanes (dimension lane + 32 c). No atomics and a fixed
-// order of summation: a repeat is bitwise equal. Masked keys get weight 0
-// (the reference's -1e30 score gives exp() == 0), the tail beyond S is
-// masked in the kernel (no padded copy), and the output is the
-// accumulator over max(sum, 1e-30), rounded once to the output type.
+// spread over the lanes. Masked keys get weight 0 and the output is the
+// accumulator over max(sum, 1e-30). Shared memory 132,608 B at hd 256.
 //
-// Shared memory at hd = 256 is 99,840 B (bf16) or 132,608 B (float32),
-// above the 48 KB default: band_attn opts in with cudaFuncSetAttribute
-// and returns its error if that or the launch is refused.
+// Both opt in to dynamic shared memory above 48 KB with
+// cudaFuncSetAttribute and return its error if that or the launch is
+// refused.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false -shared
 // (kernels/_build.py); plain C interface, bound with ctypes. The launch is
@@ -46,6 +74,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "wgmma.cuh"
 
 namespace {
 
@@ -68,24 +98,8 @@ template <> struct Chunk<float> {
   }
 };
 
-template <> struct Chunk<__nv_bfloat16> {
-  static constexpr int E = 8;
-  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float* out) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      out[2 * i] = f.x;
-      out[2 * i + 1] = f.y;
-    }
-  }
-};
-
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -284,6 +298,308 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   }
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16: tensor cores (wgmma)
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kRows = 64;  // query rows of a warpgroup's tile; keys of a K/V tile
+constexpr int kWgThreads = 128;
+
+// Byte offset of element (r, c) of a kRows x HDP bf16 tile in the
+// core-matrix layout: 8 x 8 core matrices of 128 contiguous bytes (row r % 8
+// at 16 (r % 8)), consecutive along the columns, then by groups of 8 rows.
+// Chunk c16 = (r / 8 * HDP / 8 + c / 8) * 8 + r % 8 holds 16 bytes.
+template <int HDP>
+__device__ __forceinline__ uint32_t cm_offset(int r, int c) {
+  return (uint32_t)((((r >> 3) * (HDP / 8) + (c >> 3)) * 8 + (r & 7)) * 16 + (c & 7) * 2);
+}
+
+// A wgmma matrix descriptor without swizzle: start address, the byte
+// offset between core matrices along K (leading) and along M or N (stride).
+__device__ __forceinline__ uint64_t descriptor(uint32_t addr, uint32_t lead, uint32_t stride) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lead >> 4) << 16) |
+         ((uint64_t)(stride >> 4) << 32);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+// Makes this thread's writes to shared memory visible to wgmma's reads.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Copy rows [r0, r0 + kRows) of a sequence (row stride ld elements) into a
+// core-matrix tile at shared address dst with cp.async: the hd / 8 chunks
+// of a row that hold data, rows at or beyond S zero-filled. Consecutive
+// threads take consecutive rows of a core matrix, so a warp writes 512
+// contiguous bytes of shared memory and reads 64 bytes of each of 8 rows.
+template <int HDP, int NT>
+__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src, long long ld, int r0,
+                                          int S, int hd) {
+  constexpr int kChunks = HDP / 8;  // 16-byte chunks a row
+  const int valid = hd / 8;
+  for (int c = threadIdx.x; c < kRows * kChunks; c += NT) {
+    const int rest = c >> 3;
+    const int cc = rest % kChunks, row = r0 + (rest / kChunks) * 8 + (c & 7);
+    if (cc >= valid) continue;
+    const bool in = row < S;
+    cp_async16(dst + c * 16, src + (in ? (long long)row * ld + cc * 8 : 0), in);
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(kFull, x, 1));
+  return fmaxf(x, __shfl_xor_sync(kFull, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(kFull, x, 1);
+  return x + __shfl_xor_sync(kFull, x, 2);
+}
+
+// O (64 x HDP) += P (64 x 16, registers) V (16 x HDP at shared address v):
+// one wgmma for each chunk of 256/128/64/32/16 columns, from column C0 on.
+template <int HDP, int C0 = 0>
+__device__ __forceinline__ void pv_product(float* acc, const uint32_t* p, uint32_t v) {
+  constexpr int kRem = HDP - C0;
+  if constexpr (kRem > 0) {
+    constexpr int N = kRem >= 256 ? 256 : kRem >= 128 ? 128 : kRem >= 64 ? 64 : kRem >= 32 ? 32 : 16;
+    // MN-major B (V): groups of 8 keys HDP * 16 bytes apart along K (the
+    // leading offset), core matrices 128 bytes apart along N (the stride).
+    wgmma::rs<N>(acc + C0 / 2, p, descriptor(v + (C0 / 8) * 128, HDP * 16, 128), 1);
+    pv_product<HDP, C0 + N>(acc, p, v);
+  }
+}
+
+template <int HDP, int NWG>
+__global__ void __launch_bounds__(NWG * kWgThreads, 1)
+band_attn_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, bf16* __restrict__ o, int S, int H, int KV,
+                    int hd, int W, float scale_log2) {
+  constexpr int NT = NWG * kWgThreads;
+  constexpr uint32_t kTile = kRows * HDP * 2;  // bytes of one tile
+  constexpr uint32_t kGroup = HDP * 16;        // bytes between groups of 8 rows
+  constexpr int kAcc = HDP / 2;                // O accumulators a thread
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t sq = (uint32_t)__cvta_generic_to_shared(smem);  // NWG Q tiles
+  const uint32_t sk = sq + NWG * kTile;                          // 2 K tiles
+  const uint32_t sv = sk + 2 * kTile;                            // 2 V tiles
+
+  const int tid = threadIdx.x, wg = tid / kWgThreads;
+  const int warp = (tid % kWgThreads) >> 5, lane = tid & 31, quad = lane & 3;
+  const int q0 = blockIdx.x * kRows, b = blockIdx.z;
+  const int h0 = blockIdx.y * NWG, kvh = h0 / (H / KV);
+  const long long q_ld = (long long)H * hd, kv_ld = (long long)KV * hd;
+  const bf16* kb = k + (long long)b * S * kv_ld + (long long)kvh * hd;
+  const bf16* vb = v + (long long)b * S * kv_ld + (long long)kvh * hd;
+
+  // Zero the tiles once: the columns hd..HDP are never written again.
+  for (uint32_t i = tid * 16; i < (NWG + 4) * kTile; i += NT * 16)
+    *reinterpret_cast<uint4*>(smem + i) = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+
+  const int q_last = min(q0 + kRows, S) - 1;
+  const int k_first = max(0, q0 - W + 1);
+#pragma unroll
+  for (int g = 0; g < NWG; ++g)
+    load_tile<HDP, NT>(sq + g * kTile, q + (long long)b * S * q_ld + (long long)(h0 + g) * hd,
+                       q_ld, q0, S, hd);
+  load_tile<HDP, NT>(sk, kb, kv_ld, k_first, S, hd);
+  load_tile<HDP, NT>(sv, vb, kv_ld, k_first, S, hd);
+  cp_async_commit();
+
+  // This thread's rows of the tile: r0 and r0 + 8.
+  const int r0 = warp * 16 + (lane >> 2);
+  const int qi0 = q0 + r0, qi1 = qi0 + 8;
+  const uint32_t qt = sq + wg * kTile;
+  float acc[kAcc];
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  int stage = 0;
+  for (int kt = k_first; kt <= q_last; kt += kRows, stage ^= 1) {
+    cp_async_wait_all();
+    fence_async_smem();
+    __syncthreads();  // tile kt has landed, and every warpgroup is done with the other buffer
+    if (kt + kRows <= q_last) {
+      load_tile<HDP, NT>(sk + (stage ^ 1) * kTile, kb, kv_ld, kt + kRows, S, hd);
+      load_tile<HDP, NT>(sv + (stage ^ 1) * kTile, vb, kv_ld, kt + kRows, S, hd);
+    }
+    cp_async_commit();
+    const uint32_t kt_s = sk + stage * kTile, vt_s = sv + stage * kTile;
+
+    // S = Q K^T, both K-major: core matrices 128 bytes apart along hd.
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    wgmma::fence();
+    wgmma::fence_operands<32>(s);
+#pragma unroll
+    for (int kk = 0; kk < HDP / 16; ++kk) {
+      wgmma::ss_n64(s, descriptor(qt + kk * 256, 128, kGroup), descriptor(kt_s + kk * 256, 128, kGroup), 1);
+    }
+    wgmma::commit();
+    wgmma::wait<0>();
+    wgmma::fence_operands<32>(s);
+
+    // Mask only a tile that holds an invalid pair.
+    const bool interior = kt + kRows - 1 <= q0 && kt > q0 + kRows - 1 - W && kt + kRows <= S;
+    if (!interior) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = kt + 8 * j + 2 * quad + e;
+          if (!(key <= qi0 && key > qi0 - W && key < S)) s[4 * j + e] = -INFINITY;
+          if (!(key <= qi1 && key > qi1 - W && key < S)) s[4 * j + 2 + e] = -INFINITY;
+        }
+      }
+    }
+
+    // Online softmax in float32: scores in log2 units, scale folded in.
+    float x0 = -INFINITY, x1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      x0 = fmaxf(x0, fmaxf(s[4 * j], s[4 * j + 1]));
+      x1 = fmaxf(x1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+    }
+    const float n0 = fmaxf(m0, quad_max(x0)), n1 = fmaxf(m1, quad_max(x1));
+    const float ref0 = n0 == -INFINITY ? 0.f : n0 * scale_log2;
+    const float ref1 = n1 == -INFINITY ? 0.f : n1 * scale_log2;
+    const float a0 = exp2f(m0 * scale_log2 - ref0), a1 = exp2f(m1 * scale_log2 - ref1);
+    m0 = n0;
+    m1 = n1;
+    float p0 = 0.f, p1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[4 * j + e] = exp2f(__fmaf_rn(s[4 * j + e], scale_log2, -ref0));
+        s[4 * j + 2 + e] = exp2f(__fmaf_rn(s[4 * j + 2 + e], scale_log2, -ref1));
+        p0 += s[4 * j + e];
+        p1 += s[4 * j + 2 + e];
+      }
+    }
+    l0 = l0 * a0 + p0;
+    l1 = l1 * a1 + p1;
+#pragma unroll
+    for (int j = 0; j < kAcc / 4; ++j) {
+      acc[4 * j] *= a0;
+      acc[4 * j + 1] *= a0;
+      acc[4 * j + 2] *= a1;
+      acc[4 * j + 3] *= a1;
+    }
+    // P in bf16 as wgmma's A fragments: keys 16 kk .. 16 kk + 15.
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+
+    // O += P V.
+    wgmma::fence();
+    wgmma::fence_operands<kAcc>(acc);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) pv_product<HDP>(acc, pa[kk], vt_s + kk * 2 * kGroup);
+    wgmma::commit();
+    wgmma::wait<0>();
+    wgmma::fence_operands<kAcc>(acc);
+  }
+
+  // Normalise, stage the bf16 rows in this warpgroup's Q tile, then store
+  // them 16 bytes a thread.
+  const float d0 = fmaxf(quad_sum(l0), 1e-30f), d1 = fmaxf(quad_sum(l1), 1e-30f);
+  __syncthreads();  // every warpgroup's products have read their Q tile
+#pragma unroll
+  for (int j = 0; j < kAcc / 4; ++j) {
+    const int c = 8 * j + 2 * quad;
+    *reinterpret_cast<uint32_t*>(smem + wg * kTile + cm_offset<HDP>(r0, c)) =
+        pack_bf16(acc[4 * j] / d0, acc[4 * j + 1] / d0);
+    *reinterpret_cast<uint32_t*>(smem + wg * kTile + cm_offset<HDP>(r0 + 8, c)) =
+        pack_bf16(acc[4 * j + 2] / d1, acc[4 * j + 3] / d1);
+  }
+  __syncthreads();
+  constexpr int kChunks = HDP / 8;
+  for (int c = tid; c < NWG * kRows * kChunks; c += NT) {
+    const int g = c / (kRows * kChunks), cl = c - g * kRows * kChunks;
+    const int rest = cl >> 3;
+    const int cc = rest % kChunks, row = q0 + (rest / kChunks) * 8 + (cl & 7);
+    if (cc >= hd / 8 || row >= S) continue;
+    *reinterpret_cast<uint4*>(o + ((long long)b * S + row) * q_ld + (long long)(h0 + g) * hd + cc * 8) =
+        *reinterpret_cast<const uint4*>(smem + g * kTile + cl * 16);
+  }
+}
+
+size_t smem_bytes(int hd, int nwg) { return (size_t)(nwg + 4) * kRows * ((hd + 15) / 16 * 16) * 2; }
+
+// What the launcher does with the instantiation for (HDP, NWG): launch it
+// or, with launch == false, report its registers and local memory.
+struct Call {
+  const void *q, *k, *v;
+  void* o;
+  int B, S, H, KV, hd, W;
+  float scale;
+  cudaStream_t stream;
+  bool launch;
+  int* attributes;  // registers, local memory bytes, dynamic shared memory bytes
+};
+
+template <int HDP, int NWG>
+cudaError_t run(const Call& c) {
+  const size_t smem = smem_bytes(c.hd, NWG);
+  if (!c.launch) {
+    cudaFuncAttributes a;
+    cudaError_t e = cudaFuncGetAttributes(&a, band_attn_tc_kernel<HDP, NWG>);
+    c.attributes[0] = a.numRegs;
+    c.attributes[1] = (int)a.localSizeBytes;
+    c.attributes[2] = (int)smem;
+    return e;
+  }
+  cudaError_t e = cudaFuncSetAttribute(band_attn_tc_kernel<HDP, NWG>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((unsigned)((c.S + kRows - 1) / kRows), (unsigned)(c.H / NWG), (unsigned)c.B);
+  band_attn_tc_kernel<HDP, NWG><<<grid, NWG * kWgThreads, smem, c.stream>>>(
+      static_cast<const bf16*>(c.q), static_cast<const bf16*>(c.k), static_cast<const bf16*>(c.v),
+      static_cast<bf16*>(c.o), c.S, c.H, c.KV, c.hd, c.W, c.scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
+template <int NWG>
+cudaError_t run_nwg(const Call& c) {
+  switch ((c.hd + 15) / 16) {
+#define BAND_HD(n) \
+  case n: return run<16 * n, NWG>(c);
+    BAND_HD(1) BAND_HD(2) BAND_HD(3) BAND_HD(4) BAND_HD(5) BAND_HD(6) BAND_HD(7) BAND_HD(8)
+    BAND_HD(9) BAND_HD(10) BAND_HD(11) BAND_HD(12) BAND_HD(13) BAND_HD(14) BAND_HD(15) BAND_HD(16)
+#undef BAND_HD
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Warpgroups a block: two heads of a kv group when H / KV is even.
+cudaError_t run(const Call& c) { return (c.H / c.KV) % 2 == 0 ? run_nwg<2>(c) : run_nwg<1>(c); }
+
+}  // namespace tc
+
 }  // namespace
 
 extern "C" {
@@ -299,12 +615,17 @@ int band_attn(const void* q, const void* k, const void* v, void* o, int dtype, i
   if (e != cudaSuccess) return (int)e;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) return (int)launch<float>(q, k, v, o, B, S, H, KV, hd, W, scale, s);
-  if (dtype == 1) return (int)launch<__nv_bfloat16>(q, k, v, o, B, S, H, KV, hd, W, scale, s);
+  if (dtype == 1) return (int)tc::run({q, k, v, o, B, S, H, KV, hd, W, scale, s, true, nullptr});
   return (int)cudaErrorInvalidValue;
 }
 
-size_t band_attn_smem_bytes(int dtype, int hd) {
-  return dtype == 0 ? smem_bytes<float>(hd) : smem_bytes<__nv_bfloat16>(hd);
+// The bf16 kernel's instantiation for (hd, H, KV): attributes[0..2] =
+// registers a thread, local memory bytes a thread (spills), dynamic shared
+// memory bytes a block.
+int band_attn_tc_attributes(int hd, int H, int KV, int* attributes) {
+  if (hd < 8 || hd > kMaxHd || hd % 8 != 0 || KV < 1 || H % KV != 0) return (int)cudaErrorInvalidValue;
+  return (int)tc::run({nullptr, nullptr, nullptr, nullptr, 1, 1, H, KV, hd, 1, 1.f, nullptr, false,
+                       attributes});
 }
 
 const char* band_attn_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

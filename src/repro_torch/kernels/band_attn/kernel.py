@@ -8,14 +8,18 @@ iff ``i - window < j <= i``. Bound on an H100 at the serving shape (B 4,
 S 4096, H 16, KV 8, hd 256, W 1024, bf16): operations, 2.41e11 useful
 FLOPs (4 hd per valid pair), 0.243 ms at the bf16 tensor-core peak, above
 the 402.7 MB of q, k, v and out (0.120 ms). Design (``csrc/band_attn.cu``):
-one block per (b, h, 64 query rows) walking 32-key tiles of the band with
-an online softmax in float32 on the CUDA cores, a fixed order of summation
-and no atomics, so a repeat is bitwise equal; the ragged tail is masked in
-the kernel, with no padded copy.
+an online softmax in float32 over tiles of the band, a fixed order of
+summation and no atomics, so a repeat is bitwise equal; the ragged tail is
+masked in the kernel, with no padded copy. bfloat16 runs on the tensor
+cores (wgmma: Q K^T and P V with float32 accumulators, P rounded to bf16
+as the reference's oracle rounds its weights; 64-row query tiles, one
+warpgroup per head of a kv group, double-buffered 64-key K/V tiles).
+float32 runs on the CUDA cores, so it keeps float32 products.
 
 The wrapper dispatches on the tensor's device: a CPU tensor gets the plain
 version (``ref.banded_attention_ref``), a CUDA tensor the kernel or an
-exception. It counts its launches in ``banded_attention_kernel.launches``.
+exception. It counts its launches, of either dtype, in
+``banded_attention_kernel.launches``.
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ def _library():
     return _launch.bind("band_attn", {
         "band_attn": ([vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, ctypes.c_float,
                        i32, vp], i32),
-        "band_attn_smem_bytes": ([i32, i32], _launch.SIZE_T),
+        "band_attn_tc_attributes": ([i32, i32, i32, ctypes.POINTER(ctypes.c_int)], i32),
     })
 
 
@@ -92,3 +96,14 @@ def banded_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 banded_attention_kernel.launches = 0
+
+
+def tc_attributes(head_dim: int, heads: int, kv_heads: int) -> dict:
+    """Registers a thread, local memory bytes a thread (nonzero if it
+    spills) and dynamic shared memory bytes a block of the bf16 kernel's
+    instantiation for these widths, from the CUDA runtime."""
+    lib = _library()
+    out = (ctypes.c_int * 3)()
+    rc = lib.band_attn_tc_attributes(head_dim, heads, kv_heads, out)
+    _launch.raise_if_failed(lib, "band_attn", rc, "band_attn_tc_attributes")
+    return dict(registers=out[0], local_bytes=out[1], smem_bytes=out[2])

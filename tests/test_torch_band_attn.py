@@ -14,6 +14,7 @@ from repro.kernels.band_attn import banded_attention as j_banded_attention
 from repro.kernels.band_attn import banded_attention_ref as j_banded_attention_ref
 from repro_torch.kernels.band_attn import banded_attention, banded_attention_ref
 from repro_torch.kernels.band_attn import kernel as tk
+from repro_torch.kernels.band_attn.ref import row_errors
 
 # (B, S, H, KV, hd, W): the reference's own CASES (test_band_attn_kernel.py:12-20)
 CASES = [
@@ -55,6 +56,44 @@ def test_banded_attention_matches_reference(case, dtype):
     want_ref = np.asarray(j_banded_attention_ref(jq, jk, jv, w), np.float32)
     np.testing.assert_allclose(got, want_kernel, atol=atol)
     np.testing.assert_allclose(got, want_ref, atol=atol)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_oracle_rounding_matches_reference(case):
+    """The plain version with ``round_weights`` (bf16 weights, bf16 weighted
+    sum) against the reference's oracle in bf16, at that file's bf16
+    tolerance: the oracle's bf16 einsum also rounds the scores."""
+    w = case[-1]
+    arrays = _inputs(case, seed=case[1])
+    got = banded_attention_ref(*(torch.from_numpy(a).bfloat16() for a in arrays), w, round_weights=True)
+    assert got.dtype == torch.bfloat16
+    want = np.asarray(j_banded_attention_ref(*(jnp.asarray(a).astype(jnp.bfloat16) for a in arrays), w),
+                      np.float32)
+    np.testing.assert_allclose(got.float().numpy(), want, atol=DTYPES["bf16"][2])
+
+
+@pytest.mark.parametrize("case", [c for c in CASES if c[1] > c[-1]])
+def test_row_gate_accepts_oracle_rejects_window_off_by_one(case):
+    """The bf16 kernel's gate (chip_smoke.py K5_TOL, test_torch_kernels_cuda
+    BAND_TOL): worst row of ``row_errors`` against the float32 truth within
+    twice that of the oracle-rounded plain version. The reference's own bf16
+    oracle passes it; the plain version at window W - 1 does not."""
+    w = case[-1]
+    arrays = _inputs(case, seed=case[1])
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in arrays)
+    truth = banded_attention_ref(q.float(), k.float(), v.float(), w)
+    assert truth.dtype == torch.float32
+    limit = 2.0 * float(row_errors(banded_attention_ref(q, k, v, w, round_weights=True), truth).max())
+    oracle = np.asarray(j_banded_attention_ref(*(jnp.asarray(a).astype(jnp.bfloat16) for a in arrays), w),
+                        np.float32)
+    assert float(row_errors(torch.from_numpy(oracle), truth).max()) <= limit
+    assert float(row_errors(banded_attention_ref(q, k, v, w - 1), truth).max()) > limit
+
+
+def test_row_errors_is_relative_row_norm():
+    truth = torch.tensor([[[3.0, 4.0], [1.0, 0.0]]])
+    got = torch.tensor([[[3.0, 4.5], [1.0, 0.0]]])
+    np.testing.assert_allclose(row_errors(got, truth).numpy(), [[0.1, 0.0]])
 
 
 def test_plain_version_is_full_masked_softmax():
