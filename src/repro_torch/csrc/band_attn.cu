@@ -32,23 +32,36 @@
 // * S = Q K^T is wgmma m64n64k16 with Q and K read from shared memory
 //   through matrix descriptors; O += P V is wgmma m64nNk16 with P from
 //   registers and V from shared memory in the transposed (MN-major) B
-//   layout, N = the head dim padded to 16 in chunks of 256/128/64/32/16.
-//   Both accumulate in float32. Tiles are in the no-swizzle core-matrix
-//   layout (8 rows x 16 bytes, 128 contiguous bytes); hd is padded to a
-//   multiple of 16 with zero columns in shared memory (written once), not
-//   with a padded copy in device memory.
+//   layout, N = the head dim padded to 64 (HDP). Both accumulate in
+//   float32.
+// * Tiles are copied by the Tensor Memory Accelerator: one thread issues
+//   HDP / 64 boxes of 64 rows x 128 bytes a tile (a 4-D tensor map over
+//   (B, S, heads, hd)), in the 128-byte swizzle layout that wgmma reads,
+//   completing on an mbarrier. Columns at or beyond hd and rows at or
+//   beyond S arrive as zeros, so hd is padded in shared memory, never with
+//   a padded copy in device memory. Why TMA: copied with cp.async, 16
+//   bytes a thread, into the no-swizzle core-matrix layout, the tiles set
+//   the kernel's time (it ran no faster with its products taken out; see
+//   PERF.md and kernels/band_attn/ablation.py).
 // * The online softmax stays in float32 registers: each thread holds two
 //   rows' running max and partial sum; the row max goes through a fixed
 //   xor-shuffle over the 4 threads of a row, the sum once at the end. P is
 //   rounded to bf16 only as the operand of P V, as the reference's oracle
 //   rounds its weights to q's type (repro/kernels/band_attn/ref.py:24).
-// * K/V tiles are double-buffered: tile k+1 is copied with cp.async
-//   (zero-filled beyond S) while tile k's products run; one
-//   cp.async.wait_group, fence.proxy.async and __syncthreads a tile.
+// * K/V tiles are double-buffered: tile k+1's boxes are in flight while
+//   tile k's products run; every thread waits on the stage's mbarrier,
+//   then one __syncthreads a tile frees the other stage for the next copy.
 // * The output goes through shared memory (the Q tile's space) so the
 //   stores to device memory are 16 bytes a thread.
 // * No atomics and a fixed order of summation: a repeat is bitwise equal.
-// Shared memory (NWG + 4) x 64 x HDP x 2 bytes: 196,608 B at hd 256.
+// Shared memory (NWG + 4) x 64 x HDP x 2 bytes and three mbarriers:
+// 196,632 B at hd 256.
+// Against the bound: the products run at the tensor cores' rate, the edge
+// tiles add ~6 % to the 2.41e11 FLOPs, and the K/V bytes a block reads from
+// L2 (64 KB a key tile, shared by NWG heads) come by TMA while the
+// previous tile's products run; what remains is the serial order within a
+// warpgroup (products, softmax, products), which a later design can
+// overlap (warp specialisation, ping-pong between warpgroups).
 //
 // float32 (band_attn_kernel), on the CUDA cores, where tensor cores would
 // give up the accuracy the caller asked for: a block owns one (b, h) and a
@@ -70,6 +83,7 @@
 // (kernels/_build.py); plain C interface, bound with ctypes. The launch is
 // on the caller's stream; the function returns cudaGetLastError().
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -308,52 +322,66 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kRows = 64;  // query rows of a warpgroup's tile; keys of a K/V tile
 constexpr int kWgThreads = 128;
+constexpr int kBox = 64;                          // columns of a TMA box: one 128-byte row
+constexpr uint32_t kBoxBytes = kRows * kBox * 2;  // 8 KB: 64 rows of 128 bytes
+constexpr uint32_t kAtom = 1024;                  // 8 rows of 128 bytes: one swizzle atom
+
+// A wgmma matrix descriptor for a tile in the 128-byte swizzle layout that
+// TMA writes (CU_TENSOR_MAP_SWIZZLE_128B): start address, the leading and
+// stride byte offsets, layout type 1.
+__device__ __forceinline__ uint64_t descriptor(uint32_t addr, uint32_t lead, uint32_t stride) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lead >> 4) << 16) |
+         ((uint64_t)(stride >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// This thread arrives on the barrier and tells it to expect `bytes` more of
+// TMA writes before its phase completes.
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Waits until the barrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// One TMA box {64 columns, 1 head, 64 rows, 1 batch} of a (B, S, heads, hd)
+// tensor into shared memory, completing on `bar`; out-of-bounds columns and
+// rows (hd, S) arrive as zeros.
+__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map, int col, int head,
+                                        int row, int b, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(head), "r"(row), "r"(b), "r"(bar)
+      : "memory");
+}
+
+// Rows [row, row + 64) of one head: HDP / 64 boxes, 8 KB apart.
+template <int HDP>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map, int head, int row,
+                                         int b, uint32_t bar) {
+#pragma unroll
+  for (int i = 0; i < HDP / kBox; ++i) tma_box(dst + i * kBoxBytes, map, i * kBox, head, row, b, bar);
+}
 
 // Byte offset of element (r, c) of a kRows x HDP bf16 tile in the
-// core-matrix layout: 8 x 8 core matrices of 128 contiguous bytes (row r % 8
-// at 16 (r % 8)), consecutive along the columns, then by groups of 8 rows.
-// Chunk c16 = (r / 8 * HDP / 8 + c / 8) * 8 + r % 8 holds 16 bytes.
+// core-matrix layout (8 x 8 blocks of 128 contiguous bytes, consecutive
+// along the columns): where the output is staged before it is stored.
 template <int HDP>
 __device__ __forceinline__ uint32_t cm_offset(int r, int c) {
   return (uint32_t)((((r >> 3) * (HDP / 8) + (c >> 3)) * 8 + (r & 7)) * 16 + (c & 7) * 2);
-}
-
-// A wgmma matrix descriptor without swizzle: start address, the byte
-// offset between core matrices along K (leading) and along M or N (stride).
-__device__ __forceinline__ uint64_t descriptor(uint32_t addr, uint32_t lead, uint32_t stride) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lead >> 4) << 16) |
-         ((uint64_t)(stride >> 4) << 32);
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
-// Makes this thread's writes to shared memory visible to wgmma's reads.
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// Copy rows [r0, r0 + kRows) of a sequence (row stride ld elements) into a
-// core-matrix tile at shared address dst with cp.async: the hd / 8 chunks
-// of a row that hold data, rows at or beyond S zero-filled. Consecutive
-// threads take consecutive rows of a core matrix, so a warp writes 512
-// contiguous bytes of shared memory and reads 64 bytes of each of 8 rows.
-template <int HDP, int NT>
-__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src, long long ld, int r0,
-                                          int S, int hd) {
-  constexpr int kChunks = HDP / 8;  // 16-byte chunks a row
-  const int valid = hd / 8;
-  for (int c = threadIdx.x; c < kRows * kChunks; c += NT) {
-    const int rest = c >> 3;
-    const int cc = rest % kChunks, row = r0 + (rest / kChunks) * 8 + (c & 7);
-    if (cc >= valid) continue;
-    const bool in = row < S;
-    cp_async16(dst + c * 16, src + (in ? (long long)row * ld + cc * 8 : 0), in);
-  }
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -371,56 +399,42 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(kFull, x, 2);
 }
 
-// O (64 x HDP) += P (64 x 16, registers) V (16 x HDP at shared address v):
-// one wgmma for each chunk of 256/128/64/32/16 columns, from column C0 on.
-template <int HDP, int C0 = 0>
-__device__ __forceinline__ void pv_product(float* acc, const uint32_t* p, uint32_t v) {
-  constexpr int kRem = HDP - C0;
-  if constexpr (kRem > 0) {
-    constexpr int N = kRem >= 256 ? 256 : kRem >= 128 ? 128 : kRem >= 64 ? 64 : kRem >= 32 ? 32 : 16;
-    // MN-major B (V): groups of 8 keys HDP * 16 bytes apart along K (the
-    // leading offset), core matrices 128 bytes apart along N (the stride).
-    wgmma::rs<N>(acc + C0 / 2, p, descriptor(v + (C0 / 8) * 128, HDP * 16, 128), 1);
-    pv_product<HDP, C0 + N>(acc, p, v);
-  }
-}
-
+// HDP is hd rounded up to 64 (a whole number of TMA boxes); NWG warpgroups
+// take NWG consecutive query heads of one kv head.
 template <int HDP, int NWG>
 __global__ void __launch_bounds__(NWG * kWgThreads, 1)
-band_attn_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, bf16* __restrict__ o, int S, int H, int KV,
-                    int hd, int W, float scale_log2) {
+band_attn_tc_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+                    const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ o, int S, int H,
+                    int KV, int hd, int W, float scale_log2) {
   constexpr int NT = NWG * kWgThreads;
-  constexpr uint32_t kTile = kRows * HDP * 2;  // bytes of one tile
-  constexpr uint32_t kGroup = HDP * 16;        // bytes between groups of 8 rows
+  constexpr uint32_t kTile = kRows * HDP * 2;  // bytes of one tile: HDP / 64 boxes
   constexpr int kAcc = HDP / 2;                // O accumulators a thread
   extern __shared__ __align__(1024) unsigned char smem[];
   const uint32_t sq = (uint32_t)__cvta_generic_to_shared(smem);  // NWG Q tiles
   const uint32_t sk = sq + NWG * kTile;                          // 2 K tiles
   const uint32_t sv = sk + 2 * kTile;                            // 2 V tiles
+  const uint32_t bar_q = sv + 2 * kTile, bar_kv = bar_q + 8;     // barriers: Q, K/V stage 0 and 1
 
   const int tid = threadIdx.x, wg = tid / kWgThreads;
   const int warp = (tid % kWgThreads) >> 5, lane = tid & 31, quad = lane & 3;
   const int q0 = blockIdx.x * kRows, b = blockIdx.z;
   const int h0 = blockIdx.y * NWG, kvh = h0 / (H / KV);
-  const long long q_ld = (long long)H * hd, kv_ld = (long long)KV * hd;
-  const bf16* kb = k + (long long)b * S * kv_ld + (long long)kvh * hd;
-  const bf16* vb = v + (long long)b * S * kv_ld + (long long)kvh * hd;
-
-  // Zero the tiles once: the columns hd..HDP are never written again.
-  for (uint32_t i = tid * 16; i < (NWG + 4) * kTile; i += NT * 16)
-    *reinterpret_cast<uint4*>(smem + i) = make_uint4(0u, 0u, 0u, 0u);
-  __syncthreads();
-
   const int q_last = min(q0 + kRows, S) - 1;
   const int k_first = max(0, q0 - W + 1);
+
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    mbar_init(bar_kv, 1);
+    mbar_init(bar_kv + 8, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect(bar_q, NWG * kTile);
 #pragma unroll
-  for (int g = 0; g < NWG; ++g)
-    load_tile<HDP, NT>(sq + g * kTile, q + (long long)b * S * q_ld + (long long)(h0 + g) * hd,
-                       q_ld, q0, S, hd);
-  load_tile<HDP, NT>(sk, kb, kv_ld, k_first, S, hd);
-  load_tile<HDP, NT>(sv, vb, kv_ld, k_first, S, hd);
-  cp_async_commit();
+    for (int g = 0; g < NWG; ++g) tma_tile<HDP>(sq + g * kTile, &q_map, h0 + g, q0, b, bar_q);
+    mbar_expect(bar_kv, 2 * kTile);
+    tma_tile<HDP>(sk, &k_map, kvh, k_first, b, bar_kv);
+    tma_tile<HDP>(sv, &v_map, kvh, k_first, b, bar_kv);
+  }
+  __syncthreads();  // the barriers are initialised
 
   // This thread's rows of the tile: r0 and r0 + 8.
   const int r0 = warp * 16 + (lane >> 2);
@@ -430,20 +444,23 @@ band_attn_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  mbar_wait(bar_q, 0);
 
-  int stage = 0;
-  for (int kt = k_first; kt <= q_last; kt += kRows, stage ^= 1) {
-    cp_async_wait_all();
-    fence_async_smem();
-    __syncthreads();  // tile kt has landed, and every warpgroup is done with the other buffer
-    if (kt + kRows <= q_last) {
-      load_tile<HDP, NT>(sk + (stage ^ 1) * kTile, kb, kv_ld, kt + kRows, S, hd);
-      load_tile<HDP, NT>(sv + (stage ^ 1) * kTile, vb, kv_ld, kt + kRows, S, hd);
+  int t = 0;
+  for (int kt = k_first; kt <= q_last; kt += kRows, ++t) {
+    const int stage = t & 1;
+    mbar_wait(bar_kv + 8 * stage, (t >> 1) & 1);  // tile t has landed
+    __syncthreads();  // every warpgroup is done with tile t - 1's buffers
+    if (tid == 0 && kt + kRows <= q_last) {
+      const uint32_t bar = bar_kv + 8 * (stage ^ 1);
+      mbar_expect(bar, 2 * kTile);
+      tma_tile<HDP>(sk + (stage ^ 1) * kTile, &k_map, kvh, kt + kRows, b, bar);
+      tma_tile<HDP>(sv + (stage ^ 1) * kTile, &v_map, kvh, kt + kRows, b, bar);
     }
-    cp_async_commit();
     const uint32_t kt_s = sk + stage * kTile, vt_s = sv + stage * kTile;
 
-    // S = Q K^T, both K-major: core matrices 128 bytes apart along hd.
+    // S = Q K^T, both K-major: k-step kk reads 32 bytes at 32 (kk % 4) into
+    // the rows of box kk / 4; 8-row groups 1024 bytes apart.
     float s[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) s[i] = 0.f;
@@ -451,10 +468,11 @@ band_attn_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wgmma::fence_operands<32>(s);
 #pragma unroll
     for (int kk = 0; kk < HDP / 16; ++kk) {
-      wgmma::ss_n64(s, descriptor(qt + kk * 256, 128, kGroup), descriptor(kt_s + kk * 256, 128, kGroup), 1);
+      const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+      wgmma::ss_n64(s, descriptor(qt + off, 16, kAtom), descriptor(kt_s + off, 16, kAtom), 1);
     }
     wgmma::commit();
-    wgmma::wait<0>();
+    wgmma::wait_all();
     wgmma::fence_operands<32>(s);
 
     // Mask only a tile that holds an invalid pair.
@@ -514,13 +532,16 @@ band_attn_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
     }
 
-    // O += P V.
+    // O += P V, V MN-major: 16 keys (two 1024-byte 8-row groups, the
+    // stride offset) a k-step; the boxes along hd 8 KB apart (the leading
+    // offset); one wgmma of width HDP.
     wgmma::fence();
     wgmma::fence_operands<kAcc>(acc);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) pv_product<HDP>(acc, pa[kk], vt_s + kk * 2 * kGroup);
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma::rs<HDP>(acc, pa[kk], descriptor(vt_s + kk * 2 * kAtom, kBoxBytes, kAtom), 1);
     wgmma::commit();
-    wgmma::wait<0>();
+    wgmma::wait_all();
     wgmma::fence_operands<kAcc>(acc);
   }
 
@@ -538,6 +559,7 @@ band_attn_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   __syncthreads();
   constexpr int kChunks = HDP / 8;
+  const long long q_ld = (long long)H * hd;
   for (int c = tid; c < NWG * kRows * kChunks; c += NT) {
     const int g = c / (kRows * kChunks), cl = c - g * kRows * kChunks;
     const int rest = cl >> 3;
@@ -548,7 +570,46 @@ band_attn_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-size_t smem_bytes(int hd, int nwg) { return (size_t)(nwg + 4) * kRows * ((hd + 15) / 16 * 16) * 2; }
+size_t smem_bytes(int hd, int nwg) {
+  return (size_t)(nwg + 4) * kRows * ((hd + kBox - 1) / kBox * kBox) * 2 + 3 * 8;
+}
+
+// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime
+// (no link against libcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+cudaError_t encode_tiled(EncodeTiled* fn) {
+  static EncodeTiled cached = nullptr;
+  if (cached == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+    if (e != cudaSuccess) return e;
+    if (found != cudaDriverEntryPointSuccess || p == nullptr) return cudaErrorSymbolNotFound;
+    cached = reinterpret_cast<EncodeTiled>(p);
+  }
+  *fn = cached;
+  return cudaSuccess;
+}
+
+// The tensor map of a (B, S, heads, hd) bf16 tensor read in boxes of
+// {64 columns, 1 head, 64 rows, 1 batch}, 128-byte swizzled.
+cudaError_t tensor_map(CUtensorMap* map, const void* base, int B, int S, int heads, int hd) {
+  EncodeTiled encode;
+  cudaError_t e = encode_tiled(&encode);
+  if (e != cudaSuccess) return e;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2, (cuuint64_t)heads * hd * 2,
+                                 (cuuint64_t)S * heads * hd * 2};
+  const cuuint32_t box[4] = {kBox, 1, kRows, 1}, unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+                            box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
 
 // What the launcher does with the instantiation for (HDP, NWG): launch it
 // or, with launch == false, report its registers and local memory.
@@ -573,24 +634,27 @@ cudaError_t run(const Call& c) {
     c.attributes[2] = (int)smem;
     return e;
   }
-  cudaError_t e = cudaFuncSetAttribute(band_attn_tc_kernel<HDP, NWG>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  CUtensorMap qm, km, vm;
+  cudaError_t e = tensor_map(&qm, c.q, c.B, c.S, c.H, c.hd);
+  if (e == cudaSuccess) e = tensor_map(&km, c.k, c.B, c.S, c.KV, c.hd);
+  if (e == cudaSuccess) e = tensor_map(&vm, c.v, c.B, c.S, c.KV, c.hd);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(band_attn_tc_kernel<HDP, NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((unsigned)((c.S + kRows - 1) / kRows), (unsigned)(c.H / NWG), (unsigned)c.B);
   band_attn_tc_kernel<HDP, NWG><<<grid, NWG * kWgThreads, smem, c.stream>>>(
-      static_cast<const bf16*>(c.q), static_cast<const bf16*>(c.k), static_cast<const bf16*>(c.v),
-      static_cast<bf16*>(c.o), c.S, c.H, c.KV, c.hd, c.W, c.scale * 1.4426950408889634f);
+      qm, km, vm, static_cast<bf16*>(c.o), c.S, c.H, c.KV, c.hd, c.W, c.scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
 template <int NWG>
 cudaError_t run_nwg(const Call& c) {
-  switch ((c.hd + 15) / 16) {
-#define BAND_HD(n) \
-  case n: return run<16 * n, NWG>(c);
-    BAND_HD(1) BAND_HD(2) BAND_HD(3) BAND_HD(4) BAND_HD(5) BAND_HD(6) BAND_HD(7) BAND_HD(8)
-    BAND_HD(9) BAND_HD(10) BAND_HD(11) BAND_HD(12) BAND_HD(13) BAND_HD(14) BAND_HD(15) BAND_HD(16)
-#undef BAND_HD
+  switch ((c.hd + kBox - 1) / kBox) {
+    case 1: return run<64, NWG>(c);
+    case 2: return run<128, NWG>(c);
+    case 3: return run<192, NWG>(c);
+    case 4: return run<256, NWG>(c);
     default: return cudaErrorInvalidValue;
   }
 }

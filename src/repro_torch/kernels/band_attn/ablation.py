@@ -1,15 +1,17 @@
 """Where K5's bf16 kernel spends its time: the kernel with one part taken
 out, timed beside the whole at the serving shape on the card.
 
-    PYTHONPATH=src python -m repro_torch.kernels.band_attn.ablation
+    PYTHONPATH=src python -m repro_torch.kernels.band_attn.ablation [--against DIR]
 
 Each variant is ``csrc/band_attn.cu`` with a statement or two replaced,
 built with the same flags into ``build/kernels/ablation/`` and bound with
 ctypes: ``no_copies`` issues no K/V copy after the first tile (every tile
-then reads the first two buffers),
+then reads the first two buffers, and waits only for the first),
 ``no_exp`` makes ``exp2f`` the identity, ``no_qk`` and ``no_pv`` drop the
 Q K^T and the P V products, ``no_products`` both. Their outputs are wrong by design; only their times mean anything.
-Then the whole kernel at windows 64 to 4,096, to separate the cost of a
+``--against DIR`` adds ``DIR/band_attn.cu`` (with its own ``wgmma.cuh``),
+another version of the kernel, built and timed in the same turns. Then
+the whole kernel at windows 64 to 4,096, to separate the cost of a
 block from the cost of a key tile. CUDA-event medians, L2 flushed before
 each launch, variants in turns (two rounds). Prints one JSON line.
 """
@@ -20,6 +22,7 @@ import argparse
 import ctypes
 import json
 import subprocess
+from pathlib import Path
 
 import torch
 
@@ -27,28 +30,31 @@ from repro_torch.kernels import _build
 
 SHAPE = (4, 4096, 16, 8, 256, 1024)  # (B, S, H, KV, hd, W): gemma3-12b's serving shape
 
-_QK = ("      wgmma::ss_n64(s, descriptor(qt + kk * 256, 128, kGroup), "
-       "descriptor(kt_s + kk * 256, 128, kGroup), 1);")
-_PV = "    wgmma::rs<N>(acc + C0 / 2, p, descriptor(v + (C0 / 8) * 128, HDP * 16, 128), 1);"
-_COPY = "    if (kt + kRows <= q_last) {"
+_QK = "      wgmma::ss_n64(s, descriptor(qt + off, 16, kAtom), descriptor(kt_s + off, 16, kAtom), 1);"
+_PV = "      wgmma::rs<HDP>(acc, pa[kk], descriptor(vt_s + kk * 2 * kAtom, kBoxBytes, kAtom), 1);"
+_COPY = "    if (tid == 0 && kt + kRows <= q_last) {"
+_WAIT = "    mbar_wait(bar_kv + 8 * stage, (t >> 1) & 1);"
 _INCLUDE = '#include "wgmma.cuh"'
 VARIANTS = {
     "whole": [],
-    "no_copies": [(_COPY, "    if (false) {")],
+    "no_copies": [(_COPY, "    if (false) {"), (_WAIT, "    if (t == 0) mbar_wait(bar_kv, 0);")],
     "no_exp": [(_INCLUDE, _INCLUDE + "\n#define exp2f(x) (x)")],
-    "no_qk": [(_QK, "      ;")],
-    "no_pv": [(_PV, "    ;")],
-    "no_products": [(_QK, "      ;"), (_PV, "    ;")],
+    "no_qk": [(_QK, "      (void)off;")],
+    "no_pv": [(_PV, "      ;")],
+    "no_products": [(_QK, "      (void)off;"), (_PV, "      ;")],
 }
 
 
-def build() -> dict[str, ctypes.CDLL]:
+def build(against: Path | None) -> dict[str, ctypes.CDLL]:
     """Write and compile every variant, one nvcc each, all at once."""
     src = (_build.CSRC / "band_attn.cu").read_text()
     out = _build.BUILD_DIR / "ablation"
     out.mkdir(parents=True, exist_ok=True)
     (out / "wgmma.cuh").write_text((_build.CSRC / "wgmma.cuh").read_text())
     procs = {}
+    if against is not None:
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out / "against.so"), str(against / "band_attn.cu")]
+        procs["against"] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     for name, edits in VARIANTS.items():
         text = src
         for old, new in edits:
@@ -75,11 +81,13 @@ def build() -> dict[str, ctypes.CDLL]:
 
 
 def main() -> None:
-    argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--against", type=Path, help="a directory with another band_attn.cu to time beside it")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: the ablation times kernels on the card")
     dev = torch.device("cuda", 0)
-    libs = build()
+    libs = build(args.against)
     b, s, h, kvh, hd, w = SHAPE
     gen = torch.Generator(device=dev).manual_seed(0)
     q = (0.5 * torch.randn(b, s, h, hd, generator=gen, device=dev)).bfloat16()

@@ -13,7 +13,8 @@ summation and no atomics, so a repeat is bitwise equal; the ragged tail is
 masked in the kernel, with no padded copy. bfloat16 runs on the tensor
 cores (wgmma: Q K^T and P V with float32 accumulators, P rounded to bf16
 as the reference's oracle rounds its weights; 64-row query tiles, one
-warpgroup per head of a kv group, double-buffered 64-key K/V tiles).
+warpgroup per head of a kv group, double-buffered 64-key K/V tiles copied
+by TMA in the 128-byte swizzle layout).
 float32 runs on the CUDA cores, so it keeps float32 products.
 
 The wrapper dispatches on the tensor's device: a CPU tensor gets the plain
