@@ -130,7 +130,30 @@ __device__ __forceinline__ float phi(float z) {
   return 0.5f * (1.0f + erff(z / 1.41421356237309515f));
 }
 
+// gamma: exact below k = 1e4, Wilson-Hilferty above.
+__device__ float gamma_cdf(float p0, float p1, float x) {
+  if (x <= 0.0f) return 0.0f;
+  const float xs = max_nan(x, 0.0f) / p1;
+  if (p0 > kGammaWilsonHilfertyK) {
+    const float kk = max_nan(p0, kEps);
+    const float z = (cbrtf(xs / kk) - (1.0f - 1.0f / (9.0f * kk))) * sqrtf(9.0f * kk);
+    return phi(z);
+  }
+  return (float)gammainc_lower((double)min_nan(p0, kGammaWilsonHilfertyK),
+                               (double)min_nan(xs, 2.0f * kGammaWilsonHilfertyK));
+}
+
+__device__ float student_t_cdf(float p0, float p1, float p2, float x) {
+  const float t = (x - p0) / p1;
+  const float ib = (float)betainc((double)(0.5f * p2), 0.5, (double)(p2 / (p2 + t * t)));
+  return t >= 0.0f ? 1.0f - 0.5f * ib : 0.5f * ib;
+}
+
+// kSpecial: gamma and student_t (the float64 incomplete gamma and beta) are
+// compiled in; without it their codes give NaN and are never launched.
+template <bool kSpecial>
 __device__ float cdf_eval(int code, float p0, float p1, float p2, float x) {
+  const float kNaN = __int_as_float(0x7fffffff);
   switch (code) {
     case 0:  // normal
       return phi((x - p0) / p1);
@@ -142,17 +165,8 @@ __device__ float cdf_eval(int code, float p0, float p1, float p2, float x) {
       return x <= 0.0f ? 0.0f : phi((logf(max_nan(x, kEps)) - p0) / p1);
     case 4:  // cauchy
       return 0.5f + atanf((x - p0) / p1) / 3.14159265358979312f;
-    case 5: {  // gamma: exact below k = 1e4, Wilson-Hilferty above
-      if (x <= 0.0f) return 0.0f;
-      const float xs = max_nan(x, 0.0f) / p1;
-      if (p0 > kGammaWilsonHilfertyK) {
-        const float kk = max_nan(p0, kEps);
-        const float z = (cbrtf(xs / kk) - (1.0f - 1.0f / (9.0f * kk))) * sqrtf(9.0f * kk);
-        return phi(z);
-      }
-      return (float)gammainc_lower((double)min_nan(p0, kGammaWilsonHilfertyK),
-                                   (double)min_nan(xs, 2.0f * kGammaWilsonHilfertyK));
-    }
+    case 5:  // gamma
+      if constexpr (kSpecial) return gamma_cdf(p0, p1, x); else return kNaN;
     case 6: {  // geometric; 1 - 1e-12 rounds to 1.0f, as in the reference
       if (x < 0.0f) return 0.0f;
       const float k = floorf(max_nan(x, 0.0f));
@@ -160,18 +174,15 @@ __device__ float cdf_eval(int code, float p0, float p1, float p2, float x) {
     }
     case 7:  // logistic
       return 1.0f / (1.0f + expf(-((x - p0) / p1)));
-    case 8: {  // student_t
-      const float t = (x - p0) / p1;
-      const float ib = (float)betainc((double)(0.5f * p2), 0.5, (double)(p2 / (p2 + t * t)));
-      return t >= 0.0f ? 1.0f - 0.5f * ib : 0.5f * ib;
-    }
+    case 8:  // student_t
+      if constexpr (kSpecial) return student_t_cdf(p0, p1, p2, x); else return kNaN;
     case 9: {  // weibull
       if (x <= 0.0f) return 0.0f;
       const float z = max_nan(x, 0.0f) / p1;
       return -expm1f(-powf(z, p0));
     }
     default:
-      return __int_as_float(0x7fffffff);
+      return kNaN;
   }
 }
 
@@ -179,40 +190,65 @@ __device__ float cdf_eval(int code, float p0, float p1, float p2, float x) {
 // fit_error_counts
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kThreads)
+// Sum over the 32 lanes by a fixed __shfl_xor_sync butterfly: every lane
+// ends with the same bits, whichever launch this is.
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
+  return v;
+}
+
+// One block a row (kHistThreads threads). kSpecial: the type set holds
+// gamma or student_t, so the float64 incomplete gamma and beta are compiled
+// in; otherwise they are not, and take no registers.
+template <bool kSpecial>
+__global__ void __launch_bounds__(kHistThreads)
 fit_error_kernel(const float* __restrict__ x, const int64_t* __restrict__ row_indices,
                  const float* __restrict__ vmin, const float* __restrict__ vmax,
                  const float* __restrict__ edges, const float* __restrict__ params,
-                 float* __restrict__ err, int P, int n, int L, int T, unsigned long long codes) {
-  extern __shared__ int smem[];  // int hist[kRows][L], then float cdf[kRows][L+1]
+                 float* __restrict__ err, int src_rows, int n, int L, int T,
+                 unsigned long long codes) {
+  extern __shared__ int smem[];  // int hist[hist_smem_words(L)], then float cdf[kHistWarps][L+1]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long row = (long long)blockIdx.x * kRows + warp;
-  if (row >= P) return;  // warps are independent: only __syncwarp below
-  int* hist = smem + warp * L;
-  float* cdfv = reinterpret_cast<float*>(smem + kRows * L) + warp * (L + 1);
-
+  const long long row = blockIdx.x;
   const long long src = row_indices ? (long long)row_indices[row] : row;
-  warp_row_histogram(x + src * (long long)n, n, vmin[row], vmax[row], L, hist, lane);
+  if (src < 0 || src >= src_rows) {  // an index outside the window reads nothing
+    for (int t = threadIdx.x; t < T; t += kHistThreads) err[row * T + t] = __int_as_float(0x7fffffff);
+    return;
+  }
+  int* hist = smem;
+  block_row_histogram(x + src * (long long)n, n, vmin[row], vmax[row], L, hist);
 
-  // Epilogue: CDF at the edges, masses, sum_k |freq_k / n - mass_k|.
+  // Epilogue: warp w takes types w, w + kHistWarps, ...; its lanes split the
+  // L + 1 edges and the L bins. Each lane sums its bins' |freq_k / n - mass_k|
+  // in order of k, then the warp's butterfly: the order is fixed by L alone.
+  float* cdfv = reinterpret_cast<float*>(smem + hist_smem_words(L)) + warp * (L + 1);
   const float nf = (float)(n > 1 ? n : 1);
   const float* pr = params + row * 3LL * T;
   const float* er = edges + row * (long long)(L + 1);
-  for (int t = 0; t < T; ++t) {
+  for (int t = warp; t < T; t += kHistWarps) {
     const int code = (int)((codes >> (4 * t)) & 15ull);
     const float p0 = pr[3 * t], p1 = pr[3 * t + 1], p2 = pr[3 * t + 2];
-    for (int k = lane; k <= L; k += 32) cdfv[k] = cdf_eval(code, p0, p1, p2, er[k]);
+    for (int k = lane; k <= L; k += 32) cdfv[k] = cdf_eval<kSpecial>(code, p0, p1, p2, er[k]);
     __syncwarp();
-    if (lane == 0) {
-      float acc = 0.0f;
-      for (int k = 0; k < L; ++k) {
-        const float rel = (float)hist[k] / nf;
-        acc += fabsf(rel - (cdfv[k + 1] - cdfv[k]));
-      }
-      err[row * T + t] = acc;
+    float acc = 0.0f;
+    for (int k = lane; k < L; k += 32) {
+      const float rel = (float)hist[k] / nf;
+      acc += fabsf(rel - (cdfv[k + 1] - cdfv[k]));
     }
+    acc = warp_sum(acc);
+    if (lane == 0) err[row * T + t] = acc;
     __syncwarp();
   }
+}
+
+// Whether the packed type codes hold gamma (5) or student_t (8).
+bool has_special(unsigned long long codes, int T) {
+  for (int t = 0; t < T; ++t) {
+    const int code = (int)((codes >> (4 * t)) & 15ull);
+    if (code == 5 || code == 8) return true;
+  }
+  return false;
 }
 
 }  // namespace
@@ -220,7 +256,7 @@ fit_error_kernel(const float* __restrict__ x, const int64_t* __restrict__ row_in
 extern "C" {
 
 size_t fitpdf_fit_error_smem_bytes(int L) {
-  return (size_t)kRows * (size_t)(2 * L + 1) * sizeof(float);
+  return (hist_smem_words(L) + (size_t)kHistWarps * (size_t)(L + 1)) * sizeof(int);
 }
 
 int fitpdf_moments_edges_stats(const float* x, float* stats, float* edges,
@@ -232,16 +268,33 @@ int fitpdf_moments_edges_stats(const float* x, float* stats, float* edges,
   return (int)cudaGetLastError();
 }
 
+// Row r of err (G rows) is the Eq.-5 error of window row row_indices[r]
+// (or r, with row_indices null) of the src_rows x n window x; an index
+// outside [0, src_rows) gives a row of NaN and reads nothing.
 int fitpdf_fit_error_counts(const float* x, const int64_t* row_indices, const float* vmin,
                             const float* vmax, const float* edges, const float* params,
-                            float* err, int P, int n, int L, int T, unsigned long long codes,
-                            int device, void* stream) {
+                            float* err, int G, int src_rows, int n, int L, int T,
+                            unsigned long long codes, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const size_t smem = fitpdf_fit_error_smem_bytes(L);
-  fit_error_kernel<<<row_blocks(P), kThreads, smem, (cudaStream_t)stream>>>(
-      x, row_indices, vmin, vmax, edges, params, err, P, n, L, T, codes);
+  auto kernel = has_special(codes, T) ? fit_error_kernel<true> : fit_error_kernel<false>;
+  kernel<<<(unsigned)G, kHistThreads, smem, (cudaStream_t)stream>>>(
+      x, row_indices, vmin, vmax, edges, params, err, src_rows, n, L, T, codes);
   return (int)cudaGetLastError();
+}
+
+// fit_error_kernel's instantiation with (special = 1) or without the float64
+// special functions: attributes[0..2] = registers a thread, local memory
+// bytes a thread (nonzero if it spills), dynamic shared memory bytes a
+// block at L bins.
+int fitpdf_fit_error_attributes(int special, int L, int* attributes) {
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, special ? fit_error_kernel<true> : fit_error_kernel<false>);
+  attributes[0] = a.numRegs;
+  attributes[1] = (int)a.localSizeBytes;
+  attributes[2] = (int)fitpdf_fit_error_smem_bytes(L);
+  return (int)e;
 }
 
 const char* fitpdf_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -1,12 +1,35 @@
 // The per-row Eq.-5 histogram of K2 (fitpdf.cu, fit_error_counts) and K4
-// (hist.cu, hist_counts): one warp counts one row into L int counters in
-// shared memory. Integer atomicAdd is exact and order-free, so the counts
-// do not depend on the order the lanes add in.
+// (hist.cu, hist_counts): one block of kHistThreads threads counts one row.
+//
+// What bounds it: the row's bytes, read once. What held the one-warp-a-row
+// design back was latency, not bandwidth: one 4-byte load a lane in flight,
+// and a row's 32 lanes landing in the same few central bins, whose shared
+// atomics serialise. Here the block's 128 threads issue every 16-byte load
+// of their share of the row at once (kHistLoads a thread, a scalar head and
+// tail around the 16-byte-aligned body, so any n works), and the counts go
+// to kHistCopies sub-histograms (lane % kHistCopies), so lanes of one warp
+// that fall in the same bin hit different addresses. The copies are summed
+// after the loop. Integer atomicAdd is exact and order-free, so the counts
+// equal the plain version's and do not depend on which thread read a value.
 #pragma once
 
 #include "common.cuh"
 
 namespace {
+
+constexpr int kHistThreads = 128;  // one row a block, four warps
+constexpr int kHistWarps = kHistThreads / 32;
+constexpr int kHistCopies = 4;     // sub-histograms, a power of two
+constexpr int kHistLoads = 4;      // 16-byte loads a thread keeps in flight
+
+// Words between two sub-histograms: odd, so copy c's bin k and copy c''s
+// bin k sit in different banks.
+__host__ __device__ constexpr int hist_stride(int L) { return L | 1; }
+
+// Shared memory of the histogram: kHistCopies sub-histograms of L ints.
+__host__ __device__ constexpr size_t hist_smem_words(int L) {
+  return (size_t)kHistCopies * (size_t)hist_stride(L);
+}
 
 // floor((x - lo) / span * L), clipped to [0, L-1] in float before the cast
 // (repro/kernels/fitpdf/kernel.py:178-179, hist/kernel.py:37-38). The
@@ -17,16 +40,50 @@ __device__ __forceinline__ int interval_bin(float v, float lo, float span, float
   return (int)clip_nan(b, 0.0f, top);  // (int)NaN is 0 on the device
 }
 
-// Zeroes hist[0, L), counts the n values of row xr into it and leaves the
-// counts visible to the whole warp.
-__device__ __forceinline__ void warp_row_histogram(const float* __restrict__ xr, int n, float lo,
-                                                   float hi, int L, int* hist, int lane) {
-  for (int k = lane; k < L; k += 32) hist[k] = 0;
-  __syncwarp();
+// Counts the n values of row xr into hist[0, L) (shared, hist_smem_words(L)
+// ints) and leaves the counts there, visible to the whole block. Every
+// thread of the block calls it.
+__device__ __forceinline__ void block_row_histogram(const float* __restrict__ xr, int n, float lo,
+                                                    float hi, int L, int* hist) {
+  const int tid = threadIdx.x, stride = hist_stride(L);
+  for (int k = tid; k < kHistCopies * stride; k += kHistThreads) hist[k] = 0;
+  __syncthreads();
   const float span = max_nan(hi - lo, kEps);
   const float fl = (float)L, top = (float)(L - 1);
-  for (int j = lane; j < n; j += 32) atomicAdd(hist + interval_bin(__ldg(xr + j), lo, span, fl, top), 1);
-  __syncwarp();
+  int* mine = hist + (tid & (kHistCopies - 1)) * stride;
+  auto count = [&](float v) { atomicAdd(mine + interval_bin(v, lo, span, fl, top), 1); };
+
+  // Scalar head up to the first 16-byte boundary, float4 body, scalar tail.
+  const int head = min(n, (int)((4 - (((uintptr_t)xr >> 2) & 3)) & 3));
+  const int nv = (n - head) >> 2, tail = head + 4 * nv;
+  if (tid < head) count(__ldg(xr + tid));
+  if (tid < n - tail) count(__ldg(xr + tail + tid));
+  const float4* xv = reinterpret_cast<const float4*>(xr + head);
+  for (int base = 0; base < nv; base += kHistThreads * kHistLoads) {
+    float4 v[kHistLoads];
+#pragma unroll
+    for (int u = 0; u < kHistLoads; ++u) {
+      const int j = base + u * kHistThreads + tid;
+      if (j < nv) v[u] = __ldg(xv + j);
+    }
+#pragma unroll
+    for (int u = 0; u < kHistLoads; ++u) {
+      if (base + u * kHistThreads + tid < nv) {
+        count(v[u].x);
+        count(v[u].y);
+        count(v[u].z);
+        count(v[u].w);
+      }
+    }
+  }
+  __syncthreads();
+  for (int k = tid; k < L; k += kHistThreads) {
+    int s = hist[k];
+#pragma unroll
+    for (int c = 1; c < kHistCopies; ++c) s += hist[c * stride + k];
+    hist[k] = s;
+  }
+  __syncthreads();
 }
 
 }  // namespace

@@ -9,8 +9,9 @@ same flags (and ``-Xptxas -v``) into ``build/kernels/ablation/<variant>/``
 and bound with ctypes: ``loads_only`` sums each lane's values into a
 register and stores it where the counts would go (no bin, no atomics, no
 epilogue), ``no_epilogue`` writes one count per type instead of the Eq.-5
-error, ``epilogue_only`` skips the histogram loop. Their outputs are wrong
-by design; only their times mean anything. K4 has no epilogue, so its
+error, ``epilogue_only`` skips the histogram loop, ``one_copy`` counts into
+one sub-histogram instead of four. Their outputs are wrong by design
+(``one_copy``'s are right); only their times mean anything. K4 has no epilogue, so its
 ``no_epilogue`` is its whole and its ``epilogue_only`` only zeroes and
 writes the counts. ``--against DIR`` adds ``DIR/fitpdf.cu`` and
 ``DIR/hist.cu`` (with the headers in DIR), another version of the kernels,
@@ -42,19 +43,24 @@ from repro_torch.kernels._timing import kernel_times, median
 
 SLICE, WINDOW_LINES = 201, 25  # Set1's slice and PDFConfig.window_lines
 
-_HIST_LOOP = ("  for (int j = lane; j < n; j += 32) atomicAdd(hist + interval_bin(__ldg(xr + j), lo, "
-              "span, fl, top), 1);")
-_SUM_LOOP = ("  { float s = 0.0f; for (int j = lane; j < n; j += 32) s += __ldg(xr + j); "
-             "hist[lane % L] = __float_as_int(s); }")
-_EPILOGUE = "  for (int t = 0; t < T; ++t) {\n    const int code"
-_NO_EPILOGUE = ("  if (lane < T) err[row * T + lane] = (float)hist[lane % L];\n"
-                "  for (int t = 0; t < 0; ++t) {\n    const int code")
+_COUNT = "  auto count = [&](float v) { atomicAdd(mine + interval_bin(v, lo, span, fl, top), 1); };"
+_SUM = "  float sum = 0.0f;\n  auto count = [&](float v) { sum += v; };"
+_MERGE = "  __syncthreads();\n  for (int k = tid; k < L; k += kHistThreads) {"
+_HEAD_TAIL = "  if (tid < head) count(__ldg(xr + tid));\n  if (tid < n - tail) count(__ldg(xr + tail + tid));"
+_BODY = "  for (int base = 0; base < nv; base += kHistThreads * kHistLoads) {"
+_EPILOGUE = "  for (int t = warp; t < T; t += kHistWarps) {"
+_NO_EPILOGUE = ("  if (threadIdx.x < T) err[row * T + threadIdx.x] = (float)hist[threadIdx.x % L];\n"
+                "  for (int t = warp; t < 0; t += kHistWarps) {")
 # (file, statement, replacement) a variant makes in csrc/.
 VARIANTS = {
     "whole": [],
-    "loads_only": [("row_hist.cuh", _HIST_LOOP, _SUM_LOOP), ("fitpdf.cu", _EPILOGUE, _NO_EPILOGUE)],
+    "loads_only": [("row_hist.cuh", _COUNT, _SUM),
+                   ("row_hist.cuh", _MERGE, "  mine[tid % L] = __float_as_int(sum);\n" + _MERGE),
+                   ("fitpdf.cu", _EPILOGUE, _NO_EPILOGUE)],
     "no_epilogue": [("fitpdf.cu", _EPILOGUE, _NO_EPILOGUE)],
-    "epilogue_only": [("row_hist.cuh", _HIST_LOOP, "  ;")],
+    "epilogue_only": [("row_hist.cuh", _HEAD_TAIL, ""),
+                      ("row_hist.cuh", _BODY, _BODY.replace("base < nv", "base < 0"))],
+    "one_copy": [("row_hist.cuh", "constexpr int kHistCopies = 4;", "constexpr int kHistCopies = 1;")],
 }
 KERNELS = ("fit_error_kernel", "hist_counts_kernel")
 
@@ -183,6 +189,9 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: the ablation times kernels on the card")
     dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
     libs, reports = build(args.against)
     for name, rep in reports.items():
         for line in rep:
@@ -198,7 +207,7 @@ def main() -> None:
             f"{v} {[r[c][v] for r in rounds]}" for v in libs), flush=True)
     shapes = {c: dict(rows=case["g"], n=case["x"].shape[1], L=case["L"], T=case.get("T"))
               for c, case in cases.items()}
-    print(json.dumps({"device": torch.cuda.get_device_name(0), "shapes": shapes, "ms": rounds,
+    print(json.dumps({"device": smi, "shapes": shapes, "ms": rounds,
                       "ptxas": reports}), flush=True)
 
 

@@ -59,8 +59,9 @@ def _library():
     return _launch.bind("fitpdf", {
         "fitpdf_moments_edges_stats": ([vp, vp, vp, i32, i32, i32, i32, vp], i32),
         "fitpdf_fit_error_counts": (
-            [vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, ctypes.c_ulonglong, i32, vp], i32),
+            [vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, ctypes.c_ulonglong, i32, vp], i32),
         "fitpdf_fit_error_smem_bytes": ([i32], _launch.SIZE_T),
+        "fitpdf_fit_error_attributes": ([i32, i32, ctypes.POINTER(ctypes.c_int)], i32),
     })
 
 
@@ -133,10 +134,18 @@ def _type_codes(types: Sequence[str]) -> int:
 
 
 def fit_error_counts(values, vmin, vmax, edges, params, types: Sequence[str],
-                     num_bins: int, row_indices: torch.Tensor | None = None) -> torch.Tensor:
+                     num_bins: int, row_indices: torch.Tensor | None = None, *,
+                     check_indices: bool = True) -> torch.Tensor:
     """values (P, n), vmin/vmax (G,), edges (G, L+1), params (G, 3T) f32
     -> Eq.-5 errors (G, T) f32, where G = P without ``row_indices`` and
-    G = len(row_indices) with them (row r reads ``values[row_indices[r]]``)."""
+    G = len(row_indices) with them (row r reads ``values[row_indices[r]]``).
+
+    An index outside [0, P) raises ``IndexError``, which on a CUDA tensor
+    costs one host synchronisation. ``check_indices=False`` is for callers
+    whose indices are in range by construction (device Select's
+    ``compact_representatives``): no check, no synchronisation, and the
+    kernel, which never reads outside the window, gives a row of NaN for an
+    index outside it."""
     _launch.check_values(values)
     t = len(types)
     codes = _type_codes(types)
@@ -151,21 +160,22 @@ def fit_error_counts(values, vmin, vmax, edges, params, types: Sequence[str],
     _launch.check_operand("vmax", vmax, (g,), values.device)
     _launch.check_operand("edges", edges, (g, num_bins + 1), values.device)
     _launch.check_operand("params", params, (g, 3 * t), values.device)
+    if row_indices is not None and check_indices and g and bool(
+            ((row_indices < 0) | (row_indices >= values.shape[0])).any()):
+        raise IndexError(f"row_indices out of range for {values.shape[0]} rows")
     if values.device.type == "cpu":
-        rows = values if row_indices is None else values[row_indices]
-        return fit_error_counts_plain(rows, vmin, vmax, edges, params, types, num_bins)
+        if row_indices is None:
+            return fit_error_counts_plain(values, vmin, vmax, edges, params, types, num_bins)
+        return _plain_rows(values, row_indices, vmin, vmax, edges, params, types, num_bins)
     _launch.check_contiguous(values)
     lib = _library()
     _launch.check_smem(lib.fitpdf_fit_error_smem_bytes(num_bins), num_bins)
-    if row_indices is not None and g and bool(
-            ((row_indices < 0) | (row_indices >= values.shape[0])).any()):
-        raise IndexError(f"row_indices out of range for {values.shape[0]} rows")
     err = torch.empty((g, t), dtype=torch.float32, device=values.device)
     if g:
         rc = lib.fitpdf_fit_error_counts(
             values.data_ptr(), None if row_indices is None else row_indices.data_ptr(),
             vmin.data_ptr(), vmax.data_ptr(), edges.data_ptr(), params.data_ptr(),
-            err.data_ptr(), g, values.shape[1], num_bins, t, codes,
+            err.data_ptr(), g, values.shape[0], values.shape[1], num_bins, t, codes,
             _launch.device_index(values.device), _launch.stream(values.device))
         _launch.raise_if_failed(lib, "fitpdf", rc, "fit_error_counts")
         fit_error_counts.launches += 1
@@ -178,3 +188,25 @@ fit_error_counts.launches = 0
 # The launches that read their rows through ``row_indices`` (a subset of
 # ``launches``): the grouping methods' device Select path.
 fit_error_counts.row_index_launches = 0
+
+
+def _plain_rows(values, row_indices, vmin, vmax, edges, params, types, num_bins):
+    """The plain K2 on ``values[row_indices]``, with a row of NaN where an
+    index lies outside the window, as the kernel gives it."""
+    inside = (row_indices >= 0) & (row_indices < values.shape[0])
+    rows = values[torch.where(inside, row_indices, 0)]
+    err = fit_error_counts_plain(rows, vmin, vmax, edges, params, types, num_bins)
+    return torch.where(inside[:, None], err, float("nan"))
+
+
+def fit_error_attributes(types: Sequence[str], num_bins: int) -> dict:
+    """Registers a thread, local memory bytes a thread (nonzero if it
+    spills) and dynamic shared memory bytes a block of the K2 instantiation
+    these types launch (with the float64 special functions if they hold
+    gamma or student_t), from the CUDA runtime."""
+    lib = _library()
+    out = (ctypes.c_int * 3)()
+    special = int(any(name in ("gamma", "student_t") for name in types))
+    rc = lib.fitpdf_fit_error_attributes(special, num_bins, out)
+    _launch.raise_if_failed(lib, "fitpdf", rc, "fitpdf_fit_error_attributes")
+    return dict(registers=out[0], local_bytes=out[1], smem_bytes=out[2])

@@ -41,6 +41,7 @@ def fit_errors(
     types: Sequence[str],
     num_bins: int,
     row_indices: torch.Tensor | None = None,
+    check_indices: bool = True,
 ) -> torch.Tensor:
     """(..., n) values + (..., T, 3) params -> (..., T) Eq.-5 errors, in one
     launch: the histogram, CDF masses and Eq.-5 reduction never leave the
@@ -50,7 +51,8 @@ def fit_errors(
     methods' device Select: ``values`` stays the full window while
     ``moments`` and ``params_all`` are already per representative (leading
     shape (G,)); the kernel reads each representative's row of the window
-    itself. Bitwise equal to passing ``values[row_indices]``."""
+    itself. Bitwise equal to passing ``values[row_indices]``.
+    ``check_indices`` as ``fit_error_counts``'s."""
     t = len(types)
     edges = pe.interval_edges(moments.vmin, moments.vmax, num_bins)
     n = values.shape[-1]
@@ -64,5 +66,6 @@ def fit_errors(
         tuple(types),
         num_bins,
         row_indices=row_indices,
+        check_indices=check_indices,
     )
     return errs.reshape(lead + (t,))

@@ -18,6 +18,8 @@ exception. It counts its launches in ``hist_counts.launches``.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.core import pdf_error as pe
@@ -29,6 +31,7 @@ def _library():
     return _launch.bind("hist", {
         "hist_counts": ([vp, vp, vp, vp, i32, i32, i32, i32, vp], i32),
         "hist_smem_bytes": ([i32], _launch.SIZE_T),
+        "hist_attributes": ([i32, ctypes.POINTER(ctypes.c_int)], i32),
     })
 
 
@@ -63,3 +66,14 @@ def hist_counts(values: torch.Tensor, vmin: torch.Tensor, vmax: torch.Tensor,
 
 
 hist_counts.launches = 0
+
+
+def hist_attributes(num_bins: int) -> dict:
+    """Registers a thread, local memory bytes a thread (nonzero if it
+    spills) and dynamic shared memory bytes a block of K4 at ``num_bins``,
+    from the CUDA runtime."""
+    lib = _library()
+    out = (ctypes.c_int * 3)()
+    rc = lib.hist_attributes(num_bins, out)
+    _launch.raise_if_failed(lib, "hist", rc, "hist_attributes")
+    return dict(registers=out[0], local_bytes=out[1], smem_bytes=out[2])

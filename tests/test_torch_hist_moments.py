@@ -113,6 +113,27 @@ def test_fit_error_counts_rejects_bad_row_indices(change, exc):
         tk.fit_error_counts(v, *args, **kw)
 
 
+def test_fit_error_counts_unchecked_indices():
+    """``check_indices=False`` (device Select's indices, in range by
+    construction): the checked call's errors where the indices are in
+    range, and a row of NaN, as the kernel gives it, where one is not."""
+    v = torch.from_numpy(_window((6, 40)))
+    m = td.moments_from_values(v)
+    idx = torch.tensor([5, 0, 3, 3])
+    sub = td.Moments(*(f[idx] for f in m))
+    params = td.fit_all(td.TYPES_4, sub).reshape(4, -1).contiguous()
+    args = (sub.vmin, sub.vmax, tpe.interval_edges(sub.vmin, sub.vmax, 8), params, td.TYPES_4, 8)
+    want = tk.fit_error_counts(v, *args, row_indices=idx)
+    got = tk.fit_error_counts(v, *args, row_indices=idx, check_indices=False)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    bad = torch.tensor([5, -1, 3, 6])
+    with pytest.raises(IndexError):
+        tk.fit_error_counts(v, *args, row_indices=bad)
+    got = tk.fit_error_counts(v, *args, row_indices=bad, check_indices=False)
+    assert torch.isnan(got[[1, 3]]).all()
+    np.testing.assert_array_equal(got[[0, 2]].numpy(), want[[0, 2]].numpy())
+
+
 def test_new_wrappers_reject_bad_inputs():
     v = torch.from_numpy(_window((4, 10)))
     lo, hi = v.amin(1), v.amax(1)

@@ -206,6 +206,112 @@ def test_new_kernels_reject_bad_inputs(dev):
         tk.fit_error_counts(x, *args, row_indices=torch.arange(6, device=dev, dtype=torch.int32))
 
 
+def _k2_args(x, m, types, num_bins, idx=None):
+    sub = m if idx is None else td.Moments(*(f[idx] for f in m))
+    params = td.fit_all(types, sub).reshape(len(sub.vmin), -1).contiguous()
+    edges = tpe.interval_edges(sub.vmin, sub.vmax, num_bins).contiguous()
+    return sub.vmin.contiguous(), sub.vmax.contiguous(), edges, params, types, num_bins
+
+
+@pytest.mark.parametrize("types,num_bins", [(td.TYPES_4, 64), (td.TYPES_10, 20)],
+                         ids=["4types_L64", "10types_L20"])
+def test_row_bitwise_alone_in_window_and_through_indices(dev, types, num_bins):
+    """A row's K2 errors and K4 counts are the same bits alone, inside the
+    full Set1-shaped window (6,275 x 1,000) and through ``row_indices``
+    with G = 1, 818 and 6,275: nothing of a row's result depends on the
+    grid or on the rows that share its launch."""
+    p, n = 6275, 1000
+    x = torch.from_numpy(_window((p, n), seed=11)).to(dev)
+    m = td.moments_from_values(x)
+    full = tk.fit_error_counts(x, *_k2_args(x, m, types, num_bins))
+    counts = thk.hist_counts(x, m.vmin, m.vmax, num_bins)
+    rng = np.random.default_rng(12)
+    for r in (0, 817, 4093, p - 1):
+        alone = x[r:r + 1].contiguous()
+        m1 = td.Moments(*(f[r:r + 1] for f in m))
+        assert torch.equal(tk.fit_error_counts(alone, *_k2_args(alone, m1, types, num_bins)), full[r:r + 1])
+        assert torch.equal(thk.hist_counts(alone, m1.vmin, m1.vmax, num_bins), counts[r:r + 1])
+        others = rng.choice(np.delete(np.arange(p), r), 817, replace=False)
+        for idx in ([r], np.insert(others, 409, r), rng.permutation(p)):
+            idx = torch.from_numpy(np.asarray(idx, dtype=np.int64)).to(dev)
+            got = tk.fit_error_counts(x, *_k2_args(x, m, types, num_bins, idx), row_indices=idx)
+            assert torch.equal(got[idx == r], full[r:r + 1])
+
+
+def test_misaligned_rows_bitwise(dev):
+    """Rows that do not start on a 16-byte boundary (a window at an offset
+    of one float, n = 1,000) take the scalar head and tail: the same bits
+    as the aligned copy."""
+    p, n = 300, 1000
+    base = torch.zeros(p * n + 1, device=dev)
+    x = base[1:].view(p, n)
+    x.copy_(torch.from_numpy(_window((p, n), seed=13)).to(dev))
+    aligned = x.clone()
+    m = td.moments_from_values(aligned)
+    args = _k2_args(aligned, m, td.TYPES_4, 64)
+    assert torch.equal(tk.fit_error_counts(x, *args), tk.fit_error_counts(aligned, *args))
+    assert torch.equal(thk.hist_counts(x, m.vmin, m.vmax, 64), thk.hist_counts(aligned, m.vmin, m.vmax, 64))
+
+
+@pytest.mark.parametrize("num_bins", [8, 64, 767])
+def test_worst_case_conflict_row(dev, num_bins):
+    """Every value of a row but its two ends in one bin: every atomic of
+    the histogram hits one counter. Counts stay exact, errors within the
+    tolerance of the plain version."""
+    arr = _window((8, 1000), seed=14)
+    arr[0] = 5.0
+    arr[0, 0], arr[0, -1] = 0.0, 10.0
+    arr[1] = arr[0][::-1]
+    x = torch.from_numpy(arr).to(dev)
+    m = td.moments_from_values(x)
+    got = thk.hist_counts(x, m.vmin, m.vmax, num_bins)
+    assert torch.equal(got, thk.hist_counts_plain(x, m.vmin, m.vmax, num_bins))
+    assert got[0, num_bins // 2] == 998
+    for types in (td.TYPES_4, td.TYPES_10):
+        args = (x, *_k2_args(x, m, types, num_bins))
+        _close(tk.fit_error_counts(*args), tk.fit_error_counts_plain(*args), rtol=1e-4, atol=5e-4)
+
+
+@pytest.mark.parametrize("types", [td.TYPES_4, td.TYPES_10], ids=["4types", "10types"])
+def test_fit_error_and_hist_no_spills(dev, types):
+    """K2's two instantiations (with and without the float64 special
+    functions) and K4 keep everything in registers (no local memory), and
+    their shared memory at the largest L each took before fits the 48 KB
+    a block gets without opting in."""
+    for attrs in (tk.fit_error_attributes(types, 767), thk.hist_attributes(1536)):
+        assert attrs["local_bytes"] == 0, attrs
+        assert 0 < attrs["registers"] <= 255 and attrs["smem_bytes"] <= 48 * 1024, attrs
+
+
+def test_device_select_indices_need_no_sync(dev):
+    """K2 through ``row_indices`` from ``compact_representatives``, as the
+    executor's device Select calls it, issues no host synchronisation; the
+    public wrapper's range check does, and an index outside the window
+    still raises there, and gives NaN rows, never a read, without it."""
+    x = torch.from_numpy(_window((6275, 1000), seed=15)).to(dev)
+    m = td.moments_from_values(x)
+    groups = tg.group_device(tg.quantize_keys(m.mean, m.var))
+    idx, _ = tg.compact_representatives(groups.rep_for_point, groups.is_rep)
+    args = _k2_args(x, m, td.TYPES_4, 64, idx)
+    want = tk.fit_error_counts(x, *args, row_indices=idx)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tk.fit_error_counts(x, *args, row_indices=idx, check_indices=False)
+        with pytest.raises(RuntimeError):  # the range check synchronises
+            tk.fit_error_counts(x, *args, row_indices=idx)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got, want)
+    bad = idx.clone()
+    bad[0], bad[-1] = -1, len(x)
+    with pytest.raises(IndexError):
+        tk.fit_error_counts(x, *args, row_indices=bad)
+    got = tk.fit_error_counts(x, *args, row_indices=bad, check_indices=False)
+    assert torch.isnan(got[[0, -1]]).all()
+    assert torch.equal(got[1:-1], want[1:-1])
+
+
 # K5 against its plain version. (B, S, H, KV, hd, W): GQA, MHA, ragged
 # tails, G = 3, S < W, S = 1, and hd 256 / 136 / 40; then S not a multiple
 # of 64 with S > W at G = 1 (hd 8), G = 3 (hd 136 and 256: one warpgroup a
