@@ -198,6 +198,10 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Edges a thread prefetches into registers before the histogram (the rest,
+// for L + 1 > kEdgeRegs * kHistThreads, are read after it).
+constexpr int kEdgeRegs = 2;
+
 // One block a row (kHistThreads threads). kSpecial: the type set holds
 // gamma or student_t, so the float64 incomplete gamma and beta are compiled
 // in; otherwise they are not, and take no registers.
@@ -208,28 +212,48 @@ fit_error_kernel(const float* __restrict__ x, const int64_t* __restrict__ row_in
                  const float* __restrict__ edges, const float* __restrict__ params,
                  float* __restrict__ err, int src_rows, int n, int L, int T,
                  unsigned long long codes) {
-  extern __shared__ int smem[];  // int hist[hist_smem_words(L)], then float cdf[kHistWarps][L+1]
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // int hist[hist_smem_words(L)], then float edge[L+1], param[3T], cdf[kHistWarps][L+1]
+  extern __shared__ int smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const long long row = blockIdx.x;
   const long long src = row_indices ? (long long)row_indices[row] : row;
   if (src < 0 || src >= src_rows) {  // an index outside the window reads nothing
-    for (int t = threadIdx.x; t < T; t += kHistThreads) err[row * T + t] = __int_as_float(0x7fffffff);
+    for (int t = tid; t < T; t += kHistThreads) err[row * T + t] = __int_as_float(0x7fffffff);
     return;
   }
   int* hist = smem;
+  float* edge_s = reinterpret_cast<float*>(smem + hist_smem_words(L));
+  float* param_s = edge_s + (L + 1);
+  float* cdfv = param_s + 3 * T + warp * (L + 1);
+
+  // The epilogue's inputs are loaded now and stored after the histogram, so
+  // their latency hides behind the row's.
+  const float* er = edges + row * (long long)(L + 1);
+  float ev[kEdgeRegs];
+#pragma unroll
+  for (int j = 0; j < kEdgeRegs; ++j) {
+    const int k = tid + j * kHistThreads;
+    ev[j] = k <= L ? __ldg(er + k) : 0.0f;
+  }
+  const float pv = tid < 3 * T ? __ldg(params + row * 3LL * T + tid) : 0.0f;
   block_row_histogram(x + src * (long long)n, n, vmin[row], vmax[row], L, hist);
+#pragma unroll
+  for (int j = 0; j < kEdgeRegs; ++j) {
+    const int k = tid + j * kHistThreads;
+    if (k <= L) edge_s[k] = ev[j];
+  }
+  for (int k = tid + kEdgeRegs * kHistThreads; k <= L; k += kHistThreads) edge_s[k] = __ldg(er + k);
+  if (tid < 3 * T) param_s[tid] = pv;
+  __syncthreads();
 
   // Epilogue: warp w takes types w, w + kHistWarps, ...; its lanes split the
   // L + 1 edges and the L bins. Each lane sums its bins' |freq_k / n - mass_k|
   // in order of k, then the warp's butterfly: the order is fixed by L alone.
-  float* cdfv = reinterpret_cast<float*>(smem + hist_smem_words(L)) + warp * (L + 1);
   const float nf = (float)(n > 1 ? n : 1);
-  const float* pr = params + row * 3LL * T;
-  const float* er = edges + row * (long long)(L + 1);
   for (int t = warp; t < T; t += kHistWarps) {
     const int code = (int)((codes >> (4 * t)) & 15ull);
-    const float p0 = pr[3 * t], p1 = pr[3 * t + 1], p2 = pr[3 * t + 2];
-    for (int k = lane; k <= L; k += 32) cdfv[k] = cdf_eval<kSpecial>(code, p0, p1, p2, er[k]);
+    const float p0 = param_s[3 * t], p1 = param_s[3 * t + 1], p2 = param_s[3 * t + 2];
+    for (int k = lane; k <= L; k += 32) cdfv[k] = cdf_eval<kSpecial>(code, p0, p1, p2, edge_s[k]);
     __syncwarp();
     float acc = 0.0f;
     for (int k = lane; k < L; k += 32) {
@@ -255,8 +279,9 @@ bool has_special(unsigned long long codes, int T) {
 
 extern "C" {
 
-size_t fitpdf_fit_error_smem_bytes(int L) {
-  return (hist_smem_words(L) + (size_t)kHistWarps * (size_t)(L + 1)) * sizeof(int);
+size_t fitpdf_fit_error_smem_bytes(int L, int T) {
+  return (hist_smem_words(L) + (size_t)(1 + kHistWarps) * (size_t)(L + 1) + 3 * (size_t)T) *
+         sizeof(int);
 }
 
 int fitpdf_moments_edges_stats(const float* x, float* stats, float* edges,
@@ -277,7 +302,7 @@ int fitpdf_fit_error_counts(const float* x, const int64_t* row_indices, const fl
                             unsigned long long codes, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  const size_t smem = fitpdf_fit_error_smem_bytes(L);
+  const size_t smem = fitpdf_fit_error_smem_bytes(L, T);
   auto kernel = has_special(codes, T) ? fit_error_kernel<true> : fit_error_kernel<false>;
   kernel<<<(unsigned)G, kHistThreads, smem, (cudaStream_t)stream>>>(
       x, row_indices, vmin, vmax, edges, params, err, src_rows, n, L, T, codes);
@@ -287,13 +312,13 @@ int fitpdf_fit_error_counts(const float* x, const int64_t* row_indices, const fl
 // fit_error_kernel's instantiation with (special = 1) or without the float64
 // special functions: attributes[0..2] = registers a thread, local memory
 // bytes a thread (nonzero if it spills), dynamic shared memory bytes a
-// block at L bins.
-int fitpdf_fit_error_attributes(int special, int L, int* attributes) {
+// block at L bins and T types.
+int fitpdf_fit_error_attributes(int special, int L, int T, int* attributes) {
   cudaFuncAttributes a;
   cudaError_t e = cudaFuncGetAttributes(&a, special ? fit_error_kernel<true> : fit_error_kernel<false>);
   attributes[0] = a.numRegs;
   attributes[1] = (int)a.localSizeBytes;
-  attributes[2] = (int)fitpdf_fit_error_smem_bytes(L);
+  attributes[2] = (int)fitpdf_fit_error_smem_bytes(L, T);
   return (int)e;
 }
 

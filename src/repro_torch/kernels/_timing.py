@@ -8,6 +8,12 @@ records ``b``: while the card sleeps, the host queues ``a``, the launch and
 ``b``, so the card runs them back to back and ``b - a`` is the kernel's own
 time. A run where the card had already passed ``a`` when ``b`` was queued is
 taken again with a longer sleep.
+
+The L2 flush before each run reads a buffer larger than L2: it leaves
+clean lines, so the kernel's reads evict nothing that has to be written
+back. (Zeroing the buffer, as ``chip_smoke.py``'s call timing does, leaves
+L2 full of dirty lines, and a kernel that reads 25 MB then also waits for
+as many bytes to be written back to memory.)
 """
 
 from __future__ import annotations
@@ -18,15 +24,17 @@ _SLEEP_CYCLES = 200_000  # ~0.1 ms at the H100's clock
 _MAX_SLEEP_CYCLES = 2**31 - 1
 
 
-def kernel_times(fn, reps: int, flush: torch.Tensor, warmup: int = 3) -> list[float]:
+def kernel_times(fn, reps: int, flush: torch.Tensor, warmup: int = 3,
+                 dirty: bool = False) -> list[float]:
     """ms of ``fn()``'s device work in each of ``reps`` runs, after
-    ``warmup`` calls, with ``flush`` zeroed (L2 flushed) before each. Raises
-    if ``fn`` synchronises with the host, which no sleep can hide."""
+    ``warmup`` calls, with L2 flushed before each by reading ``flush`` (by
+    zeroing it with ``dirty``). Raises if ``fn`` synchronises with the
+    host, which no sleep can hide."""
     for _ in range(warmup):
         fn()
     cycles, times = _SLEEP_CYCLES, []
     while len(times) < reps:
-        flush.zero_()
+        flush.zero_() if dirty else flush.sum()
         torch.cuda._sleep(cycles)
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()

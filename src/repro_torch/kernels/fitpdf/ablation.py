@@ -9,12 +9,13 @@ same flags (and ``-Xptxas -v``) into ``build/kernels/ablation/<variant>/``
 and bound with ctypes: ``loads_only`` sums each lane's values into a
 register and stores it where the counts would go (no bin, no atomics, no
 epilogue), ``no_epilogue`` writes one count per type instead of the Eq.-5
-error, ``epilogue_only`` skips the histogram loop, ``one_copy`` counts into
-one sub-histogram instead of four. Their outputs are wrong by design
-(``one_copy``'s are right); only their times mean anything. K4 has no epilogue, so its
+error, ``epilogue_only`` loads and counts nothing, ``loads_8`` reads a row in
+chunks of eight 16-byte loads a lane instead of four. Their outputs are
+wrong by design (``loads_8``'s are right); only their times mean
+anything. K4 has no epilogue, so its
 ``no_epilogue`` is its whole and its ``epilogue_only`` only zeroes and
-writes the counts. ``--against DIR`` adds ``DIR/fitpdf.cu`` and
-``DIR/hist.cu`` (with the headers in DIR), another version of the kernels,
+writes the counts. ``--against DIR ...`` adds each ``DIR/fitpdf.cu`` and
+``DIR/hist.cu`` (with the headers in DIR), other versions of the kernels,
 built and timed in the same turns.
 
 Shapes: K2 at T = 4, L = 64 and at T = 10, L = 20 on the first window of
@@ -22,7 +23,8 @@ Set1's slice 201 (6,275 x 1,000 float32), K2 through ``row_indices`` on that
 window's grouped representatives (T = 4, L = 64), and K4 at L = 64 on the
 window. Each time is the kernel's own (``_timing.kernel_times``: bare C
 launches, L2 flushed before each), a median of 20, variants in turns, two
-rounds. Prints each kernel's ptxas report (registers, spills, shared
+rounds; then the whole kernels once more with a flush that leaves L2
+dirty. Prints each kernel's ptxas report (registers, spills, shared
 memory) and one JSON line.
 """
 
@@ -43,24 +45,26 @@ from repro_torch.kernels._timing import kernel_times, median
 
 SLICE, WINDOW_LINES = 201, 25  # Set1's slice and PDFConfig.window_lines
 
+_EPILOGUE = "  for (int t = warp; t < T; t += kHistWarps) {"
+_NO_EPILOGUE = ("  if (tid < T) err[row * T + tid] = (float)hist[tid % L];\n"
+                "  for (int t = warp; t < 0; t += kHistWarps) {")
 _COUNT = "  auto count = [&](float v) { atomicAdd(mine + interval_bin(v, lo, span, fl, top), 1); };"
-_SUM = "  float sum = 0.0f;\n  auto count = [&](float v) { sum += v; };"
 _MERGE = "  __syncthreads();\n  for (int k = tid; k < L; k += kHistThreads) {"
 _HEAD_TAIL = "  if (tid < head) count(__ldg(xr + tid));\n  if (tid < n - tail) count(__ldg(xr + tail + tid));"
 _BODY = "  for (int base = 0; base < nv; base += kHistThreads * kHistLoads) {"
-_EPILOGUE = "  for (int t = warp; t < T; t += kHistWarps) {"
-_NO_EPILOGUE = ("  if (threadIdx.x < T) err[row * T + threadIdx.x] = (float)hist[threadIdx.x % L];\n"
-                "  for (int t = warp; t < 0; t += kHistWarps) {")
+_THREADS = "constexpr int kHistThreads = 128;"
 # (file, statement, replacement) a variant makes in csrc/.
 VARIANTS = {
     "whole": [],
-    "loads_only": [("row_hist.cuh", _COUNT, _SUM),
+    "loads_only": [("row_hist.cuh", _COUNT, "  float sum = 0.0f;\n  auto count = [&](float v) { sum += v; };"),
                    ("row_hist.cuh", _MERGE, "  mine[tid % L] = __float_as_int(sum);\n" + _MERGE),
                    ("fitpdf.cu", _EPILOGUE, _NO_EPILOGUE)],
     "no_epilogue": [("fitpdf.cu", _EPILOGUE, _NO_EPILOGUE)],
     "epilogue_only": [("row_hist.cuh", _HEAD_TAIL, ""),
                       ("row_hist.cuh", _BODY, _BODY.replace("base < nv", "base < 0"))],
     "one_copy": [("row_hist.cuh", "constexpr int kHistCopies = 4;", "constexpr int kHistCopies = 1;")],
+    "threads_64": [("row_hist.cuh", _THREADS, "constexpr int kHistThreads = 64;")],
+    "threads_256": [("row_hist.cuh", _THREADS, "constexpr int kHistThreads = 256;")],
 }
 KERNELS = ("fit_error_kernel", "hist_counts_kernel")
 
@@ -85,17 +89,17 @@ def _ptxas_report(log: str) -> list[str]:
             for b in blocks if any(k in b.split("\n", 1)[0] for k in KERNELS)]
 
 
-def build(against: Path | None) -> tuple[dict, dict]:
+def build(against: list[Path]) -> tuple[dict, dict]:
     """Write and compile every variant (fitpdf.cu and hist.cu each), one
     nvcc a source, all at once. Returns ({variant: (fitpdf lib, hist lib)},
     {variant: ptxas report})."""
     out = _build.BUILD_DIR / "ablation"
     dirs = {name: _write_variant(name, edits, out) for name, edits in VARIANTS.items()}
-    if against is not None:
-        d = out / "against"
+    for i, src in enumerate(against):
+        d = out / f"against{i}"
         shutil.rmtree(d, ignore_errors=True)
-        shutil.copytree(against, d)
-        dirs["against"] = d
+        shutil.copytree(src, d)
+        dirs[f"against:{src}"] = d
     procs = {}
     for name, d in dirs.items():
         for src in ("fitpdf", "hist"):
@@ -183,8 +187,8 @@ def launcher(libs, c: dict, stream):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--against", type=Path,
-                    help="a directory with another fitpdf.cu and hist.cu (and their headers) to time beside them")
+    ap.add_argument("--against", type=Path, nargs="+", default=[],
+                    help="directories with other fitpdf.cu and hist.cu (and their headers) to time beside them")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: the ablation times kernels on the card")
@@ -202,12 +206,16 @@ def main() -> None:
     runs = {(c, v): launcher(lib, case, stream) for c, case in cases.items() for v, lib in libs.items()}
     rounds = [{c: {v: median(kernel_times(runs[(c, v)], 20, flush)) for v in libs} for c in cases}
               for _ in range(2)]
+    # The whole kernels again with L2 left dirty by the flush (zeroed, not read).
+    dirty = {c: {v: median(kernel_times(runs[(c, v)], 20, flush, dirty=True)) for v in libs
+                 if v == "whole" or v.startswith("against")} for c in cases}
     for c in cases:
         print(f"[ablation] {c}: " + ", ".join(
             f"{v} {[r[c][v] for r in rounds]}" for v in libs), flush=True)
+        print(f"[ablation dirty L2] {c}: {dirty[c]}", flush=True)
     shapes = {c: dict(rows=case["g"], n=case["x"].shape[1], L=case["L"], T=case.get("T"))
               for c, case in cases.items()}
-    print(json.dumps({"device": smi, "shapes": shapes, "ms": rounds,
+    print(json.dumps({"device": smi, "shapes": shapes, "ms": rounds, "ms_dirty_l2": dirty,
                       "ptxas": reports}), flush=True)
 
 

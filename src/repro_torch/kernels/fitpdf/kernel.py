@@ -60,8 +60,8 @@ def _library():
         "fitpdf_moments_edges_stats": ([vp, vp, vp, i32, i32, i32, i32, vp], i32),
         "fitpdf_fit_error_counts": (
             [vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, ctypes.c_ulonglong, i32, vp], i32),
-        "fitpdf_fit_error_smem_bytes": ([i32], _launch.SIZE_T),
-        "fitpdf_fit_error_attributes": ([i32, i32, ctypes.POINTER(ctypes.c_int)], i32),
+        "fitpdf_fit_error_smem_bytes": ([i32, i32], _launch.SIZE_T),
+        "fitpdf_fit_error_attributes": ([i32, i32, i32, ctypes.POINTER(ctypes.c_int)], i32),
     })
 
 
@@ -169,7 +169,7 @@ def fit_error_counts(values, vmin, vmax, edges, params, types: Sequence[str],
         return _plain_rows(values, row_indices, vmin, vmax, edges, params, types, num_bins)
     _launch.check_contiguous(values)
     lib = _library()
-    _launch.check_smem(lib.fitpdf_fit_error_smem_bytes(num_bins), num_bins)
+    _launch.check_smem(lib.fitpdf_fit_error_smem_bytes(num_bins, t), num_bins)
     err = torch.empty((g, t), dtype=torch.float32, device=values.device)
     if g:
         rc = lib.fitpdf_fit_error_counts(
@@ -207,6 +207,6 @@ def fit_error_attributes(types: Sequence[str], num_bins: int) -> dict:
     lib = _library()
     out = (ctypes.c_int * 3)()
     special = int(any(name in ("gamma", "student_t") for name in types))
-    rc = lib.fitpdf_fit_error_attributes(special, num_bins, out)
+    rc = lib.fitpdf_fit_error_attributes(special, num_bins, len(types), out)
     _launch.raise_if_failed(lib, "fitpdf", rc, "fitpdf_fit_error_attributes")
     return dict(registers=out[0], local_bytes=out[1], smem_bytes=out[2])
