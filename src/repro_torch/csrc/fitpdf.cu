@@ -10,19 +10,36 @@
 //                      memory, every candidate type's CDF at the L+1 edges and
 //                      the Eq.-5 L1 error; only the (P, T) errors reach memory.
 //
-// Both read the (P, n) float32 window once and are bound by those bytes. The
-// TPU kernels' sequential observation-chunk grid axis becomes a loop inside a
-// warp: one warp owns one row, eight rows per 256-thread block. The float
-// sums are reduced with a fixed __shfl_xor_sync butterfly, so results are
-// bitwise reproducible. The only atomics are integer histogram adds in shared
-// memory, which are exact. K1's row loop lives in row_moments.cuh (shared
-// with K3, moments.cu), K2's histogram phase in row_hist.cuh (shared with
-// K4, hist.cu).
+// Both read the (P, n) float32 window once and are bound by those bytes
+// (fit_error_counts at T = 10 also by its float64 special functions, below).
+// The TPU kernels' sequential observation-chunk grid axis becomes a loop
+// inside the card's threads. The float sums are reduced with a fixed
+// __shfl_xor_sync butterfly, so results are bitwise reproducible. The only
+// atomics are integer histogram adds in shared memory, which are exact.
+// K1's row loop lives in row_moments.cuh (shared with K3, moments.cu): one
+// warp a row, eight rows a block.
+//
+// fit_error_counts is one block of 128 threads a row. Its histogram phase
+// (row_hist.cuh, shared with K4, hist.cu) keeps every 16-byte load of the
+// row in flight at once; its epilogue gives each of the four warps a type
+// and each lane a slice of the L + 1 edges and L bins, and sums the lanes'
+// |freq_k / n - mass_k| by a butterfly, in an order fixed by L alone. What
+// sets its time on a Set1 window: the read of the rows, the bin and atomic
+// of every value, and the CDFs at the edges, in that order at T = 4; at
+// T = 10 the float64 incomplete gamma and beta, whose divisions, logs and
+// lgammas are long instruction sequences on the float64 pipe. They are
+// compiled only into the instantiation for type sets that hold gamma or
+// student_t (fit_error_kernel<true>), so the other pays no registers for
+// them.
 //
 // fit_error_counts takes an optional row_indices (int64, null = identity):
 // output row r then reads window row row_indices[r], the grouping methods'
 // representative gather (repro/kernels/fitpdf/ops.py:79-128) done as the
-// kernel's own address computation, with no gathered copy in memory.
+// kernel's own address computation, with no gathered copy in memory. An
+// index outside the window gives a row of NaN and reads nothing. A row's
+// result depends on that row alone, not on the grid or the other rows of
+// the launch, so a launch through row_indices equals one on the gathered
+// rows bit for bit.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
 //        -shared -Xcompiler -fPIC (no fast math; -fmad=false keeps each float
@@ -198,10 +215,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Edges a thread prefetches into registers before the histogram (the rest,
-// for L + 1 > kEdgeRegs * kHistThreads, are read after it).
-constexpr int kEdgeRegs = 2;
-
 // One block a row (kHistThreads threads). kSpecial: the type set holds
 // gamma or student_t, so the float64 incomplete gamma and beta are compiled
 // in; otherwise they are not, and take no registers.
@@ -212,48 +225,28 @@ fit_error_kernel(const float* __restrict__ x, const int64_t* __restrict__ row_in
                  const float* __restrict__ edges, const float* __restrict__ params,
                  float* __restrict__ err, int src_rows, int n, int L, int T,
                  unsigned long long codes) {
-  // int hist[hist_smem_words(L)], then float edge[L+1], param[3T], cdf[kHistWarps][L+1]
-  extern __shared__ int smem[];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  extern __shared__ int smem[];  // int hist[hist_smem_words(L)], then float cdf[kHistWarps][L+1]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long row = blockIdx.x;
   const long long src = row_indices ? (long long)row_indices[row] : row;
   if (src < 0 || src >= src_rows) {  // an index outside the window reads nothing
-    for (int t = tid; t < T; t += kHistThreads) err[row * T + t] = __int_as_float(0x7fffffff);
+    for (int t = threadIdx.x; t < T; t += kHistThreads) err[row * T + t] = __int_as_float(0x7fffffff);
     return;
   }
   int* hist = smem;
-  float* edge_s = reinterpret_cast<float*>(smem + hist_smem_words(L));
-  float* param_s = edge_s + (L + 1);
-  float* cdfv = param_s + 3 * T + warp * (L + 1);
-
-  // The epilogue's inputs are loaded now and stored after the histogram, so
-  // their latency hides behind the row's.
-  const float* er = edges + row * (long long)(L + 1);
-  float ev[kEdgeRegs];
-#pragma unroll
-  for (int j = 0; j < kEdgeRegs; ++j) {
-    const int k = tid + j * kHistThreads;
-    ev[j] = k <= L ? __ldg(er + k) : 0.0f;
-  }
-  const float pv = tid < 3 * T ? __ldg(params + row * 3LL * T + tid) : 0.0f;
   block_row_histogram(x + src * (long long)n, n, vmin[row], vmax[row], L, hist);
-#pragma unroll
-  for (int j = 0; j < kEdgeRegs; ++j) {
-    const int k = tid + j * kHistThreads;
-    if (k <= L) edge_s[k] = ev[j];
-  }
-  for (int k = tid + kEdgeRegs * kHistThreads; k <= L; k += kHistThreads) edge_s[k] = __ldg(er + k);
-  if (tid < 3 * T) param_s[tid] = pv;
-  __syncthreads();
 
   // Epilogue: warp w takes types w, w + kHistWarps, ...; its lanes split the
   // L + 1 edges and the L bins. Each lane sums its bins' |freq_k / n - mass_k|
   // in order of k, then the warp's butterfly: the order is fixed by L alone.
+  float* cdfv = reinterpret_cast<float*>(smem + hist_smem_words(L)) + warp * (L + 1);
   const float nf = (float)(n > 1 ? n : 1);
+  const float* pr = params + row * 3LL * T;
+  const float* er = edges + row * (long long)(L + 1);
   for (int t = warp; t < T; t += kHistWarps) {
     const int code = (int)((codes >> (4 * t)) & 15ull);
-    const float p0 = param_s[3 * t], p1 = param_s[3 * t + 1], p2 = param_s[3 * t + 2];
-    for (int k = lane; k <= L; k += 32) cdfv[k] = cdf_eval<kSpecial>(code, p0, p1, p2, edge_s[k]);
+    const float p0 = pr[3 * t], p1 = pr[3 * t + 1], p2 = pr[3 * t + 2];
+    for (int k = lane; k <= L; k += 32) cdfv[k] = cdf_eval<kSpecial>(code, p0, p1, p2, er[k]);
     __syncwarp();
     float acc = 0.0f;
     for (int k = lane; k < L; k += 32) {
@@ -279,9 +272,8 @@ bool has_special(unsigned long long codes, int T) {
 
 extern "C" {
 
-size_t fitpdf_fit_error_smem_bytes(int L, int T) {
-  return (hist_smem_words(L) + (size_t)(1 + kHistWarps) * (size_t)(L + 1) + 3 * (size_t)T) *
-         sizeof(int);
+size_t fitpdf_fit_error_smem_bytes(int L) {
+  return (hist_smem_words(L) + (size_t)kHistWarps * (size_t)(L + 1)) * sizeof(int);
 }
 
 int fitpdf_moments_edges_stats(const float* x, float* stats, float* edges,
@@ -302,7 +294,7 @@ int fitpdf_fit_error_counts(const float* x, const int64_t* row_indices, const fl
                             unsigned long long codes, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  const size_t smem = fitpdf_fit_error_smem_bytes(L, T);
+  const size_t smem = fitpdf_fit_error_smem_bytes(L);
   auto kernel = has_special(codes, T) ? fit_error_kernel<true> : fit_error_kernel<false>;
   kernel<<<(unsigned)G, kHistThreads, smem, (cudaStream_t)stream>>>(
       x, row_indices, vmin, vmax, edges, params, err, src_rows, n, L, T, codes);
@@ -312,13 +304,13 @@ int fitpdf_fit_error_counts(const float* x, const int64_t* row_indices, const fl
 // fit_error_kernel's instantiation with (special = 1) or without the float64
 // special functions: attributes[0..2] = registers a thread, local memory
 // bytes a thread (nonzero if it spills), dynamic shared memory bytes a
-// block at L bins and T types.
-int fitpdf_fit_error_attributes(int special, int L, int T, int* attributes) {
+// block at L bins.
+int fitpdf_fit_error_attributes(int special, int L, int* attributes) {
   cudaFuncAttributes a;
   cudaError_t e = cudaFuncGetAttributes(&a, special ? fit_error_kernel<true> : fit_error_kernel<false>);
   attributes[0] = a.numRegs;
   attributes[1] = (int)a.localSizeBytes;
-  attributes[2] = (int)fitpdf_fit_error_smem_bytes(L, T);
+  attributes[2] = (int)fitpdf_fit_error_smem_bytes(L);
   return (int)e;
 }
 

@@ -6,11 +6,12 @@
 //              (P, L) float32.
 //
 // It is K2's histogram phase (row_hist.cuh) without the CDF epilogue: one
-// block a row, every 16-byte load of the row in flight at once, integer
-// atomicAdd into kHistCopies sub-histograms in shared memory (exact and
+// block of 128 threads a row, every 16-byte load of the row in flight at
+// once, integer atomicAdd into sub-histograms in shared memory (exact and
 // order-free), summed and written out as float. The bin is computed as K2
 // computes it, so the counts are exact. It reads the (P, n) float32 window
-// once and writes 4L bytes a row: bound by those bytes.
+// once and writes 4L bytes a row: bound by those bytes. Its time on a Set1
+// window is that read, then the bin and atomic of every value.
 //
 // Build and interface as fitpdf.cu.
 

@@ -2,15 +2,20 @@
 // (hist.cu, hist_counts): one block of kHistThreads threads counts one row.
 //
 // What bounds it: the row's bytes, read once. What held the one-warp-a-row
-// design back was latency, not bandwidth: one 4-byte load a lane in flight,
-// and a row's 32 lanes landing in the same few central bins, whose shared
-// atomics serialise. Here the block's 128 threads issue every 16-byte load
-// of their share of the row at once (kHistLoads a thread, a scalar head and
-// tail around the 16-byte-aligned body, so any n works), and the counts go
-// to kHistCopies sub-histograms (lane % kHistCopies), so lanes of one warp
-// that fall in the same bin hit different addresses. The copies are summed
-// after the loop. Integer atomicAdd is exact and order-free, so the counts
-// equal the plain version's and do not depend on which thread read a value.
+// design back was the loads: one 4-byte load a lane in flight, 32 dependent
+// trips for a 1,000-value row. Here the block's 128 threads issue every
+// 16-byte load of their share of the row at once (kHistLoads a thread: up
+// to 2,048 values a round; a scalar head and tail around the 16-byte-aligned
+// body, so any n works);
+// on a Set1 window that read takes what PyTorch's own row sum takes. The
+// counts go to kHistCopies sub-histograms (thread % kHistCopies), summed
+// after the row: on an H100 the lanes of a warp that add to one shared
+// counter do not serialise measurably (a row with every value in one bin
+// costs no more), so the copies neither help nor cost much there; they keep
+// the shared memory a block needs at four ints a bin, and with it the
+// largest L a launch takes without opting in to more than 48 KB. Integer
+// atomicAdd is exact and order-free, so the counts equal the plain
+// version's and do not depend on which thread read a value.
 #pragma once
 
 #include "common.cuh"

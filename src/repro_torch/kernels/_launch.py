@@ -11,7 +11,8 @@ import torch
 VP, I32, SIZE_T = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
 
 # Dynamic shared memory a block gets without opting in; the histogram
-# kernels (K2, K4) hold kRows * L counters and refuse an L that needs more.
+# kernels (K2, K4) hold four sub-histograms of L counters (K2 also its CDF
+# values) and refuse an L that needs more.
 SMEM_LIMIT = 48 * 1024
 
 _bound: dict[str, ctypes.CDLL] = {}

@@ -9,11 +9,11 @@ records ``b``: while the card sleeps, the host queues ``a``, the launch and
 time. A run where the card had already passed ``a`` when ``b`` was queued is
 taken again with a longer sleep.
 
-The L2 flush before each run reads a buffer larger than L2: it leaves
-clean lines, so the kernel's reads evict nothing that has to be written
-back. (Zeroing the buffer, as ``chip_smoke.py``'s call timing does, leaves
-L2 full of dirty lines, and a kernel that reads 25 MB then also waits for
-as many bytes to be written back to memory.)
+The L2 flush before each run reads a buffer larger than L2, so it leaves
+clean lines and the kernel's reads evict nothing that has to be written
+back. Zeroing the buffer, as ``chip_smoke.py``'s call timing does, leaves
+L2 full of dirty lines, and their write-back then lands in the kernel's
+time (``dirty=True`` times it so).
 """
 
 from __future__ import annotations

@@ -1,31 +1,35 @@
 """Where K2 (``fit_error_counts``) and K4 (``hist_counts``) spend their
-time: the kernels with one phase taken out, timed beside the whole on a
+time: the kernels with one part taken out, timed beside the whole on a
 Set1 window on the card.
 
-    PYTHONPATH=src python -m repro_torch.kernels.fitpdf.ablation [--against DIR]
+    PYTHONPATH=src python -m repro_torch.kernels.fitpdf.ablation [--against DIR ...]
 
 Each variant is ``csrc/`` with a statement or two replaced, built with the
 same flags (and ``-Xptxas -v``) into ``build/kernels/ablation/<variant>/``
-and bound with ctypes: ``loads_only`` sums each lane's values into a
+and bound with ctypes: ``loads_only`` sums each thread's values into a
 register and stores it where the counts would go (no bin, no atomics, no
 epilogue), ``no_epilogue`` writes one count per type instead of the Eq.-5
-error, ``epilogue_only`` loads and counts nothing, ``loads_8`` reads a row in
-chunks of eight 16-byte loads a lane instead of four. Their outputs are
-wrong by design (``loads_8``'s are right); only their times mean
-anything. K4 has no epilogue, so its
-``no_epilogue`` is its whole and its ``epilogue_only`` only zeroes and
-writes the counts. ``--against DIR ...`` adds each ``DIR/fitpdf.cu`` and
-``DIR/hist.cu`` (with the headers in DIR), other versions of the kernels,
-built and timed in the same turns.
+error, ``epilogue_only`` reads and counts nothing, ``no_special`` makes the
+gamma and student_t CDFs a constant, ``one_copy`` counts into one
+sub-histogram instead of four. Their outputs are wrong by design
+(``one_copy``'s are right); only their times mean anything. K4 has no
+epilogue, so its ``no_epilogue`` and ``no_special`` are its whole and its
+``epilogue_only`` only zeroes, sums and writes the counts. ``--against
+DIR ...`` adds each ``DIR/fitpdf.cu`` and ``DIR/hist.cu`` (with the
+headers in DIR), other versions of the kernels, built and timed in the
+same turns.
 
-Shapes: K2 at T = 4, L = 64 and at T = 10, L = 20 on the first window of
-Set1's slice 201 (6,275 x 1,000 float32), K2 through ``row_indices`` on that
-window's grouped representatives (T = 4, L = 64), and K4 at L = 64 on the
-window. Each time is the kernel's own (``_timing.kernel_times``: bare C
-launches, L2 flushed before each), a median of 20, variants in turns, two
-rounds; then the whole kernels once more with a flush that leaves L2
-dirty. Prints each kernel's ptxas report (registers, spills, shared
-memory) and one JSON line.
+Cases: K2 at T = 4, L = 64 and at T = 10, L = 20 on the first window of
+Set1's slice 201 (6,275 x 1,000 float32), K2 through ``row_indices`` on
+that window's grouped representatives (T = 4, L = 64), K4 at L = 64 on
+the window, and K4 on a window whose rows put every value but two in one
+bin (every atomic of a row on one counter). Each time is the kernel's own
+(``_timing.kernel_times``: bare C launches, L2 flushed clean before each),
+a median of 20, variants in turns, two rounds; then the whole kernels
+once more with a flush that leaves L2 dirty, and two yardsticks with the
+same timing (a launch that does nothing, PyTorch's row sum of the window).
+Prints the card's name and power limit, each kernel's ptxas report
+(registers, spills) and one JSON line.
 """
 
 from __future__ import annotations
@@ -46,13 +50,14 @@ from repro_torch.kernels._timing import kernel_times, median
 SLICE, WINDOW_LINES = 201, 25  # Set1's slice and PDFConfig.window_lines
 
 _EPILOGUE = "  for (int t = warp; t < T; t += kHistWarps) {"
-_NO_EPILOGUE = ("  if (tid < T) err[row * T + tid] = (float)hist[tid % L];\n"
+_NO_EPILOGUE = ("  if (threadIdx.x < T) err[row * T + threadIdx.x] = (float)hist[threadIdx.x % L];\n"
                 "  for (int t = warp; t < 0; t += kHistWarps) {")
 _COUNT = "  auto count = [&](float v) { atomicAdd(mine + interval_bin(v, lo, span, fl, top), 1); };"
 _MERGE = "  __syncthreads();\n  for (int k = tid; k < L; k += kHistThreads) {"
 _HEAD_TAIL = "  if (tid < head) count(__ldg(xr + tid));\n  if (tid < n - tail) count(__ldg(xr + tail + tid));"
 _BODY = "  for (int base = 0; base < nv; base += kHistThreads * kHistLoads) {"
-_THREADS = "constexpr int kHistThreads = 128;"
+_GAMMA = "      if constexpr (kSpecial) return gamma_cdf(p0, p1, x); else return kNaN;"
+_STUDENT_T = "      if constexpr (kSpecial) return student_t_cdf(p0, p1, p2, x); else return kNaN;"
 # (file, statement, replacement) a variant makes in csrc/.
 VARIANTS = {
     "whole": [],
@@ -62,9 +67,8 @@ VARIANTS = {
     "no_epilogue": [("fitpdf.cu", _EPILOGUE, _NO_EPILOGUE)],
     "epilogue_only": [("row_hist.cuh", _HEAD_TAIL, ""),
                       ("row_hist.cuh", _BODY, _BODY.replace("base < nv", "base < 0"))],
+    "no_special": [("fitpdf.cu", _GAMMA, "      return 0.5f;"), ("fitpdf.cu", _STUDENT_T, "      return 0.5f;")],
     "one_copy": [("row_hist.cuh", "constexpr int kHistCopies = 4;", "constexpr int kHistCopies = 1;")],
-    "threads_64": [("row_hist.cuh", _THREADS, "constexpr int kHistThreads = 64;")],
-    "threads_256": [("row_hist.cuh", _THREADS, "constexpr int kHistThreads = 256;")],
 }
 KERNELS = ("fit_error_kernel", "hist_counts_kernel")
 
@@ -160,6 +164,13 @@ def inputs(dev: torch.device) -> dict:
              "k2_rows_T4_L64": k2(dists.TYPES_4, 64, reps)}
     cases["k4_L64"] = dict(kernel="k4", x=x, vmin=m.vmin.contiguous(), vmax=m.vmax.contiguous(),
                            out=torch.empty((len(x), 64), device=dev), g=len(x), L=64)
+    # Every value of every row in one bin but the row's two ends: all of a
+    # row's atomics on one counter (a sub-histogram's worth of conflicts).
+    one_bin = torch.full_like(x, 5.0)
+    one_bin[:, 0], one_bin[:, -1] = 0.0, 10.0
+    cases["k4_one_bin_L64"] = dict(kernel="k4", x=one_bin, vmin=torch.zeros(len(x), device=dev),
+                                   vmax=torch.full((len(x),), 10.0, device=dev),
+                                   out=torch.empty((len(x), 64), device=dev), g=len(x), L=64)
     return cases
 
 
@@ -206,6 +217,12 @@ def main() -> None:
     runs = {(c, v): launcher(lib, case, stream) for c, case in cases.items() for v, lib in libs.items()}
     rounds = [{c: {v: median(kernel_times(runs[(c, v)], 20, flush)) for v in libs} for c in cases}
               for _ in range(2)]
+    # Yardsticks with the same timing: a launch that does nothing, and
+    # PyTorch's row sum, which reads the window once.
+    x, one = cases["k2_T4_L64"]["x"], torch.zeros(1, device=dev)
+    yard = {"empty_launch": median(kernel_times(one.zero_, 20, flush)),
+            "torch_row_sum": median(kernel_times(lambda: x.sum(dim=1), 20, flush))}
+    print(f"[yardstick] {yard}", flush=True)
     # The whole kernels again with L2 left dirty by the flush (zeroed, not read).
     dirty = {c: {v: median(kernel_times(runs[(c, v)], 20, flush, dirty=True)) for v in libs
                  if v == "whole" or v.startswith("against")} for c in cases}
@@ -215,7 +232,7 @@ def main() -> None:
         print(f"[ablation dirty L2] {c}: {dirty[c]}", flush=True)
     shapes = {c: dict(rows=case["g"], n=case["x"].shape[1], L=case["L"], T=case.get("T"))
               for c, case in cases.items()}
-    print(json.dumps({"device": smi, "shapes": shapes, "ms": rounds, "ms_dirty_l2": dirty,
+    print(json.dumps({"device": smi, "shapes": shapes, "ms": rounds, "ms_dirty_l2": dirty, "yardstick_ms": yard,
                       "ptxas": reports}), flush=True)
 
 

@@ -16,20 +16,28 @@
     Replaces the Pallas TPU kernel
     ``repro/kernels/fitpdf/kernel.py::fit_error_counts``. values (P, n),
     vmin/vmax (P,), edges (P, L+1), params (P, 3T) -> Eq.-5 errors (P, T).
-    Bound: bytes, the same P*n*4 B read once; the epilogue's CDF work is
-    P*T*(L+1) evaluations, small beside it. Design: one warp per row, the
-    row's histogram as L integer counters in shared memory (integer atomic
-    adds are exact and order-free), and, with the counts still there, the
-    epilogue evaluates each candidate CDF at the edges into shared memory
-    and reduces sum |freq/n - mass| in a fixed order; only (P, T) floats are
-    written. The incomplete gamma and beta run in double on the device.
+    Bound: bytes, the same P*n*4 B read once, at T = 4; at T = 10 the
+    float64 incomplete gamma and beta add work that the card runs as long
+    instruction sequences. Design (``csrc/fitpdf.cu``, ``csrc/row_hist.cuh``):
+    one block of 128 threads a row, every 16-byte load of the row in flight
+    at once, the row's histogram as integer counters in shared memory
+    (integer atomic adds are exact and order-free); then, with the counts
+    still there, each warp takes a type and its lanes a slice of the edges
+    and bins: the CDF at the edges into shared memory, and sum |freq/n -
+    mass| by lane and a fixed butterfly. Only (P, T) floats are written.
+    The gamma and student_t CDFs are compiled only into the instantiation
+    for the type sets that hold them.
 
     ``row_indices`` (G,) int64 is the grouping methods' representative
     gather (``repro/kernels/fitpdf/ops.py:79-128``): output row r reads
     window row ``row_indices[r]`` while vmin, vmax, edges and params are
     already per representative. The kernel computes that address itself, so
     no gathered copy of the G rows is made; its bound is the G rows read.
-    The result is bitwise equal to a launch on ``values[row_indices]``.
+    A row's result depends on that row alone, so the result is bitwise
+    equal to a launch on ``values[row_indices]``. The range check of the
+    indices costs a host synchronisation; device Select, whose indices are
+    in range by construction, skips it (``check_indices=False``), and the
+    kernel never reads outside the window whatever it is given.
 
 Each wrapper dispatches on the tensor's device: a CPU tensor gets the plain
 PyTorch version (``*_plain``, the same arithmetic, the CPU tests' path), a
@@ -60,8 +68,8 @@ def _library():
         "fitpdf_moments_edges_stats": ([vp, vp, vp, i32, i32, i32, i32, vp], i32),
         "fitpdf_fit_error_counts": (
             [vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, ctypes.c_ulonglong, i32, vp], i32),
-        "fitpdf_fit_error_smem_bytes": ([i32, i32], _launch.SIZE_T),
-        "fitpdf_fit_error_attributes": ([i32, i32, i32, ctypes.POINTER(ctypes.c_int)], i32),
+        "fitpdf_fit_error_smem_bytes": ([i32], _launch.SIZE_T),
+        "fitpdf_fit_error_attributes": ([i32, i32, ctypes.POINTER(ctypes.c_int)], i32),
     })
 
 
@@ -143,8 +151,8 @@ def fit_error_counts(values, vmin, vmax, edges, params, types: Sequence[str],
     An index outside [0, P) raises ``IndexError``, which on a CUDA tensor
     costs one host synchronisation. ``check_indices=False`` is for callers
     whose indices are in range by construction (device Select's
-    ``compact_representatives``): no check, no synchronisation, and the
-    kernel, which never reads outside the window, gives a row of NaN for an
+    ``compact_representatives``): no check and no synchronisation; the
+    kernel never reads outside the window, and gives a row of NaN for an
     index outside it."""
     _launch.check_values(values)
     t = len(types)
@@ -164,12 +172,11 @@ def fit_error_counts(values, vmin, vmax, edges, params, types: Sequence[str],
             ((row_indices < 0) | (row_indices >= values.shape[0])).any()):
         raise IndexError(f"row_indices out of range for {values.shape[0]} rows")
     if values.device.type == "cpu":
-        if row_indices is None:
-            return fit_error_counts_plain(values, vmin, vmax, edges, params, types, num_bins)
-        return _plain_rows(values, row_indices, vmin, vmax, edges, params, types, num_bins)
+        rows = values if row_indices is None else values[row_indices]
+        return fit_error_counts_plain(rows, vmin, vmax, edges, params, types, num_bins)
     _launch.check_contiguous(values)
     lib = _library()
-    _launch.check_smem(lib.fitpdf_fit_error_smem_bytes(num_bins, t), num_bins)
+    _launch.check_smem(lib.fitpdf_fit_error_smem_bytes(num_bins), num_bins)
     err = torch.empty((g, t), dtype=torch.float32, device=values.device)
     if g:
         rc = lib.fitpdf_fit_error_counts(
@@ -190,15 +197,6 @@ fit_error_counts.launches = 0
 fit_error_counts.row_index_launches = 0
 
 
-def _plain_rows(values, row_indices, vmin, vmax, edges, params, types, num_bins):
-    """The plain K2 on ``values[row_indices]``, with a row of NaN where an
-    index lies outside the window, as the kernel gives it."""
-    inside = (row_indices >= 0) & (row_indices < values.shape[0])
-    rows = values[torch.where(inside, row_indices, 0)]
-    err = fit_error_counts_plain(rows, vmin, vmax, edges, params, types, num_bins)
-    return torch.where(inside[:, None], err, float("nan"))
-
-
 def fit_error_attributes(types: Sequence[str], num_bins: int) -> dict:
     """Registers a thread, local memory bytes a thread (nonzero if it
     spills) and dynamic shared memory bytes a block of the K2 instantiation
@@ -207,6 +205,6 @@ def fit_error_attributes(types: Sequence[str], num_bins: int) -> dict:
     lib = _library()
     out = (ctypes.c_int * 3)()
     special = int(any(name in ("gamma", "student_t") for name in types))
-    rc = lib.fitpdf_fit_error_attributes(special, num_bins, len(types), out)
+    rc = lib.fitpdf_fit_error_attributes(special, num_bins, out)
     _launch.raise_if_failed(lib, "fitpdf", rc, "fitpdf_fit_error_attributes")
     return dict(registers=out[0], local_bytes=out[1], smem_bytes=out[2])

@@ -6,10 +6,12 @@ intervals: bin ``floor((x - lo) / max(hi - lo, 1e-12) * L)`` clipped to
 [0, L-1]. Bound on an H100: bytes. It must read the window once, P*n*4 B
 (25.1 MB for a Set1 window, about 7.5 us at 3.35 TB/s), and write P*L*4 B.
 Design: K2's histogram phase (``csrc/row_hist.cuh``) without its CDF
-epilogue (``csrc/hist.cu``): one warp per row counts into L int counters in
-shared memory with integer atomic adds, which are exact and order-free, and
-computes the bin with IEEE-rounded intrinsics, so the counts equal the plain
-version's exactly. A constant row (vmin == vmax) counts everything in bin 0.
+epilogue (``csrc/hist.cu``): one block of 128 threads a row with every
+16-byte load of the row in flight at once, the counts as integer counters
+in shared memory (integer atomic adds are exact and order-free), the bin
+computed with IEEE-rounded intrinsics, so the counts equal the plain
+version's exactly. A constant row (vmin == vmax) counts everything in bin
+0.
 
 The wrapper dispatches on the tensor's device: a CPU tensor gets the plain
 version (``pe.histogram_scatter``), a CUDA tensor the kernel or an
