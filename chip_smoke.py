@@ -25,11 +25,12 @@ and every kernel's launch count set to 0 just before it:
 
 Then the baseline slice and the two grouping slices run once more under
 ``torch.profiler`` (device time by kernel, device idle share), and a timing
-of each kernel at the Set1 window shape beside its bound: K1-K4 as "kernel
-ms" (the kernel's own device time: the wrapper's host work queued behind a
-sleep on the card, L2 flushed clean) beside "call ms" (CUDA events around
-the wrapper call, L2 flushed by zeroing a buffer, as earlier runs timed
-them).
+of each kernel at the Set1 window shape beside its bound. Every kernel
+row's ``ms`` is "call ms", as earlier runs timed it: CUDA events around
+the wrapper call, L2 flushed by zeroing a buffer, the card's idle time
+through the wrapper's host work included. K1-K4 add ``kernel_ms``, the
+kernel's own device time: the wrapper's host work queued behind a sleep
+on the card, L2 flushed clean (``repro_torch.kernels._timing``).
 
 Last comes the LM serving path (``band_attn``, K5):
 
@@ -606,21 +607,19 @@ def cuda_times(torch, fn, reps, flush) -> list:
 def time_kernel(fn, flush, reps=50) -> float:
     """Median ms of ``fn()``'s own device work over ``reps`` runs, the
     wrapper's host work queued behind a sleep on the card, L2 flushed clean
-    before each (``repro_torch.kernels._timing.kernel_times``)."""
-    from repro_torch.kernels._timing import kernel_times
+    before each (``repro_torch.kernels._timing.kernel_times``): "kernel
+    ms"."""
+    from repro_torch.kernels._timing import kernel_times, median
 
     return median(kernel_times(fn, reps, flush))
-
-
-def median(xs) -> float:
-    xs = sorted(xs)
-    return xs[len(xs) // 2]
 
 
 def time_cuda(torch, fn, reps, flush) -> float:
     """Median ms of ``fn()`` over ``reps`` runs (``cuda_times``): the call's
     time, the wrapper's host work and the card's idle time through it
     included ("call ms")."""
+    from repro_torch.kernels._timing import median
+
     return median(cuda_times(torch, fn, reps, flush))
 
 
@@ -739,13 +738,15 @@ def time_kernels(np, torch, x, dev, launches, worst_k1, err_k2):
     # ~10 per value (shift, three products, four sums, min, max).
     b1, by1 = bound_ms(4 * (p * n + 8 * p + p * (L + 1)), 10 * p * n)
     err_stat = max(worst_k1, key=lambda s: worst_k1[s][0])
-    log(f"[time] K1 moments_edges_stats ({p}, {n}) L={L}: kernel {k1} ms (call {k1_call} ms), plain {k1_plain} ms, "
-        f"bound {b1} ms by {by1}; no single PyTorch call computes this function; its max abs "
-        f"difference from the plain version, {worst_k1[err_stat][0]}, is in {err_stat}")
+    log(f"[time] K1 moments_edges_stats ({p}, {n}) L={L}: call {k1_call} ms, kernel {k1} ms "
+        f"({100 * b1 / k1} % of bound), plain {k1_plain} ms, bound {b1} ms by {by1}; no single "
+        f"PyTorch call computes this function; its max abs difference from the plain version, "
+        f"{worst_k1[err_stat][0]}, is in {err_stat}")
     rows = [dict(name="moments_edges_stats", route="cuda", source="src/repro_torch/csrc/fitpdf.cu",
                  replaces="src/repro/kernels/fitpdf/kernel.py:112",
                  launches=launches["moments_edges_stats"], max_abs_err=worst_k1[err_stat][0],
-                 ms=k1, call_ms=k1_call, plain_ms=k1_plain, bound_ms=b1, bound_by=by1, library_ms=None)]
+                 ms=k1_call, kernel_ms=k1, plain_ms=k1_plain, bound_ms=b1, bound_by=by1,
+                 library_ms=None)]
 
     stats, _ = kernel.moments_edges_stats(x, L)
     m = dists.Moments(*(stats[:, i].contiguous() for i in range(6)))
@@ -765,10 +766,10 @@ def time_kernels(np, torch, x, dev, launches, worst_k1, err_k2):
         f64 = special_function_ops(np, params.cpu().numpy(), edges.cpu().numpy(), types)
         b, by = bound_ms(4 * (p * n + 2 * p + p * (L + 1) + 3 * t * p + t * p),
                          4 * p * n + 30 * p * t * (L + 1) + 3 * p * t * L, f64)
-        k2[(t, L)] = dict(ms=ms, call_ms=call, plain_ms=plain, bound_ms=b, bound_by=by)
+        k2[(t, L)] = dict(ms=call, kernel_ms=ms, plain_ms=plain, bound_ms=b, bound_by=by)
         attrs = kernel.fit_error_attributes(types, L)
-        log(f"[time] K2 fit_error_counts ({p}, {n}) T={t} L={L}: kernel {ms} ms (call {call} ms), "
-            f"plain {plain} ms, bound {b} ms by {by}, {100 * b / ms} % of bound (float64 "
+        log(f"[time] K2 fit_error_counts ({p}, {n}) T={t} L={L}: call {call} ms, kernel {ms} ms "
+            f"({100 * b / ms} % of bound), plain {plain} ms, bound {b} ms by {by} (float64 "
             f"special-function operations {f64}, {f64 / F64_OPS_PER_S * 1e3} ms at the float64 "
             f"peak); {json.dumps(attrs)} (registers a thread, local memory bytes a thread: 0 means "
             f"no spills, dynamic shared memory bytes a block); no single PyTorch call computes this "
@@ -776,7 +777,7 @@ def time_kernels(np, torch, x, dev, launches, worst_k1, err_k2):
     rows.append(dict(name="fit_error_counts", route="cuda", source="src/repro_torch/csrc/fitpdf.cu",
                      replaces="src/repro/kernels/fitpdf/kernel.py:231",
                      launches=launches["fit_error_counts"], max_abs_err=err_k2, **k2[(4, 64)],
-                     library_ms=None, ms_10types_L20=k2[(10, 20)]))
+                     library_ms=None, at_10types_L20=k2[(10, 20)]))
     return rows
 
 
@@ -802,13 +803,13 @@ def time_new_kernels(np, torch, x, dev, launches_k, launches_rows, worst_k3, err
     # operations per value, as K1.
     b3, by3 = bound_ms(4 * (p * n + 8 * p), 10 * p * n)
     err_stat = max(worst_k3, key=lambda s: worst_k3[s][0])
-    log(f"[time] K3 moments_stats ({p}, {n}): kernel {k3} ms (call {k3_call} ms), plain {k3_plain} ms, "
-        f"bound {b3} ms by {by3}, {100 * b3 / k3} % of bound; no single PyTorch call computes this "
-        f"function")
+    log(f"[time] K3 moments_stats ({p}, {n}): call {k3_call} ms, kernel {k3} ms ({100 * b3 / k3} % "
+        f"of bound), plain {k3_plain} ms, bound {b3} ms by {by3}; no single PyTorch call computes "
+        f"this function")
     rows.append(dict(name="moments_stats", route="cuda", source="src/repro_torch/csrc/moments.cu",
                      replaces="src/repro/kernels/moments/kernel.py:77",
                      launches=launches_k["moments_stats"], max_abs_err=worst_k3[err_stat][0],
-                     ms=k3, call_ms=k3_call, plain_ms=k3_plain, bound_ms=b3, bound_by=by3,
+                     ms=k3_call, kernel_ms=k3, plain_ms=k3_plain, bound_ms=b3, bound_by=by3,
                      library_ms=None))
 
     stats = mk.moments_stats(x)
@@ -819,13 +820,13 @@ def time_new_kernels(np, torch, x, dev, launches_k, launches_rows, worst_k3, err
     # Bytes: the window, vmin and vmax read once, the counts written once;
     # ~4 float32 operations per value for its bin.
     b4, by4 = bound_ms(4 * (p * n + 2 * p + p * L), 4 * p * n)
-    log(f"[time] K4 hist_counts ({p}, {n}) L={L}: kernel {k4} ms (call {k4_call} ms), plain "
-        f"{k4_plain} ms, bound {b4} ms by {by4}, {100 * b4 / k4} % of bound; "
+    log(f"[time] K4 hist_counts ({p}, {n}) L={L}: call {k4_call} ms, kernel {k4} ms ({100 * b4 / k4} "
+        f"% of bound), plain {k4_plain} ms, bound {b4} ms by {by4}; "
         f"{json.dumps(hk.hist_attributes(L))}; no single PyTorch call computes this function")
     rows.append(dict(name="hist_counts", route="cuda", source="src/repro_torch/csrc/hist.cu",
                      replaces="src/repro/kernels/hist/kernel.py:50",
                      launches=launches_k["hist_counts"], max_abs_err=0.0,
-                     ms=k4, call_ms=k4_call, plain_ms=k4_plain, bound_ms=b4, bound_by=by4,
+                     ms=k4_call, kernel_ms=k4, plain_ms=k4_plain, bound_ms=b4, bound_by=by4,
                      library_ms=None))
 
     types = dists.TYPES_4
@@ -837,8 +838,7 @@ def time_new_kernels(np, torch, x, dev, launches_k, launches_rows, worst_k3, err
     edges = pe.interval_edges(m.vmin, m.vmax, L)
     args = (m.vmin, m.vmax, edges, params, types, L)
     k2r_call = time_cuda(torch, lambda: kernel.fit_error_counts(x, *args, row_indices=idx), 50, flush)
-    k2r = time_kernel(lambda: kernel.fit_error_counts(x, *args, row_indices=idx, check_indices=False),
-                      flush)
+    k2r = time_kernel(lambda: kernel._fit_error_counts_in_range(x, *args, idx), flush)
     k2r_plain = time_cuda(torch, lambda: kernel.fit_error_counts_plain(x[idx], *args), 10, flush)
     # Bytes: the G representative rows, their vmin, vmax, edges, params and
     # indices read once, the errors written once (no float64 work at T = 4).
@@ -846,15 +846,15 @@ def time_new_kernels(np, torch, x, dev, launches_k, launches_rows, worst_k3, err
                          4 * g * n + 30 * g * t * (L + 1) + 3 * g * t * L,
                          special_function_ops(np, params.cpu().numpy(), edges.cpu().numpy(), types))
     log(f"[time] K2 fit_error_counts with row_indices, {g} representatives of ({p}, {n}) T={t} "
-        f"L={L}: kernel {k2r} ms (device Select's call, no range check; call with the public "
-        f"wrapper's range check {k2r_call} ms), plain (gather, then plain K2) {k2r_plain} ms, bound "
-        f"{b2r} ms by {by2r}, {100 * b2r / k2r} % of bound; no single PyTorch call computes this "
+        f"L={L}: call {k2r_call} ms (the public wrapper, its range check included), kernel {k2r} ms "
+        f"(device Select's call, no range check; {100 * b2r / k2r} % of bound), plain (gather, then "
+        f"plain K2) {k2r_plain} ms, bound {b2r} ms by {by2r}; no single PyTorch call computes this "
         f"function")
     rows.append(dict(name="fit_error_counts_row_indices", route="cuda",
                      source="src/repro_torch/csrc/fitpdf.cu",
                      replaces="src/repro/kernels/fitpdf/ops.py:79",
                      launches=launches_rows["fit_error_counts_row_indices"], max_abs_err=err_rows,
-                     ms=k2r, call_ms=k2r_call, plain_ms=k2r_plain, bound_ms=b2r, bound_by=by2r,
+                     ms=k2r_call, kernel_ms=k2r, plain_ms=k2r_plain, bound_ms=b2r, bound_by=by2r,
                      library_ms=None))
     return rows
 
@@ -1156,6 +1156,7 @@ def time_band_attn(np, torch, qkv, dev, launches, max_abs_err):
     launched."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels._timing import median
     from repro_torch.kernels.band_attn import kernel as bk
     from repro_torch.kernels.band_attn.ref import banded_attention_ref
 

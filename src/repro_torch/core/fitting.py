@@ -123,15 +123,15 @@ def fit_all_rows(
 
     ``row_indices`` must lie in [0, P), as ``compact_representatives``
     gives them: the fused backend does not check them on the host, so its
-    launch costs no host synchronisation (an index outside would give NaN
+    launch costs no host synchronisation (an index outside gives NaN
     errors, never a read outside the window)."""
     if backend.name == "fused" and mode != "faithful":
         from repro_torch.kernels.fitpdf import ops as fops
 
         sub_mom = dists.Moments(*(f[row_indices] for f in moments))
         params_all = dists.fit_all(types, sub_mom)
-        errs = fops.fit_errors(values, sub_mom, params_all, types, num_bins,
-                               row_indices=row_indices, check_indices=False)
+        errs = fops._fit_errors_in_range(values, sub_mom, params_all, types, num_bins,
+                                         row_indices)
         return select_best(params_all, errs)
     sub_vals, sub_mom = gather_rows(values, moments, row_indices)
     return backend.fit_all(sub_vals, sub_mom, types, num_bins, mode)

@@ -225,7 +225,7 @@ fit_error_kernel(const float* __restrict__ x, const int64_t* __restrict__ row_in
                  const float* __restrict__ edges, const float* __restrict__ params,
                  float* __restrict__ err, int src_rows, int n, int L, int T,
                  unsigned long long codes) {
-  extern __shared__ int smem[];  // int hist[hist_smem_words(L)], then float cdf[kHistWarps][L+1]
+  extern __shared__ int smem[];  // int hist[L], then float cdf[kHistWarps][L+1]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long row = blockIdx.x;
   const long long src = row_indices ? (long long)row_indices[row] : row;
@@ -239,7 +239,7 @@ fit_error_kernel(const float* __restrict__ x, const int64_t* __restrict__ row_in
   // Epilogue: warp w takes types w, w + kHistWarps, ...; its lanes split the
   // L + 1 edges and the L bins. Each lane sums its bins' |freq_k / n - mass_k|
   // in order of k, then the warp's butterfly: the order is fixed by L alone.
-  float* cdfv = reinterpret_cast<float*>(smem + hist_smem_words(L)) + warp * (L + 1);
+  float* cdfv = reinterpret_cast<float*>(smem + L) + warp * (L + 1);
   const float nf = (float)(n > 1 ? n : 1);
   const float* pr = params + row * 3LL * T;
   const float* er = edges + row * (long long)(L + 1);
@@ -273,7 +273,7 @@ bool has_special(unsigned long long codes, int T) {
 extern "C" {
 
 size_t fitpdf_fit_error_smem_bytes(int L) {
-  return (hist_smem_words(L) + (size_t)kHistWarps * (size_t)(L + 1)) * sizeof(int);
+  return ((size_t)L + (size_t)kHistWarps * (size_t)(L + 1)) * sizeof(int);
 }
 
 int fitpdf_moments_edges_stats(const float* x, float* stats, float* edges,

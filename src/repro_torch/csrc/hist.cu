@@ -7,8 +7,8 @@
 //
 // It is K2's histogram phase (row_hist.cuh) without the CDF epilogue: one
 // block of 128 threads a row, every 16-byte load of the row in flight at
-// once, integer atomicAdd into sub-histograms in shared memory (exact and
-// order-free), summed and written out as float. The bin is computed as K2
+// once, integer atomicAdd into one histogram of L counters in shared memory
+// (exact and order-free), written out as float. The bin is computed as K2
 // computes it, so the counts are exact. It reads the (P, n) float32 window
 // once and writes 4L bytes a row: bound by those bytes. Its time on a Set1
 // window is that read, then the bin and atomic of every value.
@@ -22,7 +22,7 @@ namespace {
 __global__ void __launch_bounds__(kHistThreads)
 hist_counts_kernel(const float* __restrict__ x, const float* __restrict__ vmin,
                    const float* __restrict__ vmax, float* __restrict__ counts, int n, int L) {
-  extern __shared__ int hist[];  // hist_smem_words(L) ints
+  extern __shared__ int hist[];  // L ints
   const long long row = blockIdx.x;
   block_row_histogram(x + row * (long long)n, n, vmin[row], vmax[row], L, hist);
   float* out = counts + row * (long long)L;
@@ -33,7 +33,7 @@ hist_counts_kernel(const float* __restrict__ x, const float* __restrict__ vmin,
 
 extern "C" {
 
-size_t hist_smem_bytes(int L) { return hist_smem_words(L) * sizeof(int); }
+size_t hist_smem_bytes(int L) { return (size_t)L * sizeof(int); }
 
 int hist_counts(const float* x, const float* vmin, const float* vmax, float* counts,
                 int P, int n, int L, int device, void* stream) {

@@ -6,16 +6,13 @@
 // trips for a 1,000-value row. Here the block's 128 threads issue every
 // 16-byte load of their share of the row at once (kHistLoads a thread: up
 // to 2,048 values a round; a scalar head and tail around the 16-byte-aligned
-// body, so any n works);
-// on a Set1 window that read takes what PyTorch's own row sum takes. The
-// counts go to kHistCopies sub-histograms (thread % kHistCopies), summed
-// after the row: on an H100 the lanes of a warp that add to one shared
+// body, so any n works); on a Set1 window that read takes what PyTorch's
+// own row sum takes. The counts go to one histogram of L int counters in
+// shared memory: on an H100 the lanes of a warp that add to one shared
 // counter do not serialise measurably (a row with every value in one bin
-// costs no more), so the copies neither help nor cost much there; they keep
-// the shared memory a block needs at four ints a bin, and with it the
-// largest L a launch takes without opting in to more than 48 KB. Integer
-// atomicAdd is exact and order-free, so the counts equal the plain
-// version's and do not depend on which thread read a value.
+// costs no more), so the counters are not replicated. Integer atomicAdd is
+// exact and order-free, so the counts equal the plain version's and do not
+// depend on which thread read a value.
 #pragma once
 
 #include "common.cuh"
@@ -24,17 +21,7 @@ namespace {
 
 constexpr int kHistThreads = 128;  // one row a block, four warps
 constexpr int kHistWarps = kHistThreads / 32;
-constexpr int kHistCopies = 4;     // sub-histograms, a power of two
 constexpr int kHistLoads = 4;      // 16-byte loads a thread keeps in flight
-
-// Words between two sub-histograms: odd, so copy c's bin k and copy c''s
-// bin k sit in different banks.
-__host__ __device__ constexpr int hist_stride(int L) { return L | 1; }
-
-// Shared memory of the histogram: kHistCopies sub-histograms of L ints.
-__host__ __device__ constexpr size_t hist_smem_words(int L) {
-  return (size_t)kHistCopies * (size_t)hist_stride(L);
-}
 
 // floor((x - lo) / span * L), clipped to [0, L-1] in float before the cast
 // (repro/kernels/fitpdf/kernel.py:178-179, hist/kernel.py:37-38). The
@@ -45,18 +32,17 @@ __device__ __forceinline__ int interval_bin(float v, float lo, float span, float
   return (int)clip_nan(b, 0.0f, top);  // (int)NaN is 0 on the device
 }
 
-// Counts the n values of row xr into hist[0, L) (shared, hist_smem_words(L)
-// ints) and leaves the counts there, visible to the whole block. Every
-// thread of the block calls it.
+// Counts the n values of row xr into hist[0, L) (shared ints) and leaves
+// the counts there, visible to the whole block. Every thread of the block
+// calls it.
 __device__ __forceinline__ void block_row_histogram(const float* __restrict__ xr, int n, float lo,
                                                     float hi, int L, int* hist) {
-  const int tid = threadIdx.x, stride = hist_stride(L);
-  for (int k = tid; k < kHistCopies * stride; k += kHistThreads) hist[k] = 0;
+  const int tid = threadIdx.x;
+  for (int k = tid; k < L; k += kHistThreads) hist[k] = 0;
   __syncthreads();
   const float span = max_nan(hi - lo, kEps);
   const float fl = (float)L, top = (float)(L - 1);
-  int* mine = hist + (tid & (kHistCopies - 1)) * stride;
-  auto count = [&](float v) { atomicAdd(mine + interval_bin(v, lo, span, fl, top), 1); };
+  auto count = [&](float v) { atomicAdd(hist + interval_bin(v, lo, span, fl, top), 1); };
 
   // Scalar head up to the first 16-byte boundary, float4 body, scalar tail.
   const int head = min(n, (int)((4 - (((uintptr_t)xr >> 2) & 3)) & 3));
@@ -80,13 +66,6 @@ __device__ __forceinline__ void block_row_histogram(const float* __restrict__ xr
         count(v[u].w);
       }
     }
-  }
-  __syncthreads();
-  for (int k = tid; k < L; k += kHistThreads) {
-    int s = hist[k];
-#pragma unroll
-    for (int c = 1; c < kHistCopies; ++c) s += hist[c * stride + k];
-    hist[k] = s;
   }
   __syncthreads();
 }

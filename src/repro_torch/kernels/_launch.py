@@ -10,11 +10,6 @@ import torch
 
 VP, I32, SIZE_T = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
 
-# Dynamic shared memory a block gets without opting in; the histogram
-# kernels (K2, K4) hold four sub-histograms of L counters (K2 also its CDF
-# values) and refuse an L that needs more.
-SMEM_LIMIT = 48 * 1024
-
 _bound: dict[str, ctypes.CDLL] = {}
 
 
@@ -80,8 +75,7 @@ def check_contiguous(values: torch.Tensor) -> None:
         raise ValueError("values must be contiguous")
 
 
-def check_smem(smem: int, num_bins: int) -> None:
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"num_bins={num_bins} needs {smem} B of shared memory per block, "
-            f"more than the kernel's {SMEM_LIMIT} B")
+def check_bins(num_bins: int, max_bins: int) -> None:
+    """The histogram kernels (K2, K4) take at most ``max_bins`` bins."""
+    if num_bins > max_bins:
+        raise ValueError(f"num_bins={num_bins} is more than the kernel's {max_bins}")

@@ -5,19 +5,18 @@ Set1 window on the card.
     PYTHONPATH=src python -m repro_torch.kernels.fitpdf.ablation [--against DIR ...]
 
 Each variant is ``csrc/`` with a statement or two replaced, built with the
-same flags (and ``-Xptxas -v``) into ``build/kernels/ablation/<variant>/``
+same flags (and ``-Xptxas -v``) into ``build/kernels/ablation/fitpdf/<variant>/``
 and bound with ctypes: ``loads_only`` sums each thread's values into a
 register and stores it where the counts would go (no bin, no atomics, no
 epilogue), ``no_epilogue`` writes one count per type instead of the Eq.-5
 error, ``epilogue_only`` reads and counts nothing, ``no_special`` makes the
-gamma and student_t CDFs a constant, ``one_copy`` counts into one
-sub-histogram instead of four. Their outputs are wrong by design
-(``one_copy``'s are right); only their times mean anything. K4 has no
-epilogue, so its ``no_epilogue`` and ``no_special`` are its whole and its
-``epilogue_only`` only zeroes, sums and writes the counts. ``--against
-DIR ...`` adds each ``DIR/fitpdf.cu`` and ``DIR/hist.cu`` (with the
-headers in DIR), other versions of the kernels, built and timed in the
-same turns.
+gamma and student_t CDFs a constant. Their outputs are wrong by design;
+only their times mean anything. K4 has no epilogue, so its
+``no_epilogue`` and ``no_special`` are its whole and its
+``epilogue_only`` only zeroes and writes the counts. ``--against DIR
+...`` adds each ``DIR/fitpdf.cu`` and ``DIR/hist.cu`` (with the headers
+in DIR), other versions of the kernels, built and timed in the same
+turns (``kernels/_ablation.py`` builds them all).
 
 Cases: K2 at T = 4, L = 64 and at T = 10, L = 20 on the first window of
 Set1's slice 201 (6,275 x 1,000 float32), K2 through ``row_indices`` on
@@ -38,13 +37,12 @@ import argparse
 import ctypes
 import json
 import re
-import shutil
 import subprocess
 from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels._ablation import build_variants
 from repro_torch.kernels._timing import kernel_times, median
 
 SLICE, WINDOW_LINES = 201, 25  # Set1's slice and PDFConfig.window_lines
@@ -52,8 +50,8 @@ SLICE, WINDOW_LINES = 201, 25  # Set1's slice and PDFConfig.window_lines
 _EPILOGUE = "  for (int t = warp; t < T; t += kHistWarps) {"
 _NO_EPILOGUE = ("  if (threadIdx.x < T) err[row * T + threadIdx.x] = (float)hist[threadIdx.x % L];\n"
                 "  for (int t = warp; t < 0; t += kHistWarps) {")
-_COUNT = "  auto count = [&](float v) { atomicAdd(mine + interval_bin(v, lo, span, fl, top), 1); };"
-_MERGE = "  __syncthreads();\n  for (int k = tid; k < L; k += kHistThreads) {"
+_COUNT = "  auto count = [&](float v) { atomicAdd(hist + interval_bin(v, lo, span, fl, top), 1); };"
+_END = "  __syncthreads();\n}\n"  # the histogram's last statement
 _HEAD_TAIL = "  if (tid < head) count(__ldg(xr + tid));\n  if (tid < n - tail) count(__ldg(xr + tail + tid));"
 _BODY = "  for (int base = 0; base < nv; base += kHistThreads * kHistLoads) {"
 _GAMMA = "      if constexpr (kSpecial) return gamma_cdf(p0, p1, x); else return kNaN;"
@@ -62,28 +60,14 @@ _STUDENT_T = "      if constexpr (kSpecial) return student_t_cdf(p0, p1, p2, x);
 VARIANTS = {
     "whole": [],
     "loads_only": [("row_hist.cuh", _COUNT, "  float sum = 0.0f;\n  auto count = [&](float v) { sum += v; };"),
-                   ("row_hist.cuh", _MERGE, "  mine[tid % L] = __float_as_int(sum);\n" + _MERGE),
+                   ("row_hist.cuh", _END, "  hist[tid % L] = __float_as_int(sum);\n" + _END),
                    ("fitpdf.cu", _EPILOGUE, _NO_EPILOGUE)],
     "no_epilogue": [("fitpdf.cu", _EPILOGUE, _NO_EPILOGUE)],
     "epilogue_only": [("row_hist.cuh", _HEAD_TAIL, ""),
                       ("row_hist.cuh", _BODY, _BODY.replace("base < nv", "base < 0"))],
     "no_special": [("fitpdf.cu", _GAMMA, "      return 0.5f;"), ("fitpdf.cu", _STUDENT_T, "      return 0.5f;")],
-    "one_copy": [("row_hist.cuh", "constexpr int kHistCopies = 4;", "constexpr int kHistCopies = 1;")],
 }
 KERNELS = ("fit_error_kernel", "hist_counts_kernel")
-
-
-def _write_variant(name: str, edits, out: Path) -> Path:
-    d = out / name
-    d.mkdir(parents=True, exist_ok=True)
-    texts = {p.name: p.read_text() for p in _build.CSRC.iterdir() if p.suffix in (".cu", ".cuh")}
-    for fname, old, new in edits:
-        if old not in texts[fname]:
-            raise RuntimeError(f"variant {name}: statement not found in {fname}: {old!r}")
-        texts[fname] = texts[fname].replace(old, new)
-    for fname, text in texts.items():
-        (d / fname).write_text(text)
-    return d
 
 
 def _ptxas_report(log: str) -> list[str]:
@@ -97,30 +81,10 @@ def build(against: list[Path]) -> tuple[dict, dict]:
     """Write and compile every variant (fitpdf.cu and hist.cu each), one
     nvcc a source, all at once. Returns ({variant: (fitpdf lib, hist lib)},
     {variant: ptxas report})."""
-    out = _build.BUILD_DIR / "ablation"
-    dirs = {name: _write_variant(name, edits, out) for name, edits in VARIANTS.items()}
-    for i, src in enumerate(against):
-        d = out / f"against{i}"
-        shutil.rmtree(d, ignore_errors=True)
-        shutil.copytree(src, d)
-        dirs[f"against:{src}"] = d
-    procs = {}
-    for name, d in dirs.items():
-        for src in ("fitpdf", "hist"):
-            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(d / f"{src}.so"),
-                   str(d / f"{src}.cu")]
-            procs[(name, src)] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                  stderr=subprocess.STDOUT, text=True)
-    logs, failed = {}, []
-    for key, proc in procs.items():
-        logs[key] = proc.communicate()[0]
-        if proc.returncode:
-            failed.append(f"{key}:\n{logs[key]}")
-    if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    built = build_variants("fitpdf", VARIANTS, ("fitpdf", "hist"), against, ("-Xptxas", "-v"))
     vp, i32, ull = ctypes.c_void_p, ctypes.c_int, ctypes.c_ulonglong
     libs, reports = {}, {}
-    for name, d in dirs.items():
+    for name, (d, logs) in built.items():
         fit, hist = ctypes.CDLL(str(d / "fitpdf.so")), ctypes.CDLL(str(d / "hist.so"))
         # Sources with fitpdf_fit_error_attributes take the window's row count
         # after P; older ones do not.
@@ -131,7 +95,7 @@ def build(against: list[Path]) -> tuple[dict, dict]:
         hist.hist_counts.argtypes = [vp] * 4 + [i32] * 4 + [vp]
         hist.hist_counts.restype = i32
         libs[name] = (fit, hist)
-        reports[name] = _ptxas_report(logs[(name, "fitpdf")]) + _ptxas_report(logs[(name, "hist")])
+        reports[name] = _ptxas_report(logs["fitpdf"]) + _ptxas_report(logs["hist"])
     return libs, reports
 
 

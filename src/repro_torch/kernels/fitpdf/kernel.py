@@ -26,7 +26,7 @@
     and bins: the CDF at the edges into shared memory, and sum |freq/n -
     mass| by lane and a fixed butterfly. Only (P, T) floats are written.
     The gamma and student_t CDFs are compiled only into the instantiation
-    for the type sets that hold them.
+    for the type sets that hold them. It takes up to ``MAX_BINS`` bins.
 
     ``row_indices`` (G,) int64 is the grouping methods' representative
     gather (``repro/kernels/fitpdf/ops.py:79-128``): output row r reads
@@ -36,8 +36,9 @@
     A row's result depends on that row alone, so the result is bitwise
     equal to a launch on ``values[row_indices]``. The range check of the
     indices costs a host synchronisation; device Select, whose indices are
-    in range by construction, skips it (``check_indices=False``), and the
-    kernel never reads outside the window whatever it is given.
+    in range by construction, calls ``_fit_error_counts_in_range``, which
+    skips it. The kernel never reads outside the window whatever it is
+    given: an index outside gives a row of NaN.
 
 Each wrapper dispatches on the tensor's device: a CPU tensor gets the plain
 PyTorch version (``*_plain``, the same arithmetic, the CPU tests' path), a
@@ -60,6 +61,10 @@ from repro_torch.kernels.moments.kernel import NUM_STATS, moments_stats_plain
 # The kernels' type codes index this tuple (csrc/fitpdf.cu: cdf_eval).
 _TYPE_CODES = {name: i for i, name in enumerate(dists.TYPES_10)}
 _MAX_TYPES = 16  # four bits per type code in one 64-bit word
+# The largest L K2 takes: that of the one-warp-a-row design before it, whose
+# eight rows a block filled 48 KB of shared memory at L = 767. A block of
+# this design holds one row's L int counters and four warps' L + 1 CDFs.
+MAX_BINS = 767
 
 
 def _library():
@@ -68,7 +73,6 @@ def _library():
         "fitpdf_moments_edges_stats": ([vp, vp, vp, i32, i32, i32, i32, vp], i32),
         "fitpdf_fit_error_counts": (
             [vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, ctypes.c_ulonglong, i32, vp], i32),
-        "fitpdf_fit_error_smem_bytes": ([i32], _launch.SIZE_T),
         "fitpdf_fit_error_attributes": ([i32, i32, ctypes.POINTER(ctypes.c_int)], i32),
     })
 
@@ -142,24 +146,34 @@ def _type_codes(types: Sequence[str]) -> int:
 
 
 def fit_error_counts(values, vmin, vmax, edges, params, types: Sequence[str],
-                     num_bins: int, row_indices: torch.Tensor | None = None, *,
-                     check_indices: bool = True) -> torch.Tensor:
+                     num_bins: int, row_indices: torch.Tensor | None = None) -> torch.Tensor:
     """values (P, n), vmin/vmax (G,), edges (G, L+1), params (G, 3T) f32
     -> Eq.-5 errors (G, T) f32, where G = P without ``row_indices`` and
     G = len(row_indices) with them (row r reads ``values[row_indices[r]]``).
 
     An index outside [0, P) raises ``IndexError``, which on a CUDA tensor
-    costs one host synchronisation. ``check_indices=False`` is for callers
-    whose indices are in range by construction (device Select's
-    ``compact_representatives``): no check and no synchronisation; the
-    kernel never reads outside the window, and gives a row of NaN for an
-    index outside it."""
+    costs one host synchronisation. Device Select, whose indices are in
+    range by construction, calls ``_fit_error_counts_in_range`` instead."""
+    if row_indices is not None and row_indices.numel() and bool(
+            ((row_indices < 0) | (row_indices >= len(values))).any()):
+        raise IndexError(f"row_indices out of range for {len(values)} rows")
+    return _fit_error_counts_in_range(values, vmin, vmax, edges, params, types, num_bins,
+                                      row_indices)
+
+
+def _fit_error_counts_in_range(values, vmin, vmax, edges, params, types: Sequence[str],
+                               num_bins: int, row_indices: torch.Tensor | None) -> torch.Tensor:
+    """``fit_error_counts`` with no range check of ``row_indices``, for
+    indices that lie in [0, P) by construction (``compact_representatives``):
+    no host synchronisation. An index outside gives a row of NaN on either
+    device; the kernel never reads outside the window."""
     _launch.check_values(values)
     t = len(types)
     codes = _type_codes(types)
     if num_bins < 1:
         raise ValueError(f"num_bins must be >= 1, got {num_bins}")
-    g = values.shape[0] if row_indices is None else row_indices.shape[0]
+    p = values.shape[0]
+    g = p if row_indices is None else row_indices.shape[0]
     if row_indices is not None:
         if row_indices.ndim != 1:
             raise ValueError(f"row_indices must be 1-D, got {tuple(row_indices.shape)}")
@@ -168,21 +182,23 @@ def fit_error_counts(values, vmin, vmax, edges, params, types: Sequence[str],
     _launch.check_operand("vmax", vmax, (g,), values.device)
     _launch.check_operand("edges", edges, (g, num_bins + 1), values.device)
     _launch.check_operand("params", params, (g, 3 * t), values.device)
-    if row_indices is not None and check_indices and g and bool(
-            ((row_indices < 0) | (row_indices >= values.shape[0])).any()):
-        raise IndexError(f"row_indices out of range for {values.shape[0]} rows")
     if values.device.type == "cpu":
-        rows = values if row_indices is None else values[row_indices]
-        return fit_error_counts_plain(rows, vmin, vmax, edges, params, types, num_bins)
+        if row_indices is None:
+            return fit_error_counts_plain(values, vmin, vmax, edges, params, types, num_bins)
+        inside = (row_indices >= 0) & (row_indices < p)
+        safe = torch.where(inside, row_indices, 0)
+        rows = values[safe] if p else values.new_zeros((g, values.shape[1]))
+        err = fit_error_counts_plain(rows, vmin, vmax, edges, params, types, num_bins)
+        return torch.where(inside[:, None], err, float("nan"))
     _launch.check_contiguous(values)
-    lib = _library()
-    _launch.check_smem(lib.fitpdf_fit_error_smem_bytes(num_bins), num_bins)
+    _launch.check_bins(num_bins, MAX_BINS)
     err = torch.empty((g, t), dtype=torch.float32, device=values.device)
     if g:
+        lib = _library()
         rc = lib.fitpdf_fit_error_counts(
             values.data_ptr(), None if row_indices is None else row_indices.data_ptr(),
             vmin.data_ptr(), vmax.data_ptr(), edges.data_ptr(), params.data_ptr(),
-            err.data_ptr(), g, values.shape[0], values.shape[1], num_bins, t, codes,
+            err.data_ptr(), g, p, values.shape[1], num_bins, t, codes,
             _launch.device_index(values.device), _launch.stream(values.device))
         _launch.raise_if_failed(lib, "fitpdf", rc, "fit_error_counts")
         fit_error_counts.launches += 1

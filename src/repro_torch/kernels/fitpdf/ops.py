@@ -16,7 +16,11 @@ import torch
 
 from repro_torch.core import pdf_error as pe
 from repro_torch.core.distributions import Moments
-from repro_torch.kernels.fitpdf.kernel import fit_error_counts, moments_edges_stats
+from repro_torch.kernels.fitpdf.kernel import (
+    _fit_error_counts_in_range,
+    fit_error_counts,
+    moments_edges_stats,
+)
 
 
 def moments_and_edges(values: torch.Tensor, num_bins: int) -> tuple[Moments, torch.Tensor]:
@@ -41,7 +45,6 @@ def fit_errors(
     types: Sequence[str],
     num_bins: int,
     row_indices: torch.Tensor | None = None,
-    check_indices: bool = True,
 ) -> torch.Tensor:
     """(..., n) values + (..., T, 3) params -> (..., T) Eq.-5 errors, in one
     launch: the histogram, CDF masses and Eq.-5 reduction never leave the
@@ -51,13 +54,25 @@ def fit_errors(
     methods' device Select: ``values`` stays the full window while
     ``moments`` and ``params_all`` are already per representative (leading
     shape (G,)); the kernel reads each representative's row of the window
-    itself. Bitwise equal to passing ``values[row_indices]``.
-    ``check_indices`` as ``fit_error_counts``'s."""
+    itself. Bitwise equal to passing ``values[row_indices]``. An index
+    outside the window raises ``IndexError``."""
+    return _fit_errors(fit_error_counts, values, moments, params_all, types, num_bins, row_indices)
+
+
+def _fit_errors_in_range(values, moments, params_all, types, num_bins, row_indices):
+    """``fit_errors`` through ``row_indices`` that lie in the window, as
+    ``compact_representatives`` gives them: no range check, so no host
+    synchronisation (``_fit_error_counts_in_range``)."""
+    return _fit_errors(_fit_error_counts_in_range, values, moments, params_all, types, num_bins,
+                       row_indices)
+
+
+def _fit_errors(count, values, moments, params_all, types, num_bins, row_indices):
     t = len(types)
     edges = pe.interval_edges(moments.vmin, moments.vmax, num_bins)
     n = values.shape[-1]
     lead = values.shape[:-1] if row_indices is None else row_indices.shape
-    errs = fit_error_counts(
+    errs = count(
         values.reshape(-1, n),
         moments.vmin.reshape(-1).contiguous(),
         moments.vmax.reshape(-1).contiguous(),
@@ -65,7 +80,6 @@ def fit_errors(
         params_all.reshape(-1, t * 3).contiguous(),
         tuple(types),
         num_bins,
-        row_indices=row_indices,
-        check_indices=check_indices,
+        row_indices,
     )
     return errs.reshape(lead + (t,))

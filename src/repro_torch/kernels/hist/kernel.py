@@ -7,11 +7,11 @@ intervals: bin ``floor((x - lo) / max(hi - lo, 1e-12) * L)`` clipped to
 (25.1 MB for a Set1 window, about 7.5 us at 3.35 TB/s), and write P*L*4 B.
 Design: K2's histogram phase (``csrc/row_hist.cuh``) without its CDF
 epilogue (``csrc/hist.cu``): one block of 128 threads a row with every
-16-byte load of the row in flight at once, the counts as integer counters
-in shared memory (integer atomic adds are exact and order-free), the bin
-computed with IEEE-rounded intrinsics, so the counts equal the plain
-version's exactly. A constant row (vmin == vmax) counts everything in bin
-0.
+16-byte load of the row in flight at once, the counts as one histogram of
+L integer counters in shared memory (integer atomic adds are exact and
+order-free), the bin computed with IEEE-rounded intrinsics, so the counts
+equal the plain version's exactly. A constant row (vmin == vmax) counts everything in bin
+0. It takes up to ``MAX_BINS`` bins.
 
 The wrapper dispatches on the tensor's device: a CPU tensor gets the plain
 version (``pe.histogram_scatter``), a CUDA tensor the kernel or an
@@ -28,11 +28,16 @@ from repro_torch.core import pdf_error as pe
 from repro_torch.kernels import _launch
 
 
+# The largest L the kernel takes: that of the one-warp-a-row design before
+# it, whose eight rows a block filled 48 KB of shared memory at L = 1,536.
+# A block of this design holds one row's L int counters.
+MAX_BINS = 1536
+
+
 def _library():
     vp, i32 = _launch.VP, _launch.I32
     return _launch.bind("hist", {
         "hist_counts": ([vp, vp, vp, vp, i32, i32, i32, i32, vp], i32),
-        "hist_smem_bytes": ([i32], _launch.SIZE_T),
         "hist_attributes": ([i32, ctypes.POINTER(ctypes.c_int)], i32),
     })
 
@@ -55,8 +60,8 @@ def hist_counts(values: torch.Tensor, vmin: torch.Tensor, vmax: torch.Tensor,
     if values.device.type == "cpu":
         return hist_counts_plain(values, vmin, vmax, num_bins)
     _launch.check_contiguous(values)
+    _launch.check_bins(num_bins, MAX_BINS)
     lib = _library()
-    _launch.check_smem(lib.hist_smem_bytes(num_bins), num_bins)
     counts = torch.empty((p, num_bins), dtype=torch.float32, device=values.device)
     if p:
         rc = lib.hist_counts(values.data_ptr(), vmin.data_ptr(), vmax.data_ptr(),

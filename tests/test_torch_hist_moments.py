@@ -114,9 +114,11 @@ def test_fit_error_counts_rejects_bad_row_indices(change, exc):
 
 
 def test_fit_error_counts_unchecked_indices():
-    """``check_indices=False`` (device Select's indices, in range by
-    construction) gives the checked call's errors; the checked call still
-    raises on a negative index and on one past the window."""
+    """Device Select's call (``_fit_error_counts_in_range``: indices in
+    range by construction, no range check) gives the checked call's
+    errors, and an index outside the window gives a row of NaN, as the
+    kernel does; the public wrapper still raises on a negative index and
+    on one past the window."""
     v = torch.from_numpy(_window((6, 40)))
     m = td.moments_from_values(v)
     idx = torch.tensor([5, 0, 3, 3])
@@ -124,11 +126,15 @@ def test_fit_error_counts_unchecked_indices():
     params = td.fit_all(td.TYPES_4, sub).reshape(4, -1).contiguous()
     args = (sub.vmin, sub.vmax, tpe.interval_edges(sub.vmin, sub.vmax, 8), params, td.TYPES_4, 8)
     want = tk.fit_error_counts(v, *args, row_indices=idx)
-    got = tk.fit_error_counts(v, *args, row_indices=idx, check_indices=False)
+    got = tk._fit_error_counts_in_range(v, *args, idx)
     np.testing.assert_array_equal(got.numpy(), want.numpy())
     for bad in (torch.tensor([5, -1, 3, 3]), torch.tensor([5, 0, 6, 3])):
         with pytest.raises(IndexError):
             tk.fit_error_counts(v, *args, row_indices=bad)
+        got = tk._fit_error_counts_in_range(v, *args, bad)
+        inside = (bad >= 0) & (bad < 6)
+        assert torch.isnan(got[~inside]).all()
+        np.testing.assert_array_equal(got[inside].numpy(), want[inside].numpy())
 
 
 def test_new_wrappers_reject_bad_inputs():

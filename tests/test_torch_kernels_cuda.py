@@ -283,6 +283,22 @@ def test_fit_error_and_hist_no_spills(dev, types):
         assert 0 < attrs["registers"] <= 255 and attrs["smem_bytes"] <= 48 * 1024, attrs
 
 
+def test_bin_limits(dev):
+    """K2 takes up to 767 bins and K4 up to 1,536, the limits of the
+    one-warp-a-row design before them; one bin more raises ValueError."""
+    assert (tk.MAX_BINS, thk.MAX_BINS) == (767, 1536)
+    x = torch.from_numpy(_window((6, 400), seed=16)).to(dev)
+    m = td.moments_from_values(x)
+    counts = thk.hist_counts(x, m.vmin, m.vmax, thk.MAX_BINS)
+    assert torch.equal(counts, thk.hist_counts_plain(x, m.vmin, m.vmax, thk.MAX_BINS))
+    with pytest.raises(ValueError):
+        thk.hist_counts(x, m.vmin, m.vmax, thk.MAX_BINS + 1)
+    args = (x, *_k2_args(x, m, td.TYPES_10, tk.MAX_BINS))
+    _close(tk.fit_error_counts(*args), tk.fit_error_counts_plain(*args), rtol=1e-4, atol=5e-4)
+    with pytest.raises(ValueError):
+        tk.fit_error_counts(x, *_k2_args(x, m, td.TYPES_4, tk.MAX_BINS + 1))
+
+
 def test_device_select_indices_need_no_sync(dev):
     """K2 through ``row_indices`` from ``compact_representatives``, as the
     executor's device Select calls it, issues no host synchronisation; the
@@ -297,7 +313,7 @@ def test_device_select_indices_need_no_sync(dev):
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        got = tk.fit_error_counts(x, *args, row_indices=idx, check_indices=False)
+        got = tk._fit_error_counts_in_range(x, *args, idx)
         with pytest.raises(RuntimeError):  # the range check synchronises
             tk.fit_error_counts(x, *args, row_indices=idx)
     finally:
@@ -307,7 +323,7 @@ def test_device_select_indices_need_no_sync(dev):
     bad[0], bad[-1] = -1, len(x)
     with pytest.raises(IndexError):
         tk.fit_error_counts(x, *args, row_indices=bad)
-    got = tk.fit_error_counts(x, *args, row_indices=bad, check_indices=False)
+    got = tk._fit_error_counts_in_range(x, *args, bad)
     assert torch.isnan(got[[0, -1]]).all()
     assert torch.equal(got[1:-1], want[1:-1])
 
