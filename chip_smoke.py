@@ -21,7 +21,12 @@ and every kernel's launch count set to 0 just before it:
 * baseline on the kernels backend in faithful mode: K4 once per type and
   window, held against fused mode;
 * grouping on the fused backend with host and with device Select: bitwise
-  equal, the device path through K2's ``row_indices`` prologue.
+  equal, the device path through K2's ``row_indices`` prologue;
+* baseline on the fused backend, 4 types at L = 1,000 (K2 past the bins
+  its design before took) and at L = 2,000 (past the bins one K2 block
+  holds: two launches a window, one a chunk of bins), as the first two;
+  then one window on the kernels backend at L = 2,000 against the plain
+  backend.
 
 Then the baseline slice and the two grouping slices run once more under
 ``torch.profiler`` (device time by kernel, device idle share), and a timing
@@ -30,7 +35,11 @@ row's ``ms`` is "call ms", as earlier runs timed it: CUDA events around
 the wrapper call, L2 flushed by zeroing a buffer, the card's idle time
 through the wrapper's host work included. K1-K4 add ``kernel_ms``, the
 kernel's own device time: the wrapper's host work queued behind a sleep
-on the card, L2 flushed clean (``repro_torch.kernels._timing``).
+on the card, L2 flushed clean (``repro_torch.kernels._timing``). K2 and K4
+are also timed at L = 1,000, 4,000 and 12,000 (``at_large_L`` in their
+rows), with the chunk of bins each launch takes, and held there against
+their plain versions: K2 within ERR_TOL on every route it is timed on
+(the same bits on each), K4 exactly.
 
 Last comes the LM serving path (``band_attn``, K5):
 
@@ -548,20 +557,23 @@ def slice_parity(np, torch, fused, ref, sim, slice_i, cfg, dev, what):
     return int(same.sum()), len(diff_pts)
 
 
-def run_slice_phase(np, torch, sim, slice_i, types, num_bins, dev, expect_launches):
+def run_slice_phase(np, torch, sim, slice_i, types, num_bins, dev, windows):
     """Baseline on the fused backend: one slice through the entry point,
-    counted; again, bitwise; and once on the reference backend for the
-    parity check. Returns (launches, wall)."""
+    counted (K1 once a window, K2 once a window and chunk of bins); again,
+    bitwise; and once on the reference backend for the parity check.
+    Returns (launches, wall)."""
     from repro_torch.core.pipeline import PDFConfig
+    from repro_torch.kernels.fitpdf import kernel
 
     label = f"slice {len(types)}types_L{num_bins}"
     cfg = PDFConfig(types=types, num_bins=num_bins)
+    chunks = -(-num_bins // kernel._fit_error_chunk(dev.index))
     log(f"[{label}] slice {slice_i}: {sim.geometry}, {sim.config.num_simulations} "
-        f"observations, window_lines={cfg.window_lines}")
+        f"observations, window_lines={cfg.window_lines}; K2 in {chunks} launch(es) a window")
     torch.cuda.reset_peak_memory_stats(dev)
     res, launches, wall = drive(np, torch, cfg, sim, slice_i, dev, label)
-    check_launches(launches, {"moments_edges_stats": expect_launches,
-                              "fit_error_counts": expect_launches}, label)
+    check_launches(launches, {"moments_edges_stats": windows,
+                              "fit_error_counts": windows * chunks}, label)
     peak = torch.cuda.max_memory_allocated(dev)
     hist = np.bincount(res.type_idx, minlength=len(types))
     log(f"[{label}] load_s={res.total_load_seconds} wait_s={res.total_wait_seconds} "
@@ -579,6 +591,40 @@ def run_slice_phase(np, torch, sim, slice_i, types, num_bins, dev, expect_launch
         f"{n_same}/{len(res.type_idx)} points, the other {n_diff} are ties within the error "
         f"tolerance; parity ok")
     return launches, wall
+
+
+def kernels_window_phase(np, torch, x, num_bins, dev):
+    """One Set1 window through the ``kernels`` backend at ``num_bins``
+    (K4 past the bins one block held before the chunked route), counted,
+    against the port's plain backend: K3's moments within the moments
+    tolerance of the plain backend's two-pass moments, and the fit on K3's
+    moments bitwise equal to the plain backend's fit on the same moments
+    (K4's counts are exact). Returns the launches."""
+    from repro_torch.core import distributions as dists
+    from repro_torch.core.fitting import get_fit_backend
+
+    label = f"window kernels L={num_bins}"
+    kern, plain = get_fit_backend("kernels", num_bins), get_fit_backend("reference", num_bins)
+    sync(torch, dev)
+    zero_counts()
+    m = kern.moments(x)
+    res = kern.fit_all(x, m, dists.TYPES_4, num_bins)
+    sync(torch, dev)
+    launches = read_counts()
+    check_launches(launches, {"moments_stats": 1, "hist_counts": 1}, label)
+    want = plain.fit_all(x, m, dists.TYPES_4, num_bins)
+    for f in res._fields:
+        check(torch.equal(getattr(res, f), getattr(want, f)),
+              f"[{label}] {f} differs from the plain backend's on the same moments")
+    m_plain = plain.moments(x)
+    for name in ("mean", "var", "skew", "kurt", "vmin", "vmax"):
+        close_report(torch, getattr(m, name), getattr(m_plain, name), **MOM_TOL,
+                     what=f"[{label}] {name}")
+    hist = np.bincount(res.type_idx.cpu().numpy(), minlength=len(dists.TYPES_4))
+    log(f"[{label}] {tuple(x.shape)}: launches {json.dumps(launches)}; K3 moments within the moments "
+        f"tolerance of the plain backend's; fit bitwise equal to the plain backend's on the same "
+        f"moments; type histogram {hist.tolist()}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -857,6 +903,72 @@ def time_new_kernels(np, torch, x, dev, launches_k, launches_rows, worst_k3, err
                      ms=k2r_call, kernel_ms=k2r, plain_ms=k2r_plain, bound_ms=b2r, bound_by=by2r,
                      library_ms=None))
     return rows
+
+
+def time_large_bins(np, torch, x, dev) -> dict:
+    """Kernel ms of K2 (4 types) and K4 at L = 1,000, 4,000 and 12,000 on
+    the Set1 window, beside their bounds and plain versions, with the route
+    each takes (bins a block holds at once, shared memory a block); K2 also
+    with the bins a block holds forced to 512, 1,024 and 2,432 (the most
+    that fit the default 48 KB) and to all L in one launch where the card's
+    opt-in shared memory holds them: the measurement behind K2's route.
+    Each is first held against its plain version on the same inputs: K2
+    within ERR_TOL, on every forced chunk too and the same bits as its own
+    route; K4 exactly. Returns {L: {...}} for the K2 and K4 rows."""
+    from repro_torch.core import distributions as dists
+    from repro_torch.core import pdf_error as pe
+    from repro_torch.kernels.fitpdf import kernel
+    from repro_torch.kernels.hist import kernel as hk
+    from repro_torch.kernels.moments import kernel as mk
+
+    p, n = x.shape
+    flush = torch.empty(128 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
+    stats = mk.moments_stats(x)
+    m = dists.Moments(*(stats[:, i].contiguous() for i in range(6)))
+    types = dists.TYPES_4
+    t = len(types)
+    params = dists.fit_all(types, m).reshape(p, -1).contiguous()
+    out = {}
+    for L in (1000, 4000, 12000):
+        edges = pe.interval_edges(m.vmin, m.vmax, L)
+        args = (x, m.vmin, m.vmax, edges, params, types, L)
+        optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+        forced = [c for c in (512, 1024, 2432, L) if c <= L and (c < L or 20 * L + 16 <= optin)]
+        got = kernel.fit_error_counts(*args)
+        close_report(torch, got, kernel.fit_error_counts_plain(*args), **ERR_TOL,
+                     what=f"[K2 large L] L={L}")
+        for c in forced:
+            other = kernel._fit_error_counts_in_range(*args, None, chunk=c)
+            check(torch.equal(torch.nan_to_num(other, nan=-1.0), torch.nan_to_num(got, nan=-1.0)),
+                  f"[K2 large L] L={L}: chunks of {c} bins differ from the card's route")
+        counts = hk.hist_counts(x, m.vmin, m.vmax, L)
+        check(torch.equal(counts, hk.hist_counts_plain(x, m.vmin, m.vmax, L)),
+              f"[K4 large L] L={L}: counts differ from the plain version's")
+        log(f"[large L] L={L}: K2 within ERR_TOL of its plain version, the same bits in chunks of "
+            f"{forced} bins; K4 counts exact")
+        k2 = time_kernel(lambda: kernel.fit_error_counts(*args), flush, reps=20)
+        k2_plain = time_cuda(torch, lambda: kernel.fit_error_counts_plain(*args), 3, flush)
+        b2, by2 = bound_ms(4 * (p * n + 2 * p + p * (L + 1) + 3 * t * p + t * p),
+                           4 * p * n + 30 * p * t * (L + 1) + 3 * p * t * L)
+        a2 = kernel.fit_error_attributes(types, L)
+        k4 = time_kernel(lambda: hk.hist_counts(x, m.vmin, m.vmax, L), flush, reps=20)
+        k4_plain = time_cuda(torch, lambda: hk.hist_counts_plain(x, m.vmin, m.vmax, L), 3, flush)
+        b4, by4 = bound_ms(4 * (p * n + 2 * p + p * L), 4 * p * n)
+        a4 = hk.hist_attributes(L)
+        row = dict(k2_kernel_ms=k2, k2_plain_ms=k2_plain, k2_bound_ms=b2, k2_bound_by=by2,
+                   k2_chunk=a2["chunk"], k2_smem_bytes=a2["smem_bytes"], k4_kernel_ms=k4,
+                   k4_plain_ms=k4_plain, k4_bound_ms=b4, k4_bound_by=by4, k4_chunk=a4["chunk"],
+                   k4_smem_bytes=a4["smem_bytes"])
+        sweep = {c: time_kernel(lambda: kernel._fit_error_counts_in_range(*args, None, chunk=c),
+                                flush, reps=20) for c in forced}
+        row["k2_forced_chunk_kernel_ms"] = sweep
+        extra = f"; K2 with the bins a block holds forced (bins: ms) {json.dumps(sweep)}"
+        log(f"[time] large L ({p}, {n}) L={L}: K2 T={t} kernel {k2} ms ({100 * b2 / k2} % of bound), "
+            f"plain {k2_plain} ms, bound {b2} ms by {by2}, route {json.dumps(a2)}; K4 kernel {k4} ms "
+            f"({100 * b4 / k4} % of bound), plain {k4_plain} ms, bound {b4} ms by {by4}, route "
+            f"{json.dumps(a4)}{extra}")
+        out[L] = row
+    return out
 
 
 def device_us(e) -> float:
@@ -1249,6 +1361,15 @@ def main() -> int:
 
     launches_k, launches_rows, walls = grouped_phases(np, torch, sim, SET1_SLICE, dev)
 
+    # Past the bins one block of K2 or K4 held before the chunked route, then
+    # past the bins one K2 block holds.
+    launches1000, wall1000 = run_slice_phase(np, torch, sim, SET1_SLICE, dists.TYPES_4, 1000, dev,
+                                             SET1_WINDOWS)
+    walls["baseline_fused_L1000"] = wall1000
+    launches2000, walls["baseline_fused_L2000"] = run_slice_phase(
+        np, torch, sim, SET1_SLICE, dists.TYPES_4, 2000, dev, SET1_WINDOWS)
+    kernels_window_phase(np, torch, torch.from_numpy(cases[0][1]).to(dev), 2000, dev)
+
     for label, cfg, wall in (
             ("baseline fused", PDFConfig(), wall4),
             ("grouping kernels", PDFConfig(method="grouping", fit_backend="kernels"),
@@ -1260,8 +1381,15 @@ def main() -> int:
     x = torch.from_numpy(cases[0][1]).to(dev)  # a Set1 window, (6275, 1000)
     rows = time_kernels(np, torch, x, dev, launches4, worst_k1, err_k2)
     rows += time_new_kernels(np, torch, x, dev, launches_k, launches_rows, worst_k3, err_rows)
+    large = time_large_bins(np, torch, x, dev)
+    for r in rows:
+        if r["name"] in ("fit_error_counts", "hist_counts"):
+            k = "k2" if r["name"] == "fit_error_counts" else "k4"
+            r["at_large_L"] = {L: {key[3:]: v for key, v in d.items() if key.startswith(k)}
+                               for L, d in large.items()}
     log(f"[summary] {smi}: Set1 slice {SET1_SLICE} wall_s 4types_L64={wall4} "
-        f"10types_L20={wall10} {json.dumps(walls)}; launches 10types_L20 {json.dumps(launches10)}")
+        f"10types_L20={wall10} {json.dumps(walls)}; launches 10types_L20 {json.dumps(launches10)}, "
+        f"4types_L1000 {json.dumps(launches1000)}, 4types_L2000 {json.dumps(launches2000)}")
     del x, cases
 
     # The LM serving path.

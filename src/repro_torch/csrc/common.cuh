@@ -1,5 +1,5 @@
 // Shared by the row kernels of repro_torch (fitpdf.cu, moments.cu, hist.cu):
-// the one-warp-per-row launch shape and NaN-propagating min/max.
+// NaN-propagating min/max and the warp's full mask.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -8,8 +8,6 @@
 
 namespace {
 
-constexpr int kRows = 8;  // rows per block, one warp per row
-constexpr int kThreads = kRows * 32;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kEps = 1e-12f;
 
@@ -25,7 +23,5 @@ __device__ __forceinline__ float min_nan(float a, float b) {
 __device__ __forceinline__ float clip_nan(float v, float lo, float hi) {
   return min_nan(max_nan(v, lo), hi);
 }
-
-inline unsigned row_blocks(int P) { return (unsigned)((P + kRows - 1) / kRows); }
 
 }  // namespace

@@ -13,11 +13,12 @@
 // Both read the (P, n) float32 window once and are bound by those bytes
 // (fit_error_counts at T = 10 also by its float64 special functions, below).
 // The TPU kernels' sequential observation-chunk grid axis becomes a loop
-// inside the card's threads. The float sums are reduced with a fixed
-// __shfl_xor_sync butterfly, so results are bitwise reproducible. The only
-// atomics are integer histogram adds in shared memory, which are exact.
-// K1's row loop lives in row_moments.cuh (shared with K3, moments.cu): one
-// warp a row, eight rows a block.
+// inside the card's threads. The sums are reduced in a fixed order
+// (__shfl_xor_sync butterflies, then warps in order), so results are
+// bitwise reproducible. The only atomics are integer histogram adds in
+// shared memory, which are exact. K1's kernel lives in row_moments.cuh
+// (shared with K3, moments.cu): a warp a row, the lanes' sums added in
+// double.
 //
 // fit_error_counts is one block of 128 threads a row. Its histogram phase
 // (row_hist.cuh, shared with K4, hist.cu) keeps every 16-byte load of the
@@ -31,6 +32,21 @@
 // compiled only into the instantiation for type sets that hold gamma or
 // student_t (fit_error_kernel<true>), so the other pays no registers for
 // them.
+//
+// Any L. A block holds C bins at once: C int counters and four warps' C + 1
+// CDFs, 20 C + 16 bytes of shared memory. C = L up to the most that leaves
+// an SM room for ten blocks (1,088 bins on an H100: fit_error_chunk);
+// above, the bins go in chunks of that many, one launch a chunk, each
+// reading the rows again, each lane's running sums carried between them in
+// a global scratch. A block that opted in to hold all L at once left too
+// few warps an SM for the CDFs: at L = 4,000 it took 1.9 times as long as
+// chunks of 2,432 and 3.4 times as long as chunks of 1,024 (PERF.md). C
+// being a multiple of 32, a lane adds the same k in the same order in
+// either route, so the errors are bitwise equal across routes. The
+// one-chunk route is its own instantiation: the chunked code run as one
+// chunk needs 39 registers a thread where it needs 32, which costs a
+// quarter of the blocks an SM and 11 % at T = 4, L = 64 (4 % at T = 10,
+// L = 20; PERF.md).
 //
 // fit_error_counts takes an optional row_indices (int64, null = identity):
 // output row r then reads window row row_indices[r], the grouping methods'
@@ -54,6 +70,8 @@ namespace {
 
 constexpr float kGammaWilsonHilfertyK = 1e4f;
 constexpr int kMaxIter = 4000;  // incomplete gamma at k <= 1e4 needs < 1000
+constexpr int kMaxTypes = 16;   // four bits a type code in one 64-bit word
+constexpr int kFitErrorBlocks = 10;  // K2 blocks an SM's shared memory holds at least
 
 // ---------------------------------------------------------------------------
 // Special functions, in double, rounded to float by the caller. They run
@@ -215,17 +233,23 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// One block a row (kHistThreads threads). kSpecial: the type set holds
-// gamma or student_t, so the float64 incomplete gamma and beta are compiled
-// in; otherwise they are not, and take no registers.
-template <bool kSpecial>
+// One block a row (kHistThreads threads), one chunk of the row's bins a
+// launch: bins [c0, c0 + C) (kChunked) or all L (C = L, c0 = 0). kSpecial:
+// the type set holds gamma or student_t, so the float64 incomplete gamma
+// and beta are compiled in; otherwise they are not, and take no registers.
+// kChunked: each lane carries its running sum of each type from one chunk's
+// launch to the next in partial[row][t][lane] (global scratch), read only
+// after the chunk's CDFs, so no more lives across their calls than in the
+// one-chunk route.
+template <bool kSpecial, bool kChunked>
 __global__ void __launch_bounds__(kHistThreads)
 fit_error_kernel(const float* __restrict__ x, const int64_t* __restrict__ row_indices,
                  const float* __restrict__ vmin, const float* __restrict__ vmax,
                  const float* __restrict__ edges, const float* __restrict__ params,
                  float* __restrict__ err, int src_rows, int n, int L, int T,
-                 unsigned long long codes) {
-  extern __shared__ int smem[];  // int hist[L], then float cdf[kHistWarps][L+1]
+                 unsigned long long codes, int c0, int C, float* __restrict__ partial) {
+  extern __shared__ int smem[];  // int hist[C], then float cdf[kHistWarps][C+1]
+  if constexpr (!kChunked) c0 = 0, C = L;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long row = blockIdx.x;
   const long long src = row_indices ? (long long)row_indices[row] : row;
@@ -234,27 +258,34 @@ fit_error_kernel(const float* __restrict__ x, const int64_t* __restrict__ row_in
     return;
   }
   int* hist = smem;
-  block_row_histogram(x + src * (long long)n, n, vmin[row], vmax[row], L, hist);
+  block_row_histogram<kChunked>(x + src * (long long)n, n, vmin[row], vmax[row], L, c0, C, hist);
 
   // Epilogue: warp w takes types w, w + kHistWarps, ...; its lanes split the
-  // L + 1 edges and the L bins. Each lane sums its bins' |freq_k / n - mass_k|
-  // in order of k, then the warp's butterfly: the order is fixed by L alone.
-  float* cdfv = reinterpret_cast<float*>(smem + L) + warp * (L + 1);
+  // chunk's C + 1 edges and C bins. Each lane sums its bins' |freq_k / n -
+  // mass_k| in order of k, then the warp's butterfly. C is L or a multiple
+  // of 32, so a lane adds the same k in the same order in either route: the
+  // order is fixed by L alone.
+  float* cdfv = reinterpret_cast<float*>(smem + C) + warp * (C + 1);
   const float nf = (float)(n > 1 ? n : 1);
   const float* pr = params + row * 3LL * T;
-  const float* er = edges + row * (long long)(L + 1);
+  const float* er = edges + row * (long long)(L + 1) + c0;
   for (int t = warp; t < T; t += kHistWarps) {
     const int code = (int)((codes >> (4 * t)) & 15ull);
     const float p0 = pr[3 * t], p1 = pr[3 * t + 1], p2 = pr[3 * t + 2];
-    for (int k = lane; k <= L; k += 32) cdfv[k] = cdf_eval<kSpecial>(code, p0, p1, p2, er[k]);
+    for (int k = lane; k <= C; k += 32) cdfv[k] = cdf_eval<kSpecial>(code, p0, p1, p2, er[k]);
     __syncwarp();
-    float acc = 0.0f;
-    for (int k = lane; k < L; k += 32) {
+    float* run = kChunked ? partial + ((row * T + t) << 5) + lane : nullptr;
+    float acc = kChunked && c0 ? *run : 0.0f;
+    for (int k = lane; k < C; k += 32) {
       const float rel = (float)hist[k] / nf;
       acc += fabsf(rel - (cdfv[k + 1] - cdfv[k]));
     }
-    acc = warp_sum(acc);
-    if (lane == 0) err[row * T + t] = acc;
+    if (kChunked && c0 + C < L) {
+      *run = acc;  // chunks to come
+    } else {
+      acc = warp_sum(acc);
+      if (lane == 0) err[row * T + t] = acc;
+    }
     __syncwarp();
   }
 }
@@ -268,49 +299,111 @@ bool has_special(unsigned long long codes, int T) {
   return false;
 }
 
+// Dynamic shared memory of a K2 block holding C bins: C int counters and
+// the four warps' C + 1 CDFs.
+size_t fit_error_smem(int C) { return ((size_t)C + kHistWarps * (size_t)(C + 1)) * sizeof(int); }
+
+// The most bins a K2 block holds at once on `device`: the largest multiple
+// of 32 whose block leaves an SM room for kFitErrorBlocks blocks (its
+// shared memory a multiprocessor over kFitErrorBlocks, less what the card
+// reserves a block). The epilogue's CDFs are latency-bound, and a block
+// that opts in to more shared memory leaves fewer warps an SM to hide it.
+cudaError_t fit_error_chunk(int device, int* chunk) {
+  int per_sm = 0, reserved = 0;
+  cudaError_t e = cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, device);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, device);
+  if (e != cudaSuccess) return e;
+  const long words = ((long)per_sm / kFitErrorBlocks - reserved) / (long)sizeof(int);
+  *chunk = (int)((words - kHistWarps) / (1 + kHistWarps) / 32 * 32);
+  return *chunk >= 32 ? cudaSuccess : cudaErrorInvalidConfiguration;
+}
+
+using FitErrorKernel = decltype(&fit_error_kernel<false, false>);
+
+FitErrorKernel fit_error_instance(bool special, bool chunked) {
+  if (special) return chunked ? fit_error_kernel<true, true> : fit_error_kernel<true, false>;
+  return chunked ? fit_error_kernel<false, true> : fit_error_kernel<false, false>;
+}
+
 }  // namespace
 
 extern "C" {
-
-size_t fitpdf_fit_error_smem_bytes(int L) {
-  return ((size_t)L + (size_t)kHistWarps * (size_t)(L + 1)) * sizeof(int);
-}
 
 int fitpdf_moments_edges_stats(const float* x, float* stats, float* edges,
                                int P, int n, int L, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  row_moments_kernel<true><<<row_blocks(P), kThreads, 0, (cudaStream_t)stream>>>(
+  row_moments_kernel<true><<<mom_blocks(P), kMomThreads, 0, (cudaStream_t)stream>>>(
       x, stats, edges, P, n, L);
   return (int)cudaGetLastError();
 }
 
 // Row r of err (G rows) is the Eq.-5 error of window row row_indices[r]
 // (or r, with row_indices null) of the src_rows x n window x; an index
-// outside [0, src_rows) gives a row of NaN and reads nothing.
+// outside [0, src_rows) gives a row of NaN and reads nothing. chunk: the
+// most bins a block holds at once, 0 for fit_error_chunk's; L or more is one
+// launch, less (a multiple of 32) one launch a chunk, with partial a
+// scratch of G * T * 32 floats.
 int fitpdf_fit_error_counts(const float* x, const int64_t* row_indices, const float* vmin,
                             const float* vmax, const float* edges, const float* params,
                             float* err, int G, int src_rows, int n, int L, int T,
-                            unsigned long long codes, int device, void* stream) {
+                            unsigned long long codes, int chunk, float* partial, int device,
+                            void* stream) {
+  if (T < 1 || T > kMaxTypes) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
+  if (e == cudaSuccess && chunk <= 0) e = fit_error_chunk(device, &chunk);
   if (e != cudaSuccess) return (int)e;
-  const size_t smem = fitpdf_fit_error_smem_bytes(L);
-  auto kernel = has_special(codes, T) ? fit_error_kernel<true> : fit_error_kernel<false>;
-  kernel<<<(unsigned)G, kHistThreads, smem, (cudaStream_t)stream>>>(
-      x, row_indices, vmin, vmax, edges, params, err, src_rows, n, L, T, codes);
-  return (int)cudaGetLastError();
+  const bool chunked = chunk < L;
+  if (chunked && (chunk % 32 || !partial)) return (int)cudaErrorInvalidValue;
+  const int C = chunked ? chunk : L;
+  const size_t smem = fit_error_smem(C);
+  const FitErrorKernel kernel = fit_error_instance(has_special(codes, T), chunked);
+  e = allow_smem(kernel, smem);
+  for (int c0 = 0; e == cudaSuccess && c0 < L; c0 += C) {
+    kernel<<<(unsigned)G, kHistThreads, smem, (cudaStream_t)stream>>>(
+        x, row_indices, vmin, vmax, edges, params, err, src_rows, n, L, T, codes, c0,
+        min(C, L - c0), partial);
+    e = cudaGetLastError();
+  }
+  return (int)e;
 }
 
-// fit_error_kernel's instantiation with (special = 1) or without the float64
-// special functions: attributes[0..2] = registers a thread, local memory
-// bytes a thread (nonzero if it spills), dynamic shared memory bytes a
-// block at L bins.
-int fitpdf_fit_error_attributes(int special, int L, int* attributes) {
+// fit_error_chunk's chunk on `device` (what chunk = 0 takes).
+int fitpdf_fit_error_chunk(int device, int* chunk) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e == cudaSuccess) e = fit_error_chunk(device, chunk);
+  return (int)e;
+}
+
+// The instantiation of fit_error_kernel a launch at L bins takes, with
+// (special = 1) or without the float64 special functions: attributes[0..3]
+// = registers a thread, local memory bytes a thread (nonzero if it spills),
+// dynamic shared memory bytes a block and the bins a block holds at once.
+int fitpdf_fit_error_attributes(int special, int L, int device, int* attributes) {
+  int chunk = 0;
+  cudaError_t e = (cudaError_t)fitpdf_fit_error_chunk(device, &chunk);
+  if (e != cudaSuccess) return (int)e;
+  const int C = chunk < L ? chunk : L;
   cudaFuncAttributes a;
-  cudaError_t e = cudaFuncGetAttributes(&a, special ? fit_error_kernel<true> : fit_error_kernel<false>);
+  e = cudaFuncGetAttributes(&a, fit_error_instance(special, chunk < L));
   attributes[0] = a.numRegs;
   attributes[1] = (int)a.localSizeBytes;
-  attributes[2] = (int)fitpdf_fit_error_smem_bytes(L);
+  attributes[2] = (int)fit_error_smem(C);
+  attributes[3] = C;
+  return (int)e;
+}
+
+// K1's kernel: attributes[0..2] = registers a thread, local memory bytes a
+// thread (nonzero if it spills), static shared memory bytes a block.
+int fitpdf_moments_edges_attributes(int device, int* attributes) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  cudaFuncAttributes a;
+  e = cudaFuncGetAttributes(&a, row_moments_kernel<true>);
+  attributes[0] = a.numRegs;
+  attributes[1] = (int)a.localSizeBytes;
+  attributes[2] = (int)a.sharedSizeBytes;
   return (int)e;
 }
 

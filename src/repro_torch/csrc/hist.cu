@@ -11,7 +11,9 @@
 // (exact and order-free), written out as float. The bin is computed as K2
 // computes it, so the counts are exact. It reads the (P, n) float32 window
 // once and writes 4L bytes a row: bound by those bytes. Its time on a Set1
-// window is that read, then the bin and atomic of every value.
+// window is that read, then the bin and atomic of every value. Any L: past
+// the 58,112 counters the H100 gives a block, the bins go in chunks, one
+// launch each, each reading the rows again (row_hist.cuh).
 //
 // Build and interface as fitpdf.cu.
 
@@ -19,39 +21,86 @@
 
 namespace {
 
+// One block a row, one chunk of the row's bins a launch: bins [c0, c0 + C)
+// (all L when C = L), C int counters in shared memory.
 __global__ void __launch_bounds__(kHistThreads)
 hist_counts_kernel(const float* __restrict__ x, const float* __restrict__ vmin,
-                   const float* __restrict__ vmax, float* __restrict__ counts, int n, int L) {
-  extern __shared__ int hist[];  // L ints
+                   const float* __restrict__ vmax, float* __restrict__ counts, int n, int L,
+                   int c0, int C) {
+  extern __shared__ int hist[];  // C ints
   const long long row = blockIdx.x;
-  block_row_histogram(x + row * (long long)n, n, vmin[row], vmax[row], L, hist);
-  float* out = counts + row * (long long)L;
-  for (int k = threadIdx.x; k < L; k += kHistThreads) out[k] = (float)hist[k];
+  block_row_histogram<true>(x + row * (long long)n, n, vmin[row], vmax[row], L, c0, C, hist);
+  float* out = counts + row * (long long)L + c0;
+  for (int k = threadIdx.x; k < C; k += kHistThreads) out[k] = (float)hist[k];
+}
+
+// How a block holds a row's L bins: a chunk of C bins (C = L in one launch)
+// and the bytes of dynamic shared memory a block takes, C ints.
+struct HistRoute {
+  int chunk;
+  size_t smem;
+};
+
+// All L bins at once if their counters fit the default 48 KB or, opted in,
+// what the card gives a block (cudaDevAttrMaxSharedMemoryPerBlockOptin; the
+// kernel has no static shared memory); else chunks of the largest multiple
+// of 32 that fits. Counting is bound by the row's bytes, not by warps an SM
+// (PERF.md), so a block takes all the shared memory it can. `forced` > 0
+// takes that chunk instead: L or more is one chunk, less must be a multiple
+// of 32.
+cudaError_t hist_counts_route(int L, int forced, int device, HistRoute* r) {
+  if (forced > 0 && forced < L) {
+    if (forced % 32) return cudaErrorInvalidValue;
+    *r = {forced, (size_t)forced * sizeof(int)};
+    return cudaSuccess;
+  }
+  *r = {L, (size_t)L * sizeof(int)};
+  if (forced > 0 || r->smem <= kDefaultSmem) return cudaSuccess;
+  int optin = 0;
+  const cudaError_t e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (e != cudaSuccess || r->smem <= (size_t)optin) return e;
+  const int c = optin / (int)sizeof(int) / 32 * 32;
+  *r = {c, (size_t)c * sizeof(int)};
+  return cudaSuccess;
 }
 
 }  // namespace
 
 extern "C" {
 
-size_t hist_smem_bytes(int L) { return (size_t)L * sizeof(int); }
-
+// chunk: 0 picks the route from L (hist_counts_route); > 0 forces a chunk of
+// bins. One launch a chunk.
 int hist_counts(const float* x, const float* vmin, const float* vmax, float* counts,
-                int P, int n, int L, int device, void* stream) {
+                int P, int n, int L, int chunk, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  hist_counts_kernel<<<(unsigned)P, kHistThreads, hist_smem_bytes(L), (cudaStream_t)stream>>>(
-      x, vmin, vmax, counts, n, L);
-  return (int)cudaGetLastError();
+  HistRoute r;
+  e = hist_counts_route(L, chunk, device, &r);
+  if (e != cudaSuccess) return (int)e;
+  e = allow_smem(hist_counts_kernel, r.smem);
+  for (int c0 = 0; e == cudaSuccess && c0 < L; c0 += r.chunk) {  // one launch a chunk
+    hist_counts_kernel<<<(unsigned)P, kHistThreads, r.smem, (cudaStream_t)stream>>>(
+        x, vmin, vmax, counts, n, L, c0, min(r.chunk, L - c0));
+    e = cudaGetLastError();
+  }
+  return (int)e;
 }
 
-// attributes[0..2] = registers a thread, local memory bytes a thread
-// (nonzero if it spills), dynamic shared memory bytes a block at L bins.
-int hist_attributes(int L, int* attributes) {
+// K4's kernel and its route at L bins: attributes[0..3] = registers
+// a thread, local memory bytes a thread (nonzero if it spills), dynamic
+// shared memory bytes a block and the chunk of bins a block counts at once.
+int hist_attributes(int L, int device, int* attributes) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  HistRoute r;
+  e = hist_counts_route(L, 0, device, &r);
+  if (e != cudaSuccess) return (int)e;
   cudaFuncAttributes a;
-  cudaError_t e = cudaFuncGetAttributes(&a, hist_counts_kernel);
+  e = cudaFuncGetAttributes(&a, hist_counts_kernel);
   attributes[0] = a.numRegs;
   attributes[1] = (int)a.localSizeBytes;
-  attributes[2] = (int)hist_smem_bytes(L);
+  attributes[2] = (int)r.smem;
+  attributes[3] = r.chunk;
   return (int)e;
 }
 

@@ -1,5 +1,6 @@
-"""What the ablation tools (``fitpdf/ablation.py``, ``band_attn/ablation.py``)
-share: building variants of ``csrc/`` on the card's machine.
+"""What the ablation tools (``fitpdf/ablation.py``, ``moments/ablation.py``,
+``band_attn/ablation.py``) share: building variants of ``csrc/`` on the
+card's machine and reading ptxas's report of them.
 
 A variant is ``csrc/`` with statements replaced, written to
 ``build/kernels/ablation/<tool>/<variant>/``; an ``--against`` directory
@@ -10,6 +11,7 @@ flags, one nvcc a source, all at once.
 
 from __future__ import annotations
 
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -59,3 +61,11 @@ def build_variants(tool: str, variants: dict, sources: tuple[str, ...], against=
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return {name: (d, logs[name]) for name, d in dirs.items()}
+
+
+def ptxas_report(log: str, kernels) -> list[str]:
+    """The ptxas lines (``-Xptxas -v``) of the entry functions whose
+    mangled names hold one of ``kernels``: one line per function."""
+    blocks = re.split(r"(?=ptxas info\s+: Compiling entry function)", log)
+    return [" | ".join(line.strip() for line in b.strip().splitlines())
+            for b in blocks if any(k in b.split("\n", 1)[0] for k in kernels)]

@@ -74,8 +74,3 @@ def check_contiguous(values: torch.Tensor) -> None:
     if not values.is_contiguous():
         raise ValueError("values must be contiguous")
 
-
-def check_bins(num_bins: int, max_bins: int) -> None:
-    """The histogram kernels (K2, K4) take at most ``max_bins`` bins."""
-    if num_bins > max_bins:
-        raise ValueError(f"num_bins={num_bins} is more than the kernel's {max_bins}")

@@ -11,8 +11,11 @@ register and stores it where the counts would go (no bin, no atomics, no
 epilogue), ``no_epilogue`` writes one count per type instead of the Eq.-5
 error, ``epilogue_only`` reads and counts nothing, ``no_special`` makes the
 gamma and student_t CDFs a constant. Their outputs are wrong by design;
-only their times mean anything. K4 has no epilogue, so its
-``no_epilogue`` and ``no_special`` are its whole and its
+only their times mean anything. ``chunked_code`` is the exception: it
+launches K2's chunked instantiation for one chunk too (c0 = 0, C = L),
+which gives the same bits; it is what K2's separate one-chunk
+instantiation saves. K4 has no epilogue, so its
+``no_epilogue``, ``no_special`` and ``chunked_code`` are its whole and its
 ``epilogue_only`` only zeroes and writes the counts. ``--against DIR
 ...`` adds each ``DIR/fitpdf.cu`` and ``DIR/hist.cu`` (with the headers
 in DIR), other versions of the kernels, built and timed in the same
@@ -36,45 +39,46 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import re
 import subprocess
 from pathlib import Path
 
 import torch
 
-from repro_torch.kernels._ablation import build_variants
+from repro_torch.kernels._ablation import build_variants, ptxas_report
 from repro_torch.kernels._timing import kernel_times, median
 
 SLICE, WINDOW_LINES = 201, 25  # Set1's slice and PDFConfig.window_lines
 
-_EPILOGUE = "  for (int t = warp; t < T; t += kHistWarps) {"
-_NO_EPILOGUE = ("  if (threadIdx.x < T) err[row * T + threadIdx.x] = (float)hist[threadIdx.x % L];\n"
-                "  for (int t = warp; t < 0; t += kHistWarps) {")
-_COUNT = "  auto count = [&](float v) { atomicAdd(hist + interval_bin(v, lo, span, fl, top), 1); };"
+_EPILOGUE = "  for (int t = warp; t < T; t += kHistWarps) {\n    const int code"
+_NO_EPILOGUE = ("  if (threadIdx.x < T) err[row * T + threadIdx.x] = (float)hist[threadIdx.x % C];\n"
+                "  for (int t = warp; t < 0; t += kHistWarps) {\n    const int code")
+_COUNT = """  auto count = [&](float v) {
+    const int b = interval_bin(v, lo, span, fl, top);
+    if constexpr (kChunked) {
+      if ((unsigned)(b - c0) < (unsigned)C) atomicAdd(hist + (b - c0), 1);
+    } else {
+      atomicAdd(hist + b, 1);
+    }
+  };"""
 _END = "  __syncthreads();\n}\n"  # the histogram's last statement
 _HEAD_TAIL = "  if (tid < head) count(__ldg(xr + tid));\n  if (tid < n - tail) count(__ldg(xr + tail + tid));"
 _BODY = "  for (int base = 0; base < nv; base += kHistThreads * kHistLoads) {"
 _GAMMA = "      if constexpr (kSpecial) return gamma_cdf(p0, p1, x); else return kNaN;"
 _STUDENT_T = "      if constexpr (kSpecial) return student_t_cdf(p0, p1, p2, x); else return kNaN;"
+_INSTANCE = "  const FitErrorKernel kernel = fit_error_instance(has_special(codes, T), chunked);"
 # (file, statement, replacement) a variant makes in csrc/.
 VARIANTS = {
     "whole": [],
     "loads_only": [("row_hist.cuh", _COUNT, "  float sum = 0.0f;\n  auto count = [&](float v) { sum += v; };"),
-                   ("row_hist.cuh", _END, "  hist[tid % L] = __float_as_int(sum);\n" + _END),
+                   ("row_hist.cuh", _END, "  hist[tid % C] = __float_as_int(sum);\n" + _END),
                    ("fitpdf.cu", _EPILOGUE, _NO_EPILOGUE)],
     "no_epilogue": [("fitpdf.cu", _EPILOGUE, _NO_EPILOGUE)],
     "epilogue_only": [("row_hist.cuh", _HEAD_TAIL, ""),
                       ("row_hist.cuh", _BODY, _BODY.replace("base < nv", "base < 0"))],
     "no_special": [("fitpdf.cu", _GAMMA, "      return 0.5f;"), ("fitpdf.cu", _STUDENT_T, "      return 0.5f;")],
+    "chunked_code": [("fitpdf.cu", _INSTANCE, _INSTANCE.replace("chunked);", "true);"))],
 }
 KERNELS = ("fit_error_kernel", "hist_counts_kernel")
-
-
-def _ptxas_report(log: str) -> list[str]:
-    """The ptxas lines of K2's and K4's kernels: one block per kernel."""
-    blocks = re.split(r"(?=ptxas info\s+: Compiling entry function)", log)
-    return [" | ".join(line.strip() for line in b.strip().splitlines())
-            for b in blocks if any(k in b.split("\n", 1)[0] for k in KERNELS)]
 
 
 def build(against: list[Path]) -> tuple[dict, dict]:
@@ -87,15 +91,19 @@ def build(against: list[Path]) -> tuple[dict, dict]:
     for name, (d, logs) in built.items():
         fit, hist = ctypes.CDLL(str(d / "fitpdf.so")), ctypes.CDLL(str(d / "hist.so"))
         # Sources with fitpdf_fit_error_attributes take the window's row count
-        # after P; older ones do not.
+        # after P; older ones do not. Sources with fitpdf_fit_error_chunk take
+        # the most bins a block holds (0: the card's) and a scratch before
+        # the device in K2, and a chunk of bins (0: its own route) in K4.
         fit.bounded = hasattr(fit, "fitpdf_fit_error_attributes")
+        fit.chunked = hasattr(fit, "fitpdf_fit_error_chunk")
         fit.fitpdf_fit_error_counts.argtypes = (
-            [vp] * 7 + [i32] * (5 if fit.bounded else 4) + [ull, i32, vp])
+            [vp] * 7 + [i32] * (5 if fit.bounded else 4) + [ull] + ([i32, vp] if fit.chunked else [])
+            + [i32, vp])
         fit.fitpdf_fit_error_counts.restype = i32
-        hist.hist_counts.argtypes = [vp] * 4 + [i32] * 4 + [vp]
+        hist.hist_counts.argtypes = [vp] * 4 + [i32] * (5 if fit.chunked else 4) + [vp]
         hist.hist_counts.restype = i32
         libs[name] = (fit, hist)
-        reports[name] = _ptxas_report(logs["fitpdf"]) + _ptxas_report(logs["hist"])
+        reports[name] = ptxas_report(logs["fitpdf"], KERNELS) + ptxas_report(logs["hist"], KERNELS)
     return libs, reports
 
 
@@ -143,14 +151,14 @@ def launcher(libs, c: dict, stream):
     p, n = c["x"].shape
     if c["kernel"] == "k4":
         args = (c["x"].data_ptr(), c["vmin"].data_ptr(), c["vmax"].data_ptr(), c["out"].data_ptr(),
-                p, n, c["L"], 0, stream)
+                p, n, c["L"], *((0,) if fit.chunked else ()), 0, stream)
         fn = hist.hist_counts
     else:
         rows = (c["g"], p) if fit.bounded else (c["g"],)
         args = (c["x"].data_ptr(), None if c["idx"] is None else c["idx"].data_ptr(),
                 c["vmin"].data_ptr(), c["vmax"].data_ptr(), c["edges"].data_ptr(),
                 c["params"].data_ptr(), c["out"].data_ptr(), *rows, n, c["L"], c["T"], c["codes"],
-                0, stream)
+                *((0, None) if fit.chunked else ()), 0, stream)
         fn = fit.fitpdf_fit_error_counts
 
     def run():

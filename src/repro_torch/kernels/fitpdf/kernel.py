@@ -6,11 +6,17 @@
     f32 -> stats (P, 8) [mean, var, skew, kurt, vmin, vmax, 0, 0] and the
     Eq.-5 edges (P, L+1). Bound on an H100: bytes. It must read the window
     once, P*n*4 B (25.1 MB for a Set1 window of 6,275 x 1,000, about 7.5 us
-    at 3.35 TB/s); its arithmetic is ~10 float operations per value. Design:
-    one warp per row, lanes striding over the row so loads coalesce, the
-    TPU's sequential observation-chunk grid axis turned into a loop inside
-    the warp, and a fixed-order shuffle butterfly instead of atomics, so the
-    result is bitwise reproducible.
+    at 3.35 TB/s); its arithmetic is ~10 float operations per value. Design
+    (``csrc/row_moments.cuh``, shared with K3): a warp a row, four rows a
+    block, every 16-byte load of a lane's share of the row in flight at
+    once, the TPU's sequential observation-chunk grid axis turned into that
+    loop; each lane's shifted power sums of its values in float, min and
+    max in registers, then the lanes' sums in double through a fixed
+    shuffle tree instead of atomics, so the result is bitwise reproducible
+    and within a rounding or two of exact sums. Which lane adds a value, and
+    in what order, depends on its index and n alone, so a row's stats do
+    not depend on where the row lies (aligned rows read float4, others the
+    same groups as scalars). The warp writes the edges.
 
 ``fit_error_counts`` (K2)
     Replaces the Pallas TPU kernel
@@ -26,7 +32,13 @@
     and bins: the CDF at the edges into shared memory, and sum |freq/n -
     mass| by lane and a fixed butterfly. Only (P, T) floats are written.
     The gamma and student_t CDFs are compiled only into the instantiation
-    for the type sets that hold them. It takes up to ``MAX_BINS`` bins.
+    for the type sets that hold them. Any L: a block holds C bins at once (C
+    int counters and four warps' C + 1 CDFs), C = L up to the most that
+    leaves an SM room for ten blocks (``_fit_error_chunk``: 1,088 on an
+    H100); above, one launch a chunk of that many bins, each reading the
+    rows again, each lane's running sums carried between them in a scratch
+    of G * T * 32 floats. A lane adds the same bins in the same order in
+    either route, so the errors are bitwise equal across routes.
 
     ``row_indices`` (G,) int64 is the grouping methods' representative
     gather (``repro/kernels/fitpdf/ops.py:79-128``): output row r reads
@@ -42,13 +54,15 @@
 
 Each wrapper dispatches on the tensor's device: a CPU tensor gets the plain
 PyTorch version (``*_plain``, the same arithmetic, the CPU tests' path), a
-CUDA tensor gets the kernel or an exception. Each counts its launches in
-``<wrapper>.launches`` (the CPU path counts nothing).
+CUDA tensor gets the kernel or an exception. Each counts its kernel
+launches in ``<wrapper>.launches``, one a chunk of bins for K2 (the CPU
+path counts nothing).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence
 
 import torch
@@ -61,10 +75,6 @@ from repro_torch.kernels.moments.kernel import NUM_STATS, moments_stats_plain
 # The kernels' type codes index this tuple (csrc/fitpdf.cu: cdf_eval).
 _TYPE_CODES = {name: i for i, name in enumerate(dists.TYPES_10)}
 _MAX_TYPES = 16  # four bits per type code in one 64-bit word
-# The largest L K2 takes: that of the one-warp-a-row design before it, whose
-# eight rows a block filled 48 KB of shared memory at L = 767. A block of
-# this design holds one row's L int counters and four warps' L + 1 CDFs.
-MAX_BINS = 767
 
 
 def _library():
@@ -72,8 +82,11 @@ def _library():
     return _launch.bind("fitpdf", {
         "fitpdf_moments_edges_stats": ([vp, vp, vp, i32, i32, i32, i32, vp], i32),
         "fitpdf_fit_error_counts": (
-            [vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, ctypes.c_ulonglong, i32, vp], i32),
-        "fitpdf_fit_error_attributes": ([i32, i32, ctypes.POINTER(ctypes.c_int)], i32),
+            [vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, ctypes.c_ulonglong, i32, vp, i32,
+             vp], i32),
+        "fitpdf_fit_error_chunk": ([i32, ctypes.POINTER(ctypes.c_int)], i32),
+        "fitpdf_fit_error_attributes": ([i32, i32, i32, ctypes.POINTER(ctypes.c_int)], i32),
+        "fitpdf_moments_edges_attributes": ([i32, ctypes.POINTER(ctypes.c_int)], i32),
     })
 
 
@@ -162,11 +175,15 @@ def fit_error_counts(values, vmin, vmax, edges, params, types: Sequence[str],
 
 
 def _fit_error_counts_in_range(values, vmin, vmax, edges, params, types: Sequence[str],
-                               num_bins: int, row_indices: torch.Tensor | None) -> torch.Tensor:
+                               num_bins: int, row_indices: torch.Tensor | None,
+                               chunk: int = 0) -> torch.Tensor:
     """``fit_error_counts`` with no range check of ``row_indices``, for
     indices that lie in [0, P) by construction (``compact_representatives``):
     no host synchronisation. An index outside gives a row of NaN on either
-    device; the kernel never reads outside the window."""
+    device; the kernel never reads outside the window. ``chunk`` other than
+    0 sets the most bins a block holds at once instead of the card's
+    ``_fit_error_chunk`` (a multiple of 32, or ``num_bins`` or more for one
+    launch): the tests' way to compare the routes at one L."""
     _launch.check_values(values)
     t = len(types)
     codes = _type_codes(types)
@@ -191,19 +208,26 @@ def _fit_error_counts_in_range(values, vmin, vmax, edges, params, types: Sequenc
         err = fit_error_counts_plain(rows, vmin, vmax, edges, params, types, num_bins)
         return torch.where(inside[:, None], err, float("nan"))
     _launch.check_contiguous(values)
-    _launch.check_bins(num_bins, MAX_BINS)
     err = torch.empty((g, t), dtype=torch.float32, device=values.device)
     if g:
         lib = _library()
+        dev = _launch.device_index(values.device)
+        chunk = chunk or _fit_error_chunk(dev)
+        # One launch a chunk past `chunk` bins, each lane's running sums
+        # between them. Freed on return, the scratch goes back to this
+        # stream's pool, behind the launches that use it.
+        partial = (torch.empty(g * t * 32, dtype=torch.float32, device=values.device)
+                   if chunk < num_bins else None)
         rc = lib.fitpdf_fit_error_counts(
             values.data_ptr(), None if row_indices is None else row_indices.data_ptr(),
             vmin.data_ptr(), vmax.data_ptr(), edges.data_ptr(), params.data_ptr(),
-            err.data_ptr(), g, p, values.shape[1], num_bins, t, codes,
-            _launch.device_index(values.device), _launch.stream(values.device))
+            err.data_ptr(), g, p, values.shape[1], num_bins, t, codes, chunk,
+            None if partial is None else partial.data_ptr(), dev, _launch.stream(values.device))
         _launch.raise_if_failed(lib, "fitpdf", rc, "fit_error_counts")
-        fit_error_counts.launches += 1
+        launches = -(-num_bins // chunk)  # one a chunk of bins
+        fit_error_counts.launches += launches
         if row_indices is not None:
-            fit_error_counts.row_index_launches += 1
+            fit_error_counts.row_index_launches += launches
     return err
 
 
@@ -213,14 +237,38 @@ fit_error_counts.launches = 0
 fit_error_counts.row_index_launches = 0
 
 
-def fit_error_attributes(types: Sequence[str], num_bins: int) -> dict:
+@functools.lru_cache(maxsize=None)
+def _fit_error_chunk(device: int) -> int:
+    """The most bins a K2 block holds at once on CUDA device ``device``: the
+    largest multiple of 32 that leaves an SM's shared memory room for ten
+    blocks (csrc/fitpdf.cu fit_error_chunk; 1,088 on an H100)."""
+    lib = _library()
+    out = ctypes.c_int()
+    rc = lib.fitpdf_fit_error_chunk(device, ctypes.byref(out))
+    _launch.raise_if_failed(lib, "fitpdf", rc, "fitpdf_fit_error_chunk")
+    return out.value
+
+
+def fit_error_attributes(types: Sequence[str], num_bins: int, device: int = 0) -> dict:
     """Registers a thread, local memory bytes a thread (nonzero if it
-    spills) and dynamic shared memory bytes a block of the K2 instantiation
-    these types launch (with the float64 special functions if they hold
-    gamma or student_t), from the CUDA runtime."""
+    spills), dynamic shared memory bytes a block and the chunk of bins a
+    block counts at once of the K2 instantiation these types launch (with
+    the float64 special functions if they hold gamma or student_t) at
+    ``num_bins`` on CUDA device ``device``, from the CUDA runtime."""
+    lib = _library()
+    out = (ctypes.c_int * 4)()
+    special = int(any(name in ("gamma", "student_t") for name in types))
+    rc = lib.fitpdf_fit_error_attributes(special, num_bins, device, out)
+    _launch.raise_if_failed(lib, "fitpdf", rc, "fitpdf_fit_error_attributes")
+    return dict(registers=out[0], local_bytes=out[1], smem_bytes=out[2], chunk=out[3])
+
+
+def moments_edges_attributes(device: int = 0) -> dict:
+    """Registers a thread, local memory bytes a thread (nonzero if it
+    spills) and static shared memory bytes a block of K1's kernel on CUDA
+    device ``device``, from the CUDA runtime."""
     lib = _library()
     out = (ctypes.c_int * 3)()
-    special = int(any(name in ("gamma", "student_t") for name in types))
-    rc = lib.fitpdf_fit_error_attributes(special, num_bins, out)
-    _launch.raise_if_failed(lib, "fitpdf", rc, "fitpdf_fit_error_attributes")
+    rc = lib.fitpdf_moments_edges_attributes(device, out)
+    _launch.raise_if_failed(lib, "fitpdf", rc, "fitpdf_moments_edges_attributes")
     return dict(registers=out[0], local_bytes=out[1], smem_bytes=out[2])

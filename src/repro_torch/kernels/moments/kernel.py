@@ -6,10 +6,13 @@ moments_stats``. values (P, n) f32 -> stats (P, 8) f32 [mean, var
 read the window once, P*n*4 B (25.1 MB for a Set1 window of 6,275 x 1,000,
 about 7.5 us at 3.35 TB/s); its arithmetic is ~10 float operations per
 value. Design: K1's kernel (``csrc/row_moments.cuh``) with the edges
-compiled out (``csrc/moments.cu``): one warp per row, lanes striding over
-the row, a fixed-order shuffle butterfly, so its stats equal K1's bit for
-bit and repeat bitwise. The TPU kernel pads P to its 8-row tile; this one
-masks its own ragged edge, so no row is padded.
+compiled out (``csrc/moments.cu``): a warp a row, every 16-byte load of a
+lane's share in flight at once, shifted power sums in float, min and max in
+registers, then the lanes' sums in double through a fixed shuffle tree, so
+its stats equal K1's bit for bit and repeat bitwise. Which lane adds a
+value, and in what order, depends on its index and n alone, so a row's
+stats do not depend on where the row lies. The TPU kernel pads P to its
+8-row tile; this one masks its own ragged edge, so no row is padded.
 
 The wrapper dispatches on the tensor's device: a CPU tensor gets the plain
 version, a CUDA tensor the kernel or an exception. It counts its launches in
@@ -17,6 +20,8 @@ version, a CUDA tensor the kernel or an exception. It counts its launches in
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -27,9 +32,10 @@ _EPS = 1e-12
 
 
 def _library():
+    vp, i32 = _launch.VP, _launch.I32
     return _launch.bind("moments", {
-        "moments_stats": ([_launch.VP, _launch.VP, _launch.I32, _launch.I32, _launch.I32,
-                           _launch.VP], _launch.I32),
+        "moments_stats": ([vp, vp, i32, i32, i32, vp], i32),
+        "moments_attributes": ([i32, ctypes.POINTER(ctypes.c_int)], i32),
     })
 
 
@@ -80,3 +86,14 @@ def moments_stats(values: torch.Tensor) -> torch.Tensor:
 
 
 moments_stats.launches = 0
+
+
+def moments_attributes(device: int = 0) -> dict:
+    """Registers a thread, local memory bytes a thread (nonzero if it
+    spills) and static shared memory bytes a block of K3's kernel on CUDA
+    device ``device``, from the CUDA runtime."""
+    lib = _library()
+    out = (ctypes.c_int * 3)()
+    rc = lib.moments_attributes(device, out)
+    _launch.raise_if_failed(lib, "moments", rc, "moments_attributes")
+    return dict(registers=out[0], local_bytes=out[1], smem_bytes=out[2])

@@ -56,6 +56,19 @@ def test_moments_batched_shape():
 @pytest.mark.parametrize("num_bins", [8, 20, 64])
 def test_histogram_matches_reference(shape, num_bins):
     """Counts equal the reference kernel's exactly."""
+    _check_histogram(shape, num_bins)
+
+
+@pytest.mark.parametrize("shape", [(7, 100), (3, 513), (5, 1)])
+@pytest.mark.parametrize("num_bins", [1000, 4000])
+def test_histogram_matches_reference_large_bins(shape, num_bins):
+    """Counts equal the reference kernel's exactly at L past what one block
+    of the card's K4 holds at once (small P and n: the reference's
+    interpret-mode one-hot is (8, 512, L))."""
+    _check_histogram(shape, num_bins)
+
+
+def _check_histogram(shape, num_bins):
     v = _window(shape)
     vmin, vmax = v.min(1), v.max(1)
     want = np.asarray(rh.histogram(jnp.asarray(v), jnp.asarray(vmin), jnp.asarray(vmax), num_bins))

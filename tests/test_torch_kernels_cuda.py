@@ -107,9 +107,9 @@ def test_kernel_rejects_mixed_devices(dev):
         tk.fit_error_counts(x, m.vmin.cpu(), m.vmax, edges, params, td.TYPES_4, 8)
     with pytest.raises(ValueError):
         tk.moments_edges_stats(x.t(), 8)  # not contiguous
-    with pytest.raises(ValueError):
-        tk.fit_error_counts(x, m.vmin, m.vmax, tpe.interval_edges(m.vmin, m.vmax, 4000),
-                            params, td.TYPES_4, 4000)  # shared memory per block
+    with pytest.raises(RuntimeError):  # a chunk of bins that is not a multiple of 32
+        tk._fit_error_counts_in_range(x, m.vmin, m.vmax, tpe.interval_edges(m.vmin, m.vmax, 4000),
+                                      params, td.TYPES_4, 4000, None, chunk=100)
 
 
 def _with_constant_row(arr):
@@ -194,8 +194,8 @@ def test_new_kernels_reject_bad_inputs(dev):
         tmk.moments_stats(x.t())  # not contiguous
     with pytest.raises(ValueError):
         thk.hist_counts(x, vmin.cpu(), vmax, 8)
-    with pytest.raises(ValueError):
-        thk.hist_counts(x, vmin, vmax, 4000)  # shared memory per block
+    with pytest.raises(RuntimeError):  # a chunk of bins that is not a multiple of 32
+        thk._hist_counts(x, vmin, vmax, 4000, chunk=100)
     m = td.moments_from_values(x)
     params = td.fit_all(td.TYPES_4, m).reshape(6, -1).contiguous()
     edges = tpe.interval_edges(m.vmin, m.vmax, 8)
@@ -253,6 +253,75 @@ def test_misaligned_rows_bitwise(dev):
     assert torch.equal(thk.hist_counts(x, m.vmin, m.vmax, 64), thk.hist_counts(aligned, m.vmin, m.vmax, 64))
 
 
+def _moments_window(shape, seed):
+    """A window with a constant row (degenerate: var 0, NaN skew and kurt
+    in neither version), a row that starts with NaN and one with a NaN
+    inside (NaN stats), a row with +-inf (NaN sums, infinite min and max)."""
+    arr = _with_constant_row(_window(shape, seed))
+    p, n = shape
+    if p > 3:
+        arr[1, 0] = np.nan
+        arr[2, n // 2] = np.nan
+        arr[3, n - 1] = np.inf
+        arr[3, 0] = -np.inf
+    return arr
+
+
+@pytest.mark.parametrize("n", [1, 3, 5, 999, 1000, 1001, 2048, 2049, 4097])
+def test_moments_kernels_any_n(dev, n):
+    """K1 (L = 64) and K3 at any n, below and above one round of 16-byte
+    loads (2,048 values), n not a multiple of 4: within K1_TOL of the plain
+    version with its NaN pattern (degenerate and NaN rows), repeat launches
+    bitwise, K3 bitwise equal to K1's stats, and a planted biased variance
+    rejected."""
+    x = torch.from_numpy(_moments_window((37, n), seed=n)).to(dev)
+    before = (tk.moments_edges_stats.launches, tmk.moments_stats.launches)
+    stats, edges = tk.moments_edges_stats(x, 64)
+    again, edges2 = tk.moments_edges_stats(x, 64)
+    k3, k3_again = tmk.moments_stats(x), tmk.moments_stats(x)
+    want, want_edges = tk.moments_edges_stats_plain(x, 64)
+    torch.cuda.synchronize()
+    assert (tk.moments_edges_stats.launches, tmk.moments_stats.launches) == (before[0] + 2, before[1] + 2)
+    nan0 = lambda t: torch.nan_to_num(t, nan=-1.0)  # noqa: E731
+    assert torch.equal(nan0(stats), nan0(again)) and torch.equal(nan0(edges), nan0(edges2))
+    assert torch.equal(nan0(k3), nan0(k3_again)) and torch.equal(nan0(k3), nan0(stats))
+    for i, (rtol, atol) in enumerate(K1_TOL):
+        _close(stats[:, i], want[:, i], rtol=rtol, atol=atol)
+    _close(edges, want_edges, rtol=1e-6, atol=1e-3)
+    if n > 1:  # a biased variance (n/(n-1) dropped) must not pass
+        with pytest.raises(AssertionError):
+            _close(stats[4:, 1] * ((n - 1) / n), want[4:, 1], *K1_TOL[1])
+
+
+def test_moments_row_bitwise_anywhere(dev):
+    """One row of 1,001 values placed at rows of every alignment of a
+    window (1,001 is 1 mod 4, so row r starts r floats past a 16-byte
+    boundary, mod 4), in windows that start 0-3 floats past one, and alone:
+    the same K1 and K3 stats, bit for bit."""
+    p, n = 64, 1001
+    arr = _window((p, n), seed=18)
+    row = arr[5].copy()
+    places = [0, 1, 2, 3, 17, 42, p - 1]
+    arr[places] = row
+    want = tmk.moments_stats(torch.from_numpy(row[None]).to(dev))
+    for off in range(4):
+        base = torch.zeros(p * n + off, device=dev)
+        x = base[off:].view(p, n)
+        x.copy_(torch.from_numpy(arr).to(dev))
+        k1, _ = tk.moments_edges_stats(x, 64)
+        k3 = tmk.moments_stats(x)
+        for r in places:
+            assert torch.equal(k3[r:r + 1], want), (off, r)
+            assert torch.equal(k1[r:r + 1], want), (off, r)
+
+
+def test_moments_no_spills(dev):
+    """K1's and K3's kernels keep their sums in registers (no local memory)."""
+    for attrs in (tk.moments_edges_attributes(), tmk.moments_attributes()):
+        assert attrs["local_bytes"] == 0, attrs
+        assert 0 < attrs["registers"] <= 255, attrs
+
+
 @pytest.mark.parametrize("num_bins", [8, 64, 767])
 def test_worst_case_conflict_row(dev, num_bins):
     """Every value of a row but its two ends in one bin: every atomic of
@@ -283,20 +352,81 @@ def test_fit_error_and_hist_no_spills(dev, types):
         assert 0 < attrs["registers"] <= 255 and attrs["smem_bytes"] <= 48 * 1024, attrs
 
 
-def test_bin_limits(dev):
-    """K2 takes up to 767 bins and K4 up to 1,536, the limits of the
-    one-warp-a-row design before them; one bin more raises ValueError."""
-    assert (tk.MAX_BINS, thk.MAX_BINS) == (767, 1536)
-    x = torch.from_numpy(_window((6, 400), seed=16)).to(dev)
+def _optin_chunk(num_bins):
+    """The chunk of bins a block of K4 (an int counter a bin) counts at once
+    on this card: all of them while they fit the shared memory a block can
+    opt in to, else the largest multiple of 32 that fits."""
+    words = torch.cuda.get_device_properties(0).shared_memory_per_block_optin // 4
+    return num_bins if num_bins <= words else words // 32 * 32
+
+
+@pytest.mark.parametrize("num_bins", [768, 1537, 2457, 4000, 11622, 58113])
+def test_any_bin_count(dev, num_bins):
+    """K2 (4 and 10 types, and through ``row_indices``) within the error
+    tolerance of its plain version and K4's counts exactly equal to the
+    scatter histogram at L past every limit of the designs before: 48 KB
+    of shared memory (K2 above 2,456 bins, K4 above 12,288), the card's
+    opt-in limit (K2 above 11,621 on an H100, K4 above 58,112). K4 holds
+    all the bins while they fit the opt-in limit, then goes in chunks; K2
+    holds at most ``_fit_error_chunk`` bins (a multiple of 32) a launch.
+    Each wrapper counts one launch a chunk."""
+    x = torch.from_numpy(_with_constant_row(_window((6, 400), seed=16))).to(dev)
     m = td.moments_from_values(x)
-    counts = thk.hist_counts(x, m.vmin, m.vmax, thk.MAX_BINS)
-    assert torch.equal(counts, thk.hist_counts_plain(x, m.vmin, m.vmax, thk.MAX_BINS))
-    with pytest.raises(ValueError):
-        thk.hist_counts(x, m.vmin, m.vmax, thk.MAX_BINS + 1)
-    args = (x, *_k2_args(x, m, td.TYPES_10, tk.MAX_BINS))
-    _close(tk.fit_error_counts(*args), tk.fit_error_counts_plain(*args), rtol=1e-4, atol=5e-4)
-    with pytest.raises(ValueError):
-        tk.fit_error_counts(x, *_k2_args(x, m, td.TYPES_4, tk.MAX_BINS + 1))
+    before = thk.hist_counts.launches
+    counts = thk.hist_counts(x, m.vmin, m.vmax, num_bins)
+    assert thk.hist_counts.launches - before == -(-num_bins // _optin_chunk(num_bins))
+    assert torch.equal(counts, thk.hist_counts_plain(x, m.vmin, m.vmax, num_bins))
+    attrs = thk.hist_attributes(num_bins)
+    assert attrs["chunk"] == _optin_chunk(num_bins) and attrs["local_bytes"] == 0, attrs
+    most = tk._fit_error_chunk(0)
+    assert most % 32 == 0 and most >= 32
+    chunks = -(-num_bins // most)
+    idx = torch.tensor([5, 0, 3, 3, 1], device=dev)
+    for types in (td.TYPES_4, td.TYPES_10):
+        args = (x, *_k2_args(x, m, types, num_bins))
+        before = tk.fit_error_counts.launches
+        _close(tk.fit_error_counts(*args), tk.fit_error_counts_plain(*args), rtol=1e-4, atol=5e-4)
+        assert tk.fit_error_counts.launches - before == chunks
+        sub = _k2_args(x, m, types, num_bins, idx)
+        before = (tk.fit_error_counts.launches, tk.fit_error_counts.row_index_launches)
+        got = tk.fit_error_counts(x, *sub, row_indices=idx)
+        assert (tk.fit_error_counts.launches - before[0],
+                tk.fit_error_counts.row_index_launches - before[1]) == (chunks, chunks)
+        _close(got, tk.fit_error_counts_plain(x[idx], *sub), rtol=1e-4, atol=5e-4)
+        attrs = tk.fit_error_attributes(types, num_bins)
+        assert attrs["chunk"] == min(num_bins, most), attrs
+        assert attrs["local_bytes"] == 0 and attrs["smem_bytes"] <= 48 * 1024, attrs
+
+
+@pytest.mark.parametrize("types", [td.TYPES_4, td.TYPES_10], ids=["4types", "10types"])
+@pytest.mark.parametrize("num_bins,chunks", [(64, (32,)), (767, (32, 96, 736)),
+                                             (4000, (32, 1024, 2432))])
+def test_chunked_route_bitwise(dev, types, num_bins, chunks):
+    """K2's errors are the same bits whether a block counts its L bins in
+    one launch (at L = 4,000, 80 KB of shared memory: opted in) or in
+    chunks of any multiple of 32, its own route included (a lane adds the
+    same bins in the same order), also through ``row_indices``; K4's
+    counts too. Each wrapper counts one launch a chunk."""
+    x = torch.from_numpy(_with_constant_row(_window((40, 1001), seed=17))).to(dev)
+    m = td.moments_from_values(x)
+    idx = torch.tensor([39, 0, 7, 7, 20], device=dev)
+    args, sub = _k2_args(x, m, types, num_bins), _k2_args(x, m, types, num_bins, idx)
+    one = tk._fit_error_counts_in_range(x, *args, None, chunk=num_bins)
+    one_rows = tk._fit_error_counts_in_range(x, *sub, idx, chunk=num_bins)
+    counts = thk._hist_counts(x, m.vmin, m.vmax, num_bins, chunk=num_bins)
+    nan0 = lambda t: torch.nan_to_num(t, nan=-1.0)  # noqa: E731
+    for c in (*chunks, 0):
+        launches = -(-num_bins // (c or tk._fit_error_chunk(0)))
+        before = (tk.fit_error_counts.launches, tk.fit_error_counts.row_index_launches)
+        got = tk._fit_error_counts_in_range(x, *args, None, chunk=c)
+        assert torch.equal(nan0(got), nan0(one)), c
+        got = tk._fit_error_counts_in_range(x, *sub, idx, chunk=c)
+        assert torch.equal(nan0(got), nan0(one_rows)), c
+        assert (tk.fit_error_counts.launches - before[0],
+                tk.fit_error_counts.row_index_launches - before[1]) == (2 * launches, launches), c
+        before = thk.hist_counts.launches
+        assert torch.equal(thk._hist_counts(x, m.vmin, m.vmax, num_bins, chunk=c), counts), c
+        assert thk.hist_counts.launches - before == -(-num_bins // (c or _optin_chunk(num_bins))), c
 
 
 def test_device_select_indices_need_no_sync(dev):

@@ -31,6 +31,7 @@ SLICES = (0, 1, 2, 3)  # one per seismic layer type
 MOM_TOL = dict(rtol=2e-3, atol=2e-3)
 ERR_TOL = dict(rtol=1e-4, atol=5e-4)
 FIELDS = ("type_idx", "params", "error", "mean", "std", "skew", "kurt")
+LARGE_BINS = 1000  # more than 767, the most the card's K2 took before ROADMAP fault F1 was fixed
 
 
 def _ref_source():
@@ -84,8 +85,8 @@ def grouped_reference():
             for m in ("grouping", "reuse")}
 
 
-def _assert_slices_match(ref, ref_errs, got):
-    for s in SLICES:
+def _assert_slices_match(ref, ref_errs, got, slices=SLICES):
+    for s in slices:
         r, t = ref[s], got[s]
         for name in ("mean", "std", "skew", "kurt"):
             np.testing.assert_allclose(getattr(t, name), getattr(r, name), **MOM_TOL, err_msg=name)
@@ -114,6 +115,27 @@ def _assert_slices_match(ref, ref_errs, got):
 def test_slices_match_reference(reference_results, fit_backend, types):
     ref, ref_errs = reference_results[len(types)]
     _assert_slices_match(ref, ref_errs, _port(types, fit_backend).run(SLICES))
+
+
+@pytest.fixture(scope="module")
+def large_bins_reference():
+    """The reference's slice 0 at num_bins=1000 (4 types), past what one
+    block of the card's K2 holds at once, and its per-type errors."""
+    src = _ref_source()
+    res = rp.PDFComputer(rp.PDFConfig(num_bins=LARGE_BINS, window_lines=WINDOW_LINES), src).run([0])
+    v = jnp.asarray(np.concatenate([
+        src.load_window(w) for w in r_regions.iter_windows(src.geometry, 0, WINDOW_LINES)]))
+    m = rfp.moments(v, LARGE_BINS)
+    return res, {0: np.asarray(rfp.fit_errors(v, m, rd.fit_all(rd.TYPES_4, m), rd.TYPES_4, LARGE_BINS))}
+
+
+@pytest.mark.parametrize("fit_backend", ["fused", "kernels", "reference"])
+def test_slice_large_bins_matches_reference(large_bins_reference, fit_backend):
+    """One slice at num_bins=1000 against the reference, under the same
+    parity rules."""
+    ref, ref_errs = large_bins_reference
+    _assert_slices_match(ref, ref_errs, _port(fit_backend=fit_backend, num_bins=LARGE_BINS).run([0]),
+                         slices=(0,))
 
 
 @pytest.mark.parametrize("fit_backend", ["kernels", "fused", "reference"])
