@@ -26,9 +26,23 @@ and every kernel's launch count set to 0 just before it:
   its design before took) and at L = 2,000 (past the bins one K2 block
   holds: two launches a window, one a chunk of bins), as the first two;
   then one window on the kernels backend at L = 2,000 against the plain
-  backend.
+  backend;
+* the ML and sampling methods (§5.3-5.4) with the decision tree of the
+  reference's TreeSpec defaults, trained on the card by
+  ``train_type_tree(sim, TYPES_4)`` (slices 0-3, windows of 4 lines, depth
+  4, 32 bins; repeated, it must train the same tree): ``ml``, ``grouping_ml``
+  (host and device Select, no ``row_indices`` route) and ``reuse_ml`` on the
+  fused backend (K1 once a window, K2 over all types once a window, or once
+  a window with cache misses), ``ml`` on the kernels backend (K3 and K4
+  once a window), ``sampling`` with the random sampler (K1 on the sampled
+  rows only, no K2; K1 also held against its plain version on those
+  subsets) and with k-means, and the paper's Set1 configuration
+  (``grouping_ml``, 4 types, L = 20). Bitwise: host and device Select,
+  prefetch on and off. Against the same method on the plain backend, the
+  tree-margin rule (``tree_margin``).
 
-Then the baseline slice and the two grouping slices run once more under
+Then the baseline slice, the two grouping slices and the Set1
+configuration run once more under
 ``torch.profiler`` (device time by kernel, device idle share), and a timing
 of each kernel at the Set1 window shape beside its bound. Every kernel
 row's ``ms`` is "call ms", as earlier runs timed it: CUDA events around
@@ -380,19 +394,19 @@ def read_counts() -> dict:
     return {name: getattr(fn, attr) for name, (fn, attr) in launch_counters().items()}
 
 
-def drive(np, torch, cfg, sim, slice_i, dev, label, exec_config=None):
+def drive(np, torch, cfg, sim, slice_i, dev, label, exec_config=None, tree=None):
     """One slice through the entry point with every launch count set to 0
     just before it and read just after; checks the result's shapes, range
-    and finiteness and logs wall, launches, sums of ``num_fitted`` and
-    ``cache_hits`` and the median window compute. Returns (result,
-    launches, wall seconds)."""
+    (sampling leaves unsampled points at type -1) and finiteness and logs
+    wall, launches, sums of ``num_fitted`` and ``cache_hits`` and the
+    median window compute. Returns (result, launches, wall seconds)."""
     from repro_torch.core.executor import RESULT_FIELDS
     from repro_torch.core.pipeline import PDFComputer
 
     sync(torch, dev)
     zero_counts()
     t0 = time.perf_counter()
-    res = PDFComputer(cfg, sim, device=dev, exec_config=exec_config).run_slice(slice_i)
+    res = PDFComputer(cfg, sim, tree=tree, device=dev, exec_config=exec_config).run_slice(slice_i)
     sync(torch, dev)
     wall = time.perf_counter() - t0
     launches = read_counts()
@@ -402,7 +416,8 @@ def drive(np, torch, cfg, sim, slice_i, dev, label, exec_config=None):
     check(res.params.shape == (g.points_per_slice, 3), f"[{label}] params shape")
     for f in RESULT_FIELDS[1:]:
         check(bool(np.isfinite(getattr(res, f)).all()), f"[{label}] {f} not finite")
-    check(bool(((res.type_idx >= 0) & (res.type_idx < len(cfg.types))).all()),
+    lowest = -1 if cfg.method == "sampling" else 0
+    check(bool(((res.type_idx >= lowest) & (res.type_idx < len(cfg.types))).all()),
           f"[{label}] type_idx out of range")
     comp_ms = sorted(s.compute_seconds * 1e3 for s in res.stats)
     log(f"[{label}] method={cfg.method} fit_backend={cfg.fit_backend} "
@@ -627,6 +642,239 @@ def kernels_window_phase(np, torch, x, num_bins, dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the ML and sampling methods (§5.3-5.4)
+# ---------------------------------------------------------------------------
+
+
+def tree_margin(np, torch, tree, got, ref, what):
+    """The tree-margin rule (ML's counterpart of ``slice_parity``'s tie
+    rule), ``ref`` the plain backend's slice: moments within MOM_TOL; over
+    the classified points (sampling's unsampled ones are -1 on both sides)
+    a point is decided when it reaches one leaf with its features moved
+    within the tolerance MOM_TOL gives them (``ml_predict.feature_tolerance``:
+    cv carries the relative errors of std and mean, skew and kurt MOM_TOL
+    itself); decided points have the same type, every point's type is the
+    label of a leaf it may reach; where the types agree, params within
+    MOM_TOL and errors within ERR_TOL. Returns (decided, undecided, type
+    equal)."""
+    from repro_torch.core.ml_predict import feature_tolerance, reachable_leaves, tree_features_np
+
+    for name in ("mean", "std", "skew", "kurt"):
+        close_report(torch, torch.from_numpy(getattr(got, name)),
+                     torch.from_numpy(getattr(ref, name)), **MOM_TOL, what=f"{what} {name}")
+    cls = ref.type_idx >= 0
+    check(np.array_equal(got.type_idx >= 0, cls), f"{what}: classified points differ")
+    feats = tree_features_np(ref.mean, ref.std, ref.skew, ref.kurt)[cls]
+    reach = reachable_leaves(tree, feats, feature_tolerance(
+        ref.mean[cls], ref.std[cls], ref.skew[cls], ref.kurt[cls], **MOM_TOL))
+    ok = reach.sum(1) == 1
+    got_t, ref_t = got.type_idx[cls], ref.type_idx[cls]
+    check(np.array_equal(got_t[ok], ref_t[ok]),
+          f"{what}: {int((got_t[ok] != ref_t[ok]).sum())} decided points differ in type")
+    check(bool((reach & (tree.leaf_label[None, :] == got_t[:, None])).any(1).all()),
+          f"{what}: a point's type is no leaf it can reach")
+    same = torch.from_numpy(got.type_idx == ref.type_idx)
+    close_report(torch, torch.from_numpy(got.params)[same], torch.from_numpy(ref.params)[same],
+                 **MOM_TOL, what=f"{what} params")
+    close_report(torch, torch.from_numpy(got.error)[same], torch.from_numpy(ref.error)[same],
+                 **ERR_TOL, what=f"{what} error")
+    check(abs(got.avg_error - ref.avg_error) <= ERR_TOL["atol"],
+          f"{what}: avg_error {got.avg_error} vs {ref.avg_error}")
+    return int(ok.sum()), int((~ok).sum()), int((got_t == ref_t).sum())
+
+
+def train_phase(np, torch, sim, dev):
+    """The decision tree of TreeSpec's defaults (slices 0-3, windows of 4
+    lines, depth 4, 32 bins) through ``train_type_tree`` on the card; then
+    the same baseline slices once more, whose features must train the same
+    tree bit for bit, for its model error on its own training data.
+    Returns the tree and its numbers."""
+    from repro_torch.core import distributions as dists
+    from repro_torch.core import ml_predict as mlp
+    from repro_torch.core.pipeline import PDFComputer, PDFConfig, train_type_tree
+
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    tree = train_type_tree(sim, dists.TYPES_4, device=dev)
+    wall = time.perf_counter() - t0
+    feats, labels = [], []
+    t0 = time.perf_counter()
+    for s in (0, 1, 2, 3):
+        res = PDFComputer(PDFConfig(window_lines=4), sim, device=dev).run_slice(s)
+        feats.append(mlp.tree_features_np(res.mean, res.std, res.skew, res.kurt))
+        labels.append(res.type_idx)
+    baseline_s = time.perf_counter() - t0
+    x, y = np.concatenate(feats), np.concatenate(labels)
+    t0 = time.perf_counter()
+    again = mlp.train_tree(x, y, len(dists.TYPES_4), depth=4, max_bins=32)
+    cart_s = time.perf_counter() - t0
+    check(all(np.array_equal(getattr(tree, f), getattr(again, f))
+              for f in ("feature", "threshold", "leaf_label")),
+          "[tree] the baseline's features again train another tree")
+    err = mlp.model_error(tree, x, y)
+    g = sim.geometry
+    nums = dict(train_wall_s=wall, baseline_s=baseline_s, cart_s=cart_s, points=len(y),
+                windows=4 * -(-g.lines_per_slice // 4), model_error=err)
+    log(f"[tree] train_type_tree(sim, TYPES_4, device={dev}): slices 0-3, window_lines=4, depth 4, "
+        f"max_bins 32: {len(y)} points in {nums['windows']} windows; wall {wall} s (its baseline "
+        f"slices alone again {baseline_s} s, host CART alone again {cart_s} s); retrained bitwise "
+        f"from the repeated baseline; model_error on its training data {err}; type histogram "
+        f"{np.bincount(y, minlength=4).tolist()}; feature {tree.feature.tolist()} threshold "
+        f"{tree.threshold.tolist()} leaf_label {tree.leaf_label.tolist()}")
+    return tree, nums
+
+
+def check_subset_k1(np, torch, sim, slice_i, cfg, tree, dev):
+    """K1 on the random sampler's subsets of the first and the 1-line last
+    window (the rows the sampling path feeds it) against its plain version:
+    stats within K1_TOL, edges within EDGE_TOL."""
+    from repro_torch.core.pipeline import PDFComputer
+    from repro_torch.core.regions import Window
+    from repro_torch.kernels.fitpdf import kernel
+
+    g = sim.geometry
+    ex = PDFComputer(cfg, sim, tree=tree, device=dev).executor
+    shapes = []
+    for w in (Window(slice_i, 0, cfg.window_lines), Window(slice_i, g.lines_per_slice - 1,
+                                                           g.lines_per_slice)):
+        x = torch.from_numpy(sim.load_window(w)).to(dev)
+        sub = x[torch.from_numpy(ex._draw_sample(len(x), w)).to(dev)]
+        stats, edges = kernel.moments_edges_stats(sub, cfg.num_bins)
+        p_stats, p_edges = kernel.moments_edges_stats_plain(sub, cfg.num_bins)
+        sync(torch, dev)
+        bad = {s: v for s, v in k1_report(torch, stats, p_stats).items() if v[0]}
+        check(not bad, f"[K1 sampled] {tuple(sub.shape)}: stats outside K1_TOL {bad}")
+        close_report(torch, edges, p_edges, **EDGE_TOL, what=f"[K1 sampled] {tuple(sub.shape)} edges")
+        shapes.append(tuple(sub.shape))
+    log(f"[K1 sampled] the random sampler's subsets {shapes}: K1 stats within K1_TOL and edges "
+        f"within (rtol 1e-6, atol 1e-3) of its plain version")
+def ml_phases(np, torch, sim, slice_i, dev, tree):
+    """The ML methods on ``fused`` and ``kernels``, sampling, and the
+    paper's Set1 configuration (``grouping_ml``, 4 types, L = 20), each
+    through the entry point with its launches counted; bitwise checks
+    within the port, the tree-margin rule against the plain backend on the
+    card. Returns ({label: launches}, {label: wall}, {label: numbers})."""
+    from repro_torch.core import distributions as dists
+    from repro_torch.core.pipeline import ExecutorConfig, PDFConfig
+    from repro_torch.core.sampling import type_percentage_distance
+
+    W = SET1_WINDOWS
+    serial = ExecutorConfig(prefetch=False, async_persist=False)
+    launches, walls, nums = {}, {}, {}
+
+    def run(cfg, label, expect=None, **kw):
+        res, launches[label], walls[label] = drive(np, torch, cfg, sim, slice_i, dev, label,
+                                                   tree=tree, **kw)
+        if expect is not None:
+            check_launches(launches[label], expect, label)
+        return res
+
+    def margin(got, ref, label):
+        n_dec, n_undec, n_same = tree_margin(np, torch, tree, got, ref, f"[{label}]")
+        nums[label] = dict(decided=n_dec, undecided=n_undec, type_equal=n_same)
+        log(f"[{label}] tree-margin rule against the plain backend ok: {n_dec} points decided, "
+            f"{n_undec} undecided (a threshold within the feature tolerance), type equal at "
+            f"{n_same}/{n_dec + n_undec} classified points")
+
+    fused_k = {"moments_edges_stats": W, "fit_error_counts": W}
+
+    # ml: K1 and K2 (over all T types) once a window; prefetch on and off.
+    ml = run(PDFConfig(method="ml"), "ml fused", fused_k)
+    ml_serial = run(PDFConfig(method="ml"), "ml fused serial", fused_k, exec_config=serial)
+    check(bitwise_equal(np, ml, ml_serial), "[ml fused] prefetch on and off differ")
+    ml_ref = run(PDFConfig(method="ml", fit_backend="reference"), "ml reference", {})
+    margin(ml, ml_ref, "ml fused")
+
+    # grouping_ml: host Select, device Select (no row_indices route).
+    grp = {}
+    for select in ("host", "device"):
+        grp[select] = run(PDFConfig(method="grouping_ml", select_backend=select),
+                          f"grouping_ml fused {select}", fused_k)
+    check(bitwise_equal(np, grp["host"], grp["device"]),
+          "[grouping_ml fused] device Select differs from host Select")
+    grouping = run(PDFConfig(method="grouping"), "grouping fused (for num_fitted)", fused_k)
+    check([w.num_fitted for w in grp["host"].stats] == [w.num_fitted for w in grouping.stats],
+          "[grouping_ml fused] per-window num_fitted differs from grouping's")
+    grp_ref = run(PDFConfig(method="grouping_ml", fit_backend="reference"), "grouping_ml reference", {})
+    margin(grp["host"], grp_ref, "grouping_ml fused")
+
+    # reuse_ml: K2 only where a window has cache misses; host vs device Select.
+    reuse = {}
+    for select in ("host", "device"):
+        reuse[select] = run(PDFConfig(method="reuse_ml", select_backend=select),
+                            f"reuse_ml fused {select}")
+        missed = sum(1 for w in reuse[select].stats if w.num_fitted)
+        check_launches(launches[f"reuse_ml fused {select}"],
+                       {"moments_edges_stats": W, "fit_error_counts": missed},
+                       f"reuse_ml fused {select}")
+    check(bitwise_equal(np, reuse["host"], reuse["device"]),
+          "[reuse_ml fused] device Select differs from host Select")
+    check([(w.num_fitted, w.cache_hits) for w in reuse["host"].stats]
+          == [(w.num_fitted, w.cache_hits) for w in reuse["device"].stats],
+          "[reuse_ml fused] host and device Select differ in num_fitted or cache_hits")
+    hits = sum(w.cache_hits for w in reuse["host"].stats)
+    check(hits > 0, "[reuse_ml fused] no cache hit in the slice")
+    reuse_ref = run(PDFConfig(method="reuse_ml", fit_backend="reference"), "reuse_ml reference", {})
+    margin(reuse["host"], reuse_ref, "reuse_ml fused")
+    log(f"[reuse_ml fused] {missed} of {W} windows with cache misses, {hits} cache hits; host and "
+        f"device Select bitwise equal")
+
+    # ml on the kernels backend: K3 once a window, K4 once a window (not per type).
+    ml_k = run(PDFConfig(method="ml", fit_backend="kernels"), "ml kernels",
+               {"moments_stats": W, "hist_counts": W})
+    margin(ml_k, ml_ref, "ml kernels")
+
+    # sampling: no fitting, K1 on the random subsets (or the whole window
+    # for k-means), no K2.
+    g = sim.geometry
+    ppl = g.points_per_line
+    baseline = run(PDFConfig(), "baseline fused (for slice features)", fused_k)
+    base_f = baseline.features(dists.TYPES_4)
+    for sampler in ("random", "kmeans"):
+        cfg = PDFConfig(method="sampling", sampler=sampler, sample_frac=0.1)
+        label = f"sampling {sampler}"
+        res = run(cfg, label, {"moments_edges_stats": W})
+        off = res.type_idx < 0
+        check(bool((res.type_idx[off] == -1).all()) and not res.params[off].any()
+              and not res.error.any(), f"[{label}] unsampled points carry a type, params or error")
+        want = [max(1, round(0.1 * (w.window.line_end - w.window.line_start) * ppl))
+                for w in res.stats]
+        got_n = [w.num_fitted for w in res.stats]
+        if sampler == "random":
+            check(got_n == want, f"[{label}] classified {got_n} a window, expected {want}")
+            check(int((~off).sum()) == sum(want), f"[{label}] classified points != the draws")
+            again = run(cfg, f"{label} serial", {"moments_edges_stats": W}, exec_config=serial)
+            check(bitwise_equal(np, res, again), f"[{label}] prefetch on and off differ")
+            ref = run(PDFConfig(method="sampling", fit_backend="reference"), f"{label} reference", {})
+            margin(res, ref, label)
+            check_subset_k1(np, torch, sim, slice_i, cfg, tree, dev)
+        else:  # k-means: one point a non-empty cluster, at most k
+            check(all(1 <= n <= k for n, k in zip(got_n, want)) and sum(got_n) == int((~off).sum()),
+                  f"[{label}] classified {got_n} a window, clusters {want}")
+        f = res.features(dists.TYPES_4)
+        nums[f"{label} features"] = dict(classified=int((~off).sum()),
+                           type_percentage=f.type_percentage.tolist(),
+                           distance_to_baseline=type_percentage_distance(
+                               f.type_percentage, base_f.type_percentage),
+                           avg_mean=f.avg_mean, avg_std=f.avg_std)
+        log(f"[{label}] slice features against the baseline slice's (Fig. 17): type percentages "
+            f"{f.type_percentage.tolist()} vs {base_f.type_percentage.tolist()}, distance "
+            f"{nums[label + ' features']['distance_to_baseline']}; avg mean {f.avg_mean} vs {base_f.avg_mean}, "
+            f"avg std {f.avg_std} vs {base_f.avg_std}; {f.num_sampled} points classified")
+
+    # The paper's Set1 configuration (configs/pdf_seismic.py SET1).
+    set1 = PDFConfig(method="grouping_ml", num_bins=20)
+    paper = run(set1, "set1 grouping_ml L20", fused_k)
+    paper_ref = run(PDFConfig(method="grouping_ml", num_bins=20, fit_backend="reference"),
+                    "set1 grouping_ml L20 reference", {})
+    margin(paper, paper_ref, "set1 grouping_ml L20")
+    return launches, walls, nums
+
+
+# ---------------------------------------------------------------------------
+# timing at the Set1 window shape
+# ---------------------------------------------------------------------------
 # ---------------------------------------------------------------------------
 # timing at the Set1 window shape
 # ---------------------------------------------------------------------------
@@ -986,7 +1234,7 @@ def device_events(prof) -> list:
                   key=device_us, reverse=True)
 
 
-def profile_slice(torch, cfg, label, sim, slice_i, dev, wall_unprofiled):
+def profile_slice(torch, cfg, label, sim, slice_i, dev, wall_unprofiled, tree=None):
     """One slice of ``cfg`` once more under torch.profiler: device time by
     kernel (in all and a launch, inside the pipeline, with no host work
     between the events), and the device's busy share of the unprofiled
@@ -996,7 +1244,7 @@ def profile_slice(torch, cfg, label, sim, slice_i, dev, wall_unprofiled):
     from repro_torch.core.pipeline import PDFComputer
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        PDFComputer(cfg, sim, device=dev).run_slice(slice_i)
+        PDFComputer(cfg, sim, tree=tree, device=dev).run_slice(slice_i)
         sync(torch, dev)
 
     kern = device_events(prof)
@@ -1370,6 +1618,14 @@ def main() -> int:
         np, torch, sim, SET1_SLICE, dists.TYPES_4, 2000, dev, SET1_WINDOWS)
     kernels_window_phase(np, torch, torch.from_numpy(cases[0][1]).to(dev), 2000, dev)
 
+    # The ML and sampling methods, with the tree of TreeSpec's defaults.
+    tree, tree_nums = train_phase(np, torch, sim, dev)
+    ml_launches, ml_walls, ml_nums = ml_phases(np, torch, sim, SET1_SLICE, dev, tree)
+    profile_slice(torch, PDFConfig(method="grouping_ml", num_bins=20), "set1 grouping_ml L20", sim,
+                  SET1_SLICE, dev, ml_walls["set1 grouping_ml L20"], tree=tree)
+    log(f"[summary ml] {smi}: Set1 slice {SET1_SLICE}; tree {json.dumps(tree_nums)}; wall_s "
+        f"{json.dumps(ml_walls)}; launches {json.dumps(ml_launches)}; {json.dumps(ml_nums)}")
+
     for label, cfg, wall in (
             ("baseline fused", PDFConfig(), wall4),
             ("grouping kernels", PDFConfig(method="grouping", fit_backend="kernels"),
@@ -1383,6 +1639,8 @@ def main() -> int:
     rows += time_new_kernels(np, torch, x, dev, launches_k, launches_rows, worst_k3, err_rows)
     large = time_large_bins(np, torch, x, dev)
     for r in rows:
+        r["launches_ml_sampling"] = {label: n[r["name"]] for label, n in ml_launches.items()
+                                     if n[r["name"]]}
         if r["name"] in ("fit_error_counts", "hist_counts"):
             k = "k2" if r["name"] == "fit_error_counts" else "k4"
             r["at_large_L"] = {L: {key[3:]: v for key, v in d.items() if key.startswith(k)}

@@ -1,7 +1,7 @@
 """Staged PDF executor: load / compute / persist as decoupled stages.
 
-Port of ``repro.core.executor`` for the baseline, grouping and reuse
-methods, with host or device Select:
+Port of ``repro.core.executor`` for every method of ``METHODS``, with host
+or device Select:
 
   load stage     ``WindowPrefetcher`` (data/loader.py) loads window *k+1* from
                  the data source and copies it to the device while the device
@@ -10,8 +10,12 @@ methods, with host or device Select:
                  grouping dedups the window on (mu, sigma) keys and fits one
                  representative per group; reuse also looks each group up
                  in a cache that spans windows and slices), then Algorithm 3
-                 on the device — identical operations, in identical order,
-                 with prefetch on or off, so results are bitwise equal.
+                 on the device, or for the ML methods (§5.3) Algorithm 4:
+                 the decision tree predicts each row's type on the device
+                 and only that type's fit is kept. Sampling (§5.4) fits
+                 nothing: it classifies a drawn fraction of the window with
+                 the tree. Identical operations, in identical order, with
+                 prefetch on or off, so results are bitwise equal.
   persist stage  a single writer thread appends per-window ``.npz`` files and
                  the watermark off the critical path, in submission order;
                  ``close()`` flushes before the executor returns or re-raises.
@@ -21,9 +25,9 @@ Select runs on the host (np.unique over int64 keys) or on the device
 the fused backend K2 reads the representatives through its ``row_indices``
 prologue); the two are bitwise equal.
 
-The ``.npz`` and watermark format is the reference's. Not ported yet: the
-ML and sampling methods (ROADMAP queue 1 items 7-8), and retry, speculation
-and quarantine (item 12) — a load error propagates to the caller.
+The ``.npz`` and watermark format is the reference's. Not ported yet:
+retry, speculation and quarantine (ROADMAP queue 1 item 12) — a load error
+propagates to the caller.
 """
 
 from __future__ import annotations
@@ -42,8 +46,11 @@ import torch
 from repro_torch.core import distributions as dists
 from repro_torch.core import fitting
 from repro_torch.core import grouping as grp
+from repro_torch.core import ml_predict as mlp
 from repro_torch.core import regions
+from repro_torch.core import sampling as smp
 from repro_torch.core.grouping import DEFAULT_TOL
+from repro_torch.core.ml_predict import TREE_FEATURES, tree_features, tree_features_np  # noqa: F401
 from repro_torch.core.reuse import ReuseCache
 from repro_torch.data.loader import WindowPrefetcher
 
@@ -52,14 +59,6 @@ METHODS = (
 )
 SAMPLERS = ("random", "kmeans")
 SELECT_BACKENDS = ("host", "device")
-
-# Where each method that this executor does not run yet is to come from.
-_NOT_PORTED = {
-    "ml": "ROADMAP queue 1 item 7 (ML prediction)",
-    "grouping_ml": "ROADMAP queue 1 item 7 (ML prediction)",
-    "reuse_ml": "ROADMAP queue 1 item 7 (ML prediction)",
-    "sampling": "ROADMAP queue 1 item 8 (sampling)",
-}
 
 
 @dataclass(frozen=True)
@@ -78,7 +77,10 @@ class PDFConfig:
     # hot path).
     fit_backend: str = "fused"
     select_backend: str = "host"
-    # method='sampling' (§5.4) knobs, carried for the reference's field set.
+    # method='sampling' (§5.4): the fraction of a window's points classified,
+    # the sampler that draws them, and the Lloyd iterations of 'kmeans'. The
+    # draw is seeded from (sample_seed, slice, line), so results do not
+    # depend on the order windows run in.
     sample_frac: float = 0.1
     sampler: str = "random"
     kmeans_iters: int = 10
@@ -165,6 +167,21 @@ class SliceResult:
     def total_wait_seconds(self) -> float:
         return sum(s.wait_seconds for s in self.stats)
 
+    def features(self, types) -> smp.SliceFeatures:
+        """§5.4 slice features from this result: average mean/std and type
+        percentages over the classified points — all of them for the fitting
+        methods, the sampled subset for ``method='sampling'`` (unsampled
+        points carry ``type_idx == -1``)."""
+        m = self.type_idx >= 0
+        n = int(m.sum())
+        pct = (np.bincount(self.type_idx[m], minlength=len(types))
+               .astype(np.float64) / max(n, 1))
+        return smp.SliceFeatures(
+            float(self.mean[m].mean()) if n else 0.0,
+            float(self.std[m].mean()) if n else 0.0,
+            pct, n,
+        )
+
 
 @dataclass(frozen=True)
 class ExecutorReport:
@@ -248,7 +265,7 @@ class PersistStage:
                     return
                 if self._error is None:
                     self._write(*item)
-            except BaseException as e:  # parked — raise_if_failed re-raises on the main thread
+            except BaseException as e:  # repro: allow[ERR]: parked — raise_if_failed re-raises on the main thread
                 self._error = e
             finally:
                 self._q.task_done()
@@ -304,7 +321,8 @@ class StagedExecutor:
     ``data_source`` must expose ``geometry: regions.CubeGeometry`` and
     ``load_window(window) -> np.ndarray (num_points, n_obs) float32``.
     The reuse cache lives on the executor, so windows — and consecutive
-    slices and ``run_slice`` calls — share it.
+    slices and ``run_slice`` calls — share it. The ML and sampling methods
+    need ``tree``; its arrays move to ``device`` once, here.
     """
 
     def __init__(
@@ -312,17 +330,18 @@ class StagedExecutor:
         config: PDFConfig,
         data_source,
         device: torch.device | str,
+        tree: mlp.DecisionTree | None = None,
         out_dir: str | Path | None = None,
         exec_config: ExecutorConfig | None = None,
         spec_hash: str | None = None,
     ):
-        if config.method in _NOT_PORTED:
-            raise NotImplementedError(
-                f"method {config.method!r} is not ported yet: "
-                f"{_NOT_PORTED[config.method]}")
+        if ("ml" in config.method or config.method == "sampling") and tree is None:
+            raise ValueError(f"method {config.method!r} requires a decision tree")
         self.config = config
         self.data = data_source
         self.device = torch.device(device)
+        self.tree = tree
+        self._tree_arrays = tree.as_device(self.device) if tree is not None else None
         self.out_dir = Path(out_dir) if out_dir else None
         self.exec_config = exec_config or ExecutorConfig()
         self.spec_hash = spec_hash
@@ -346,10 +365,19 @@ class StagedExecutor:
     # -- compute stage ---------------------------------------------------------
 
     def _fit(self, values: torch.Tensor, moments: dists.Moments):
-        """Fit every row of ``values``; returns np arrays (type, params, err)."""
-        cfg = self.config
-        r = self._backend.fit_all(values, moments, tuple(cfg.types), cfg.num_bins, cfg.mode)
+        """Fit every row of ``values``: Algorithm 4 on the tree's predicted
+        types for the ML methods, else Algorithm 3; returns np arrays
+        (type, params, err)."""
+        r = self._fit_device(values, moments)
         return r.type_idx.cpu().numpy(), r.params.cpu().numpy(), r.error.cpu().numpy()
+
+    def _fit_device(self, values: torch.Tensor, moments: dists.Moments) -> fitting.FitResult:
+        cfg = self.config
+        if "ml" in cfg.method:
+            pred = mlp.predict(self._tree_arrays, tree_features(moments))
+            return self._backend.fit_predicted(values, moments, pred, tuple(cfg.types),
+                                               cfg.num_bins)
+        return self._backend.fit_all(values, moments, tuple(cfg.types), cfg.num_bins, cfg.mode)
 
     def _quantized_keys(self, moments: dists.Moments) -> np.ndarray:
         """Host Select's (mu, sigma) keys (``grp.quantize_keys_host``) in a
@@ -363,12 +391,19 @@ class StagedExecutor:
         return grp.quantize_keys_host(
             mean, var, self.config.group_tol, out=self._key_buf, tmp=self._key_tmp)
 
-    def _select_and_fit(self, values: torch.Tensor, moments: dists.Moments):
+    def _select_and_fit(self, values: torch.Tensor, moments: dists.Moments,
+                        window: regions.Window, num_points: int,
+                        sample_idx: np.ndarray | None):
         """The Select step (§5.1-5.2): per-point (type, params, error) plus
-        ``(num_fitted, cache_hits)``. Baseline fits every row; the grouping
-        and reuse methods dedup on 'host' (np.unique) or 'device'
-        (``torch.unique``), with bitwise equal results."""
-        if self.config.method == "baseline":
+        ``(num_fitted, cache_hits)``. Baseline and ml fit every row; the
+        grouping and reuse methods dedup on 'host' (np.unique) or 'device'
+        (``torch.unique``), with bitwise equal results; sampling classifies
+        (``_sample_classify``: ``num_points`` is the window's, ``values`` the
+        random sampler's ``sample_idx`` rows)."""
+        method = self.config.method
+        if method == "sampling":
+            return self._sample_classify(moments, window, num_points, sample_idx)
+        if method in ("baseline", "ml"):
             t, p, e = self._fit(values, moments)
             return t, p, e, values.shape[0], 0
         if self.config.select_backend == "device":
@@ -389,7 +424,7 @@ class StagedExecutor:
         up in the cache first; the misses are fitted as one batch padded to
         ``rep_bucket * 2^k`` rows, as the reference pads them, and inserted.
         Returns per-group ``(rep_t, rep_p, rep_e, fitted, cache_hits)``."""
-        reuse = self.config.method == "reuse"
+        reuse = self.config.method.startswith("reuse")
         g = len(rep_rows)
         if reuse:
             hit, cached = self.cache.lookup_window(rep_keys)
@@ -421,18 +456,22 @@ class StagedExecutor:
         """Device Select: the keys, the dedup and the compaction stay on the
         window's device; only the group count comes to the host. Grouping
         then fits the G representatives and scatters per point on the
-        device (on the fused backend K2 reads them through ``row_indices``).
-        Reuse keeps the host cache: the (G, 2) representative keys and rows
-        and the (P,) slot map come down, and the misses go through the same
-        padded fit as on the host path, so results and cache contents equal
-        the host path's."""
+        device (on the fused backend K2 reads them through ``row_indices``;
+        grouping_ml gathers them, predicts their types and runs Algorithm 4
+        on them). Reuse keeps the host cache: the (G, 2) representative keys
+        and rows and the (P,) slot map come down, and the misses go through
+        the same padded fit as on the host path, so results and cache
+        contents equal the host path's."""
         cfg = self.config
         keys = grp.quantize_keys(moments.mean, moments.var, cfg.group_tol)
         groups = grp.group_device(keys)
         gather_idx, point_slot = grp.compact_representatives(groups.rep_for_point, groups.is_rep)
-        if cfg.method == "grouping":
-            r = fitting.fit_all_rows(self._backend, values, moments, gather_idx,
-                                     tuple(cfg.types), cfg.num_bins, cfg.mode)
+        if cfg.method.startswith("grouping"):
+            if cfg.method == "grouping_ml":
+                r = self._fit_device(*fitting.gather_rows(values, moments, gather_idx))
+            else:
+                r = fitting.fit_all_rows(self._backend, values, moments, gather_idx,
+                                         tuple(cfg.types), cfg.num_bins, cfg.mode)
             out = (grp.scatter_group_results(f, point_slot).cpu().numpy() for f in r)
             return (*out, groups.num_groups, 0)
         rep_t, rep_p, rep_e, fitted, cache_hits = self._fit_representatives(
@@ -440,18 +479,67 @@ class StagedExecutor:
         inv = point_slot.cpu().numpy()
         return rep_t[inv], rep_p[inv], rep_e[inv], fitted, cache_hits
 
+    def _sample_seed(self, w: regions.Window) -> int:
+        """Per-window draw seed from (sample_seed, slice, line): results do
+        not depend on window execution order and survive resume."""
+        return (self.config.sample_seed * 1_000_003 + w.slice_i * 100_003
+                + w.line_start)
+
+    def _draw_sample(self, num_points: int, w: regions.Window) -> np.ndarray:
+        """The random sampler's index draw: it needs only the window's point
+        count, so the window is subset before the moments pass."""
+        return smp.sample_indices_random(num_points, self.config.sample_frac,
+                                         seed=self._sample_seed(w))
+
+    def _sample_classify(self, moments: dists.Moments, w: regions.Window,
+                         num_points: int, idx: np.ndarray | None):
+        """method='sampling' (§5.4, Algorithm 5): classify the sampled
+        points' types with the tree on the host (grouping first) and fit
+        nothing. Unsampled points get ``type_idx = -1`` and zero
+        params/error; ``num_fitted`` reports the classified count.
+
+        ``idx`` is the random sampler's draw (``moments`` then cover only
+        those rows). For k-means ``idx`` is None: double sampling clusters
+        every point's (mu, sigma), so it needs the whole window's moments."""
+        cfg = self.config
+        mean = moments.mean.cpu().numpy()
+        std = np.sqrt(np.maximum(moments.var.cpu().numpy(), 0.0))
+        skew, kurt = moments.skew.cpu().numpy(), moments.kurt.cpu().numpy()
+        if idx is None:
+            idx = smp.sample_indices_kmeans(
+                np.stack([mean, std], axis=-1), cfg.sample_frac,
+                iters=cfg.kmeans_iters, seed=self._sample_seed(w))
+            mean, std, skew, kurt = mean[idx], std[idx], skew[idx], kurt[idx]
+        pred = smp.predict_types(mean, std, self.tree, group_tol=cfg.group_tol,
+                                 skew=skew, kurt=kurt)
+        t = np.full((num_points,), -1, dtype=np.int32)
+        t[idx] = pred
+        params = np.zeros((num_points, 3), dtype=np.float32)
+        err = np.zeros((num_points,), dtype=np.float32)
+        return t, params, err, len(idx), 0
+
     def _compute_window(self, item: _StagedWindow):
         """The compute-stage body for one staged window: moments, Select and
-        Algorithm 3, and the copy of the results to the host (which waits
-        for the device, so ``compute_seconds`` covers the window's device
-        work)."""
+        Algorithm 3 or 4 (or sampling's classification), and the copy of the
+        results to the host (which waits for the device, so
+        ``compute_seconds`` covers the window's device work). The random
+        sampler subsets the window on the device before the moments pass,
+        so the device work falls with the rate; the run loop writes its
+        moments at ``sample_idx`` only."""
         t0 = time.perf_counter()
-        moments = self._backend.moments(item.values)
-        t, p, e, fitted, hits = self._select_and_fit(item.values, moments)
+        values = item.values
+        num_points = values.shape[0]
+        sample_idx = None
+        if self.config.method == "sampling" and self.config.sampler == "random":
+            sample_idx = self._draw_sample(num_points, item.unit.window)
+            values = values[torch.from_numpy(sample_idx).to(values.device)]
+        moments = self._backend.moments(values)
+        t, p, e, fitted, hits = self._select_and_fit(values, moments, item.unit.window,
+                                                     num_points, sample_idx)
         mom_np = (moments.mean.cpu().numpy(),
                   np.sqrt(np.maximum(moments.var.cpu().numpy(), 0)),
                   moments.skew.cpu().numpy(), moments.kurt.cpu().numpy())
-        return t, p, e, mom_np, fitted, hits, time.perf_counter() - t0
+        return t, p, e, mom_np, sample_idx, fitted, hits, time.perf_counter() - t0
 
     # -- run loop --------------------------------------------------------------
 
@@ -519,14 +607,17 @@ class StagedExecutor:
                 # wait_s: the only load-stage time the device was blocked on
                 # (serially the whole load runs inline, so wait == load).
                 wait_s = time.perf_counter() - w0
-                t, p, e, mom_np, fitted, hits, comp_s = self._compute_window(item)
+                t, p, e, mom_np, sample_idx, fitted, hits, comp_s = self._compute_window(item)
 
                 w = item.unit.window
                 o = outs[w.slice_i]
                 lo, hi = w.line_start * ppl, w.line_end * ppl
                 o["type_idx"][lo:hi], o["params"][lo:hi], o["error"][lo:hi] = t, p, e
                 for name, col in zip(("mean", "std", "skew", "kurt"), mom_np):
-                    o[name][lo:hi] = col
+                    if sample_idx is None:
+                        o[name][lo:hi] = col
+                    else:  # the random sampler's rows; the others stay zero
+                        o[name][lo:hi][sample_idx] = col
 
                 ws = WindowStats(w, hi - lo, fitted, item.load_seconds, comp_s, hits, wait_s)
                 stats[w.slice_i].append(ws)

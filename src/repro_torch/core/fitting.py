@@ -1,8 +1,8 @@
-"""Algorithm 3 (fit all candidate types, keep the least Eq.-5 error).
+"""Algorithm 3 (fit all candidate types, keep the least Eq.-5 error) and
+Algorithm 4 (fit the decision tree's predicted type).
 
-Port of ``repro.core.fitting`` (Algorithm 3; Algorithm 4's
-``fit_predicted`` comes with the ML methods). Both modes run batched over a
-window of points:
+Port of ``repro.core.fitting``. Both modes of Algorithm 3 run batched over
+a window of points:
 
 * ``mode='faithful'`` reproduces the paper's cost structure: the O(n)
   histogram pass runs once per candidate type.
@@ -20,6 +20,11 @@ The *fit backend* selects how the device work is implemented
   moments, K2 streams the window once more and reduces histogram, CDF
   masses and Eq.-5 error in its epilogue. The default executor path.
   ``mode='faithful'`` keeps the per-type chain on every backend.
+
+Algorithm 4 (``fit_predicted``) does the same per backend, as the reference
+does: the chain runs the histogram once (K4 on ``kernels``, whatever the
+mode) and evaluates every type's CDF masses before taking the predicted
+type's; ``fused`` runs K2 over all T types and selects the predicted one.
 """
 
 from __future__ import annotations
@@ -59,6 +64,18 @@ def select_best(params_all: torch.Tensor, errs: torch.Tensor) -> FitResult:
     return FitResult(best.to(torch.int32), params, error)
 
 
+def select_predicted(
+    params_all: torch.Tensor, errs: torch.Tensor, predicted_type: torch.Tensor
+) -> FitResult:
+    """(..., T, 3) params + (..., T) errors -> the tree-predicted type's fit
+    (a non-finite error becomes 1e30, as in ``select_best``)."""
+    pred = predicted_type.to(torch.int32)
+    idx = pred.long()
+    params = torch.take_along_dim(params_all, idx[..., None, None], dim=-2)[..., 0, :]
+    error = torch.take_along_dim(_finite_or_big(errs), idx[..., None], dim=-1)[..., 0]
+    return FitResult(pred, params, error)
+
+
 def compute_pdf_and_error(
     values: torch.Tensor,
     moments: dists.Moments,
@@ -92,6 +109,31 @@ def compute_pdf_and_error(
         raise ValueError(f"unknown mode {mode!r}")
 
     return select_best(params_all, errs)
+
+
+def compute_pdf_with_predicted_type(
+    values: torch.Tensor,
+    moments: dists.Moments,
+    predicted_type: torch.Tensor,
+    types: Sequence[str],
+    num_bins: int,
+    histogram_fn=None,
+) -> FitResult:
+    """Algorithm 4: fit only the tree-predicted type (one histogram pass).
+
+    The T method-of-moments fits and CDF masses are cheap per point, so all
+    are computed and the predicted type's taken; the data pass the paper
+    saves (the per-type histogram and error) runs once."""
+    hist = histogram_fn or pe.histogram_scatter
+    idx = predicted_type.long()
+    params_all = dists.fit_all(types, moments)  # (..., T, 3)
+    params = torch.take_along_dim(params_all, idx[..., None, None], dim=-2)[..., 0, :]
+    edges = pe.interval_edges(moments.vmin, moments.vmax, num_bins)
+    masses_all = pe.cdf_masses(types, params_all, edges)  # (..., T, L)
+    masses = torch.take_along_dim(masses_all, idx[..., None, None], dim=-2)[..., 0, :]
+    freq = hist(values, moments.vmin, moments.vmax, num_bins)
+    error = _finite_or_big(pe.pdf_error_from_freq(freq, masses))
+    return FitResult(predicted_type.to(torch.int32), params, error)
 
 
 def gather_rows(
@@ -142,15 +184,15 @@ class FitBackend(NamedTuple):
 
     ``moments`` maps values (..., n) -> Moments; ``histogram`` is the
     chain-path histogram_fn (also used by ``mode='faithful'``); ``fit_all``
-    is Algorithm 3. ``fit_predicted`` (Algorithm 4) comes with the ML slice,
-    ``merge_stats``/``merge_hist`` with streaming; they stay None here.
+    and ``fit_predicted`` are Algorithms 3 and 4. ``merge_stats`` /
+    ``merge_hist`` come with streaming; they stay None here.
     """
 
     name: str
     moments: Callable[[torch.Tensor], dists.Moments]
     histogram: Callable[..., torch.Tensor]
     fit_all: Callable[..., FitResult]  # (values, moments, types, num_bins, mode)
-    fit_predicted: Callable | None = None
+    fit_predicted: Callable[..., FitResult]  # (values, moments, pred, types, num_bins)
     merge_stats: Callable | None = None
     merge_hist: Callable | None = None
 
@@ -167,7 +209,12 @@ def get_fit_backend(name: str = "fused", num_bins: int = 64) -> FitBackend:
                 values, moments, types, num_bins, mode=mode, histogram_fn=hist
             )
 
-        return FitBackend(name, dists.moments_from_values, hist, fit_all)
+        def fit_predicted(values, moments, pred, types, num_bins):
+            return compute_pdf_with_predicted_type(
+                values, moments, pred, types, num_bins, histogram_fn=hist
+            )
+
+        return FitBackend(name, dists.moments_from_values, hist, fit_all, fit_predicted)
 
     if name == "kernels":
         from repro_torch.kernels.hist import ops as hops
@@ -179,7 +226,12 @@ def get_fit_backend(name: str = "fused", num_bins: int = 64) -> FitBackend:
                 histogram_fn=hops.histogram,
             )
 
-        return FitBackend(name, mops.moments, hops.histogram, fit_all)
+        def fit_predicted(values, moments, pred, types, num_bins):
+            return compute_pdf_with_predicted_type(
+                values, moments, pred, types, num_bins, histogram_fn=hops.histogram
+            )
+
+        return FitBackend(name, mops.moments, hops.histogram, fit_all, fit_predicted)
 
     if name == "fused":
         from repro_torch.kernels.fitpdf import ops as fops
@@ -199,6 +251,11 @@ def get_fit_backend(name: str = "fused", num_bins: int = 64) -> FitBackend:
             errs = fops.fit_errors(values, moments, params_all, types, num_bins)
             return select_best(params_all, errs)
 
-        return FitBackend(name, moments_fn, pe.histogram_scatter, fit_all)
+        def fit_predicted(values, moments, pred, types, num_bins):
+            params_all = dists.fit_all(types, moments)
+            errs = fops.fit_errors(values, moments, params_all, types, num_bins)
+            return select_predicted(params_all, errs, pred)
+
+        return FitBackend(name, moments_fn, pe.histogram_scatter, fit_all, fit_predicted)
 
     raise ValueError(f"fit_backend must be one of {FIT_BACKENDS}, got {name!r}")

@@ -83,7 +83,7 @@ class WindowPrefetcher(Iterable[U]):
                 if not self._put(staged):
                     return
             self._put(_Stop())
-        except BaseException as e:  # parked for the consumer — __iter__ re-raises it as PrefetchError
+        except BaseException as e:  # repro: allow[ERR]: parked for the consumer — __iter__ re-raises it as PrefetchError
             self._put(_Stop(e))
 
     def _put(self, obj) -> bool:

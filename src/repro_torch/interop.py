@@ -1,8 +1,10 @@
 """Carry the reference package's state into the port.
 
-The PDF pipeline's state is data, configuration and fit results: the data
-is regenerated bitwise from the same source (``data/simulation``), and
-``pdf_config_from_dict`` and ``moments_from_numpy`` carry the rest. The LM
+The PDF pipeline's state is data, configuration, fit results and the
+decision tree of the ML and sampling methods: the data is regenerated
+bitwise from the same source (``data/simulation``), and
+``pdf_config_from_dict``, ``moments_from_numpy`` and ``tree_from_numpy``
+carry the rest. The LM
 serving path's state is its weights: ``lm_params_from_numpy`` carries the
 reference's parameter tree into the port's ``Transformer``. All take plain
 Python and numpy values, so neither package imports the other.
@@ -19,6 +21,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.distributions import Moments
 from repro_torch.core.executor import PDFConfig
+from repro_torch.core.ml_predict import DecisionTree
 
 
 def pdf_config_from_dict(d: Mapping) -> PDFConfig:
@@ -44,6 +47,21 @@ def moments_from_numpy(fields: Sequence, device: torch.device | str) -> Moments:
     return Moments(*(
         torch.tensor(np.asarray(a, dtype=np.float32), device=device) for a in arrays
     ))
+
+
+def tree_from_numpy(depth: int, feature, threshold, leaf_label) -> DecisionTree:
+    """The port's ``DecisionTree`` from the reference's four fields (a tree
+    ``repro.core.ml_predict.train_tree`` trained); raises on a shape that
+    is not the complete tree of ``depth``."""
+    tree = DecisionTree(int(depth), np.asarray(feature, dtype=np.int32),
+                        np.asarray(threshold, dtype=np.float32),
+                        np.asarray(leaf_label, dtype=np.int32))
+    n_internal = 2**tree.depth - 1
+    shapes = (tree.feature.shape, tree.threshold.shape, tree.leaf_label.shape)
+    if tree.depth < 1 or shapes != ((n_internal,), (n_internal,), (n_internal + 1,)):
+        raise ValueError(f"a tree of depth {depth} has {n_internal} internal nodes and "
+                         f"{n_internal + 1} leaves; got shapes {shapes}")
+    return tree
 
 
 def _flatten(tree, prefix: str, out: dict) -> None:

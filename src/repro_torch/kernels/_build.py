@@ -42,7 +42,7 @@ def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
         return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")  # repro: allow[DET]: locates nvcc, defines no result
     path = Path(home) / "bin" / "nvcc"
     if not path.exists():
         raise RuntimeError(

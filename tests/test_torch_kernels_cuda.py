@@ -154,6 +154,31 @@ def test_hist_counts_kernel(dev, shape, num_bins):
     assert got[0, 0] == shape[1]
 
 
+@pytest.mark.parametrize("backend", ["fused", "kernels"])
+@pytest.mark.parametrize("types,num_bins", [(td.TYPES_4, 64), (td.TYPES_10, 20)],
+                         ids=["4types", "10types"])
+def test_fit_predicted_launches_its_kernel(dev, backend, types, num_bins):
+    """Algorithm 4 on the card: ``fused`` launches K2 once (all T types),
+    ``kernels`` K4 once, whatever T; the fit equals the plain backend's
+    (K4's counts are exact; K2's errors within the error tolerance)."""
+    from repro_torch.core import fitting as tf
+
+    x = torch.from_numpy(_window((257, 1000), seed=5)).to(dev)
+    m = td.moments_from_values(x)
+    pred = torch.from_numpy(np.random.default_rng(3).integers(0, len(types), 257)).to(dev)
+    before = (tk.fit_error_counts.launches, thk.hist_counts.launches)
+    got = tf.get_fit_backend(backend, num_bins).fit_predicted(x, m, pred, types, num_bins)
+    torch.cuda.synchronize()
+    k2, k4 = tk.fit_error_counts.launches - before[0], thk.hist_counts.launches - before[1]
+    assert (k2, k4) == ((1, 0) if backend == "fused" else (0, 1))
+    want = tf.get_fit_backend("reference", num_bins).fit_predicted(x, m, pred, types, num_bins)
+    assert torch.equal(got.type_idx, want.type_idx) and torch.equal(got.params, want.params)
+    if backend == "kernels":
+        assert torch.equal(got.error, want.error)
+    else:
+        _close(got.error, want.error, rtol=1e-4, atol=5e-4)
+
+
 @pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("types", [td.TYPES_4, td.TYPES_10], ids=["4types", "10types"])
 def test_fit_error_counts_row_indices(dev, shape, types):

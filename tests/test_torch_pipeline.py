@@ -290,17 +290,21 @@ def test_no_device_and_no_cuda_raises(monkeypatch):
         tp.PDFComputer(tp.PDFConfig(), _port_source())
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(method="grouping_ml"), "item 7"),
-    (dict(method="ml"), "item 7"),
-    (dict(method="sampling"), "item 8"),
-    (dict(method="reuse_ml", select_backend="device"), "item 7"),
-    (dict(method="sampling", sampler="kmeans", fit_backend="kernels"), "item 8"),
+@pytest.mark.parametrize("kw", [
+    dict(method="grouping_ml"),
+    dict(method="ml"),
+    dict(method="sampling"),
+    dict(method="reuse_ml", select_backend="device"),
+    dict(method="sampling", sampler="kmeans", fit_backend="kernels"),
 ])
-def test_unported_options_raise_at_construction(kw, match):
+def test_tree_methods_require_a_tree(kw):
+    """The ML and sampling methods refuse to start without a decision tree,
+    with the reference's error."""
     cfg = tp.PDFConfig(**kw)  # valid configuration, as in the reference
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=f"method {kw['method']!r} requires a decision tree"):
         tp.PDFComputer(cfg, _port_source(), device="cpu")
+    with pytest.raises(ValueError, match="requires a decision tree"):
+        rp.PDFComputer(rp.PDFConfig(**kw), _ref_source())
 
 
 def test_config_fields_and_defaults_match_reference():
