@@ -11,6 +11,23 @@ Set1 slice (501 lines x 251 points x 1,000 observations, slice 201, 21
 windows) with ``PDFComputer(PDFConfig(...), SeismicSimulation()).run_slice(201)``
 and every kernel's launch count set to 0 just before it:
 
+* ``[staging]``: one window staged the old pageable way and through the
+  load stage's pinned stager (the same bits, both times), then baseline on
+  the fused backend, prefetch on and off bitwise equal;
+* ``[file]``: the slice exported through a one-slice view into a file cube
+  (0.5 GB, in a temporary directory under ``build/``, deleted at the end),
+  every window of it bitwise equal to the simulation's, and the slice run
+  from the cube with verified reads off and on and through
+  ``ThrottledSource``, each bitwise equal to the simulation's slice;
+* ``[faults]``: one fault plan over the cube through
+  ``StagedExecutor(..., injector=...)`` (transient read errors, a straggler
+  raced by speculation, a torn chunk read, a persist error, a window that
+  never loads): every other point bitwise equal to the clean slice, that
+  window at type -1 with its failed-unit manifest; with
+  ``degraded_mode=False`` the plan raises;
+* ``[scheduler]``: ``SliceScheduler`` with 2 shards over slices 200 and
+  201, shard 0 lost after its first window and its slice re-dealt, bitwise
+  equal to a clean run of both;
 * baseline on the fused backend (K1 + K2), 4 types at L = 64 and 10 types
   at L = 20: once per window each, bitwise repeat, parity with the port's
   plain PyTorch backend;
@@ -39,11 +56,17 @@ and every kernel's launch count set to 0 just before it:
   subsets) and with k-means, and the paper's Set1 configuration
   (``grouping_ml``, 4 types, L = 20). Bitwise: host and device Select,
   prefetch on and off. Against the same method on the plain backend, the
-  tree-margin rule (``tree_margin``).
+  tree-margin rule (``tree_margin``);
+* ``[batch]``: ``run_window_batch`` over the slice's 21 windows and over 10
+  windows of slices 200 and 201: baseline and ``ml`` on fused, grouping
+  (host Select) on fused (K2's ``row_indices`` route over the batch) and
+  kernels; each window bitwise equal to ``run_window``, launches as the
+  packing predicts.
 
 Then the baseline slice, the two grouping slices and the Set1
 configuration run once more under
-``torch.profiler`` (device time by kernel, device idle share), and a timing
+``torch.profiler`` (device time by kernel, device idle share, the
+host-to-device copies' total and their overlap with K1/K2), and a timing
 of each kernel at the Set1 window shape beside its bound. Every kernel
 row's ``ms`` is "call ms", as earlier runs timed it: CUDA events around
 the wrapper call, L2 flushed by zeroing a buffer, the card's idle time
@@ -85,6 +108,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -399,17 +423,20 @@ def drive(np, torch, cfg, sim, slice_i, dev, label, exec_config=None, tree=None)
     just before it and read just after; checks the result's shapes, range
     (sampling leaves unsampled points at type -1) and finiteness and logs
     wall, launches, sums of ``num_fitted`` and ``cache_hits`` and the
-    median window compute. Returns (result, launches, wall seconds)."""
+    median window compute. Returns (result, launches, wall seconds); the
+    run's ``ExecutorReport`` is left in ``drive.last_report``."""
     from repro_torch.core.executor import RESULT_FIELDS
     from repro_torch.core.pipeline import PDFComputer
 
     sync(torch, dev)
     zero_counts()
     t0 = time.perf_counter()
-    res = PDFComputer(cfg, sim, tree=tree, device=dev, exec_config=exec_config).run_slice(slice_i)
+    comp = PDFComputer(cfg, sim, tree=tree, device=dev, exec_config=exec_config)
+    res = comp.run_slice(slice_i)
     sync(torch, dev)
     wall = time.perf_counter() - t0
     launches = read_counts()
+    drive.last_report = comp.last_report
 
     g = sim.geometry
     check(res.type_idx.shape == (g.points_per_slice,), f"[{label}] type_idx shape")
@@ -873,8 +900,362 @@ def ml_phases(np, torch, sim, slice_i, dev, tree):
 
 
 # ---------------------------------------------------------------------------
-# timing at the Set1 window shape
+# the executor's load stage, file cubes, faults, scheduler and batches
 # ---------------------------------------------------------------------------
+
+
+def pageable_stage(np, torch, raw, dev):
+    """The load stage's copy before the pinned stager: a pageable,
+    synchronous ``torch.from_numpy(raw).to(dev)``. Kept here only, as the
+    yardstick of ``[staging]``."""
+    return torch.from_numpy(np.ascontiguousarray(raw, dtype=np.float32)).to(dev)
+
+
+def staging_phase(np, torch, sim, slice_i, dev):
+    """One Set1 window staged the old pageable way and through the pinned
+    stager: the same bits, and each one's ms (median of 10, host clock to a
+    synchronize; the pinned stage also until its host call returns, what
+    ``load_seconds`` counts). Then a baseline ``fused`` slice, counted,
+    bitwise equal to the same slice with ``prefetch=False``. Returns
+    (the slice's result, numbers)."""
+    from repro_torch.core.pipeline import ExecutorConfig, PDFConfig
+    from repro_torch.core.regions import Window
+    from repro_torch.data.loader import WindowStager
+    from repro_torch.kernels._timing import median
+
+    raw = sim.load_window(Window(slice_i, 0, 25))
+    stager = WindowStager(dev)
+    old = pageable_stage(np, torch, raw, dev)
+    new = stager.ready(stager.stage(raw))
+    sync(torch, dev)
+    check(torch.equal(old, new), "[staging] the pinned stage differs from the pageable copy")
+    times = {"pageable_ms": [], "pinned_ms": [], "pinned_dispatch_ms": []}
+    for _ in range(10):
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        pageable_stage(np, torch, raw, dev)
+        sync(torch, dev)
+        times["pageable_ms"].append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        staged = stager.stage(raw)
+        times["pinned_dispatch_ms"].append((time.perf_counter() - t0) * 1e3)
+        stager.ready(staged)
+        sync(torch, dev)
+        times["pinned_ms"].append((time.perf_counter() - t0) * 1e3)
+    # The host half of the pinned stage alone: the window into a pinned
+    # buffer by one numpy thread (the stager's first design) and by
+    # PyTorch's threaded CPU copy (what it does).
+    pinned = torch.empty(raw.shape, dtype=torch.float32, pin_memory=dev.type == "cuda")
+    src = torch.from_numpy(raw)
+    times.update(host_copy_numpy_ms=[], host_copy_torch_ms=[])
+    for _ in range(10):
+        t0 = time.perf_counter()
+        np.copyto(pinned.numpy(), raw)
+        times["host_copy_numpy_ms"].append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        pinned.copy_(src)
+        times["host_copy_torch_ms"].append((time.perf_counter() - t0) * 1e3)
+    check(torch.equal(pinned, src), "[staging] the pinned host copy differs")
+    nums = {k: median(v) for k, v in times.items()}
+    nums["window_bytes"] = raw.nbytes
+    nums["torch_threads"] = torch.get_num_threads()
+    log(f"[staging] one Set1 window {raw.shape} ({raw.nbytes} B): pinned stage bitwise equal to the "
+        f"pageable copy; pageable {nums['pageable_ms']} ms, pinned {nums['pinned_ms']} ms (its host "
+        f"call returns after {nums['pinned_dispatch_ms']} ms), medians of 10; pool "
+        f"{len(stager._slots)} buffer(s), {stager.pool_waits} wait(s); the host copy into a pinned "
+        f"buffer alone: numpy (one thread) {nums['host_copy_numpy_ms']} ms, PyTorch "
+        f"({nums['torch_threads']} threads) {nums['host_copy_torch_ms']} ms")
+
+    W = SET1_WINDOWS
+    fused_k = {"moments_edges_stats": W, "fit_error_counts": W}
+    res, launches, wall = drive(np, torch, PDFConfig(), sim, slice_i, dev, "staging baseline fused")
+    check_launches(launches, fused_k, "staging baseline fused")
+    rep = drive.last_report
+    serial, launches_s, wall_s = drive(np, torch, PDFConfig(), sim, slice_i, dev,
+                                       "staging baseline fused serial",
+                                       exec_config=ExecutorConfig(prefetch=False, async_persist=False))
+    check_launches(launches_s, fused_k, "staging baseline fused serial")
+    check(bitwise_equal(np, res, serial), "[staging] prefetch on and off differ")
+    nums.update(wall_s=wall, serial_wall_s=wall_s, load_s=rep.load_seconds, wait_s=rep.wait_seconds,
+                load_hidden_fraction=rep.load_hidden_fraction)
+    log(f"[staging] baseline fused slice {slice_i}: prefetch on and off bitwise equal; wall {wall} s "
+        f"(serial {wall_s} s), load_s {rep.load_seconds}, wait_s {rep.wait_seconds}, "
+        f"load_hidden_fraction {rep.load_hidden_fraction}")
+    return res, nums
+
+
+class SliceView:
+    """One slice of a cube as a cube of its own (slice 0 of the view is
+    ``slice_i`` of ``source``): what ``[file]`` exports, 0.5 GB for Set1."""
+
+    def __init__(self, source, slice_i):
+        from repro_torch.core.regions import CubeGeometry
+
+        g = source.geometry
+        self.source, self.slice_i = source, slice_i
+        self.geometry = CubeGeometry(1, g.lines_per_slice, g.points_per_line)
+
+    def load_window(self, w):
+        from repro_torch.core.regions import Window
+
+        check(w.slice_i == 0, f"SliceView has one slice, asked for {w}")
+        return self.source.load_window(Window(self.slice_i, w.line_start, w.line_end))
+
+
+def file_phase(np, torch, sim, slice_i, dev, clean, tmp):
+    """Export slice ``slice_i`` through a one-slice view into ``tmp``, hold
+    every window of the cube bitwise against the simulation's, and run the
+    slice from the cube (page cache) with verified reads off and on, and
+    once through ``ThrottledSource``: each bitwise equal to ``clean`` (the
+    simulation's slice), K1/K2 once a window. Returns (cube path, numbers)."""
+    from repro_torch.core.pipeline import PDFConfig
+    from repro_torch.core.regions import Window, iter_windows
+    from repro_torch.data.file_source import FileCubeSource, export_cube
+    from repro_torch.data.loader import ThrottledSource
+
+    view = SliceView(sim, slice_i)
+    t0 = time.perf_counter()
+    path, sha = export_cube(view, tmp / "cube")
+    export_s = time.perf_counter() - t0
+    cube = FileCubeSource(path)
+    nbytes = sum(f.stat().st_size for f in path.iterdir())
+    log(f"[file] exported slice {slice_i} of Set1 in {export_s} s: {len(cube.manifest['chunks'])} "
+        f"chunks of {cube.manifest['lines_per_chunk']} lines, {nbytes} B on disk, content_sha256 "
+        f"{sha}")
+    t0 = time.perf_counter()
+    for w in iter_windows(cube.geometry, 0, 25):
+        check(np.array_equal(cube.load_window(w), sim.load_window(Window(slice_i, w.line_start,
+                                                                          w.line_end))),
+              f"[file] window {tuple(w)} of the cube differs from the simulation's")
+    log(f"[file] every window of the cube bitwise equal to the simulation's load_window "
+        f"({time.perf_counter() - t0} s for both)")
+
+    W = SET1_WINDOWS
+    fused_k = {"moments_edges_stats": W, "fit_error_counts": W}
+    nums = dict(export_s=export_s, cube_bytes=nbytes)
+    for label, source in (("file", cube), ("file verified", FileCubeSource(path, verify_reads=True)),
+                          ("file throttled 2 GB/s", ThrottledSource(cube, 2e9))):
+        res, launches, wall = drive(np, torch, PDFConfig(), source, 0, dev, label)
+        check_launches(launches, fused_k, label)
+        check(bitwise_equal(np, res, clean), f"[{label}] differs from the simulation's slice")
+        rep = drive.last_report
+        nums[label] = dict(wall_s=wall, load_s=rep.load_seconds, wait_s=rep.wait_seconds,
+                           compute_s=rep.compute_seconds,
+                           load_hidden_fraction=rep.load_hidden_fraction)
+        log(f"[{label}] slice from the cube (read from the page cache: just written) bitwise equal "
+            f"to the simulation's; wall {wall} s, load_s {rep.load_seconds}, wait_s "
+            f"{rep.wait_seconds}, compute_s {rep.compute_seconds}, load_hidden_fraction "
+            f"{rep.load_hidden_fraction}")
+    return path, nums
+
+
+FAULT_LINES = dict(read_error=50, latency=300, corrupt=64, persist_error=100, quarantined=200)
+
+
+def fault_plan():
+    """One plan over the one-slice cube: transient read errors, a straggler
+    above ``straggler_grace_s`` (speculation fires), a torn chunk read
+    (healed by the re-read), a persist error (absorbed by the persist
+    stage) and a window whose reads never succeed (quarantined)."""
+    from repro_torch.runtime.faults import FaultPlan, FaultRule
+
+    L = FAULT_LINES
+    return FaultPlan(seed=0, rules=(
+        FaultRule("read_error", slice_i=0, line_start=L["read_error"], times=1),
+        FaultRule("read_error", slice_i=0, rate=0.3, times=1),
+        FaultRule("latency", slice_i=0, line_start=L["latency"], seconds=2.0),
+        FaultRule("corrupt", slice_i=0, line_start=L["corrupt"], times=1),
+        FaultRule("persist_error", slice_i=0, line_start=L["persist_error"], times=1),
+        FaultRule("read_error", slice_i=0, line_start=L["quarantined"], times=10_000)))
+
+
+def faults_phase(np, torch, path, dev, clean, tmp):
+    """The fault plan over the cube through ``StagedExecutor(...,
+    injector=...)``: every point outside the quarantined window bitwise
+    equal to ``clean``, that window at type -1 with zeros, its failed-unit
+    manifest on disk; K1/K2 once a computed window (the quarantined one
+    launches nothing; retries here are load retries); then with
+    ``degraded_mode=False`` the same plan must raise. Returns numbers."""
+    from repro_torch.core.executor import RESULT_FIELDS, ExecutorConfig, PDFConfig, StagedExecutor
+    from repro_torch.data.file_source import FileCubeSource
+    from repro_torch.runtime.faults import FaultInjector
+
+    ec = dict(max_retries=2, retry_backoff_s=0.01, speculate=True, straggler_grace_s=0.5)
+    inj = FaultInjector(fault_plan())
+    ex = StagedExecutor(PDFConfig(), inj.wrap_source(FileCubeSource(path)), dev, injector=inj,
+                        out_dir=tmp / "faults", exec_config=ExecutorConfig(**ec))
+    sync(torch, dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    res = ex.run_slice(0)
+    sync(torch, dev)
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    rep = ex.last_report
+    W = SET1_WINDOWS
+    check_launches(launches, {"moments_edges_stats": W - 1, "fit_error_counts": W - 1}, "faults")
+    ppl = ex.data.geometry.points_per_line
+    lo, hi = FAULT_LINES["quarantined"] * ppl, (FAULT_LINES["quarantined"] + 25) * ppl
+    check([q["line_start"] for q in res.quarantined] == [FAULT_LINES["quarantined"]]
+          and res.quarantined[0]["attempts"] == ec["max_retries"] + 1,
+          f"[faults] quarantined {res.quarantined}")
+    check(bool((res.type_idx[lo:hi] == -1).all()), "[faults] the quarantined window is not at type -1")
+    for f in RESULT_FIELDS:
+        got, want = getattr(res, f), getattr(clean, f)
+        check(np.array_equal(got[:lo], want[:lo]) and np.array_equal(got[hi:], want[hi:]),
+              f"[faults] {f} differs from the clean run outside the quarantined window")
+        if f != "type_idx":
+            check(not got[lo:hi].any(), f"[faults] {f} not zero in the quarantined window")
+    manifest = json.loads((tmp / "faults" / "slice0_failed_units.json").read_text())
+    check([e["line_start"] for e in manifest["failed"]] == [FAULT_LINES["quarantined"]],
+          f"[faults] failed-unit manifest {manifest}")
+    check(rep.speculations >= 1 and rep.speculation_wins >= 1, "[faults] no speculation won")
+    check(inj.events.get("corrupt") == 1 and inj.events.get("persist_error") == 1
+          and inj.events.get("latency") == 1, f"[faults] events {inj.events}")
+    nums = dict(wall_s=wall, retries=rep.retries, speculations=rep.speculations,
+                speculation_wins=rep.speculation_wins, quarantined=rep.quarantined,
+                events=dict(inj.events), launches=launches)
+    log(f"[faults] slice from the cube under the plan ({len(fault_plan().rules)} rules): wall {wall} s; "
+        f"retries {rep.retries}, speculations {rep.speculations}, speculation_wins "
+        f"{rep.speculation_wins}, quarantined {rep.quarantined}; injector events "
+        f"{json.dumps(inj.events)}; every point outside lines {FAULT_LINES['quarantined']}-"
+        f"{FAULT_LINES['quarantined'] + 25} bitwise equal to the clean run; failed-unit manifest "
+        f"on disk; launches {json.dumps(launches)}")
+
+    inj = FaultInjector(fault_plan())
+    strict = StagedExecutor(PDFConfig(), inj.wrap_source(FileCubeSource(path)), dev, injector=inj,
+                            out_dir=tmp / "strict",
+                            exec_config=ExecutorConfig(**ec, degraded_mode=False))
+    try:
+        strict.run_slice(0)
+    except RuntimeError as e:
+        check("failed after 3 attempts" in str(e), f"[faults] degraded_mode=False raised {e!r}")
+        log(f"[faults] degraded_mode=False: the same plan raises: {e}")
+    else:
+        raise SmokeFailure("[faults] degraded_mode=False did not raise")
+    return nums
+
+
+def scheduler_phase(np, torch, sim, dev, tmp):
+    """``SliceScheduler`` with 2 shards over slices 200 and 201, shard 0
+    lost after its first window: its slice re-dealt to shard 1, resumed
+    from the window it persisted, the merged results bitwise equal to a
+    clean run of both slices. Returns numbers."""
+    from repro_torch.core.executor import PDFConfig, StagedExecutor
+    from repro_torch.core.pipeline import PDFComputer
+    from repro_torch.runtime.faults import FaultInjector, FaultPlan, FaultRule
+    from repro_torch.runtime.scheduler import SliceScheduler
+
+    slices = [SET1_SLICE - 1, SET1_SLICE]
+    clean = PDFComputer(PDFConfig(), sim, device=dev).run(slices)
+    inj = FaultInjector(FaultPlan(rules=(FaultRule("shard_death", shard=0, after_units=1),)))
+    sched = SliceScheduler(num_shards=2)
+    sync(torch, dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    got = sched.run(lambda shard: StagedExecutor(PDFConfig(), inj.wrap_source(sim, shard=shard), dev,
+                                                 injector=inj, out_dir=tmp / "sched"), slices)
+    sync(torch, dev)
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    W = SET1_WINDOWS
+    # slice 201 on shard 1; slice 200's first window on shard 0, its other 20 re-dealt
+    expect = 2 * W
+    check_launches(launches, {"moments_edges_stats": expect, "fit_error_counts": expect}, "scheduler")
+    check(sched.lost_shards == (0,) and sched.last_redeal.slices_for(1) == (SET1_SLICE - 1,),
+          f"[scheduler] lost {sched.lost_shards}, redeal {sched.last_redeal}")
+    for s in slices:
+        check(bitwise_equal(np, got[s], clean[s]), f"[scheduler] slice {s} differs from the clean run")
+    nums = dict(wall_s=wall, lost_shards=list(sched.lost_shards),
+                redealt_units=sched.last_reports[1].units, launches=launches)
+    log(f"[scheduler] 2 shards over slices {slices}, shard 0 lost after 1 window: slice "
+        f"{SET1_SLICE - 1} re-dealt to shard 1 ({sched.last_reports[1].units} windows run there, 1 "
+        f"restored from disk); merged results bitwise equal to the clean run; wall {wall} s; "
+        f"launches {json.dumps(launches)}")
+    return nums
+
+
+def packed_launches(np, ex, windows) -> int:
+    """The fit launches ``run_window_batch`` should issue for the grouping
+    methods: each window's host groups (found here from its moments), its
+    shape class ``padded_size(groups, rep_bucket)``, windows filled greedily
+    into launches of that size in batch order."""
+    from repro_torch.core import grouping as grp
+
+    sizes = []
+    for w in windows:
+        x = ex.stager.ready(ex.stager.stage(ex.data.load_window(w)))
+        g = grp.group_host(ex._quantized_keys(ex._backend.moments(x))).num_groups
+        sizes.append((grp.padded_size(g, ex.config.rep_bucket), g))
+    count = 0
+    for size in sorted({s for s, _ in sizes}):
+        fill = None
+        for s, g in sizes:
+            if s == size:
+                if fill is None or fill + g > size:
+                    count, fill = count + 1, 0
+                fill += g
+    return count
+
+
+def batch_phase(np, torch, sim, dev, tree):
+    """``run_window_batch`` over the 21 windows of slice 201 and over a
+    batch mixing windows of slices 200 and 201: baseline and ``ml`` on
+    ``fused``, grouping (host Select) on ``fused`` and ``kernels``. Each
+    window bitwise equal to ``run_window``; launches counted against the
+    packing's prediction; the batch wall against the windows one by one.
+    Returns ({label: launches}, {label: numbers})."""
+    from repro_torch.core.executor import RESULT_FIELDS, PDFConfig, StagedExecutor
+    from repro_torch.core.regions import iter_windows
+
+    g = sim.geometry
+    whole = list(iter_windows(g, SET1_SLICE, 25))
+    mixed = [w for pair in zip(iter_windows(g, SET1_SLICE - 1, 25), reversed(whole)) for w in pair][:10]
+    launches, nums = {}, {}
+    for method, backend in (("baseline", "fused"), ("ml", "fused"), ("grouping", "fused"),
+                            ("grouping", "kernels")):
+        cfg = PDFConfig(method=method, fit_backend=backend)
+        for name, windows in (("slice", whole), ("mixed", mixed)):
+            label = f"batch {method} {backend} {name}"
+            ex = StagedExecutor(cfg, sim, dev, tree=tree if method == "ml" else None)
+            n = len(windows)
+            fits = packed_launches(np, ex, windows) if method == "grouping" else n
+            sync(torch, dev)
+            zero_counts()
+            t0 = time.perf_counter()
+            out = ex.run_window_batch(windows)
+            sync(torch, dev)
+            wall = time.perf_counter() - t0
+            launches[label] = read_counts()
+            if backend == "fused":
+                expect = {"moments_edges_stats": n, "fit_error_counts": fits}
+                if method == "grouping":
+                    expect["fit_error_counts_row_indices"] = fits
+            else:
+                expect = {"moments_stats": n, "hist_counts": fits}
+            check_launches(launches[label], expect, label)
+            one = StagedExecutor(cfg, sim, dev, tree=tree if method == "ml" else None)
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            singles = [one.run_window(w) for w in windows]
+            sync(torch, dev)
+            one_wall = time.perf_counter() - t0
+            for w, a, b in zip(windows, out, singles):
+                check(tuple(a.window) == tuple(w) and all(
+                    np.array_equal(getattr(a, f), getattr(b, f)) for f in RESULT_FIELDS),
+                      f"[{label}] window {tuple(w)} differs from run_window")
+                check(bool((a.type_idx >= 0).all()) and bool(np.isfinite(a.error).all()),
+                      f"[{label}] window {tuple(w)}: a type or error out of range")
+            load_s = sum(ex.monitors["load"].history)
+            nums[label] = dict(windows=n, fit_launches=fits, wall_s=wall, load_s=load_s,
+                               run_window_wall_s=one_wall)
+            log(f"[{label}] {n} windows: each bitwise equal to run_window; fit launches {fits} as "
+                f"the packing predicts; batch wall {wall} s ({load_s} s of it the windows' loads) "
+                f"against {one_wall} s one by one; one copy for the batch; launches "
+                f"{json.dumps(launches[label])}")
+    return launches, nums
+
+
 # ---------------------------------------------------------------------------
 # timing at the Set1 window shape
 # ---------------------------------------------------------------------------
@@ -1234,11 +1615,41 @@ def device_events(prof) -> list:
                   key=device_us, reverse=True)
 
 
+def copy_overlap(prof) -> dict | None:
+    """The host-to-device copies on the profile's device timeline: their
+    count, total ms and kinds (pinned or pageable, as the profiler names
+    them), and how many ms of them overlap a K1/K3 (``row_moments``) or K2
+    (``fit_error``) launch. None when the profiler saw no copy."""
+    from torch.autograd import DeviceType
+
+    copies, kernels = [], []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        span = (e.time_range.start, e.time_range.end)
+        if "HtoD" in e.name:
+            copies.append((*span, e.name))
+        elif "row_moments" in e.name or "fit_error" in e.name:
+            kernels.append(span)
+    if not copies:
+        return None
+    kernels.sort()
+    overlap = 0.0
+    for a, b, _ in copies:
+        for c, d in kernels:
+            if c >= b:
+                break
+            overlap += max(0.0, min(b, d) - max(a, c))
+    return dict(h2d_copies=len(copies), h2d_ms=sum(b - a for a, b, _ in copies) / 1e3,
+                h2d_kinds=sorted({n for _, _, n in copies}), overlap_with_k1_k2_ms=overlap / 1e3)
+
+
 def profile_slice(torch, cfg, label, sim, slice_i, dev, wall_unprofiled, tree=None):
     """One slice of ``cfg`` once more under torch.profiler: device time by
     kernel (in all and a launch, inside the pipeline, with no host work
-    between the events), and the device's busy share of the unprofiled
-    wall time."""
+    between the events), the device's busy share of the unprofiled wall
+    time, and the host-to-device copies' total and their overlap with K1
+    and K2 on the timeline (``copy_overlap``)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.pipeline import PDFComputer
@@ -1253,9 +1664,11 @@ def profile_slice(torch, cfg, label, sim, slice_i, dev, wall_unprofiled, tree=No
     if not kern or busy_ms == 0:
         log("[profile] the profiler saw no device time: device busy share not measured")
         return
+    copies = copy_overlap(prof)
     log(f"[profile {label}] slice {slice_i}: device busy {busy_ms} ms over "
         f"{len(kern)} kernel/copy names; unprofiled wall {wall_unprofiled * 1e3} ms; "
-        f"device idle share {1 - busy_ms / (wall_unprofiled * 1e3)}")
+        f"device idle share {1 - busy_ms / (wall_unprofiled * 1e3)}; host-to-device copies "
+        + (json.dumps(copies) if copies else "not seen by the profiler"))
     for e in kern[:12]:
         log(f"[profile {label}]   {dev_us(e) / 1e3:10.3f} ms  x{e.count:<5d} "
             f"{dev_us(e) / 1e3 / max(e.count, 1):.4f} ms a launch  {e.key[:80]}")
@@ -1602,6 +2015,21 @@ def main() -> int:
     worst_k1, err_k2 = compare_kernels(np, torch, cases, dev)
     worst_k3, err_rows = compare_new_kernels(np, torch, cases, dev)
 
+    # The load stage (pinned staging), then a file cube of the slice, a fault
+    # plan over it and the scheduler's shard re-deal, in a temporary
+    # directory under build/ deleted at the end.
+    clean, staging_nums = staging_phase(np, torch, sim, SET1_SLICE, dev)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp_name:
+        tmp = Path(tmp_name)
+        cube_path, file_nums = file_phase(np, torch, sim, SET1_SLICE, dev, clean, tmp)
+        fault_nums = faults_phase(np, torch, cube_path, dev, clean, tmp)
+        sched_nums = scheduler_phase(np, torch, sim, dev, tmp)
+    del clean
+    exec_launches = {"faults": fault_nums["launches"], "scheduler": sched_nums["launches"]}
+    log(f"[summary executor] {smi}: Set1 slice {SET1_SLICE}; staging {json.dumps(staging_nums)}; "
+        f"file {json.dumps(file_nums)}; faults {json.dumps(fault_nums)}; scheduler "
+        f"{json.dumps(sched_nums)}")
+
     launches4, wall4 = run_slice_phase(np, torch, sim, SET1_SLICE, dists.TYPES_4, 64, dev,
                                        SET1_WINDOWS)
     launches10, wall10 = run_slice_phase(np, torch, sim, SET1_SLICE, dists.TYPES_10, 20, dev,
@@ -1621,6 +2049,9 @@ def main() -> int:
     # The ML and sampling methods, with the tree of TreeSpec's defaults.
     tree, tree_nums = train_phase(np, torch, sim, dev)
     ml_launches, ml_walls, ml_nums = ml_phases(np, torch, sim, SET1_SLICE, dev, tree)
+    batch_launches, batch_nums = batch_phase(np, torch, sim, dev, tree)
+    exec_launches.update(batch_launches)
+    log(f"[summary batch] {smi}: {json.dumps(batch_nums)}")
     profile_slice(torch, PDFConfig(method="grouping_ml", num_bins=20), "set1 grouping_ml L20", sim,
                   SET1_SLICE, dev, ml_walls["set1 grouping_ml L20"], tree=tree)
     log(f"[summary ml] {smi}: Set1 slice {SET1_SLICE}; tree {json.dumps(tree_nums)}; wall_s "
@@ -1641,6 +2072,8 @@ def main() -> int:
     for r in rows:
         r["launches_ml_sampling"] = {label: n[r["name"]] for label, n in ml_launches.items()
                                      if n[r["name"]]}
+        r["launches_executor_paths"] = {label: n[r["name"]] for label, n in exec_launches.items()
+                                        if n[r["name"]]}
         if r["name"] in ("fit_error_counts", "hist_counts"):
             k = "k2" if r["name"] == "fit_error_counts" else "k4"
             r["at_large_L"] = {L: {key[3:]: v for key, v in d.items() if key.startswith(k)}

@@ -4,8 +4,11 @@ Port of ``repro.core.executor`` for every method of ``METHODS``, with host
 or device Select:
 
   load stage     ``WindowPrefetcher`` (data/loader.py) loads window *k+1* from
-                 the data source and copies it to the device while the device
-                 is still fitting window *k*.
+                 the data source and stages it on the device while the device
+                 is still fitting window *k*: on a CUDA device through a pinned
+                 host buffer and a ``non_blocking`` copy on a copy stream
+                 (``WindowStager``), whose event the compute stream waits on
+                 before the moments kernel.
   compute stage  the main thread: moments, then the Select step (§5.1-5.2:
                  grouping dedups the window on (mu, sigma) keys and fits one
                  representative per group; reuse also looks each group up
@@ -20,22 +23,40 @@ or device Select:
                  the watermark off the critical path, in submission order;
                  ``close()`` flushes before the executor returns or re-raises.
 
+Per-stage heartbeats feed one ``runtime.monitor.StepMonitor`` per stage.
+Fault tolerance is the reference's (DESIGN.md §14): a transiently failing
+load or compute is retried with backoff (a fresh load each attempt), a
+straggling load is raced by a speculative second load (first success wins),
+and a unit that exhausts its retries is quarantined (``type_idx = -1``, zero
+params and moments, a failed-unit manifest beside the watermark) or, with
+``degraded_mode=False``, aborts the run. Loads are deterministic and fits
+row-pure, so a retried, speculated or re-dealt unit yields the bits of its
+first attempt. ``FaultInjector`` (runtime/faults.py) exercises all of it.
+
+``run_window_batch`` computes many windows, possibly of several slices,
+with shared launches: one host-to-device copy for the batch, and for the
+grouping methods with host Select the representatives of whole windows
+packed into one fit launch a shape class (on the fused backend K2 reads
+them through its ``row_indices`` prologue). Each window gets the bits
+``run_window`` gives it.
+
 Select runs on the host (np.unique over int64 keys) or on the device
 (``select_backend='device'``: ``torch.unique`` over the same keys, and on
 the fused backend K2 reads the representatives through its ``row_indices``
 prologue); the two are bitwise equal.
 
-The ``.npz`` and watermark format is the reference's. Not ported yet:
-retry, speculation and quarantine (ROADMAP queue 1 item 12) — a load error
-propagates to the caller.
+The ``.npz``, watermark and failed-unit manifest formats are the
+reference's.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import queue
 import threading
 import time
+from concurrent import futures
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Callable, NamedTuple
@@ -52,7 +73,9 @@ from repro_torch.core import sampling as smp
 from repro_torch.core.grouping import DEFAULT_TOL
 from repro_torch.core.ml_predict import TREE_FEATURES, tree_features, tree_features_np  # noqa: F401
 from repro_torch.core.reuse import ReuseCache
-from repro_torch.data.loader import WindowPrefetcher
+from repro_torch.data.loader import PrefetchError, StagedValues, WindowPrefetcher, WindowStager
+from repro_torch.runtime.faults import ShardLostError, is_transient
+from repro_torch.runtime.monitor import StepMonitor, StragglerPolicy
 
 METHODS = (
     "baseline", "grouping", "reuse", "ml", "grouping_ml", "reuse_ml", "sampling",
@@ -118,16 +141,46 @@ class PDFConfig:
 
 @dataclass(frozen=True)
 class ExecutorConfig:
-    """Staging knobs; ``prefetch=False, async_persist=False`` is the strictly
-    serial loop. None of them changes a per-point result."""
+    """Staging + fault-tolerance knobs; ``prefetch=False,
+    async_persist=False`` is the strictly serial loop.
+
+    None of these change per-point results — the bitwise-equivalence
+    contract: a retried, speculated, or re-dealt work unit recomputes the
+    exact bytes the first attempt would have produced (loads are
+    deterministic, fits are row-pure), which is what makes
+    first-result-wins and re-dealing safe (DESIGN.md §14)."""
 
     prefetch: bool = True
     prefetch_depth: int = 2  # how many windows the load stage may run ahead
     async_persist: bool = True
+    # Work-unit retry: how many *re*-attempts a transiently failing unit
+    # gets (max_retries + 1 attempts in all) before it is quarantined
+    # (degraded_mode=True) or the run aborts (False). Backoff is
+    # exponential (retry_backoff_s * 2^attempt) with a deterministic
+    # per-(unit, attempt) jitter.
+    max_retries: int = 2
+    retry_backoff_s: float = 0.05
+    # Straggler speculation: when a window load exceeds
+    # max(threshold x trailing-median, straggler_grace_s), re-dispatch an
+    # identical load and take whichever finishes first.
+    speculate: bool = True
+    straggler_grace_s: float = 1.0
+    # Degraded completion: quarantine units that exhaust their retries
+    # (type_idx = -1, failed-unit manifest next to the watermark) instead
+    # of aborting the run.
+    degraded_mode: bool = True
 
     def __post_init__(self):
         if self.prefetch_depth < 1:
             raise ValueError(f"prefetch_depth must be >= 1, got {self.prefetch_depth}")
+        if self.max_retries < 0:
+            raise ValueError(f"max_retries must be >= 0, got {self.max_retries}")
+        if self.retry_backoff_s < 0:
+            raise ValueError(
+                f"retry_backoff_s must be >= 0, got {self.retry_backoff_s}")
+        if self.straggler_grace_s < 0:
+            raise ValueError(
+                f"straggler_grace_s must be >= 0, got {self.straggler_grace_s}")
 
 
 class WindowStats(NamedTuple):
@@ -154,6 +207,20 @@ class SliceResult:
     error_bound_satisfied: bool | None = None
     slice_i: int | None = None
     spec_hash: str | None = None  # provenance; None until the API is ported
+    # Fault-tolerance bookkeeping (DESIGN.md §14): transient re-attempts,
+    # speculative re-dispatches, and the quarantined windows of a degraded
+    # run — each a dict with unit_id/line_start/line_end/attempts/error,
+    # mirrored in the slice's failed-unit manifest on disk. A quarantined
+    # window's points carry type_idx = -1 and zero params/moments.
+    retries: int = 0
+    speculations: int = 0
+    quarantined: tuple = ()
+
+    @property
+    def degraded(self) -> bool:
+        """True when any work unit was quarantined — the result is complete
+        for every other window but not the slice's answer."""
+        return len(self.quarantined) > 0
 
     @property
     def total_load_seconds(self) -> float:
@@ -195,6 +262,11 @@ class ExecutorReport:
     wait_seconds: float
     compute_seconds: float
     persist_seconds: float
+    # Fault-tolerance totals across the run's slices (DESIGN.md §14).
+    retries: int = 0
+    speculations: int = 0
+    speculation_wins: int = 0
+    quarantined: int = 0
 
     @property
     def load_hidden_seconds(self) -> float:
@@ -206,12 +278,43 @@ class ExecutorReport:
 
 
 class _StagedWindow(NamedTuple):
-    """Load-stage output: device-resident values, ready for the moments
-    kernel (which runs on the compute stage, like every device op)."""
+    """Load-stage output: the window staged on the device (its copy maybe
+    still in flight; ``WindowStager.ready`` before use), for the moments
+    kernel, which runs on the compute stage like every device op."""
 
     unit: regions.WorkUnit
-    values: torch.Tensor
+    staged: StagedValues
     load_seconds: float
+
+
+class _FailedUnit(NamedTuple):
+    """Load/compute-stage output for a unit that exhausted its retries in
+    degraded mode: flows down the same stream as ``_StagedWindow`` (raising
+    from the prefetch thread would kill the whole stream) and is quarantined
+    by the run loop instead of computed."""
+
+    unit: regions.WorkUnit
+    error: str
+    attempts: int
+
+
+class _ComputedWindow(NamedTuple):
+    """One computed window: everything the run loop scatters/persists."""
+
+    window: regions.Window
+    type_idx: np.ndarray
+    params: np.ndarray
+    error: np.ndarray
+    mom_np: tuple
+    sample_idx: np.ndarray | None
+    fitted: int
+    cache_hits: int
+    compute_seconds: float
+    load_seconds: float
+
+
+def _errstr(e: BaseException) -> str:
+    return f"{type(e).__name__}: {e}"
 
 
 # The per-point result arrays of a SliceResult, in persisted order.
@@ -219,24 +322,51 @@ RESULT_FIELDS = ("type_idx", "params", "error", "mean", "std", "skew", "kurt")
 _FIELDS = RESULT_FIELDS
 
 
+class WindowResult(NamedTuple):
+    """Per-point results of ONE window (``run_window``,
+    ``run_window_batch``). Field order after ``window`` matches
+    ``RESULT_FIELDS``."""
+
+    window: regions.Window
+    type_idx: np.ndarray  # (P,) int32
+    params: np.ndarray  # (P, 3) float32
+    error: np.ndarray  # (P,)
+    mean: np.ndarray  # (P,)
+    std: np.ndarray  # (P,)
+    skew: np.ndarray  # (P,)
+    kurt: np.ndarray  # (P,)
+
+    def arrays(self) -> dict[str, np.ndarray]:
+        return {name: getattr(self, name) for name in _FIELDS}
+
+
 class PersistStage:
     """Writes per-window ``.npz`` + watermark, optionally off-thread.
 
     One writer thread drains a FIFO queue, so windows of a slice persist in
-    submission order and the watermark (``next_line``) only advances after
-    its window file is written — the serial path's restart contract.
-    The executor closes (and so flushes) the stage before returning *and*
-    before propagating any compute-stage exception, so a crash loses at
-    most the in-flight window.
+    submission order and the watermark (``next_line``) is only advanced
+    after its window file is durable — exactly the serial path's restart
+    contract. ``flush()`` blocks until everything submitted is written;
+    the executor flushes before returning *and* before propagating any
+    compute-stage exception, so a crash loses at most the in-flight window.
     """
 
     def __init__(self, out_dir: str | Path | None, async_writes: bool = True,
+                 monitor: StepMonitor | None = None,
+                 spec_hash: str | None = None,
+                 injector=None,
                  total_lines: int | None = None):
         self.out_dir = Path(out_dir) if out_dir else None
-        # Lines per slice: lets the watermark carry the ``complete`` stamp.
+        self.monitor = monitor
+        self.spec_hash = spec_hash  # stamped into every .npz + watermark
+        # Lines per slice, when the caller knows it: lets the watermark
+        # carry an explicit ``complete`` stamp (the cluster redeal scan's
+        # recovery line) instead of readers re-deriving it from geometry.
         self.total_lines = total_lines
+        self.injector = injector  # faults.FaultInjector (on_persist hook)
         self.seconds = 0.0
         self.writes = 0
+        self.retries = 0  # transient write failures absorbed in _write
         self._error: BaseException | None = None
         self._async = bool(async_writes and self.out_dir is not None)
         if self._async:
@@ -245,6 +375,8 @@ class PersistStage:
                 target=self._loop, name="window-persist", daemon=True
             )
             self._thread.start()
+
+    # -- submission -----------------------------------------------------------
 
     def submit(self, slice_i: int, w: regions.Window, arrays: dict[str, np.ndarray]):
         """``arrays`` maps _FIELDS names to the window's result views; the
@@ -265,24 +397,62 @@ class PersistStage:
                     return
                 if self._error is None:
                     self._write(*item)
-            except BaseException as e:  # repro: allow[ERR]: parked — raise_if_failed re-raises on the main thread
+            except BaseException as e:  # repro: allow[ERR]: parked — flush()/raise_if_failed re-raise on the main thread
                 self._error = e
             finally:
                 self._q.task_done()
 
     def _write(self, slice_i: int, w: regions.Window, arrays: dict[str, np.ndarray]):
+        uid = f"persist:s{slice_i}/l{w.line_start:05d}"
         t0 = time.perf_counter()
+        if self.monitor is not None:
+            self.monitor.start(uid, now=t0)
+        try:
+            # Transient write failures (an NFS hiccup mid-savez, or the
+            # injector's persist_error) get two quiet re-attempts — a
+            # partially-written .npz is simply overwritten, and the
+            # watermark only advances after a successful write.
+            for attempt in range(3):
+                try:
+                    if self.injector is not None:
+                        self.injector.on_persist(slice_i, w.line_start)
+                    self._write_once(slice_i, w, arrays)
+                    break
+                except OSError:
+                    if attempt == 2:
+                        raise
+                    self.retries += 1
+                    time.sleep(0.01 * (attempt + 1))
+        except BaseException:
+            if self.monitor is not None:
+                self.monitor.abandon(uid)
+            raise
+        t1 = time.perf_counter()
+        if self.monitor is not None:
+            self.monitor.finish(uid, now=t1)
+        self.seconds += t1 - t0
+        self.writes += 1
+
+    def _write_once(self, slice_i: int, w: regions.Window,
+                    arrays: dict[str, np.ndarray]):
         self.out_dir.mkdir(parents=True, exist_ok=True)
+        extra = {"spec_hash": self.spec_hash} if self.spec_hash else {}
         np.savez(
             self.out_dir / f"slice{slice_i}_window_{w.line_start:05d}.npz",
-            line_start=w.line_start, line_end=w.line_end, **arrays,
+            line_start=w.line_start, line_end=w.line_end, **extra, **arrays,
         )
-        mark: dict = {"next_line": int(w.line_end)}
+        mark: dict = {"next_line": int(w.line_end), **extra}
         if self.total_lines is not None:
             mark["complete"] = int(w.line_end) >= self.total_lines
-        (self.out_dir / f"slice{slice_i}_watermark.json").write_text(json.dumps(mark))
-        self.seconds += time.perf_counter() - t0
-        self.writes += 1
+        (self.out_dir / f"slice{slice_i}_watermark.json").write_text(
+            json.dumps(mark)
+        )
+
+    # -- lifecycle ------------------------------------------------------------
+
+    def flush(self):
+        if self._async:
+            self._q.join()
 
     def raise_if_failed(self):
         if self._error is not None:
@@ -296,13 +466,31 @@ class PersistStage:
             self._q.join()
             self._thread.join(timeout=5.0)
 
-    def watermark(self, slice_i: int) -> int:
+    # -- watermark / restore (resume) -----------------------------------------
+
+    def watermark_info(self, slice_i: int) -> dict:
         if self.out_dir is None:
-            return 0
+            return {"next_line": 0}
         f = self.out_dir / f"slice{slice_i}_watermark.json"
         if not f.exists():
-            return 0
-        return int(json.loads(f.read_text())["next_line"])
+            return {"next_line": 0}
+        return json.loads(f.read_text())
+
+    def watermark(self, slice_i: int) -> int:
+        return int(self.watermark_info(slice_i)["next_line"])
+
+    def check_resume_hash(self, slice_i: int, info: dict):
+        """Resume-mismatch detection: a watermark written under a different
+        spec hash describes a *different computation* (other tolerance,
+        candidate set, source seed...) — silently mixing its windows into
+        this run would corrupt the output, so refuse."""
+        stored = info.get("spec_hash")
+        if stored and self.spec_hash and stored != self.spec_hash:
+            raise ValueError(
+                f"resume mismatch for slice {slice_i}: watermark in "
+                f"{self.out_dir} was written by spec {stored}, this run is "
+                f"spec {self.spec_hash} — point --out-dir elsewhere or "
+                "re-run without resume")
 
     def restore_windows(self, slice_i: int, upto_line: int, ppl: int,
                         outs: dict[str, np.ndarray]):
@@ -313,6 +501,41 @@ class PersistStage:
                 for name in _FIELDS:
                     outs[name][lo:hi] = z[name]
 
+    # -- degraded mode: the failed-unit manifest -------------------------------
+
+    def failed_manifest_path(self, slice_i: int) -> Path:
+        return self.out_dir / f"slice{slice_i}_failed_units.json"
+
+    def write_failed_manifest(self, slice_i: int, entries: list[dict]):
+        """Record a degraded slice's quarantined units next to its watermark
+        — the completion contract of degraded mode (DESIGN.md §14): the run
+        *finished*, and this file says exactly which windows it finished
+        without. An empty entry list deletes the manifest (the slice was
+        repaired, e.g. by a resume that re-ran the quarantined units)."""
+        if self.out_dir is None:
+            return
+        f = self.failed_manifest_path(slice_i)
+        if not entries:
+            f.unlink(missing_ok=True)
+            return
+        self.out_dir.mkdir(parents=True, exist_ok=True)
+        f.write_text(json.dumps(
+            {"spec_hash": self.spec_hash, "slice": slice_i, "failed": entries},
+            indent=1,
+        ))
+
+    def failed_lines(self, slice_i: int) -> set[int]:
+        """line_start of every quarantined unit recorded for the slice —
+        resume re-runs these even below the watermark (their .npz was never
+        written, so the watermark alone cannot see the hole)."""
+        if self.out_dir is None:
+            return set()
+        f = self.failed_manifest_path(slice_i)
+        if not f.exists():
+            return set()
+        return {int(e["line_start"])
+                for e in json.loads(f.read_text()).get("failed", ())}
+
 
 class StagedExecutor:
     """Drives Algorithms 1-2 over a Plan of (slice, window) work units on
@@ -322,7 +545,9 @@ class StagedExecutor:
     ``load_window(window) -> np.ndarray (num_points, n_obs) float32``.
     The reuse cache lives on the executor, so windows — and consecutive
     slices and ``run_slice`` calls — share it. The ML and sampling methods
-    need ``tree``; its arrays move to ``device`` once, here.
+    need ``tree``; its arrays move to ``device`` once, here. ``injector``
+    (a ``runtime.faults.FaultInjector``) gets the persist stage's hook; its
+    read faults come through the source it wraps (``wrap_source``).
     """
 
     def __init__(
@@ -334,6 +559,7 @@ class StagedExecutor:
         out_dir: str | Path | None = None,
         exec_config: ExecutorConfig | None = None,
         spec_hash: str | None = None,
+        injector=None,
     ):
         if ("ml" in config.method or config.method == "sampling") and tree is None:
             raise ValueError(f"method {config.method!r} requires a decision tree")
@@ -345,22 +571,141 @@ class StagedExecutor:
         self.out_dir = Path(out_dir) if out_dir else None
         self.exec_config = exec_config or ExecutorConfig()
         self.spec_hash = spec_hash
+        self.injector = injector  # faults.FaultInjector (persist-path hook)
         self._backend = fitting.get_fit_backend(config.fit_backend, config.num_bins)
         self.cache = ReuseCache()
         self._key_buf: np.ndarray | None = None  # cached (P, 2) quantize buffer
         self._key_tmp: np.ndarray | None = None
+        # Pinned buffers enough for the prefetch thread's queue, the window
+        # in compute and the speculation pool's 4 workers; a stage that finds
+        # none free waits for one's copy to end.
+        self.stager = WindowStager(self.device, self.exec_config.prefetch_depth + 2 + 4)
+        # One StepMonitor per stage. The load monitor's grace floor is
+        # configurable so speculation can be exercised without second-long
+        # stalls; under speculation it sees one start/finish per *attempt*
+        # (failed attempts are abandoned, so they never enter the median).
+        self.monitors = {
+            "load": StepMonitor(StragglerPolicy(
+                grace_seconds=self.exec_config.straggler_grace_s)),
+            "compute": StepMonitor(),
+            "persist": StepMonitor(),
+        }
         self.last_report: ExecutorReport | None = None
+        # Per-run fault bookkeeping: {slice -> counter dict}, reset by run();
+        # the lock covers prefetch-thread vs compute-thread increments.
+        self._fault_lock = threading.Lock()
+        self._fault_counts: dict[int, dict[str, int]] = {}
+        self._spec_pool: futures.ThreadPoolExecutor | None = None
 
     # -- load stage -----------------------------------------------------------
 
-    def _load_unit(self, unit: regions.WorkUnit) -> _StagedWindow:
-        """Load + stage one window on the device (host work only — device
-        kernels stay on the compute stage); runs on the prefetch thread when
-        prefetch is enabled."""
+    def _load_unit(self, unit: regions.WorkUnit, uid: str | None = None) -> _StagedWindow:
+        """Load + stage one window (host work and the copy's dispatch only —
+        device kernels stay on the compute stage); runs on the prefetch
+        thread when prefetch is enabled, or on speculation-pool threads
+        under re-dispatch. ``uid`` distinguishes attempts of the same unit in
+        the load monitor; failed attempts are abandoned (no duration
+        recorded) so an injected stall cannot poison the straggler median.
+        ``load_seconds`` is the host load plus the staging dispatch, as the
+        reference's."""
+        mon = self.monitors["load"]
+        uid = uid or unit.unit_id
         t0 = time.perf_counter()
-        raw = self.data.load_window(unit.window)  # (P, n_obs)
-        values = torch.from_numpy(np.ascontiguousarray(raw, dtype=np.float32)).to(self.device)
-        return _StagedWindow(unit, values, time.perf_counter() - t0)
+        mon.start(uid, now=t0)
+        try:
+            raw = self.data.load_window(unit.window)  # (P, n_obs)
+            staged = self.stager.stage(raw)
+        except BaseException:
+            mon.abandon(uid)
+            raise
+        t1 = time.perf_counter()
+        mon.finish(uid, now=t1)
+        return _StagedWindow(unit, staged, t1 - t0)
+
+    # -- fault tolerance: retry, speculation, quarantine (DESIGN.md §14) -------
+
+    def _note_fault(self, slice_i: int, key: str, n: int = 1):
+        with self._fault_lock:
+            c = self._fault_counts.setdefault(
+                slice_i, {"retries": 0, "speculations": 0, "speculation_wins": 0})
+            c[key] += n
+
+    def _backoff(self, unit: regions.WorkUnit, attempt: int) -> float:
+        """Exponential backoff with *deterministic* jitter hashed from
+        (unit, attempt), as the reference's: a re-run backs off identically,
+        and jitter in [0.5x, 1.5x) still de-correlates units that failed
+        together."""
+        h = hashlib.sha256(f"{unit.unit_id}:{attempt}".encode()).digest()
+        jitter = 0.5 + h[0] / 256.0
+        return self.exec_config.retry_backoff_s * (2 ** attempt) * jitter
+
+    def _pool(self) -> futures.ThreadPoolExecutor:
+        # 4 workers: a straggling loser may still occupy one while the next
+        # unit's primary + speculative pair runs — 2 would deadlock behind it.
+        if self._spec_pool is None:
+            self._spec_pool = futures.ThreadPoolExecutor(
+                max_workers=4, thread_name_prefix="load-spec")
+        return self._spec_pool
+
+    def _load_speculative(self, unit: regions.WorkUnit, uid: str) -> _StagedWindow:
+        """One load attempt with straggler speculation: if the primary load
+        exceeds max(threshold x trailing-median, grace), dispatch a
+        bitwise-identical second load and take whichever succeeds first
+        (loads are deterministic and fits row-pure, so the winner cannot
+        change the result's bytes). The loser runs to its end in the pool;
+        its pinned buffer is free again once its copy has completed, and its
+        device tensor, never used off the copy stream, is dropped. Below
+        ``min_samples`` completed loads there is no median and the attempt
+        runs inline."""
+        mon = self.monitors["load"]
+        med = mon.median()
+        if med is None:
+            return self._load_unit(unit, uid=uid)
+        pol = mon.policy
+        limit = max(pol.threshold * med, pol.grace_seconds)
+        pool = self._pool()
+        primary = pool.submit(self._load_unit, unit, uid)
+        done, _ = futures.wait([primary], timeout=limit)
+        if primary in done:
+            return primary.result()  # raises the load's own error if it failed
+
+        self._note_fault(unit.window.slice_i, "speculations")
+        if uid not in mon.flagged:
+            mon.flagged.append(uid)
+        spec = pool.submit(self._load_unit, unit, f"{uid}#spec")
+        pending = {primary, spec}
+        while pending:
+            done, pending = futures.wait(pending, return_when=futures.FIRST_COMPLETED)
+            for f in done:
+                if f.exception() is None:
+                    if f is spec:
+                        self._note_fault(unit.window.slice_i, "speculation_wins")
+                    return f.result()
+        raise primary.exception()  # both attempts failed
+
+    def _load_guarded(self, unit: regions.WorkUnit):
+        """The load stage's retry wrapper (the prefetcher's stage function):
+        transient failures back off and re-attempt up to ``max_retries``
+        times; exhaustion returns a ``_FailedUnit`` — raising here would
+        kill the whole prefetch stream. The run loop turns it into
+        quarantine (degraded mode) or a per-unit error. Fatal errors —
+        ``ShardLostError``, device errors — always raise."""
+        ec = self.exec_config
+        last: BaseException | None = None
+        for attempt in range(ec.max_retries + 1):
+            uid = unit.unit_id if attempt == 0 else f"{unit.unit_id}#r{attempt}"
+            try:
+                if ec.speculate:
+                    return self._load_speculative(unit, uid)
+                return self._load_unit(unit, uid=uid)
+            except Exception as e:  # noqa: BLE001 — classified below
+                if not is_transient(e):
+                    raise
+                last = e
+                if attempt < ec.max_retries:
+                    self._note_fault(unit.window.slice_i, "retries")
+                    time.sleep(self._backoff(unit, attempt))
+        return _FailedUnit(unit, _errstr(last), ec.max_retries + 1)
 
     # -- compute stage ---------------------------------------------------------
 
@@ -518,28 +863,89 @@ class StagedExecutor:
         err = np.zeros((num_points,), dtype=np.float32)
         return t, params, err, len(idx), 0
 
-    def _compute_window(self, item: _StagedWindow):
-        """The compute-stage body for one staged window: moments, Select and
-        Algorithm 3 or 4 (or sampling's classification), and the copy of the
-        results to the host (which waits for the device, so
-        ``compute_seconds`` covers the window's device work). The random
-        sampler subsets the window on the device before the moments pass,
-        so the device work falls with the rate; the run loop writes its
-        moments at ``sample_idx`` only."""
-        t0 = time.perf_counter()
-        values = item.values
-        num_points = values.shape[0]
+    def _moments_of(self, values: torch.Tensor, w: regions.Window):
+        """The random sampler's subset (drawn from the window's point count,
+        so the device work falls with the rate) and the moments of the rows
+        fitted: ``(values, moments, sample_idx)``."""
         sample_idx = None
         if self.config.method == "sampling" and self.config.sampler == "random":
-            sample_idx = self._draw_sample(num_points, item.unit.window)
+            sample_idx = self._draw_sample(values.shape[0], w)
             values = values[torch.from_numpy(sample_idx).to(values.device)]
-        moments = self._backend.moments(values)
-        t, p, e, fitted, hits = self._select_and_fit(values, moments, item.unit.window,
-                                                     num_points, sample_idx)
-        mom_np = (moments.mean.cpu().numpy(),
-                  np.sqrt(np.maximum(moments.var.cpu().numpy(), 0)),
-                  moments.skew.cpu().numpy(), moments.kurt.cpu().numpy())
-        return t, p, e, mom_np, sample_idx, fitted, hits, time.perf_counter() - t0
+        return values, self._backend.moments(values), sample_idx
+
+    @staticmethod
+    def _moments_np(moments: dists.Moments) -> tuple:
+        return (moments.mean.cpu().numpy(),
+                np.sqrt(np.maximum(moments.var.cpu().numpy(), 0)),
+                moments.skew.cpu().numpy(), moments.kurt.cpu().numpy())
+
+    def _compute_window(self, item: _StagedWindow, attempt: int = 0) -> _ComputedWindow:
+        """The compute-stage body for one staged window: wait for its copy,
+        moments, Select and Algorithm 3 or 4 (or sampling's classification),
+        and the copy of the results to the host (which waits for the device,
+        so ``compute_seconds`` covers the window's device work). The run
+        loop writes the random sampler's moments at ``sample_idx`` only."""
+        cmon = self.monitors["compute"]
+        unit = item.unit
+        uid = unit.unit_id if attempt == 0 else f"{unit.unit_id}#c{attempt}"
+        t0 = time.perf_counter()
+        cmon.start(uid, now=t0)
+        try:
+            values = self.stager.ready(item.staged)
+            num_points = values.shape[0]
+            values, moments, sample_idx = self._moments_of(values, unit.window)
+            t, p, e, fitted, hits = self._select_and_fit(values, moments, unit.window,
+                                                         num_points, sample_idx)
+            mom_np = self._moments_np(moments)
+        except BaseException:
+            cmon.abandon(uid)
+            raise
+        t1 = time.perf_counter()
+        cmon.finish(uid, now=t1)
+        return _ComputedWindow(unit.window, t, p, e, mom_np, sample_idx, fitted, hits,
+                               t1 - t0, item.load_seconds)
+
+    def _compute_with_retry(self, item: _StagedWindow):
+        """Compute one staged window, retrying transient failures with a
+        *fresh load* each time, as the reference does (its fits consume the
+        staged buffer). Returns a ``_ComputedWindow``, or a ``_FailedUnit``
+        after exhaustion (quarantined in degraded mode, else an error)."""
+        ec = self.exec_config
+        unit = item.unit
+        last: BaseException | None = None
+        for attempt in range(ec.max_retries + 1):
+            try:
+                if item is None:
+                    item = self._load_unit(unit, uid=f"{unit.unit_id}#c{attempt}")
+                return self._compute_window(item, attempt)
+            except Exception as e:  # noqa: BLE001 — classified below
+                if not is_transient(e):
+                    raise
+                last = e
+                item = None  # reload next attempt
+                if attempt < ec.max_retries:
+                    self._note_fault(unit.window.slice_i, "retries")
+                    time.sleep(self._backoff(unit, attempt))
+        return _FailedUnit(unit, _errstr(last), ec.max_retries + 1)
+
+    def _quarantine(self, failed: _FailedUnit, outs: dict, ppl: int,
+                    quarantined: dict[int, list[dict]]):
+        """Degraded mode's terminal state for a unit: its points carry
+        ``type_idx = -1`` and zero params/moments, nothing is persisted for
+        the window (the manifest records the hole), and the run continues."""
+        w = failed.unit.window
+        o = outs[w.slice_i]
+        lo, hi = w.line_start * ppl, w.line_end * ppl
+        o["type_idx"][lo:hi] = -1
+        for name in ("params", "error", "mean", "std", "skew", "kurt"):
+            o[name][lo:hi] = 0
+        quarantined[w.slice_i].append({
+            "unit_id": failed.unit.unit_id,
+            "line_start": int(w.line_start),
+            "line_end": int(w.line_end),
+            "attempts": int(failed.attempts),
+            "error": failed.error,
+        })
 
     # -- run loop --------------------------------------------------------------
 
@@ -553,7 +959,8 @@ class StagedExecutor:
 
         Pass the *full* plan even when resuming — completed windows are
         filtered against each slice's watermark here and their results
-        restored from the persisted ``.npz`` files.
+        restored from the persisted ``.npz`` files; windows a degraded run
+        quarantined are run again.
         """
         geom = self.data.geometry
         ppl = geom.points_per_line
@@ -563,6 +970,9 @@ class StagedExecutor:
         persist = PersistStage(
             self.out_dir,
             async_writes=self.exec_config.async_persist,
+            monitor=self.monitors["persist"],
+            spec_hash=self.spec_hash,
+            injector=self.injector,
             total_lines=geom.lines_per_slice,
         )
         outs = {
@@ -581,49 +991,82 @@ class StagedExecutor:
 
         units = list(plan.units)
         if resume and self.out_dir is not None:
-            marks = {s: persist.watermark(s) for s in requested}
+            infos = {s: persist.watermark_info(s) for s in requested}
+            for s, info in infos.items():
+                persist.check_resume_hash(s, info)
+            marks = {s: int(info["next_line"]) for s, info in infos.items()}
+            # Units a degraded run quarantined sit below the watermark with
+            # no .npz; the failed-unit manifest re-includes them.
+            failed_prev = {s: persist.failed_lines(s) for s in requested}
             for s, mark in marks.items():
                 if mark > 0:
                     persist.restore_windows(s, mark, ppl, outs[s])
-            units = [u for u in units if u.window.line_start >= marks[u.window.slice_i]]
+            units = [
+                u for u in units
+                if u.window.line_start >= marks[u.window.slice_i]
+                or u.window.line_start in failed_prev[u.window.slice_i]
+            ]
 
+        with self._fault_lock:
+            self._fault_counts = {}
+        quarantined: dict[int, list[dict]] = {s: [] for s in requested}
         load_total = wait_total = compute_total = 0.0
         wall0 = time.perf_counter()
         prefetcher = None
         if self.exec_config.prefetch and units:
             prefetcher = WindowPrefetcher(
-                units, self._load_unit, depth=self.exec_config.prefetch_depth
+                units, self._load_guarded, depth=self.exec_config.prefetch_depth
             )
             stream = iter(prefetcher)
         else:
-            stream = (self._load_unit(u) for u in units)
+            stream = (self._load_guarded(u) for u in units)
 
         try:
             while True:
                 w0 = time.perf_counter()
-                item = next(stream, None)
+                try:
+                    item = next(stream, None)
+                except PrefetchError as pe:
+                    # Shard death surfaces as itself: the scheduler's
+                    # re-deal catches ShardLostError, not the prefetch
+                    # wrapper it crossed the thread boundary in.
+                    if isinstance(pe.__cause__, ShardLostError):
+                        raise pe.__cause__
+                    raise
                 if item is None:
                     break
                 # wait_s: the only load-stage time the device was blocked on
                 # (serially the whole load runs inline, so wait == load).
                 wait_s = time.perf_counter() - w0
-                t, p, e, mom_np, sample_idx, fitted, hits, comp_s = self._compute_window(item)
 
-                w = item.unit.window
+                if not isinstance(item, _FailedUnit):
+                    item = self._compute_with_retry(item)
+                if isinstance(item, _FailedUnit):
+                    if not self.exec_config.degraded_mode:
+                        raise RuntimeError(
+                            f"work unit {item.unit.unit_id} failed after "
+                            f"{item.attempts} attempts: {item.error}")
+                    self._quarantine(item, outs, ppl, quarantined)
+                    continue
+
+                w = item.window
                 o = outs[w.slice_i]
                 lo, hi = w.line_start * ppl, w.line_end * ppl
-                o["type_idx"][lo:hi], o["params"][lo:hi], o["error"][lo:hi] = t, p, e
-                for name, col in zip(("mean", "std", "skew", "kurt"), mom_np):
-                    if sample_idx is None:
+                o["type_idx"][lo:hi] = item.type_idx
+                o["params"][lo:hi] = item.params
+                o["error"][lo:hi] = item.error
+                for name, col in zip(("mean", "std", "skew", "kurt"), item.mom_np):
+                    if item.sample_idx is None:
                         o[name][lo:hi] = col
                     else:  # the random sampler's rows; the others stay zero
-                        o[name][lo:hi][sample_idx] = col
+                        o[name][lo:hi][item.sample_idx] = col
 
-                ws = WindowStats(w, hi - lo, fitted, item.load_seconds, comp_s, hits, wait_s)
+                ws = WindowStats(w, hi - lo, item.fitted, item.load_seconds,
+                                 item.compute_seconds, item.cache_hits, wait_s)
                 stats[w.slice_i].append(ws)
                 load_total += item.load_seconds
                 wait_total += wait_s
-                compute_total += comp_s
+                compute_total += item.compute_seconds
 
                 persist.submit(w.slice_i, w, {name: o[name][lo:hi] for name in _FIELDS})
                 if on_window:
@@ -632,8 +1075,15 @@ class StagedExecutor:
             if prefetcher is not None:
                 prefetcher.close()
             persist.close()  # flushes: the watermark is durable before any re-raise
+            if self._spec_pool is not None:
+                self._spec_pool.shutdown(wait=False, cancel_futures=True)
+                self._spec_pool = None
 
         persist.raise_if_failed()
+        if self.out_dir is not None:
+            for s in requested:
+                persist.write_failed_manifest(s, quarantined[s])
+        counts = self._fault_counts
         self.last_report = ExecutorReport(
             wall_seconds=time.perf_counter() - wall0,
             units=sum(len(v) for v in stats.values()),
@@ -641,15 +1091,23 @@ class StagedExecutor:
             wait_seconds=wait_total,
             compute_seconds=compute_total,
             persist_seconds=persist.seconds,
+            retries=sum(c["retries"] for c in counts.values()),
+            speculations=sum(c["speculations"] for c in counts.values()),
+            speculation_wins=sum(c["speculation_wins"] for c in counts.values()),
+            quarantined=sum(len(v) for v in quarantined.values()),
         )
 
         results: dict[int, SliceResult] = {}
         for s in requested:
             o = outs[s]
             avg_err = float(o["error"].mean())
+            c = counts.get(s, {})
             r = SliceResult(o["type_idx"], o["params"], o["error"], o["mean"],
                             o["std"], o["skew"], o["kurt"], avg_err, stats[s],
-                            slice_i=s, spec_hash=self.spec_hash)
+                            slice_i=s, spec_hash=self.spec_hash,
+                            retries=c.get("retries", 0),
+                            speculations=c.get("speculations", 0),
+                            quarantined=tuple(quarantined[s]))
             if self.config.error_bound is not None:
                 r.error_bound_satisfied = avg_err <= self.config.error_bound
             results[s] = r
@@ -663,6 +1121,147 @@ class StagedExecutor:
     ) -> SliceResult:
         plan = regions.build_plan(self.data.geometry, [slice_i], self.config.window_lines)
         return self.run(plan, resume=resume, on_window=on_window)[slice_i]
+
+    # -- externally batched windows ----------------------------------------------
+
+    def run_window_batch(self, windows: list[regions.Window]) -> list[WindowResult]:
+        """Compute many windows with shared launches — the entry point for
+        externally batched work (the serving layer's coalesced tick; the
+        ``windows`` must be distinct, in any order, possibly spanning
+        slices). Each window's per-point results are **bitwise equal** to
+        ``run_window``'s:
+
+        * one host-to-device copy stages the whole batch (one pinned
+          buffer, sliced back into window views);
+        * moments run per window at the window's own shape; on the card
+          their launches queue without a host sync between them;
+        * baseline and ml fit each window in its own launch;
+        * the grouping methods (host Select) choose each window's
+          representatives exactly as ``run_window`` does, then pack whole
+          windows of one fit-shape class (``grp.padded_size(groups,
+          rep_bucket)``) into one fit launch of that size: on the fused
+          backend K2 reads them from the batch through its ``row_indices``
+          prologue, elsewhere they are gathered. Every fit is row-pure, so
+          a row's bits do not depend on its neighbours or the padding.
+
+        ``sampling``, the ``reuse`` variants (cache hits depend on the order
+        of insertions) and device Select (its gather, fit and scatter stay
+        per window) run each window through ``run_window``, as the
+        reference does."""
+        if not windows:
+            return []
+        if len({(w.slice_i, w.line_start) for w in windows}) != len(windows):
+            raise ValueError("run_window_batch windows must be distinct")
+        method = self.config.method
+        if (method == "sampling" or method.startswith("reuse")
+                or self.config.select_backend == "device"):
+            return [self.run_window(w) for w in windows]
+
+        lmon = self.monitors["load"]
+        raws = []
+        for w in windows:
+            uid = f"batch:s{w.slice_i}/l{w.line_start:05d}"
+            lmon.start(uid, now=time.perf_counter())
+            raws.append(self.data.load_window(w))
+            lmon.finish(uid, now=time.perf_counter())
+        cat = self.stager.ready(self.stager.stage(*raws))
+        offsets = np.cumsum([0] + [r.shape[0] for r in raws])
+        staged = [cat[a:b] for a, b in zip(offsets[:-1], offsets[1:])]
+
+        cmon = self.monitors["compute"]
+        uid = f"batch:s{windows[0].slice_i}/l{windows[0].line_start:05d}x{len(windows)}"
+        cmon.start(uid, now=time.perf_counter())
+        moments = [self._backend.moments(v) for v in staged]
+        if method in ("baseline", "ml"):
+            fits = [self._fit_device(v, m) for v, m in zip(staged, moments)]
+            per = [tuple(f.cpu().numpy() for f in r) for r in fits]
+        else:
+            per = self._select_and_fit_packed(cat, offsets, moments)
+        out = [WindowResult(w, t, p, e, *self._moments_np(m))
+               for w, m, (t, p, e) in zip(windows, moments, per)]
+        cmon.finish(uid, now=time.perf_counter())
+        return out
+
+    def _select_and_fit_packed(self, cat: torch.Tensor, offsets: np.ndarray, moments: list):
+        """Grouped Select over a window batch: quantize + dedup per window on
+        the host (the grouping scope is the window, as Algorithm 3 defines
+        it), then pack whole windows of the same fit-shape class into shared
+        fit launches of exactly that size over ``cat``, the batch's rows.
+        Returns per-window per-point ``(t, p, e)`` in window order."""
+        cfg = self.config
+        infos = [grp.group_host(self._quantized_keys(m)) for m in moments]
+
+        # pack: greedy fill within each shape class, preserving window order
+        classes: dict[int, list[int]] = {}
+        for i, g in enumerate(infos):
+            classes.setdefault(grp.padded_size(g.num_groups, cfg.rep_bucket), []).append(i)
+        launches: list[tuple[int, list[int]]] = []
+        for size, idxs in sorted(classes.items()):
+            cur: list[int] = []
+            cur_n = 0
+            for i in idxs:
+                n = infos[i].num_groups
+                if cur and cur_n + n > size:
+                    launches.append((size, cur))
+                    cur, cur_n = [], 0
+                cur.append(i)
+                cur_n += n
+            if cur:
+                launches.append((size, cur))
+
+        cat_mom = dists.Moments(*(torch.cat(f) for f in zip(*moments)))
+        results: list = [None] * len(moments)
+        for size, idxs in launches:
+            # padding slots repeat the first representative: discarded by
+            # the inverse maps, and row-pure fits make their content moot
+            idx = np.full((size,), int(infos[idxs[0]].rep_indices[0]) + int(offsets[idxs[0]]),
+                          dtype=np.int64)
+            pos = 0
+            for i in idxs:
+                n = infos[i].num_groups
+                idx[pos:pos + n] = infos[i].rep_indices + offsets[i]
+                pos += n
+            rows = torch.from_numpy(idx).to(cat.device)
+            if "ml" in cfg.method:
+                r = self._fit_device(*fitting.gather_rows(cat, cat_mom, rows))
+            else:
+                r = fitting.fit_all_rows(self._backend, cat, cat_mom, rows, tuple(cfg.types),
+                                         cfg.num_bins, cfg.mode)
+            t, p, e = (f.cpu().numpy() for f in r)
+            pos = 0
+            for i in idxs:
+                g = infos[i]
+                n = g.num_groups
+                inv = g.inverse
+                results[i] = (t[pos:pos + n][inv], p[pos:pos + n][inv], e[pos:pos + n][inv])
+                pos += n
+        return results
+
+    def run_window(self, w: regions.Window) -> WindowResult:
+        """ONE window through exactly the run loop's computation (load →
+        moments → Select & fit), without persist: the per-window fallback
+        of ``run_window_batch`` and the serving layer's naive
+        one-launch-per-query baseline."""
+        item = self._load_unit(regions.WorkUnit(w, 0))
+        values = self.stager.ready(item.staged)
+        total_points = values.shape[0]
+        cmon = self.monitors["compute"]
+        uid = f"one:s{w.slice_i}/l{w.line_start:05d}"
+        cmon.start(uid, now=time.perf_counter())
+        values, moments, sample_idx = self._moments_of(values, w)
+        t, p, e, _fitted, _hits = self._select_and_fit(values, moments, w, total_points,
+                                                       sample_idx)
+        mom_np = self._moments_np(moments)
+        cmon.finish(uid, now=time.perf_counter())
+        if sample_idx is None:
+            mean, std, skew, kurt = mom_np
+        else:
+            # like the run loop: unsampled rows stay zero (type_idx -1)
+            mean, std, skew, kurt = (np.zeros((total_points,), dtype=np.float32)
+                                     for _ in range(4))
+            for dst, col in zip((mean, std, skew, kurt), mom_np):
+                dst[sample_idx] = col
+        return WindowResult(w, t, p, e, mean, std, skew, kurt)
 
     def watermark(self, slice_i: int) -> int:
         return PersistStage(self.out_dir, async_writes=False).watermark(slice_i)

@@ -582,3 +582,100 @@ def test_banded_attention_kernel_rejects(dev):
     with pytest.raises(ValueError):
         banded_attention(q, k.cpu(), v, 16)
     assert tbk.banded_attention_kernel.launches == before
+
+
+# -- the load stage's pinned staging and the batched window path ----------------
+
+
+def _cube(lines=12, ppl=30, obs=200):
+    from repro_torch.core.regions import CubeGeometry
+    from repro_torch.data.simulation import SeismicSimulation, SimulationConfig
+
+    return SeismicSimulation(SimulationConfig(geometry=CubeGeometry(3, lines, ppl),
+                                              num_simulations=obs))
+
+
+def test_pinned_stager_bitwise_from_many_threads(dev):
+    """Windows staged through the pinned pool from 6 threads at once, more
+    than the pool holds, each bitwise equal to the pageable copy; every
+    stage is one copy, and no buffer is rewritten before its copy ends."""
+    import concurrent.futures as cf
+
+    from repro_torch.data.loader import WindowStager
+
+    st = WindowStager(dev, pool_size=3)
+    rng = np.random.default_rng(0)
+    raws = [rng.normal(3000.0, 10.0, (int(rng.integers(1, 700)), 257)).astype(np.float32)
+            for _ in range(48)]
+
+    def one(raw):
+        staged = st.stage(raw)
+        assert staged.ready is not None
+        return st.ready(staged)
+
+    with cf.ThreadPoolExecutor(6) as pool:
+        got = list(pool.map(one, raws))
+    torch.cuda.synchronize()
+    for raw, g in zip(raws, got):
+        assert g.device == dev and g.dtype == torch.float32
+        assert torch.equal(g.cpu(), torch.from_numpy(raw))
+    assert st.copies == len(raws) and len(st._slots) <= 3
+    both = st.ready(st.stage(raws[0], raws[1].astype(np.float64)))  # cast on the host copy
+    assert torch.equal(both.cpu(), torch.from_numpy(np.concatenate(raws[:2])))
+
+
+@pytest.mark.parametrize("exec_kw", [dict(prefetch=False, async_persist=False),
+                                     dict(prefetch_depth=1), dict(prefetch_depth=3)])
+def test_staged_slices_bitwise_on_card(dev, exec_kw):
+    """Slices through the pinned stager on the card, prefetch off, at depth
+    1 and 3, bitwise equal; the same with a straggling load raced by a
+    speculative one (its loser's buffer and tensor dropped)."""
+    from repro_torch.core import executor as tex
+    from repro_torch.core.regions import build_plan
+    from repro_torch.runtime.faults import FaultInjector, FaultPlan, FaultRule
+
+    sim = _cube()
+    cfg = tex.PDFConfig(window_lines=3, method="grouping")
+    plan = build_plan(sim.geometry, [0, 1, 2], 3)
+    want = tex.StagedExecutor(cfg, sim, dev, exec_config=tex.ExecutorConfig(
+        prefetch=False, async_persist=False)).run(plan)
+    inj = FaultInjector(FaultPlan(rules=(
+        FaultRule("latency", slice_i=2, line_start=6, seconds=1.5),
+        FaultRule("read_error", slice_i=1, times=1))))
+    for source, kw in ((sim, dict(speculate=False)),
+                       (inj.wrap_source(sim), dict(speculate=True, straggler_grace_s=0.3,
+                                                   retry_backoff_s=0.001))):
+        ex = tex.StagedExecutor(cfg, source, dev, exec_config=tex.ExecutorConfig(**exec_kw, **kw))
+        got = ex.run(plan)
+        for s in (0, 1, 2):
+            for f in tex.RESULT_FIELDS:
+                assert np.array_equal(getattr(got[s], f), getattr(want[s], f)), (s, f)
+        assert ex.stager.copies >= 12
+    assert inj.events["latency"] == 1 and ex.last_report.speculation_wins >= 1
+
+
+@pytest.mark.parametrize("method,fit_backend", [("baseline", "fused"), ("grouping", "fused"),
+                                                ("grouping", "kernels")])
+def test_window_batch_bitwise_on_card(dev, method, fit_backend):
+    """``run_window_batch`` on the card: one copy for the batch, bitwise
+    equal to ``run_window`` per window; grouping on fused reads its packed
+    representatives through K2's ``row_indices`` route, one launch a
+    packing group."""
+    from repro_torch.core import executor as tex
+    from repro_torch.core.regions import iter_windows
+
+    sim = _cube()
+    cfg = tex.PDFConfig(window_lines=5, method=method, fit_backend=fit_backend)
+    windows = [w for s in (2, 0, 1) for w in iter_windows(sim.geometry, s, 5)]
+    ex = tex.StagedExecutor(cfg, sim, dev)
+    copies, rows = ex.stager.copies, tk.fit_error_counts.row_index_launches
+    got = ex.run_window_batch(windows)
+    torch.cuda.synchronize()
+    assert ex.stager.copies == copies + 1
+    if method == "grouping" and fit_backend == "fused":
+        assert tk.fit_error_counts.row_index_launches == rows + 1  # one 256-row class
+    one = tex.StagedExecutor(cfg, sim, dev)
+    for w, r in zip(windows, got):
+        want = one.run_window(w)
+        for f in tex.RESULT_FIELDS:
+            assert np.array_equal(getattr(r, f), getattr(want, f)), (tuple(w), f)
