@@ -61,7 +61,28 @@ and every kernel's launch count set to 0 just before it:
   windows of slices 200 and 201: baseline and ``ml`` on fused, grouping
   (host Select) on fused (K2's ``row_indices`` route over the batch) and
   kernels; each window bitwise equal to ``run_window``, launches as the
-  packing predicts.
+  packing predicts;
+* ``[api faults]`` (beside ``[faults]``): the same fault plan as a JSON
+  file in ``execution.fault_plan`` of a ``PipelineSpec`` run by
+  ``PDFSession``: the same bits, retries, quarantine, events and launches;
+* ``[api]``: ``PDFSession(to_spec(SET1))`` (``grouping_ml``, L = 20,
+  slice 201, the tree of the ML phase) bitwise equal to ``PDFComputer``
+  on the same configuration and stamped with its spec hash, K1 = K2 = 21,
+  in turns with it twice; grouping on the kernels backend through the
+  session; with a ``cache_dir`` a miss that stores, then a new session
+  served bitwise from the cache with no launch, executor or tree, and
+  with an ``out_dir`` too the hit's 21 windows and watermark; then
+  ``python -m repro_torch.launch.run_pdf --spec`` in a subprocess,
+  which must exit 0 and print the session's hash;
+* ``[serve]``: ``PDFServer`` over the Set1 spec with baseline, then
+  grouping (host Select), on slices 200-201: 8 client threads of 6 point,
+  2 window and 1 region query each (``numpy.random.default_rng(0)``),
+  coalesced (storing the completed slices in a ``cache_dir``), naive
+  (``serve.coalesce`` off, no hot-window LRU) and a second server over
+  the warm cache: every answer bitwise equal across the three and to the
+  session's slices; coalesced K2 at most the distinct windows requested,
+  naive at least as many, warm none; request and launch p50/p99,
+  ``coalesce_ratio``, ``batch_occupancy`` and hit rates logged.
 
 Then the baseline slice, the two grouping slices and the Set1
 configuration run once more under
@@ -97,8 +118,10 @@ Last comes the LM serving path (``band_attn``, K5):
   K5's time beside its bound, its plain version and SDPA with the band as
   a mask.
 
-Any failed check raises, so the exit code is non-zero. The line before the
-last is a JSON object of per-kernel numbers; the last line is
+The K1-K4 rows of the kernels line carry ``launches_api_serve``, the
+``[api]`` and ``[serve]`` launches. Any failed check raises, so the exit
+code is non-zero. The line before the last is a JSON object of
+per-kernel numbers; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout of the repository, it exits with code 2 and prints no result.
 """
@@ -1015,13 +1038,16 @@ def file_phase(np, torch, sim, slice_i, dev, clean, tmp):
 
     view = SliceView(sim, slice_i)
     t0 = time.perf_counter()
-    path, sha = export_cube(view, tmp / "cube")
+    fspec = export_cube(view, tmp / "cube")
     export_s = time.perf_counter() - t0
+    path = Path(fspec.path)
     cube = FileCubeSource(path)
+    check(fspec.kind == "file" and (fspec.num_slices, fspec.observations) == (
+        1, sim.config.num_simulations), f"[file] export_cube returned {fspec}")
     nbytes = sum(f.stat().st_size for f in path.iterdir())
     log(f"[file] exported slice {slice_i} of Set1 in {export_s} s: {len(cube.manifest['chunks'])} "
         f"chunks of {cube.manifest['lines_per_chunk']} lines, {nbytes} B on disk, content_sha256 "
-        f"{sha}")
+        f"{cube.content_sha256}; returned {fspec}")
     t0 = time.perf_counter()
     for w in iter_windows(cube.geometry, 0, 25):
         check(np.array_equal(cube.load_window(w), sim.load_window(Window(slice_i, w.line_start,
@@ -1075,7 +1101,8 @@ def faults_phase(np, torch, path, dev, clean, tmp):
     equal to ``clean``, that window at type -1 with zeros, its failed-unit
     manifest on disk; K1/K2 once a computed window (the quarantined one
     launches nothing; retries here are load retries); then with
-    ``degraded_mode=False`` the same plan must raise. Returns numbers."""
+    ``degraded_mode=False`` the same plan must raise. Returns (numbers, the
+    degraded slice)."""
     from repro_torch.core.executor import RESULT_FIELDS, ExecutorConfig, PDFConfig, StagedExecutor
     from repro_torch.data.file_source import FileCubeSource
     from repro_torch.runtime.faults import FaultInjector
@@ -1133,7 +1160,7 @@ def faults_phase(np, torch, path, dev, clean, tmp):
         log(f"[faults] degraded_mode=False: the same plan raises: {e}")
     else:
         raise SmokeFailure("[faults] degraded_mode=False did not raise")
-    return nums
+    return nums, res
 
 
 def scheduler_phase(np, torch, sim, dev, tmp):
@@ -1253,6 +1280,328 @@ def batch_phase(np, torch, sim, dev, tree):
                 f"the packing predicts; batch wall {wall} s ({load_s} s of it the windows' loads) "
                 f"against {one_wall} s one by one; one copy for the batch; launches "
                 f"{json.dumps(launches[label])}")
+    return launches, nums
+
+
+# ---------------------------------------------------------------------------
+# the declarative API and the PDF query server
+# ---------------------------------------------------------------------------
+
+
+def api_faults_phase(np, torch, path, dev, tmp, wired, wired_res):
+    """The fault plan of ``faults_phase`` as a JSON file in
+    ``execution.fault_plan`` of a ``PipelineSpec`` over the cube, run by
+    ``PDFSession``: the degraded slice bitwise equal to the hand-wired
+    phase's, with the same retries, quarantined windows, injector events
+    and launches. Returns {label: launches}."""
+    from repro_torch.api import ComputeSpec, ExecSpec, PDFSession, PipelineSpec, SourceSpec
+
+    plan = tmp / "fault_plan.json"
+    plan.write_text(fault_plan().to_json())
+    spec = PipelineSpec(
+        source=SourceSpec(kind="file", path=str(path)), compute=ComputeSpec(window_lines=25),
+        execution=ExecSpec(slices=(0,), out_dir=str(tmp / "api_faults"), max_retries=2,
+                           retry_backoff_s=0.01, speculate=True, straggler_grace_s=0.5,
+                           fault_plan=str(plan)))
+    sync(torch, dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    session = PDFSession(spec, device=dev)
+    res = session.run_all()[0]
+    sync(torch, dev)
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    rep = session.report()
+    check(bitwise_equal(np, res, wired_res) and res.quarantined == wired_res.quarantined,
+          "[api faults] the session's degraded slice differs from the hand-wired run's")
+    check(launches == wired["launches"], f"[api faults] launches {launches} vs {wired['launches']}")
+    check((rep.retries, rep.quarantined_units, session.injector.events)
+          == (wired["retries"], wired["quarantined"], wired["events"]),
+          f"[api faults] retries {rep.retries}, quarantined {rep.quarantined_units}, events "
+          f"{session.injector.events} vs the hand-wired {wired}")
+    check(rep.speculations >= 1, "[api faults] no speculation")
+    log(f"[api faults] PDFSession with execution.fault_plan={plan.name}: bitwise equal to the "
+        f"hand-wired [faults] run, retries {rep.retries}, speculations {rep.speculations}, "
+        f"quarantined {rep.quarantined_units}, events {json.dumps(session.injector.events)} as "
+        f"there; wall {wall} s; launches {json.dumps(launches)}")
+    return {"api faults": launches}
+
+
+def api_phase(np, torch, spec, sim, dev, tree, tmp):
+    """``PDFSession`` over ``spec`` (``to_spec(SET1)`` on the card) with the
+    tree of ``train_phase``: bitwise equal to ``PDFComputer`` on the same
+    configuration and stamped with its spec hash, K1 and K2 once a window;
+    the same spec on the ``kernels`` backend (grouping, K3 and K4 once a
+    window) against ``PDFComputer``; with a ``cache_dir`` a first session
+    misses and stores, a second (no tree given) is served bitwise from the
+    cache with no launch, no executor and no tree, and a third with an
+    ``out_dir`` too writes the slice's windows and watermark from the hit;
+    then ``python -m repro_torch.launch.run_pdf --spec`` in a subprocess
+    prints the session's hash. Returns ({label: launches}, numbers)."""
+    import dataclasses
+    import os
+
+    from repro_torch.api import PDFSession, ResultCache
+    from repro_torch.core.pipeline import PDFComputer
+
+    (slice_i,) = spec.execution.slices
+    W = -(-spec.source.lines_per_slice // spec.compute.window_lines)
+    fused_k = {"moments_edges_stats": W, "fit_error_counts": W}
+    launches, nums = {}, {}
+
+    def timed(label, fn):
+        sync(torch, dev)
+        zero_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        sync(torch, dev)
+        nums[f"{label} wall_s"] = time.perf_counter() - t0
+        launches[label] = read_counts()
+        return out
+
+    # Session against PDFComputer, each built and run, in turns, twice:
+    # the API's overhead.
+    for turn in (1, 2):
+        comp = session = None
+
+        def run_computer():
+            nonlocal comp
+            comp = PDFComputer(spec.pdf_config(), sim, tree=tree, device=dev)
+            return comp.run_slice(slice_i)
+
+        def run_session():
+            nonlocal session
+            t0 = time.perf_counter()
+            session = PDFSession(spec, tree=tree, device=dev)
+            nums[f"api session {turn} construct_s"] = time.perf_counter() - t0
+            return session.run_all()[slice_i]
+
+        want = timed(f"api pdfcomputer {turn}", run_computer)
+
+        got = timed(f"api session {turn}", run_session)
+        check_launches(launches[f"api session {turn}"], fused_k, f"api session {turn}")
+        check_launches(launches[f"api pdfcomputer {turn}"], fused_k, f"api pdfcomputer {turn}")
+        check(bitwise_equal(np, got, want), "[api] the session's slice differs from PDFComputer's")
+        check(got.spec_hash == want.spec_hash == comp.spec.content_hash() == session.spec_hash
+              == spec.content_hash(), f"[api] spec hashes {got.spec_hash} {want.spec_hash}")
+    rep = session.report()
+    log(f"[api] PDFSession(to_spec) {spec.method.name} L={spec.compute.num_bins} slice {slice_i}: "
+        f"bitwise equal to PDFComputer, spec_hash {got.spec_hash}; walls (built and run) session "
+        f"{nums['api session 1 wall_s']} / {nums['api session 2 wall_s']} s (of it built "
+        f"{nums['api session 1 construct_s']} / {nums['api session 2 construct_s']} s), "
+        f"PDFComputer {nums['api pdfcomputer 1 wall_s']} / {nums['api pdfcomputer 2 wall_s']} s; "
+        f"report windows {rep.windows} compiles {rep.compiles} (cache hits "
+        f"{rep.compile_cache_hits}, builds {rep.compile_cache_misses}); launches "
+        f"{json.dumps(launches['api session 2'])}")
+
+    kspec = dataclasses.replace(spec, method=dataclasses.replace(spec.method, name="grouping"),
+                                compute=dataclasses.replace(spec.compute, fit_backend="kernels"))
+    kgot = timed("api kernels", lambda: PDFSession(kspec, device=dev).run_all()[slice_i])
+    check_launches(launches["api kernels"], {"moments_stats": W, "hist_counts": W}, "api kernels")
+    kwant = PDFComputer(kspec.pdf_config(), sim, device=dev).run_slice(slice_i)
+    check(bitwise_equal(np, kgot, kwant), "[api kernels] the session differs from PDFComputer")
+    log(f"[api kernels] grouping on the kernels backend through the session: bitwise equal to "
+        f"PDFComputer; launches {json.dumps(launches['api kernels'])}")
+
+    cache_dir = tmp / "api_cache"
+    cspec = dataclasses.replace(spec, execution=dataclasses.replace(
+        spec.execution, cache_dir=str(cache_dir)))
+    s1 = PDFSession(cspec, tree=tree, device=dev)
+    miss = timed("api cache miss", lambda: s1.run_all()[slice_i])
+    check_launches(launches["api cache miss"], fused_k, "api cache miss")
+    check((s1.report().cache_hits, s1.report().cache_misses) == (0, 1) and not miss.cached,
+          "[api cache] the first run did not miss")
+    entry = ResultCache(cache_dir).path(cspec.content_hash(), slice_i)
+    nums["cache_entry_bytes"] = entry.stat().st_size
+    t0 = time.perf_counter()
+    ResultCache(tmp / "store_probe").store(miss)  # the store alone, as the miss made it
+    nums["cache_store_s"] = time.perf_counter() - t0
+    s2 = None
+
+    def hit_session():
+        nonlocal s2
+        s2 = PDFSession(cspec, device=dev)  # no tree: a hit must not train one
+        return s2.run_all()[slice_i]
+
+    hit = timed("api cache hit", hit_session)
+    check_launches(launches["api cache hit"], {}, "api cache hit")
+    check(hit.cached and hit.stats == [] and bitwise_equal(np, hit, got)
+          and hit.spec_hash == got.spec_hash, "[api cache] the hit differs from the computed slice")
+    check(not s2._executors and s2._tree is None, "[api cache] the hit built an executor or a tree")
+    out_dir = tmp / "api_out"
+    ospec = dataclasses.replace(cspec, execution=dataclasses.replace(
+        cspec.execution, out_dir=str(out_dir)))
+    timed("api cache hit out_dir", lambda: PDFSession(ospec, device=dev).run_all()[slice_i])
+    check_launches(launches["api cache hit out_dir"], {}, "api cache hit out_dir")
+    windows = sorted(out_dir.glob(f"slice{slice_i}_window_*.npz"))
+    mark = json.loads((out_dir / f"slice{slice_i}_watermark.json").read_text())
+    check(len(windows) == W and mark["spec_hash"] == got.spec_hash and mark["complete"]
+          and all(str(np.load(f)["spec_hash"]) == got.spec_hash for f in windows),
+          f"[api cache] out_dir after a hit: {len(windows)} windows, watermark {mark}")
+    log(f"[api cache] miss stored {nums['cache_entry_bytes']} B (the slice and its store "
+        f"{nums['api cache miss wall_s']} s, a store alone {nums['cache_store_s']} s); a new session served the slice bitwise from the cache in "
+        f"{nums['api cache hit wall_s']} s (session built included) with no launch, no executor, "
+        f"no tree; with an out_dir too the hit wrote {len(windows)} windows and the watermark "
+        f"{json.dumps(mark)} in {nums['api cache hit out_dir wall_s']} s")
+
+    spec_file = tmp / "spec.json"
+    spec_file.write_text(spec.to_json())
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.run_pdf", "--spec", str(spec_file),
+         "--device", str(dev.type)], cwd=ROOT, capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    nums["run_pdf_wall_s"] = time.perf_counter() - t0
+    check(out.returncode == 0, f"[api run_pdf] exit {out.returncode}: {out.stderr[-2000:]}")
+    banner = [line for line in out.stdout.splitlines() if line.startswith("[spec] hash=")]
+    check(len(banner) == 1 and banner[0].split()[1] == f"hash={got.spec_hash}",
+          f"[api run_pdf] banner {banner}, session hash {got.spec_hash}")
+    log(f"[api run_pdf] python -m repro_torch.launch.run_pdf --spec {spec_file.name} --device "
+        f"{dev.type}: exit 0 in {nums['run_pdf_wall_s']} s (a process of its own, training its "
+        f"tree); its output: " + " | ".join(out.stdout.strip().splitlines()))
+    return launches, nums
+
+
+def serve_queries(np, geom, slices, clients=8, seed=0):
+    """Each client's queries, drawn from ``numpy.random.default_rng(seed)``:
+    6 points, 2 spans of lines and 1 whole slice, over ``slices``."""
+    from repro_torch.serve import PointQuery, RegionQuery, WindowQuery
+
+    rng = np.random.default_rng(seed)
+    plans = []
+    for _ in range(clients):
+        qs = [PointQuery(int(rng.choice(slices)), int(rng.integers(geom.lines_per_slice)),
+                         int(rng.integers(geom.points_per_line))) for _ in range(6)]
+        for _ in range(2):
+            lo = int(rng.integers(geom.lines_per_slice))
+            hi = min(geom.lines_per_slice, lo + int(rng.integers(1, 60)))
+            qs.append(WindowQuery(int(rng.choice(slices)), lo, hi))
+        qs.append(RegionQuery(int(rng.choice(slices))))
+        plans.append(qs)
+    return plans
+
+
+def answer_span(q, ppl, points_per_slice):
+    """The point span ``[lo, hi)`` of a query within its slice."""
+    from repro_torch.serve import PointQuery, WindowQuery
+
+    if isinstance(q, PointQuery):
+        lo = q.line * ppl + q.point
+        return lo, lo + 1
+    if isinstance(q, WindowQuery):
+        return q.line_start * ppl, q.line_end * ppl
+    return 0, points_per_slice
+
+
+def pdf_serve_phase(np, torch, spec, dev, tmp, slices, clients=8):
+    """``PDFServer`` over ``spec`` (``to_spec(SET1)`` on the card) with the
+    method set to baseline, then grouping (host Select), on ``slices``: 8
+    client threads, each sending 6 point, 2 window and 1 region query
+    (``serve_queries``). Coalesced (with a ``cache_dir``: the completed
+    slices are stored) and naive (``serve.coalesce`` off, no hot-window
+    LRU, no tick: one launch a window of each query), then a second
+    coalesced server over the warm cache. Every answer is bitwise equal
+    across the three and to the rows of the session's slices; coalesced K2
+    launches at most the distinct windows requested, naive at least as
+    many as coalesced, warm none. Returns ({label: launches}, numbers)."""
+    import dataclasses
+    import threading
+
+    from repro_torch.api import PDFSession, ServeSpec
+    from repro_torch.core.executor import RESULT_FIELDS
+    from repro_torch.serve import PDFServer
+
+    launches, nums = {}, {}
+    for method in ("baseline", "grouping"):
+        mspec = dataclasses.replace(spec, method=dataclasses.replace(spec.method, name=method),
+                                    execution=dataclasses.replace(spec.execution, slices=None))
+        session_slices = PDFSession(mspec, device=dev).run_all(slices)
+        probe = PDFServer(mspec, device=dev)  # never started: maps queries to windows
+        geom = probe.session.geometry
+        plans = serve_queries(np, geom, slices, clients)
+        # What the queries need: each query's aligned windows, deduplicated.
+        requested = [w for qs in plans for q in qs for w in probe._resolve_span(q).windows]
+        distinct = len({(w.slice_i, w.line_start) for w in requested})
+        cache_dir = tmp / f"serve_cache_{method}"
+        answers = {}
+        for mode, serve, cdir in (("coalesced", ServeSpec(), cache_dir),
+                                  ("naive", ServeSpec(coalesce=False, window_cache_entries=0,
+                                                      tick_seconds=0.0), None),
+                                  ("warm", ServeSpec(), cache_dir)):
+            sspec = dataclasses.replace(mspec, serve=serve, execution=dataclasses.replace(
+                mspec.execution, cache_dir=None if cdir is None else str(cdir)))
+            label = f"serve {method} {mode}"
+            got, errors = {}, []
+
+            def client(c, srv=None):
+                try:
+                    for i, q in enumerate(plans[c]):
+                        got[(c, i)] = srv.query(q, timeout=600)
+                except BaseException as e:  # noqa: BLE001 — raised below, on the main thread
+                    errors.append(e)
+
+            sync(torch, dev)
+            zero_counts()
+            t0 = time.perf_counter()
+            with PDFServer(sspec, device=dev) as srv:
+                threads = [threading.Thread(target=client, args=(c, srv)) for c in range(clients)]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=900)
+                check(not any(t.is_alive() for t in threads), f"[{label}] a client hangs")
+                st = srv.stats()
+            sync(torch, dev)
+            wall = time.perf_counter() - t0
+            launches[label] = read_counts()
+            if errors:
+                raise errors[0]
+            answers[mode] = got
+            n = launches[label]
+            k2 = n["fit_error_counts"]
+            if mode == "warm":
+                check_launches(n, {}, label)
+                check(st.windows_computed == 0 and st.windows_from_disk > 0,
+                      f"[{label}] computed {st.windows_computed} windows over the warm cache")
+            else:
+                check(n["moments_edges_stats"] == st.windows_computed and 0 < k2
+                      and set(k for k, v in n.items() if v) <= {
+                          "moments_edges_stats", "fit_error_counts",
+                          "fit_error_counts_row_indices"}, f"[{label}] launches {n}")
+            if mode == "coalesced":
+                check(k2 <= distinct and st.windows_computed <= distinct
+                      and st.slices_stored == len(slices),
+                      f"[{label}] K2 {k2}, computed {st.windows_computed}, distinct {distinct}, "
+                      f"stored {st.slices_stored}")
+                coalesced_k2 = k2
+            if mode == "naive":
+                check(k2 >= coalesced_k2 and k2 == st.windows_computed,
+                      f"[{label}] K2 {k2} vs coalesced {coalesced_k2}")
+            nums[label] = dict(
+                wall_s=wall, queries=st.queries, windows_requested=st.windows_requested,
+                windows_distinct=distinct, windows_computed=st.windows_computed,
+                batch_launches=st.launches, k1=n["moments_edges_stats"], k2=k2,
+                k2_row_indices=n["fit_error_counts_row_indices"],
+                coalesce_ratio=st.coalesce_ratio, batch_occupancy=st.batch_occupancy,
+                window_hit_rate=st.window_hit_rate, from_memory=st.windows_from_memory,
+                from_disk=st.windows_from_disk, request_ms={k: v * 1e3 for k, v in st.latency.items()},
+                launch_ms={k: v * 1e3 for k, v in st.launch_latency.items()},
+                ticks=st.ticks, max_queue_depth=st.max_queue_depth)
+            log(f"[{label}] {clients} clients x {len(plans[0])} queries over slices {slices}: "
+                f"wall {wall} s; {json.dumps(nums[label])}; launches {json.dumps(n)}")
+        for key, a in answers["coalesced"].items():
+            q = a.query
+            lo, hi = answer_span(q, geom.points_per_line, geom.points_per_slice)
+            for mode in ("naive", "warm"):
+                b = answers[mode][key]
+                check(b.query == q and all(np.array_equal(getattr(a, f), getattr(b, f))
+                                           for f in RESULT_FIELDS),
+                      f"[serve {method}] {mode} answer to {q} differs from the coalesced one")
+            check(all(np.array_equal(getattr(a, f), getattr(session_slices[q.slice_i], f)[lo:hi])
+                      for f in RESULT_FIELDS),
+                  f"[serve {method}] the answer to {q} differs from the session's slice")
+        log(f"[serve {method}] every answer bitwise equal across coalesced, naive and warm, and "
+            f"to the rows of the session's slices {slices}")
     return launches, nums
 
 
@@ -1989,6 +2338,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
 
+    from repro_torch.configs.pdf_seismic import SET1, to_spec
     from repro_torch.core import distributions as dists
     from repro_torch.core.pipeline import PDFConfig
     from repro_torch.data.simulation import SeismicSimulation
@@ -2022,9 +2372,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp_name:
         tmp = Path(tmp_name)
         cube_path, file_nums = file_phase(np, torch, sim, SET1_SLICE, dev, clean, tmp)
-        fault_nums = faults_phase(np, torch, cube_path, dev, clean, tmp)
+        fault_nums, faults_res = faults_phase(np, torch, cube_path, dev, clean, tmp)
+        api_launches = api_faults_phase(np, torch, cube_path, dev, tmp, fault_nums, faults_res)
         sched_nums = scheduler_phase(np, torch, sim, dev, tmp)
-    del clean
+    del clean, faults_res
     exec_launches = {"faults": fault_nums["launches"], "scheduler": sched_nums["launches"]}
     log(f"[summary executor] {smi}: Set1 slice {SET1_SLICE}; staging {json.dumps(staging_nums)}; "
         f"file {json.dumps(file_nums)}; faults {json.dumps(fault_nums)}; scheduler "
@@ -2052,6 +2403,20 @@ def main() -> int:
     batch_launches, batch_nums = batch_phase(np, torch, sim, dev, tree)
     exec_launches.update(batch_launches)
     log(f"[summary batch] {smi}: {json.dumps(batch_nums)}")
+
+    # The declarative API (PDFSession, the result cache, run_pdf) and the
+    # PDF query server over the paper's Set1 spec, in a temporary directory
+    # under build/ deleted at the end.
+    spec = to_spec(SET1)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp_name:
+        tmp = Path(tmp_name)
+        launches_api, api_nums = api_phase(np, torch, spec, sim, dev, tree, tmp)
+        launches_serve, serve_nums = pdf_serve_phase(np, torch, spec, dev, tmp,
+                                                     [SET1_SLICE - 1, SET1_SLICE])
+    api_launches.update(launches_api)
+    api_launches.update(launches_serve)
+    log(f"[summary api] {smi}: {json.dumps(api_nums)}")
+    log(f"[summary serve] {smi}: {json.dumps(serve_nums)}")
     profile_slice(torch, PDFConfig(method="grouping_ml", num_bins=20), "set1 grouping_ml L20", sim,
                   SET1_SLICE, dev, ml_walls["set1 grouping_ml L20"], tree=tree)
     log(f"[summary ml] {smi}: Set1 slice {SET1_SLICE}; tree {json.dumps(tree_nums)}; wall_s "
@@ -2074,6 +2439,8 @@ def main() -> int:
                                      if n[r["name"]]}
         r["launches_executor_paths"] = {label: n[r["name"]] for label, n in exec_launches.items()
                                         if n[r["name"]]}
+        r["launches_api_serve"] = {label: n[r["name"]] for label, n in api_launches.items()
+                                   if n[r["name"]]}
         if r["name"] in ("fit_error_counts", "hist_counts"):
             k = "k2" if r["name"] == "fit_error_counts" else "k4"
             r["at_large_L"] = {L: {key[3:]: v for key, v in d.items() if key.startswith(k)}

@@ -206,7 +206,13 @@ class SliceResult:
     stats: list[WindowStats] = field(default_factory=list)
     error_bound_satisfied: bool | None = None
     slice_i: int | None = None
-    spec_hash: str | None = None  # provenance; None until the API is ported
+    # Provenance: content hash of the PipelineSpec that produced this result
+    # (api/spec.py); also stamped into persisted .npz files and watermarks.
+    spec_hash: str | None = None
+    # True when this result was served from a spec-hash-keyed ResultCache
+    # (api/cache.py) instead of being computed; cached results are bitwise
+    # identical to computed ones but carry no window stats.
+    cached: bool = False
     # Fault-tolerance bookkeeping (DESIGN.md §14): transient re-attempts,
     # speculative re-dispatches, and the quarantined windows of a degraded
     # run — each a dict with unit_id/line_start/line_end/attempts/error,

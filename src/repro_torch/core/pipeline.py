@@ -3,7 +3,11 @@
 Port of ``repro.core.pipeline``. ``PDFComputer`` is a thin facade over one
 ``StagedExecutor`` (core/executor.py) on one device. It runs on ``cuda``
 unless the caller passes ``device="cpu"``: with no device given and no CUDA
-device present it raises rather than carry on on the CPU.
+device present it raises rather than carry on on the CPU. The public entry
+point is ``repro_torch.api`` (``PipelineSpec`` + ``PDFSession``);
+``PDFComputer`` lifts its configs into the same spec and stamps the same
+content hash, so its results equal a session's bit for bit and resume works
+across the two.
 
 After each window the per-window results are persisted as ``.npz`` plus a
 watermark (with ``out_dir``); ``run_slice(resume=True)`` skips completed
@@ -58,7 +62,9 @@ class PDFComputer:
     ``data_source`` must expose ``geometry: regions.CubeGeometry`` and
     ``load_window(window) -> np.ndarray (num_points, n_obs) float32``.
     ``tree`` is the decision tree the ML and sampling methods need.
-    ``spec_hash`` stays None until the declarative API is ported.
+    ``spec`` is the ``PipelineSpec`` the configs lift to
+    (``api.spec.spec_from_config``); its content hash is stamped into every
+    result and persisted watermark.
     """
 
     def __init__(
@@ -70,14 +76,19 @@ class PDFComputer:
         exec_config: ExecutorConfig | None = None,
         device: torch.device | str | None = None,
     ):
+        # Lazy import: api.spec imports core.executor and this module's
+        # package; loading it here keeps the import graph acyclic.
+        from repro_torch.api.spec import source_spec_for, spec_from_config
+
         self.config = config
         self.data = data_source
         self.tree = tree
         self.out_dir = Path(out_dir) if out_dir else None
         self.device = resolve_device(device)
+        self.spec = spec_from_config(config, exec_config, source=source_spec_for(data_source))
         self._executor = StagedExecutor(
             config, data_source, self.device, tree=tree, out_dir=out_dir,
-            exec_config=exec_config,
+            exec_config=exec_config, spec_hash=self.spec.content_hash(),
         )
 
     @property

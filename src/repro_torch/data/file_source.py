@@ -39,6 +39,7 @@ chunks they overlap, so one exported cube serves every window size.
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import os
@@ -196,15 +197,16 @@ def export_cube(
     lines_per_chunk: int = DEFAULT_LINES_PER_CHUNK,
     progress: Callable[[int, int], None] | None = None,
     overwrite: bool = False,
-) -> tuple[Path, str]:
-    """Snapshot a live window-addressable source (``geometry`` +
-    ``load_window``) to a chunked cube directory; returns ``(out_dir,
-    content_sha256)``.
+):
+    """Snapshot a window-addressable source to a chunked cube directory.
 
-    One deviation from the reference, which also takes a ``SourceSpec`` and
-    returns a file ``SourceSpec``: the port has no spec API yet (ROADMAP
-    item 10), so it takes a live source and returns the directory and the
-    manifest's data identity.
+    ``source`` is either a live source object (``geometry`` +
+    ``load_window``) or a ``SourceSpec`` — a simulation spec is materialized
+    here (with its NFS-throttle model stripped: the throttle describes the
+    *read* path, and export is the write path). Returns a ready-to-run
+    ``SourceSpec(kind='file', path=out_dir)`` carrying the original spec's
+    throttle, so ``export_cube(spec.source, d)`` drops straight back into a
+    ``PipelineSpec``.
 
     The manifest is written last (tmp + atomic rename): a crashed export
     leaves a directory without a manifest, which every reader refuses —
@@ -214,6 +216,12 @@ def export_cube(
     would silently change its data identity, so clobbering must be
     explicit.
     """
+    from repro_torch.api.spec import SourceSpec, build_source
+
+    throttle = None
+    if isinstance(source, SourceSpec):
+        throttle = source.throttle_mb_s
+        source = build_source(dataclasses.replace(source, throttle_mb_s=None))
     if lines_per_chunk < 1:
         raise ValueError(f"lines_per_chunk must be >= 1, got {lines_per_chunk}")
 
@@ -267,7 +275,13 @@ def export_cube(
     tmp.write_text(json.dumps(manifest, indent=1, sort_keys=True))
     os.replace(tmp, out / MANIFEST_NAME)
 
-    return out, manifest["content_sha256"]
+    # Geometry fields on a file spec are advisory (the manifest is
+    # authoritative, and they are excluded from the hash) — fill them in
+    # anyway so the returned spec reads true.
+    return SourceSpec(
+        kind="file", path=str(out), throttle_mb_s=throttle,
+        num_slices=geom.num_slices, lines_per_slice=geom.lines_per_slice,
+        points_per_line=geom.points_per_line, observations=int(num_obs))
 
 
 class FileCubeSource:

@@ -12,7 +12,10 @@ operation as their plain PyTorch versions do (no fused multiply-adds).
 
 Nothing is compiled when this module is imported: ``library(name)`` builds
 on first use, and ``build(*names)`` builds several sources at once, one
-``nvcc`` process each, all started together.
+``nvcc`` process each, all started together. ``counters()`` reports, for
+the process, the ``nvcc`` builds started and the libraries loaded from
+``build/kernels/`` without a build (``api.SessionReport``'s compile
+counts).
 """
 
 from __future__ import annotations
@@ -36,6 +39,14 @@ NVCC_FLAGS = (
 
 _lock = threading.RLock()
 _libs: dict[str, ctypes.CDLL] = {}
+_counts = {"builds": 0, "cached_loads": 0}
+
+
+def counters() -> dict[str, int]:
+    """Process-wide ``{"builds": nvcc builds started, "cached_loads":
+    libraries loaded that needed no build}``, a snapshot."""
+    with _lock:
+        return dict(_counts)
 
 
 def _nvcc() -> str:
@@ -75,6 +86,7 @@ def build(*names: str) -> None:
                 cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
                 proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True)
+                _counts["builds"] += 1
                 jobs.append((name, out, tmp, proc))
         finally:  # every started nvcc is waited for, even if a later start failed
             for name, out, tmp, proc in jobs:
@@ -93,6 +105,10 @@ def library(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            build(name)
-            lib = _libs[name] = ctypes.CDLL(str(_target(name)))
+            target = _target(name)
+            if target.exists():
+                _counts["cached_loads"] += 1
+            else:
+                build(name)
+            lib = _libs[name] = ctypes.CDLL(str(target))
         return lib

@@ -25,8 +25,8 @@ whole-shard loss) and scheduling skew (latency). It does not simulate
 wrong-answer device compute, process crashes mid-persist (the
 watermark/resume contract's job) or network partitions. Device errors are
 fatal: ``torch.OutOfMemoryError`` and CUDA errors (``RuntimeError``s) are
-never retried, so never quarantined. The cache hook (``on_cache``) is here
-for the result cache, which is not ported yet.
+never retried, so never quarantined. ``api.ResultCache`` calls the cache
+hook (``on_cache``) on every lookup and store.
 """
 
 from __future__ import annotations

@@ -11,6 +11,7 @@ seismic cube (3 slices of 12 lines x 30 points, 200 observations, windows
 of 3 lines: 12 units) on the CPU."""
 
 import json
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -75,8 +76,7 @@ def clean():
 
 @pytest.fixture(scope="module")
 def cube(tmp_path_factory):
-    path, _ = t_fs.export_cube(_sim(), tmp_path_factory.mktemp("cube"), lines_per_chunk=4)
-    return path
+    return Path(t_fs.export_cube(_sim(), tmp_path_factory.mktemp("cube"), lines_per_chunk=4).path)
 
 
 # -- the plan and the injector against the reference ---------------------------

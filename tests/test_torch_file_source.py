@@ -7,8 +7,10 @@ data and chunking give the same ``content_sha256``. Within the port: a
 slice run from the cube is bitwise equal to the slice run from the
 simulation, with prefetch on and off and with verified reads."""
 
+import dataclasses
 import json
 import shutil
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -39,10 +41,16 @@ def _windows(geom, window_lines):
 def cubes(tmp_path_factory):
     """The same simulation exported by the port and by the reference."""
     base = tmp_path_factory.mktemp("cubes")
-    t_path, t_sha = t_fs.export_cube(_sim(t_sim, t_regions), base / "port",
-                                     lines_per_chunk=LINES_PER_CHUNK)
-    r_fs.export_cube(_sim(r_sim, r_regions), base / "ref", lines_per_chunk=LINES_PER_CHUNK)
-    return t_path, t_sha, base / "ref"
+    t_spec = t_fs.export_cube(_sim(t_sim, t_regions), base / "port",
+                              lines_per_chunk=LINES_PER_CHUNK)
+    r_spec = r_fs.export_cube(_sim(r_sim, r_regions), base / "ref",
+                              lines_per_chunk=LINES_PER_CHUNK)
+    assert (t_spec.kind, t_spec.path) == ("file", str(base / "port"))
+    # the reference's returned spec, field for field but the path
+    assert dataclasses.asdict(dataclasses.replace(t_spec, path=r_spec.path)) == \
+        dataclasses.asdict(r_spec)
+    t_path = Path(t_spec.path)
+    return t_path, t_fs.manifest_sha(t_path), base / "ref"
 
 
 def test_export_returns_path_and_content_sha(cubes):
@@ -151,14 +159,16 @@ def test_missing_or_foreign_manifest_is_refused(tmp_path):
 
 def test_export_refuses_to_clobber_live_cube(tmp_path):
     d = tmp_path / "cube"
-    _, sha = t_fs.export_cube(_sim(t_sim, t_regions), d, lines_per_chunk=LINES_PER_CHUNK)
+    t_fs.export_cube(_sim(t_sim, t_regions), d, lines_per_chunk=LINES_PER_CHUNK)
+    sha = t_fs.manifest_sha(d)
     before = sorted(p.name for p in d.iterdir()), (d / "manifest.json").read_bytes()
     other = _sim(t_sim, t_regions, seed=99)
     with pytest.raises(FileExistsError, match="overwrite=True"):
         t_fs.export_cube(other, d, lines_per_chunk=LINES_PER_CHUNK)
     assert (sorted(p.name for p in d.iterdir()), (d / "manifest.json").read_bytes()) == before
-    _, sha2 = t_fs.export_cube(other, d, lines_per_chunk=LINES_PER_CHUNK, overwrite=True)
-    assert sha2 != sha and t_fs.manifest_sha(d) == sha2
+    t_fs.export_cube(other, d, lines_per_chunk=LINES_PER_CHUNK, overwrite=True)
+    sha2 = t_fs.manifest_sha(d)
+    assert sha2 != sha
     with pytest.raises(ValueError, match="lines_per_chunk"):
         t_fs.export_cube(other, tmp_path / "x", lines_per_chunk=0)
 
@@ -232,3 +242,25 @@ def test_throttled_file_source(cubes):
     np.testing.assert_array_equal(got, src.load_window(w))
     with pytest.raises(ValueError, match="bandwidth"):
         ThrottledSource(src, 0)
+
+
+def test_export_takes_a_source_spec(tmp_path):
+    """A simulation ``SourceSpec`` is materialized with its throttle
+    stripped; the returned file spec carries the throttle back, and the
+    cube is the one the reference exports from the same spec."""
+    from repro.api import SourceSpec as RSourceSpec
+    from repro_torch.api import SourceSpec, build_source
+
+    src = SourceSpec(num_slices=2, lines_per_slice=7, points_per_line=9, observations=50,
+                     throttle_mb_s=500.0)
+    got = t_fs.export_cube(src, tmp_path / "port", lines_per_chunk=LINES_PER_CHUNK)
+    ref = r_fs.export_cube(RSourceSpec(**dataclasses.asdict(src)), tmp_path / "ref",
+                           lines_per_chunk=LINES_PER_CHUNK)
+    assert got.kind == "file" and got.throttle_mb_s == 500.0
+    assert dataclasses.asdict(dataclasses.replace(got, path=ref.path)) == dataclasses.asdict(ref)
+    assert t_fs.manifest_sha(got.path) == r_fs.manifest_sha(ref.path)
+    cube = build_source(got)
+    assert isinstance(cube, ThrottledSource) and cube.bandwidth == 500e6
+    w = t_regions.Window(1, 3, 7)
+    np.testing.assert_array_equal(cube.load_window(w), build_source(dataclasses.replace(
+        src, throttle_mb_s=None)).load_window(w))

@@ -231,7 +231,7 @@ def test_persist_and_resume(tmp_path):
     first = comp.run_slice(1)
     assert len(first.stats) == 3  # lines 0-5, 5-10, 10-12
     mark = json.loads((tmp_path / "slice1_watermark.json").read_text())
-    assert mark == {"next_line": 12, "complete": True}
+    assert mark == {"next_line": 12, "complete": True, "spec_hash": comp.spec.content_hash()}
     resumed = _port(out_dir=tmp_path).run_slice(1, resume=True)
     assert resumed.stats == [] and comp.last_report.units == 3
     for f in FIELDS:
@@ -261,14 +261,15 @@ def test_persisted_files_match_reference_format(tmp_path):
     for name in port_files:
         if name.endswith(".npz"):
             r, t = np.load(tmp_path / "ref" / name), np.load(tmp_path / "port" / name)
-            # The reference also stamps its spec hash; the port has none yet.
-            assert set(r.files) - set(t.files) == {"spec_hash"}
+            # Both stamp their spec hash; the port's never equals the reference's.
+            assert set(r.files) == set(t.files)
+            assert str(t["spec_hash"]) != str(r["spec_hash"])
             for k in t.files:
                 assert t[k].dtype == r[k].dtype and t[k].shape == r[k].shape, k
         else:
             r = json.loads((tmp_path / "ref" / name).read_text())
             t = json.loads((tmp_path / "port" / name).read_text())
-            r.pop("spec_hash")
+            assert t.pop("spec_hash") != r.pop("spec_hash")
             assert t == r
 
 
@@ -315,17 +316,15 @@ def test_config_fields_and_defaults_match_reference():
     ec_ref = {f.name: f.default for f in dataclasses.fields(rp.ExecutorConfig)}
     ec = {f.name: f.default for f in dataclasses.fields(tp.ExecutorConfig)}
     assert ec == ec_ref
-    # The result types' fields, but the API's own (``cached``: a result
-    # served by the result cache, which is not ported yet).
+    # The result types' fields, the result cache's ``cached`` included.
     from repro.core import executor as rex
 
-    api_only = {"cached"}
     for port_cls, ref_cls in ((tex.SliceResult, rex.SliceResult),
                               (tex.ExecutorReport, rex.ExecutorReport)):
         assert [f.name for f in dataclasses.fields(port_cls)] == \
-            [f.name for f in dataclasses.fields(ref_cls) if f.name not in api_only]
+            [f.name for f in dataclasses.fields(ref_cls)]
         assert [f.default for f in dataclasses.fields(port_cls)] == \
-            [f.default for f in dataclasses.fields(ref_cls) if f.name not in api_only]
+            [f.default for f in dataclasses.fields(ref_cls)]
     assert tex.WindowStats._fields == rex.WindowStats._fields
     assert tex.WindowResult._fields == rex.WindowResult._fields
     assert tex.RESULT_FIELDS == rex.RESULT_FIELDS
