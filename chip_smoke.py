@@ -28,6 +28,24 @@ and every kernel's launch count set to 0 just before it:
 * ``[scheduler]``: ``SliceScheduler`` with 2 shards over slices 200 and
   201, shard 0 lost after its first window and its slice re-dealt, bitwise
   equal to a clean run of both;
+* ``[stream]`` on the ``[file]`` cube: a ``PDFSession`` with an
+  ``out_dir``, a ``cache_dir`` and ``stream.persist_stats`` (K1 = K2 = K4 =
+  21: a sidecar a window, its counts bitwise the plain
+  ``histogram_scatter``; the slice bitwise the simulation's), 100
+  realizations a point appended from the slice's own observations, the
+  merge-mode update (K4 = 21 and nothing else, no executor, the
+  watermark's ``merge_ulp_budget``, nothing cached, 50.3 MB of
+  observations read, each new partition's counts bitwise the plain
+  version's), and a strict recompute over 1,100 observations against
+  which the merge's counts are bitwise, its moments within
+  ``MERGE_ULP_BUDGET`` ulps and its ``type_idx`` equal wherever the best
+  two types are apart;
+* ``[cluster]``: ``run_pdf`` over simulated Set1 slices 200-203 (baseline,
+  L = 20) serially with a fresh ``--compile-cache-dir`` (it must build),
+  then as 1, 2 and 4 workers through ``src/repro_torch/launch/cluster.sh``
+  (gloo, one shared ``out_dir``, the warm cache: ``new_compilations=0`` in
+  every worker), each bitwise the serial run's, K1 = K2 = 84 over the
+  workers; each worker's wall and launches logged;
 * baseline on the fused backend (K1 + K2), 4 types at L = 64 and 10 types
   at L = 20: once per window each, bitwise repeat, parity with the port's
   plain PyTorch backend;
@@ -119,7 +137,8 @@ Last comes the LM serving path (``band_attn``, K5):
   a mask.
 
 The K1-K4 rows of the kernels line carry ``launches_api_serve``, the
-``[api]`` and ``[serve]`` launches. Any failed check raises, so the exit
+``[api]`` and ``[serve]`` launches, and ``launches_stream_cluster``, those
+of ``[stream]`` and ``[cluster]`` (summed over a cluster's workers). Any failed check raises, so the exit
 code is non-zero. The line before the last is a JSON object of
 per-kernel numbers; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
@@ -1606,6 +1625,346 @@ def pdf_serve_phase(np, torch, spec, dev, tmp, slices, clients=8):
 
 
 # ---------------------------------------------------------------------------
+# streaming (appends, sidecars, merges) and multi-process cluster runs
+# ---------------------------------------------------------------------------
+
+
+class CountingCube:
+    """A file cube read through a byte counter (``bytes`` read by
+    ``load_window`` and ``load_window_obs``): what a run reads."""
+
+    def __init__(self, cube):
+        self.cube, self.geometry, self.bytes = cube, cube.geometry, 0
+
+    def load_window(self, w):
+        a = self.cube.load_window(w)
+        self.bytes += a.nbytes
+        return a
+
+    def load_window_obs(self, w, obs_start, obs_end):
+        a = self.cube.load_window_obs(w, obs_start, obs_end)
+        self.bytes += a.nbytes
+        return a
+
+    def slice_observations(self, slice_i):
+        return self.cube.slice_observations(slice_i)
+
+
+STREAM_APPEND = 100  # realizations appended to every point of the cube's slice
+
+
+def stream_phase(np, torch, path, dev, clean, tmp, file_wall):
+    """The streaming path on the ``[file]`` phase's cube (Set1 slice 201 as
+    slice 0, baseline on ``fused``, L = 64): a ``PDFSession`` with an
+    ``out_dir``, a ``cache_dir`` and ``stream.persist_stats`` (K1 = K2 = K4 =
+    21: one sidecar a window, its counts bitwise the plain
+    ``histogram_scatter`` of the same window, the slice bitwise ``clean``);
+    ``STREAM_APPEND`` realizations appended inside every point's range (the
+    slice's own first observations); the merge-mode update (K4 only, no
+    executor, the watermark's ``merge_ulp_budget``, nothing cached; each new
+    partition's K4 counts bitwise the plain version's); a strict recompute
+    of the appended slice (K1 = K2 = K4 = 21), against which the merge's
+    counts are bitwise, its moments within ``MERGE_ULP_BUDGET`` ulps and its
+    ``type_idx`` equal wherever the strict run's best two types are more
+    than the error tolerance apart. Returns ({label: launches}, numbers)."""
+    import dataclasses
+
+    from repro_torch.api import (ComputeSpec, ExecSpec, MethodSpec, PDFSession, PipelineSpec,
+                                 ResultCache, SourceSpec, StreamSpec)
+    from repro_torch.core import distributions as dists
+    from repro_torch.core import pdf_error as pe
+    from repro_torch.core.regions import iter_windows
+    from repro_torch.data.file_source import FileCubeSource
+    from repro_torch.kernels.fitpdf.kernel import fit_error_counts_plain
+    from repro_torch.streaming import MERGE_ULP_BUDGET, append_realizations, ulp_diff
+    from repro_torch.streaming.stats import load_stats
+
+    W = SET1_WINDOWS
+    L = 64
+    cube = FileCubeSource(path)
+    g = cube.geometry
+    n0 = cube.slice_observations(0)
+    windows = list(iter_windows(g, 0, 25))
+    out, cache = tmp / "stream_out", tmp / "stream_cache"
+    spec = PipelineSpec(
+        source=SourceSpec(kind="file", path=str(path)), method=MethodSpec(name="baseline"),
+        compute=ComputeSpec(window_lines=25, num_bins=L),
+        execution=ExecSpec(slices=(0,), out_dir=str(out), cache_dir=str(cache)),
+        stream=StreamSpec(persist_stats=True))
+    launches, nums = {}, {}
+
+    def timed(label, fn):
+        sync(torch, dev)
+        zero_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        sync(torch, dev)
+        nums[f"{label} wall_s"] = time.perf_counter() - t0
+        launches[label] = read_counts()
+        return res
+
+    def plain_counts(vals, vmin, vmax):
+        return np.rint(pe.histogram_scatter(vals, vmin, vmax, L).cpu().numpy()).astype(np.int64)
+
+    def on_dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev)
+
+    # 1) the first run, writing a sidecar a window
+    s1 = PDFSession(spec, device=dev)
+    first = timed("stream persist", lambda: s1.run_all()[0])
+    check_launches(launches["stream persist"], {"moments_edges_stats": W, "fit_error_counts": W,
+                                                "hist_counts": W}, "stream persist")
+    check(bitwise_equal(np, first, clean), "[stream persist] the slice differs from the "
+          "simulation's: the sidecar hook changed the result")
+    rec = s1.executor(0).stats_recorder
+    sidecars = sorted(out.glob("slice0_stats_*.npz"))
+    sizes = [f.stat().st_size for f in sidecars]
+    check(rec.windows_recorded == W and len(sidecars) == W,
+          f"[stream persist] {rec.windows_recorded} windows recorded, {len(sidecars)} sidecars")
+    old = {}
+    for w in windows:
+        sc = load_stats(out, 0, w.line_start, spec_hash=s1.spec_hash)
+        check(sc is not None and sc["stats"].n == n0 and sc["num_bins"] == L,
+              f"[stream persist] sidecar of window {w.line_start}")
+        want = plain_counts(on_dev(cube.load_window(w)), on_dev(sc["stats"].vmin),
+                            on_dev(sc["stats"].vmax))
+        check(np.array_equal(sc["freq"], want),
+              f"[stream persist] window {w.line_start}: K4's sidecar counts differ from the "
+              "plain histogram_scatter")
+        old[w.line_start] = sc
+    nums.update(sidecar_bytes_each=sizes[0], sidecar_bytes_total=sum(sizes),
+                sidecar_s_per_window=rec.seconds / W, file_run_wall_s=file_wall)
+    log(f"[stream persist] {W} windows, K1 = K2 = K4 = {W}: {len(sidecars)} sidecars of "
+        f"{min(sizes)}-{max(sizes)} B ({sum(sizes)} B), each window's counts bitwise the plain "
+        f"histogram_scatter; the slice bitwise equal to the simulation's; wall "
+        f"{nums['stream persist wall_s']} s ([file] run without sidecars {file_wall} s); the "
+        f"recorder {rec.seconds} s in all, {rec.seconds / W} s a window")
+
+    # 2) the append: each point's first STREAM_APPEND observations again
+    k = STREAM_APPEND
+    block = np.empty((g.lines_per_slice, g.points_per_line, k), np.float32)
+    for w in windows:
+        block[w.line_start:w.line_end] = cube.load_window_obs(w, 0, k).reshape(
+            w.line_end - w.line_start, g.points_per_line, k)
+    t0 = time.perf_counter()
+    version = append_realizations(path, {0: block})
+    nums["append_s"] = time.perf_counter() - t0
+    nums["append_bytes"] = block.nbytes
+    log(f"[stream append] {k} realizations a point ({block.nbytes} B) appended inside every "
+        f"point's range in {nums['append_s']} s: manifest version {version}")
+    del block
+
+    # 3) the merge-mode update
+    src2 = CountingCube(FileCubeSource(path))
+    s2 = PDFSession(spec, data_source=src2, device=dev)
+    merged = timed("stream merge", lambda: s2.run_all()[0])
+    check_launches(launches["stream merge"], {"hist_counts": W}, "stream merge")
+    rep = s2.report()
+    mark = json.loads((out / "slice0_watermark.json").read_text())
+    check(rep.slices_merged == 1 and rep.windows == 0 and not s2._executors,
+          f"[stream merge] slices_merged {rep.slices_merged}, windows {rep.windows}, executors "
+          f"{list(s2._executors)}")
+    check(mark == {"next_line": g.lines_per_slice, "spec_hash": s2.spec_hash,
+                   "merge_ulp_budget": MERGE_ULP_BUDGET, "merged_from": s1.spec_hash},
+          f"[stream merge] watermark {mark}")
+    check(not ResultCache(cache).path(s2.spec_hash, 0).exists(),
+          "[stream merge] the merged slice entered the result cache")
+    check(src2.bytes == g.points_per_slice * k * 4,
+          f"[stream merge] read {src2.bytes} B of observations, expected the append's")
+    new_sc = {}
+    for w in windows:
+        sc = load_stats(out, 0, w.line_start, spec_hash=s2.spec_hash)
+        check(sc is not None and sc["stats"].n == n0 + k, f"[stream merge] sidecar {w.line_start}")
+        o = old[w.line_start]["stats"]
+        part = plain_counts(on_dev(cube.load_window_obs(w, 0, k)), on_dev(o.vmin), on_dev(o.vmax))
+        check(np.array_equal(sc["freq"] - old[w.line_start]["freq"], part),
+              f"[stream merge] window {w.line_start}: K4's counts of the new partition differ "
+              "from the plain histogram_scatter")
+        new_sc[w.line_start] = sc["freq"]
+    nums["merge_bytes_read"] = src2.bytes + sum(sizes)
+    log(f"[stream merge] slices_merged 1, no executor, launches "
+        f"{json.dumps(launches['stream merge'])}, wall {nums['stream merge wall_s']} s; read "
+        f"{src2.bytes} B of new observations and {sum(sizes)} B of sidecars; watermark "
+        f"{json.dumps(mark)}; not in the result cache; each window's new K4 counts bitwise the "
+        "plain version's")
+
+    # 4) the strict recompute of the appended slice
+    strict_out = tmp / "stream_strict"
+    sspec = dataclasses.replace(spec, execution=ExecSpec(slices=(0,), out_dir=str(strict_out)),
+                                stream=StreamSpec(persist_stats=True, update_mode="strict"))
+    src3 = CountingCube(FileCubeSource(path))
+    strict = timed("stream strict", lambda: PDFSession(sspec, data_source=src3,
+                                                        device=dev).run_all()[0])
+    check_launches(launches["stream strict"], {"moments_edges_stats": W, "fit_error_counts": W,
+                                               "hist_counts": W}, "stream strict")
+    check(src3.bytes == g.points_per_slice * (n0 + k) * 4,
+          f"[stream strict] read {src3.bytes} B")
+    for w in windows:
+        sc = load_stats(strict_out, 0, w.line_start)
+        check(np.array_equal(sc["freq"], new_sc[w.line_start]),
+              f"[stream] window {w.line_start}: merged counts differ from the strict run's")
+    worst = {}
+    for name in ("mean", "std", "skew", "kurt"):
+        a, b = getattr(merged, name), getattr(strict, name)
+        check(np.array_equal(np.isnan(a), np.isnan(b)), f"[stream] {name} NaN pattern")
+        worst[name] = int(ulp_diff(a, b).max())
+        check(worst[name] <= MERGE_ULP_BUDGET,
+              f"[stream] {name}: merged {worst[name]} ulps from the strict run's")
+    decided = differ = 0
+    for w in windows:
+        vals = on_dev(FileCubeSource(path).load_window(w))
+        m = dists.moments_from_values(vals)
+        params = dists.fit_all(spec.compute.types, m).reshape(len(vals), -1)
+        errs = fit_error_counts_plain(vals, m.vmin, m.vmax, pe.interval_edges(m.vmin, m.vmax, L),
+                                      params, spec.compute.types, L).cpu().numpy()
+        srt = np.sort(np.where(np.isfinite(errs), errs, 1e30), axis=-1)
+        dec = srt[:, 1] - srt[:, 0] > ERR_TOL["atol"] + ERR_TOL["rtol"] * np.abs(srt[:, 0])
+        lo = w.line_start * g.points_per_line
+        sl = slice(lo, lo + len(vals))
+        check(np.array_equal(merged.type_idx[sl][dec], strict.type_idx[sl][dec]),
+              f"[stream] window {w.line_start}: merged type_idx differs where the strict run's "
+              "best two types are apart")
+        decided += int(dec.sum())
+        differ += int((merged.type_idx[sl] != strict.type_idx[sl]).sum())
+    nums.update(merge_ulps=worst, decided_points=decided, type_idx_ties_differing=differ,
+                strict_bytes_read=src3.bytes)
+    log(f"[stream strict] {n0 + k} observations, read {src3.bytes} B, launches "
+        f"{json.dumps(launches['stream strict'])}, wall {nums['stream strict wall_s']} s. Merge "
+        f"against it: counts bitwise in every window; moments within {json.dumps(worst)} ulps "
+        f"(budget {MERGE_ULP_BUDGET}); type_idx equal at all {decided} decided points, "
+        f"{differ} tied points differ")
+    log(f"[summary stream] walls: persist {nums['stream persist wall_s']} s, merge "
+        f"{nums['stream merge wall_s']} s, strict {nums['stream strict wall_s']} s; merge read "
+        f"{nums['merge_bytes_read']} B; sidecars {nums['sidecar_s_per_window']} s and "
+        f"{sizes[0]} B a window")
+    return launches, nums
+
+
+CLUSTER_SLICES = (200, 201, 202, 203)
+
+
+def worker_lines(text: str) -> dict:
+    """``cluster.sh`` output by worker: {i: [its lines, prefix removed]}."""
+    by = {}
+    for line in text.splitlines():
+        if line.startswith("[proc "):
+            i, rest = line[6:].split("] ", 1)
+            by.setdefault(int(i), []).append(rest)
+    return by
+
+
+def worker_numbers(lines) -> dict:
+    """One run_pdf's launches, wall, windows and compile counts."""
+    nums = {}
+    for line in lines:
+        if line.startswith("[launches] "):
+            nums["launches"] = json.loads(line[len("[launches] "):])
+        elif line.startswith("[total] "):
+            kv = dict(f.split("=", 1) for f in line.split()[1:] if "=" in f)
+            nums["wall_s"], nums["windows"] = float(kv["wall"].rstrip("s")), int(kv["windows"])
+        elif line.startswith("[compile] "):
+            kv = dict(f.split("=", 1) for f in line.split()[1:])
+            nums.update(cache_misses=int(kv["cache_misses"]), cache_hits=int(kv["cache_hits"]),
+                        new_compilations=int(kv["new_compilations"]))
+    check({"launches", "wall_s", "new_compilations"} <= set(nums),
+          f"[cluster] a run_pdf printed no launches, total or compile line: {lines}")
+    return nums
+
+
+def cluster_phase(np, torch, dev, tmp):
+    """``run_pdf`` over the simulated Set1 slices ``CLUSTER_SLICES``
+    (baseline on ``fused``, L = 20, 21 windows a slice) with an ``out_dir``
+    and a fresh ``--compile-cache-dir``: once serially (a first launch: it
+    builds, ``cache_misses`` > 0), then as 1, 2 and 4 worker processes
+    through ``src/repro_torch/launch/cluster.sh`` (gloo, a shared out_dir,
+    the same cache: ``new_compilations`` = 0 in every worker), each
+    bitwise the serial run's (``cluster.sh``'s ``CLUSTER_REF`` check and
+    ``verify_outputs``), K1 = K2 = 21 a slice over the workers. Returns
+    ({label: summed launches}, numbers)."""
+    import dataclasses
+    import os
+    import socket
+
+    from repro_torch.configs.pdf_seismic import SET1, to_spec
+    from repro_torch.api import MethodSpec
+    from repro_torch.runtime.cluster import verify_outputs
+
+    spec = to_spec(SET1)
+    spec = dataclasses.replace(spec, method=MethodSpec(name="baseline"), execution=dataclasses.replace(
+        spec.execution, slices=CLUSTER_SLICES))
+    spec_file = tmp / "cluster_spec.json"
+    spec_file.write_text(spec.to_json())
+    cache = tmp / "compile_cache"
+    per_slice = -(-spec.source.lines_per_slice // spec.compute.window_lines)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "PYTHON": sys.executable}
+    flags = ["--spec", str(spec_file), "--device", dev.type, "--compile-cache-dir", str(cache)]
+    launches, nums = {}, {}
+
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "repro_torch.launch.run_pdf", *flags,
+                        "--out-dir", str(tmp / "cluster_ref")], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=600, stdin=subprocess.DEVNULL)
+    wall = time.perf_counter() - t0
+    check(p.returncode == 0, f"[cluster serial] exit {p.returncode}: {p.stderr[-3000:]}")
+    serial = worker_numbers(p.stdout.splitlines())
+    check(serial["cache_misses"] > 0 and serial["new_compilations"] > 0,
+          f"[cluster serial] a first launch over a fresh cache built nothing: {serial}")
+    check(serial["windows"] == per_slice * len(CLUSTER_SLICES), f"[cluster serial] {serial}")
+    launches["cluster serial"] = serial["launches"]
+    check_launches(serial["launches"], {"moments_edges_stats": serial["windows"],
+                                        "fit_error_counts": serial["windows"]}, "cluster serial")
+    nums["serial"] = dict(process_wall_s=wall, **{k: v for k, v in serial.items()
+                                                  if k != "launches"})
+    log(f"[cluster serial] run_pdf --spec (baseline, Set1 slices {list(CLUSTER_SLICES)}) with a "
+        f"fresh --compile-cache-dir: process {wall} s, run {serial['wall_s']} s, "
+        f"{serial['windows']} windows, built {serial['cache_misses']} librar(ies) "
+        f"(new_compilations={serial['new_compilations']}); launches "
+        f"{json.dumps(serial['launches'])}")
+
+    for n in (1, 2, 4):
+        label = f"cluster {n}"
+        out = tmp / f"cluster_out{n}"
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        t0 = time.perf_counter()
+        p = subprocess.run(["bash", str(ROOT / "src" / "repro_torch" / "launch" / "cluster.sh"),
+                            str(n), *flags, "--out-dir", str(out)], cwd=ROOT,
+                           env={**env, "COORD_PORT": str(port),
+                                "CLUSTER_REF": str(tmp / "cluster_ref")},
+                           capture_output=True, text=True, timeout=600, stdin=subprocess.DEVNULL)
+        wall = time.perf_counter() - t0
+        check(p.returncode == 0, f"[{label}] exit {p.returncode}: {p.stdout[-3000:]} "
+              f"{p.stderr[-3000:]}")
+        check(f"[cluster] bitwise-identical windows={serial['windows']}" in p.stdout,
+              f"[{label}] cluster.sh printed no bitwise check: {p.stdout[-2000:]}")
+        check(verify_outputs(tmp / "cluster_ref", out)[0] == serial["windows"],
+              f"[{label}] verify_outputs")
+        workers = {i: worker_numbers(lines) for i, lines in worker_lines(p.stdout).items()}
+        check(sorted(workers) == list(range(n)), f"[{label}] workers {sorted(workers)}")
+        for i, w in workers.items():
+            check(w["new_compilations"] == 0 and w["cache_misses"] == 0,
+                  f"[{label}] worker {i} built over the warm cache: {w}")
+            check_launches(w["launches"], {"moments_edges_stats": w["windows"],
+                                           "fit_error_counts": w["windows"]},
+                           f"{label} worker {i}")
+        total = {k: sum(w["launches"][k] for w in workers.values()) for k in serial["launches"]}
+        check(total == serial["launches"], f"[{label}] launches {total} vs serial "
+              f"{serial['launches']}")
+        launches[label] = total
+        nums[label] = dict(process_wall_s=wall, workers={
+            i: {k: v for k, v in w.items() if k != "launches"} for i, w in workers.items()})
+        log(f"[{label}] cluster.sh {n}: {wall} s; bitwise the serial run's "
+            f"({serial['windows']} windows); per worker (run wall s, windows, cache hits, "
+            f"new_compilations, launches): " + "; ".join(
+                f"{i}: {w['wall_s']}, {w['windows']}, {w['cache_hits']}, {w['new_compilations']}, "
+                f"{json.dumps({k: v for k, v in w['launches'].items() if v})}"
+                for i, w in sorted(workers.items())))
+    log(f"[summary cluster] {json.dumps(nums)}")
+    return launches, nums
+
+
+# ---------------------------------------------------------------------------
 # timing at the Set1 window shape
 # ---------------------------------------------------------------------------
 
@@ -2375,6 +2734,12 @@ def main() -> int:
         fault_nums, faults_res = faults_phase(np, torch, cube_path, dev, clean, tmp)
         api_launches = api_faults_phase(np, torch, cube_path, dev, tmp, fault_nums, faults_res)
         sched_nums = scheduler_phase(np, torch, sim, dev, tmp)
+        # Streaming on the cube (it appends to it, so after every other
+        # user), then multi-process cluster runs of run_pdf.
+        stream_cluster_launches, stream_nums = stream_phase(
+            np, torch, cube_path, dev, clean, tmp, file_nums["file"]["wall_s"])
+        cluster_launches, cluster_nums = cluster_phase(np, torch, dev, tmp)
+        stream_cluster_launches.update(cluster_launches)
     del clean, faults_res
     exec_launches = {"faults": fault_nums["launches"], "scheduler": sched_nums["launches"]}
     log(f"[summary executor] {smi}: Set1 slice {SET1_SLICE}; staging {json.dumps(staging_nums)}; "
@@ -2441,6 +2806,9 @@ def main() -> int:
                                         if n[r["name"]]}
         r["launches_api_serve"] = {label: n[r["name"]] for label, n in api_launches.items()
                                    if n[r["name"]]}
+        r["launches_stream_cluster"] = {label: n[r["name"]]
+                                        for label, n in stream_cluster_launches.items()
+                                        if n[r["name"]]}
         if r["name"] in ("fit_error_counts", "hist_counts"):
             k = "k2" if r["name"] == "fit_error_counts" else "k4"
             r["at_large_L"] = {L: {key[3:]: v for key, v in d.items() if key.startswith(k)}

@@ -21,23 +21,20 @@ stamps the same spec hash (tests/test_torch_api.py).
 
 Port of ``repro.api.session``. A session runs on ``cuda`` unless the
 caller passes ``device=`` (``"cpu"`` for the kernels' plain versions); with
-no device given and no CUDA device present it raises. What the port does
-not have yet raises ``NotImplementedError`` at construction instead of
-running something else: multi-process placement and
-``execution.compile_cache_dir`` (ROADMAP item 15), and
-``stream.persist_stats`` with an ``out_dir`` (item 13). The merge-mode
-incremental update (item 13) raises where the reference would merge.
+no device given and no CUDA device present it raises. It runs every spec
+the reference runs: a cluster seat (``execution.placement``, with
+``runtime.cluster.run_worker`` driving it), the kernel cache of
+``execution.compile_cache_dir``, sufficient-statistic sidecars
+(``stream.persist_stats``) and merge-mode updates of appended slices
+(``streaming.incremental.merge_slice``).
 """
 
 from __future__ import annotations
 
 import warnings
-import zipfile
 from dataclasses import dataclass, field
-from pathlib import Path
 from typing import Callable, Iterator
 
-import numpy as np
 import torch
 
 from repro_torch.api.cache import ResultCache
@@ -46,7 +43,7 @@ from repro_torch.core import ml_predict as mlp
 from repro_torch.core import regions
 from repro_torch.core.executor import ExecutorReport, SliceResult, StagedExecutor
 from repro_torch.core.pipeline import resolve_device
-from repro_torch.kernels import _build
+from repro_torch.runtime import cluster as _cluster
 from repro_torch.runtime import elastic
 from repro_torch.runtime.faults import FaultInjector, FaultPlan, ShardLostError
 from repro_torch.runtime.scheduler import assign_slices
@@ -83,13 +80,15 @@ class SessionReport:
     quarantined_units: int = 0
     shards_lost: tuple[int, ...] = ()
     # Cold-start visibility (DESIGN.md §17): process-wide kernel-library
-    # activity since the session was constructed (``kernels._build``
-    # counter deltas — concurrent sessions in one process share the
-    # counters). ``compile_cache_misses`` counts nvcc builds started,
-    # ``compile_cache_hits`` libraries loaded from ``build/kernels/``
-    # without a build, ``compiles`` both. A library loads once a process,
-    # so a second session in the same process reports 0. ``traces`` stays
-    # 0: eager PyTorch traces nothing.
+    # activity since the session was constructed
+    # (runtime.cluster.counters_delta over ``kernels._build``'s counters —
+    # concurrent sessions in one process share them).
+    # ``compile_cache_misses`` counts nvcc builds started,
+    # ``compile_cache_hits`` libraries loaded from the build directory
+    # (``build/kernels/``, or ``<compile_cache_dir>/<spec_hash>``) without a
+    # build, ``compiles`` both. A library loads once a process, so a second
+    # session in the same process reports 0. ``traces`` stays 0: eager
+    # PyTorch traces nothing.
     traces: int = 0
     compiles: int = 0
     compile_cache_hits: int = 0
@@ -100,6 +99,11 @@ class SessionReport:
     # executors' StepMonitors, merged across shards. The serve layer's stats
     # endpoint reuses the same monitors/estimator verbatim.
     stage_percentiles: dict[str, dict[str, float]] = field(default_factory=dict)
+
+    @property
+    def new_compilations(self) -> int:
+        """Libraries built fresh (cache misses): 0 on a warm relaunch."""
+        return self.compile_cache_misses
 
     @property
     def load_hidden_seconds(self) -> float:
@@ -121,7 +125,7 @@ class PDFSession:
     an ml/sampling method needs it. ``device`` is where the session's
     executors and the tree's training run (``core.pipeline.resolve_device``:
     ``cuda`` unless given); ``placement.shard_devices`` moves a shard's
-    executor to another CUDA device.
+    executor to another CUDA device (``runtime.cluster.device_placement``).
     """
 
     def __init__(self, spec: PipelineSpec, data_source=None,
@@ -130,23 +134,9 @@ class PDFSession:
                  device: torch.device | str | None = None):
         if not isinstance(spec, PipelineSpec):
             raise TypeError(f"spec must be a PipelineSpec, got {type(spec).__name__}")
-        exe = spec.execution
-        if exe.placement.num_processes > 1 or exe.placement.process_id is not None:
-            raise NotImplementedError(
-                "multi-process placement (execution.placement.num_processes "
-                "> 1 or a process_id) is not ported yet: ROADMAP item 15 "
-                "(cluster on torch.distributed)")
-        if exe.compile_cache_dir is not None:
-            raise NotImplementedError(
-                "execution.compile_cache_dir is not ported yet: ROADMAP item "
-                "15 (the kernel cache keyed by spec hash); kernels build once "
-                "into build/kernels/")
-        if spec.stream.persist_stats and exe.out_dir is not None:
-            raise NotImplementedError(
-                "stream.persist_stats (sufficient-statistic sidecars) is not "
-                "ported yet: ROADMAP item 13 (streaming)")
         self.device = resolve_device(device)
-        self._shard_devices = self._check_shard_devices(exe.placement.shard_devices)
+        # validates placement.shard_devices against this device now
+        _cluster.device_placement(spec.execution.placement, 0, self.device)
         self.spec = spec
         self.source = data_source if data_source is not None else build_source(spec.source)
         self._tree = tree
@@ -167,8 +157,15 @@ class PDFSession:
         # repeat that (and a manifest swapped mid-run must not split the
         # session across two hashes).
         self._spec_hash = spec.content_hash()
-        # The counter baseline makes report()'s build counts session-scoped.
-        self._compile_baseline = _build.counters()
+        # Cold-start elimination (DESIGN.md §17): the kernel build cache,
+        # keyed under <compile_cache_dir>/<spec_hash> so a re-launched
+        # identical spec loads every library from disk. Enabled before any
+        # executor loads a kernel; the counter baseline makes report()
+        # deltas session-scoped.
+        if spec.execution.compile_cache_dir:
+            _cluster.enable_compilation_cache(
+                spec.execution.compile_cache_dir, self._spec_hash)
+        self._compile_baseline = _cluster.compile_counters()
         self.cache = (ResultCache(spec.execution.cache_dir,
                                   max_bytes=spec.execution.cache_max_bytes,
                                   injector=self.injector)
@@ -191,23 +188,6 @@ class PDFSession:
                 stacklevel=2)
 
     # -- components ------------------------------------------------------------
-
-    def _check_shard_devices(self, shard_devices) -> tuple[int, ...] | None:
-        """``placement.shard_devices`` as CUDA device indices, refused on a
-        CPU session or past the devices present."""
-        if shard_devices is None:
-            return None
-        if self.device.type != "cuda":
-            raise ValueError(
-                f"execution.placement.shard_devices {shard_devices} names CUDA "
-                f"devices, but the session runs on {self.device}")
-        count = torch.cuda.device_count()
-        bad = [d for d in shard_devices if d >= count]
-        if bad:
-            raise ValueError(
-                f"execution.placement.shard_devices {bad} beyond the "
-                f"{count} CUDA device(s) present")
-        return tuple(shard_devices)
 
     @property
     def geometry(self) -> regions.CubeGeometry:
@@ -251,21 +231,32 @@ class PDFSession:
         write hook. It runs on its ``placement.shard_devices`` entry
         (round-robin when the list is shorter), else on the session's
         device: the same kernels on the same inputs, so any placement gives
-        the same bits."""
+        the same bits. With ``stream.persist_stats`` and an ``out_dir`` it
+        writes a sufficient-statistic sidecar a window
+        (``streaming.stats.StatsRecorder``)."""
         if shard not in self._executors:
             source = self.source
             if self.injector is not None:
                 source = self.injector.wrap_source(source, shard=shard)
-            sd = self._shard_devices
+            recorder = None
+            if (self.spec.stream.persist_stats
+                    and self.spec.execution.out_dir is not None):
+                from repro_torch.streaming.stats import StatsRecorder
+
+                recorder = StatsRecorder(self.spec.execution.out_dir,
+                                         self.spec.compute.num_bins,
+                                         spec_hash=self.spec_hash)
             self._executors[shard] = StagedExecutor(
                 self.spec.pdf_config(),
                 source,
-                self.device if sd is None else torch.device("cuda", sd[shard % len(sd)]),
+                _cluster.device_placement(self.spec.execution.placement, shard,
+                                          self.device),
                 tree=self.tree,
                 out_dir=self.spec.execution.out_dir,
                 exec_config=self.spec.exec_config(),
                 spec_hash=self.spec_hash,
                 injector=self.injector,
+                stats_recorder=recorder,
             )
         return self._executors[shard]
 
@@ -500,53 +491,20 @@ class PDFSession:
         return self._lineage
 
     def _try_merge(self, s: int):
-        """The merge-mode incremental path for one slice: None to fall
-        through to a full recompute wherever the reference's
-        ``streaming.incremental.merge_slice`` returns None (strict mode,
-        non-file sources, no out_dir, no complete prior watermark, a
-        missing, foreign or mis-windowed sufficient-statistic sidecar, a
-        sidecar at other bins, nothing appended since it, or edges the
-        append moved). Where the reference would merge, the port raises:
-        the merge path is ROADMAP item 13, and recomputing instead would
-        silently give other bits than the reference's merge."""
-        out_dir = self.spec.execution.out_dir
-        if self.spec.stream.update_mode != "merge" or out_dir is None:
+        """The merge-mode incremental path for one slice on the session's
+        device, or None to fall through to a full recompute (strict mode,
+        non-file sources, no persisted prior run, or any failed merge
+        precondition — ``streaming.incremental.merge_slice``)."""
+        if (self.spec.stream.update_mode != "merge"
+                or self.spec.execution.out_dir is None):
             return None
         src = self._file_source()
         if src is None:
             return None
-        from repro_torch.core.executor import PersistStage
+        from repro_torch.streaming.incremental import merge_slice
 
-        geom = src.geometry
-        info = PersistStage(out_dir, async_writes=False).watermark_info(s)
-        old_hash = info.get("spec_hash")
-        if not old_hash or int(info.get("next_line", 0)) < geom.lines_per_slice:
-            return None  # no complete prior run to merge forward
-        accept = {old_hash, *self._lineage_hashes(), ""}
-        for w in regions.iter_windows(geom, s, self.spec.compute.window_lines):
-            f = Path(out_dir) / f"slice{s}_stats_{w.line_start:05d}.npz"
-            try:
-                with np.load(f) as z:
-                    if (str(z["spec_hash"]) not in accept
-                            or (int(z["line_start"]), int(z["line_end"]))
-                            != (w.line_start, w.line_end)
-                            or int(z["num_bins"]) != self.spec.compute.num_bins):
-                        return None
-                    n_old = int(float(z["n"]))
-                    vmin, vmax = z["vmin"], z["vmax"]
-            except (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile):
-                return None  # sidecar missing or unreadable
-            n_now = src.slice_observations(s)
-            if n_now <= n_old:
-                return None  # nothing appended since the sidecar was recorded
-            new = src.load_window_obs(w, n_old, n_now).astype(np.float64)
-            if (new.min(axis=1) < vmin).any() or (new.max(axis=1) > vmax).any():
-                return None  # edges moved: old Eq.-5 counts are not reusable
-        raise NotImplementedError(
-            f"slice {s}: a merge-mode incremental update applies (sidecars of "
-            f"a complete prior run in {out_dir}), and the merge path is not "
-            "ported yet: ROADMAP item 13 (streaming); run with "
-            "stream.update_mode='strict' to recompute the slice in full")
+        return merge_slice(self.spec, src, s, self.spec_hash,
+                           lineage=self._lineage_hashes(), device=self.device)
 
     def refresh_source(self) -> str:
         """Re-open a file source at the cube's current manifest version and
@@ -636,16 +594,15 @@ class PDFSession:
                 retries += r.retries
                 speculations += r.speculations
                 quarantined += r.quarantined
-        now = _build.counters()
-        builds = now["builds"] - self._compile_baseline["builds"]
-        loads = now["cached_loads"] - self._compile_baseline["cached_loads"]
+        compile_delta = _cluster.counters_delta(self._compile_baseline)
         return SessionReport(
             spec_hash=self.spec_hash,
             slices_done=self._slices_done,
             windows=windows,
-            compiles=builds + loads,
-            compile_cache_hits=loads,
-            compile_cache_misses=builds,
+            traces=compile_delta["traces"],
+            compiles=compile_delta["compiles"],
+            compile_cache_hits=compile_delta["persistent_cache_hits"],
+            compile_cache_misses=compile_delta["persistent_cache_misses"],
             cache_hits=self.cache_hits,
             cache_misses=self.cache_misses,
             cache_adopted=self.cache_adopted,

@@ -353,10 +353,10 @@ class PlacementSpec:
     per process (the paper's per-node assignment), so any placement produces
     bitwise-identical results to the single-process run.
 
-    The port runs one process: ``PDFSession`` honours ``shard_devices`` and
-    refuses ``num_processes > 1`` or a ``process_id`` (the cluster layer is
-    ROADMAP item 15). The fields keep the reference's names and meaning, so
-    a spec file reads in either package."""
+    The port's cluster layer is ``runtime.cluster`` (``launch/cluster.sh``
+    spawns the workers; ``run_pdf`` seats each one). The fields keep the
+    reference's names and meaning, so a spec file reads in either
+    package."""
 
     num_processes: int = field(default=1, metadata=_meta(
         "worker processes in the cluster run (1 = single-process)", hashed=False,
@@ -462,9 +462,9 @@ class ExecSpec:
     # (bitwise by the per-slice independence contract) and the compilation
     # cache only skips re-compiling executables that would be identical.
     compile_cache_dir: str | None = field(default=None, metadata=_meta(
-        "persistent kernel build cache root keyed by spec hash, so a "
-        "re-launched identical spec never re-compiles (not ported yet: "
-        "kernels build once into build/kernels/)", hashed=False, type_=str,
+        "persistent kernel build cache root: CUDA libraries built under "
+        "<dir>/<spec_hash>, so a re-launched identical spec never "
+        "re-compiles (runtime.cluster)", hashed=False, type_=str,
         flag="--compile-cache-dir"))
     placement: PlacementSpec = field(default=PlacementSpec(), metadata=_meta(
         "multi-process placement (see execution.placement)", hashed=False))
@@ -578,8 +578,9 @@ UPDATE_MODES = ("merge", "strict")
 
 @dataclass(frozen=True)
 class StreamSpec:
-    """Streaming ingestion: how a run reacts to cube appends (the merge
-    path and ``persist_stats`` are not ported yet, ROADMAP item 13). Staging-only — excluded from ``content_hash`` like ``ExecSpec``.
+    """Streaming ingestion: how a run reacts to cube appends
+    (``repro_torch.streaming``). Staging-only — excluded from
+    ``content_hash`` like ``ExecSpec``.
     That exclusion is sound because the cache never holds merge-path
     results: cached entries are always fresh full computes (or dep-verified
     adoptions of one), bitwise-reproducible by the hash rule, while

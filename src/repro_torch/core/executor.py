@@ -45,6 +45,11 @@ Select runs on the host (np.unique over int64 keys) or on the device
 the fused backend K2 reads the representatives through its ``row_indices``
 prologue); the two are bitwise equal.
 
+With a ``stats_recorder`` (``streaming.stats.StatsRecorder``) the compute
+stage hands each full window's values and moments to it after the moments
+and before the fit (never a sampled window; never in ``run_window_batch``):
+the merge path's sufficient-statistic sidecars.
+
 The ``.npz``, watermark and failed-unit manifest formats are the
 reference's.
 """
@@ -291,6 +296,10 @@ class _StagedWindow(NamedTuple):
     unit: regions.WorkUnit
     staged: StagedValues
     load_seconds: float
+    # The loader's numpy window, kept only for a stats recorder: the
+    # sidecar's float64 statistics read these bytes instead of copying the
+    # staged window back from the device.
+    host: np.ndarray | None = None
 
 
 class _FailedUnit(NamedTuple):
@@ -566,6 +575,7 @@ class StagedExecutor:
         exec_config: ExecutorConfig | None = None,
         spec_hash: str | None = None,
         injector=None,
+        stats_recorder=None,
     ):
         if ("ml" in config.method or config.method == "sampling") and tree is None:
             raise ValueError(f"method {config.method!r} requires a decision tree")
@@ -578,6 +588,11 @@ class StagedExecutor:
         self.exec_config = exec_config or ExecutorConfig()
         self.spec_hash = spec_hash
         self.injector = injector  # faults.FaultInjector (persist-path hook)
+        # streaming.stats.StatsRecorder (or any callable taking (window,
+        # values, moments, host=...)): sees each full window's staged values
+        # and moments before the fit, so merge-able sufficient statistics
+        # persist without a second read.
+        self.stats_recorder = stats_recorder
         self._backend = fitting.get_fit_backend(config.fit_backend, config.num_bins)
         self.cache = ReuseCache()
         self._key_buf: np.ndarray | None = None  # cached (P, 2) quantize buffer
@@ -626,7 +641,8 @@ class StagedExecutor:
             raise
         t1 = time.perf_counter()
         mon.finish(uid, now=t1)
-        return _StagedWindow(unit, staged, t1 - t0)
+        return _StagedWindow(unit, staged, t1 - t0,
+                             raw if self.stats_recorder is not None else None)
 
     # -- fault tolerance: retry, speculation, quarantine (DESIGN.md §14) -------
 
@@ -900,6 +916,12 @@ class StagedExecutor:
             values = self.stager.ready(item.staged)
             num_points = values.shape[0]
             values, moments, sample_idx = self._moments_of(values, unit.window)
+            if self.stats_recorder is not None and sample_idx is None:
+                # Read on the compute stream, where ``ready`` made the staged
+                # tensor safe. Sampled windows are skipped: their stats
+                # describe a draw, not the window, and cannot merge with
+                # append data.
+                self.stats_recorder(unit.window, values, moments, host=item.host)
             t, p, e, fitted, hits = self._select_and_fit(values, moments, unit.window,
                                                          num_points, sample_idx)
             mom_np = self._moments_np(moments)

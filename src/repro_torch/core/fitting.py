@@ -184,8 +184,12 @@ class FitBackend(NamedTuple):
 
     ``moments`` maps values (..., n) -> Moments; ``histogram`` is the
     chain-path histogram_fn (also used by ``mode='faithful'``); ``fit_all``
-    and ``fit_predicted`` are Algorithms 3 and 4. ``merge_stats`` /
-    ``merge_hist`` come with streaming; they stay None here.
+    and ``fit_predicted`` are Algorithms 3 and 4.
+
+    ``merge_stats``/``merge_hist`` are the streaming layer's pairwise
+    sufficient-statistic and histogram-count merges
+    (``repro_torch.streaming.moments``): host/float64 for ``reference``,
+    tensors for the kernel backends. Same formulas either way.
     """
 
     name: str
@@ -193,14 +197,18 @@ class FitBackend(NamedTuple):
     histogram: Callable[..., torch.Tensor]
     fit_all: Callable[..., FitResult]  # (values, moments, types, num_bins, mode)
     fit_predicted: Callable[..., FitResult]  # (values, moments, pred, types, num_bins)
-    merge_stats: Callable | None = None
-    merge_hist: Callable | None = None
+    merge_stats: Callable | None = None  # (SuffStats, SuffStats) -> SuffStats
+    merge_hist: Callable | None = None  # (counts, counts) -> counts
 
 
 @functools.lru_cache(maxsize=16)
 def get_fit_backend(name: str = "fused", num_bins: int = 64) -> FitBackend:
     """Resolve a ``FIT_BACKENDS`` name; the kernel module is imported lazily
     so the reference backend never touches it."""
+    # Lazy: streaming.moments imports core.distributions, and fitting must
+    # stay importable without the streaming package (and vice versa).
+    from repro_torch.streaming import moments as sm
+
     if name == "reference":
         hist = pe.histogram_scatter
 
@@ -214,7 +222,8 @@ def get_fit_backend(name: str = "fused", num_bins: int = 64) -> FitBackend:
                 values, moments, pred, types, num_bins, histogram_fn=hist
             )
 
-        return FitBackend(name, dists.moments_from_values, hist, fit_all, fit_predicted)
+        return FitBackend(name, dists.moments_from_values, hist, fit_all,
+                          fit_predicted, sm.merge_suffstats, sm.merge_counts)
 
     if name == "kernels":
         from repro_torch.kernels.hist import ops as hops
@@ -231,7 +240,9 @@ def get_fit_backend(name: str = "fused", num_bins: int = 64) -> FitBackend:
                 values, moments, pred, types, num_bins, histogram_fn=hops.histogram
             )
 
-        return FitBackend(name, mops.moments, hops.histogram, fit_all, fit_predicted)
+        return FitBackend(name, mops.moments, hops.histogram, fit_all,
+                          fit_predicted, sm.merge_suffstats_torch,
+                          sm.merge_counts_torch)
 
     if name == "fused":
         from repro_torch.kernels.fitpdf import ops as fops
@@ -256,6 +267,8 @@ def get_fit_backend(name: str = "fused", num_bins: int = 64) -> FitBackend:
             errs = fops.fit_errors(values, moments, params_all, types, num_bins)
             return select_predicted(params_all, errs, pred)
 
-        return FitBackend(name, moments_fn, pe.histogram_scatter, fit_all, fit_predicted)
+        return FitBackend(name, moments_fn, pe.histogram_scatter, fit_all,
+                          fit_predicted, sm.merge_suffstats_torch,
+                          sm.merge_counts_torch)
 
     raise ValueError(f"fit_backend must be one of {FIT_BACKENDS}, got {name!r}")

@@ -2,9 +2,9 @@
 
 Port of ``repro.data.file_source`` (numpy only): the same on-disk format and
 manifest, so a cube exported by either package reads bitwise in the other
-and has the same ``content_sha256``. The streaming append that writes
-format-2 cubes is the reference's (``streaming/append.py``), not ported yet;
-this reader reads its cubes.
+and has the same ``content_sha256``. Format-2 cubes are written by the
+streaming append (``repro_torch.streaming.append``, bitwise the
+reference's); this reader reads them, from either package.
 
 The paper's input is not synthetic — it is a cube "produced by observation
 … or numerical simulation programs" persisted on disk/NFS, which Spark's

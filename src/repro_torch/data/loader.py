@@ -13,8 +13,8 @@ window goes through a pinned host buffer from a small pool and a
 ``non_blocking`` copy on a dedicated copy stream, so window *k+1*'s copy
 runs beside window *k*'s kernels; on the CPU it is ``torch.from_numpy``.
 ``ShardedStager`` pads a window to a shard divisor and stages it onto one
-device (placement over several devices comes with the cluster port,
-ROADMAP item 15).
+device; splitting one window's points over several cards is still to come
+(ROADMAP: the multi-card ``ShardedStager``).
 """
 
 from __future__ import annotations
@@ -194,7 +194,9 @@ class ShardedStager:
     reference's rule) and stages the result through ``stager`` onto its one
     device; callers slice results back with the returned valid count. On
     one card the divisor is 1 and nothing is padded. Placing the shards'
-    rows on several devices is the cluster port's (ROADMAP item 15).
+    rows on several cards is still to come (ROADMAP: the multi-card
+    ``ShardedStager``); cluster workers each stage whole windows onto their
+    own device (``runtime.cluster.device_placement``).
     """
 
     def __init__(self, stager: WindowStager, divisor: int = 1):

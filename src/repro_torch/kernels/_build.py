@@ -15,7 +15,9 @@ on first use, and ``build(*names)`` builds several sources at once, one
 ``nvcc`` process each, all started together. ``counters()`` reports, for
 the process, the ``nvcc`` builds started and the libraries loaded from
 ``build/kernels/`` without a build (``api.SessionReport``'s compile
-counts).
+counts). ``runtime.cluster.enable_compilation_cache`` moves ``BUILD_DIR``
+to a cache directory keyed by spec hash; a library there that does not
+load (a corrupt file) is rebuilt with a warning, never a crash.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import os
 import shutil
 import subprocess
 import threading
+import warnings
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -107,8 +110,15 @@ def library(name: str) -> ctypes.CDLL:
         if lib is None:
             target = _target(name)
             if target.exists():
-                _counts["cached_loads"] += 1
-            else:
+                try:
+                    lib = ctypes.CDLL(str(target))
+                    _counts["cached_loads"] += 1
+                except OSError as e:  # a corrupt entry: a miss, rebuilt below
+                    warnings.warn(f"kernel cache entry {target} does not load ({e}); "
+                                  "rebuilding it", RuntimeWarning, stacklevel=2)
+                    target.unlink(missing_ok=True)
+            if lib is None:
                 build(name)
-            lib = _libs[name] = ctypes.CDLL(str(target))
+                lib = ctypes.CDLL(str(target))
+            _libs[name] = lib
         return lib

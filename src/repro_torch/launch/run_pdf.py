@@ -16,13 +16,19 @@ seconds: when an append lands, the session re-opens the cube at the new
 version and applies the update incrementally — unchanged slices are adopted
 in the result cache and served as hits, appended slices merge forward or
 recompute per ``stream.update_mode`` (DESIGN.md §16). ``--stream-max-updates
-N`` exits after N applied appends. The port recomputes where no merge
-applies and refuses (``NotImplementedError``) where the reference would
-merge: the merge path is ROADMAP item 13.
+N`` exits after N applied appends.
+
+Cluster mode (DESIGN.md §17): with ``--num-processes N --process-id I`` the
+process takes seat I of an N-worker cluster (``runtime.cluster``): it joins
+the ``torch.distributed`` world at ``--coordinator`` (gloo), runs its shard
+of the slice deal against the shared ``--out-dir``, and re-deals a lost
+peer's unfinished slices. ``launch/cluster.sh`` (in this package) spawns
+the workers. ``--compile-cache-dir`` keeps the CUDA kernels' libraries
+under ``<dir>/<spec_hash>``: a relaunch prints ``new_compilations=0``.
 
 ``--device`` picks the torch device (default ``cuda``; ``cpu`` runs the
-kernels' plain versions). A placement over more than one process is
-refused by the session: the cluster mode is ROADMAP item 15.
+kernels' plain versions). Each run prints its kernel launches
+(``[launches]``, CUDA launches only).
 
   PYTHONPATH=src python -m repro_torch.launch.run_pdf --slices 0 1 2 3 --shards 2
   PYTHONPATH=src python -m repro_torch.launch.run_pdf --method grouping_ml --serial
@@ -34,6 +40,7 @@ refused by the session: the cluster mode is ROADMAP item 15.
 from __future__ import annotations
 
 import argparse
+import json
 import time
 
 from repro_torch.api import (
@@ -44,6 +51,7 @@ from repro_torch.api import (
     add_spec_args,
     spec_from_args,
 )
+from repro_torch.kernels import launch_counts
 
 # The launcher's only defaults that differ from the spec's own: the paper's
 # headline method and a 4-slice demo run. Everything else — geometry,
@@ -67,6 +75,17 @@ def main(argv=None):
     spec = spec_from_args(args, base=BASE_SPEC)
     if args.watch and spec.source.kind != "file":
         ap.error("--watch requires a file source (--source-path)")
+
+    from repro_torch.runtime import cluster
+
+    spec = cluster.apply_placement(spec)
+    pl = spec.execution.placement
+    if cluster.init_distributed(pl):
+        print(f"[cluster] torch.distributed (gloo) process {pl.process_id}/"
+              f"{pl.num_processes} coordinator={pl.coordinator}")
+    elif pl.process_id is not None and pl.process_id >= pl.num_processes:
+        print(f"[cluster] join-only worker {pl.process_id} "
+              f"(world of {pl.num_processes}) — redeal pickup only")
 
     session = PDFSession(spec, device=args.device)
     # the session's memoized hash: one manifest read for kind='file', and
@@ -123,8 +142,19 @@ def _run_once(session: PDFSession, spec: PipelineSpec) -> None:
     def on_window(ws):
         window_durations.append(ws.load_seconds + ws.compute_seconds)
 
+    pl = spec.execution.placement
+    cluster_mode = pl.num_processes > 1 or (
+        pl.process_id is not None and pl.process_id >= pl.num_processes)
+    if cluster_mode:
+        from repro_torch.runtime import cluster
+
+        results = cluster.run_worker(session, on_window=on_window, log=print)
+    else:
+        results = session.run(on_window=on_window)
+
+    launches0 = launch_counts()
     t0 = time.perf_counter()
-    for r in session.run(on_window=on_window):
+    for r in results:
         if r.cached:
             print(f"[slice {r.slice_i}] E={r.avg_error:.4f} served from "
                   f"result cache (spec {r.spec_hash})")
@@ -137,6 +167,7 @@ def _run_once(session: PDFSession, spec: PipelineSpec) -> None:
                   f"window(s) quarantined — see the failed-unit manifest "
                   f"next to the watermark")
     wall = time.perf_counter() - t0
+    launches = {k: n - launches0[k] for k, n in launch_counts().items()}
 
     rep = session.report()
     for shard, reports in sorted(rep.shard_reports.items()):
@@ -163,12 +194,14 @@ def _run_once(session: PDFSession, spec: PipelineSpec) -> None:
               f"quarantined={rep.quarantined_units} "
               f"shards_lost={len(rep.shards_lost)}")
     # cold-start visibility: "new_compilations" counts the nvcc builds this
-    # run started — a relaunch over an existing build/kernels/ reports
+    # session started — a relaunch over an existing build directory
+    # (build/kernels/, or --compile-cache-dir's <dir>/<spec_hash>) reports
     # new_compilations=0 (its libraries load as cache hits)
     print(f"[compile] traces={rep.traces} compiled={rep.compiles} "
           f"cache_hits={rep.compile_cache_hits} "
           f"cache_misses={rep.compile_cache_misses} "
-          f"new_compilations={rep.compile_cache_misses}")
+          f"new_compilations={rep.new_compilations}")
+    print(f"[launches] {json.dumps(launches)}")
     if window_durations:
         med = sorted(window_durations)[len(window_durations) // 2]
         print(f"[total] wall={wall:.3f}s windows={rep.windows} "

@@ -1,6 +1,6 @@
 """Port of ``repro.runtime``: heartbeats and stragglers, fault injection,
-elastic re-planning and slice scheduling (the cluster launcher is not
-ported yet)."""
+elastic re-planning, slice scheduling and the multi-process cluster layer
+(``runtime.cluster``)."""
 
 from repro_torch.runtime.monitor import StepMonitor, StragglerPolicy, percentiles
 from repro_torch.runtime.elastic import ElasticPlan, plan_remesh

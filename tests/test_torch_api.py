@@ -9,7 +9,8 @@ small cube (4 slices of 12 lines x 30 points, 200 observations, windows of
 5 lines) through both packages' ``PDFSession`` under the ROADMAP's parity
 rules (and the tree-margin rule of tests/test_torch_ml.py for
 ``grouping_ml``); within the port, a session equals ``PDFComputer`` bit for
-bit. What the port does not have yet raises ``NotImplementedError``."""
+bit. The cluster knobs, sufficient-statistic sidecars and merge-mode
+updates run as the reference's do."""
 
 import argparse
 import dataclasses
@@ -457,26 +458,64 @@ def test_session_without_a_device_needs_cuda():
         tapi.PDFSession(_spec())
 
 
-# -- what the port does not have yet -----------------------------------------------
+# -- cluster knobs, sidecars and merges: accepted, and as the reference -------------
 
 
-@pytest.mark.parametrize("exec_kw,match", [
-    (dict(out_dir="o", placement=tapi.PlacementSpec(num_processes=2)), "item 15"),
-    (dict(placement=tapi.PlacementSpec(process_id=0)), "item 15"),
-    (dict(compile_cache_dir="cc"), "item 15"),
+@pytest.mark.parametrize("exec_kw", [
+    dict(out_dir="o", placement=tapi.PlacementSpec(num_processes=2)),
+    dict(placement=tapi.PlacementSpec(process_id=0)),
+    dict(compile_cache_dir="cc"),
 ], ids=["num_processes", "process_id", "compile_cache_dir"])
-def test_cluster_knobs_are_refused(exec_kw, match):
-    with pytest.raises(NotImplementedError, match=match):
-        tapi.PDFSession(_spec(**exec_kw), device="cpu")
+def test_cluster_knobs_are_refused(exec_kw, tmp_path, monkeypatch):
+    """Once refused, now run: a session with a placement or a kernel cache
+    directory computes slice 2 bitwise as one without, and matches the
+    reference's session under the parity rules. The cache directory
+    ``<dir>/<spec_hash>`` becomes the build directory, and nothing builds
+    on the CPU."""
+    from repro_torch.kernels import _build
+
+    monkeypatch.setattr(_build, "BUILD_DIR", _build.BUILD_DIR)
+    exec_kw = {k: (str(tmp_path / v) if k in ("out_dir", "compile_cache_dir") else v)
+               for k, v in exec_kw.items()}
+    spec = _spec("grouping", **exec_kw)
+    session = tapi.PDFSession(spec, device="cpu")
+    got = session.run_all([2])[2]
+    _bitwise(got, tapi.PDFSession(_spec("grouping"), device="cpu").run_all([2])[2])
+    ref = rapi.PDFSession(_ref(_spec("grouping"))).run_all([2])[2]
+    for name in ("mean", "std", "skew", "kurt"):
+        np.testing.assert_allclose(getattr(got, name), getattr(ref, name), **MOM_TOL)
+    rep = session.report()
+    assert rep.new_compilations == rep.compile_cache_misses == 0
+    if "compile_cache_dir" in exec_kw:
+        assert _build.BUILD_DIR == tmp_path / "cc" / session.spec_hash
+        assert _build.BUILD_DIR.is_dir()
 
 
 def test_persist_stats_is_refused(tmp_path):
-    spec = dataclasses.replace(_spec(out_dir=str(tmp_path)),
+    """Once refused, now written: with an ``out_dir`` the session writes a
+    sufficient-statistic sidecar a window, equal to the reference's; without
+    one neither package writes any."""
+    from repro.streaming import stats as r_stats
+    from repro_torch.streaming import stats as t_stats
+
+    spec = dataclasses.replace(_spec(out_dir=str(tmp_path / "t")),
                                stream=tapi.StreamSpec(persist_stats=True))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tapi.PDFSession(spec, device="cpu")
-    # without an out_dir the reference writes no sidecar either
-    tapi.PDFSession(dataclasses.replace(spec, execution=tapi.ExecSpec()), device="cpu")
+    tapi.PDFSession(spec, device="cpu").run_all([1])
+    rspec = _ref(spec)
+    rspec = dataclasses.replace(rspec, execution=dataclasses.replace(
+        rspec.execution, out_dir=str(tmp_path / "r")))
+    rapi.PDFSession(rspec).run_all([1])
+    starts = (0, 5, 10)
+    assert sorted(p.name for p in (tmp_path / "t").glob("slice1_stats_*.npz")) == \
+        [f"slice1_stats_{s:05d}.npz" for s in starts]
+    for s in starts:
+        a = t_stats.load_stats(tmp_path / "t", 1, s)
+        b = r_stats.load_stats(tmp_path / "r", 1, s)
+        np.testing.assert_array_equal(a["freq"], b["freq"])
+        for fa, fb in zip(a["stats"], b["stats"]):
+            np.testing.assert_array_equal(fa, fb)
+    no_out = tapi.PDFSession(dataclasses.replace(spec, execution=tapi.ExecSpec()), device="cpu")
+    assert no_out.executor(0).stats_recorder is None
 
 
 def test_shard_devices_need_cuda_devices():
@@ -486,10 +525,12 @@ def test_shard_devices_need_cuda_devices():
 
 
 def test_merge_update_raises_where_the_reference_merges(tmp_path):
-    """A reference run with sufficient-statistic sidecars over a file cube,
-    then an append inside every point's range: the reference would merge
-    the slice forward, so the port raises; with no prior run, in strict
-    mode, or past a sidecar-free out_dir it recomputes."""
+    """Once a refusal, now a merge: a reference run with sidecars over a
+    file cube, then an append inside every point's range. The port merges
+    the slice forward from the reference's sidecars, as the reference
+    would (counts exact, moments and errors at the parity tolerances,
+    ``type_idx`` equal outside ties), without an executor; with no prior
+    run, in strict mode, or past a sidecar-free out_dir it recomputes."""
     from repro.streaming import append_realizations
 
     src = tapi.SourceSpec(num_slices=2, lines_per_slice=10, points_per_line=8, observations=60)
@@ -503,10 +544,24 @@ def test_merge_update_raises_where_the_reference_merges(tmp_path):
         device="cpu").run_all()[1]
     rapi.PDFSession(dataclasses.replace(_ref(spec), stream=rapi.StreamSpec(
         persist_stats=True))).run_all()
+    shutil.copytree(out, tmp_path / "ref_out")
     obs = t_fs.FileCubeSource(cube.path).load_window(Window(1, 0, 10))
     append_realizations(cube.path, {1: obs[:, :3].reshape(10, 8, 3)})
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tapi.PDFSession(spec, device="cpu").run_all()
+    rspec = dataclasses.replace(_ref(spec), execution=rapi.ExecSpec(
+        out_dir=str(tmp_path / "ref_out"), slices=(1,)))
+    want = rapi.PDFSession(rspec).run_all()[1]
+    session = tapi.PDFSession(spec, device="cpu")
+    got = session.run_all()[1]
+    assert session.report().slices_merged == 1 and not session._executors
+    for name in ("mean", "std", "skew", "kurt"):
+        np.testing.assert_allclose(getattr(got, name), getattr(want, name), **MOM_TOL)
+    same = got.type_idx == want.type_idx
+    assert same.mean() > 0.9
+    np.testing.assert_allclose(got.error[same], want.error[same], **ERR_TOL)
+    for w0 in (0, 5):
+        a = np.load(Path(out) / f"slice1_stats_{w0:05d}.npz")
+        b = np.load(tmp_path / "ref_out" / f"slice1_stats_{w0:05d}.npz")
+        np.testing.assert_array_equal(a["freq"], b["freq"])
     strict = dataclasses.replace(spec, stream=tapi.StreamSpec(update_mode="strict"))
     res = tapi.PDFSession(strict, device="cpu").run_all()[1]
     assert len(res.stats) == 2 and not np.array_equal(res.mean, fresh.mean)

@@ -70,3 +70,17 @@ def test_chip_smoke_refuses_without_cuda_or_checkout(tmp_path):
                              timeout=120)
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+def test_streaming_and_cluster_modules_are_covered():
+    """The modules of the streaming and cluster layers are among those
+    checked above, and the port's cluster launcher starts only the port,
+    with none of the JAX-only environment."""
+    assert {"repro_torch.streaming", "repro_torch.streaming.moments",
+            "repro_torch.streaming.stats", "repro_torch.streaming.append",
+            "repro_torch.streaming.incremental", "repro_torch.runtime.cluster"} <= set(MODULES)
+    script = (ROOT / "src" / "repro_torch" / "launch" / "cluster.sh").read_text()
+    assert "-m repro_torch.launch.run_pdf" in script
+    assert "-m repro_torch.runtime.cluster" in script
+    for jax_only in ("-m repro.", "XLA_FLAGS", "JAX_", "CPU_DEVICES_PER_PROC"):
+        assert jax_only not in script, jax_only
