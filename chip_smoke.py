@@ -119,26 +119,40 @@ their plain versions: K2 within ERR_TOL on every route it is timed on
 
 Last comes the LM serving path (``band_attn``, K5):
 
-* K5 against its plain version at the serving shape (B 4, S 4096, H 16,
-  KV 8, hd 256, W 1024, bf16), a ragged S = 4000 and an S = 700 < W:
-  each output row's relative distance from the float32 truth within twice
-  that of the plain version with the oracle's bf16 weights, repeats
-  bitwise, launches counted, and a window off by one rejected by the same
-  gate;
-* gemma3-12b at full width cut to 12 layers (10 local, 2 global), random
-  weights from a seeded generator on the card: ``generate`` on 4 prompts
-  of 4,096 tokens and 16 greedy tokens with the counts set to 0 (10 K5
-  launches), a prefill alone twice (bitwise equal logits), the decode steps
-  alone (no K5 launch, the same tokens), and the prefill's logits and first
-  token held against the plain masked path and float32 compute;
-* one prefill and one decode step under ``torch.profiler`` (K5's share,
-  device idle share) and
-  K5's time beside its bound, its plain version and SDPA with the band as
-  a mask.
+* K5 against its plain version at gemma3's serving shape (B 4, S 4096,
+  H 16, KV 8, hd 256, W 1024, bf16), a ragged S = 4000, an S = 700 < W,
+  and hymba-1.5b's (B 4, S 4096, H 25, KV 5, hd 64, W 1024): each output
+  row's relative distance from the float32 truth within twice that of the
+  plain version with the oracle's bf16 weights, repeats bitwise, launches
+  counted, and a window off by one rejected by the same gate;
+* ``[lm]``: gemma3-12b at full width cut to 12 layers (10 local, 2
+  global), random weights from a seeded generator on the card:
+  ``generate`` on 4 prompts of 4,096 tokens and 16 greedy tokens with the
+  counts set to 0 (10 K5 launches), a prefill alone twice (bitwise equal
+  logits), the decode steps alone (no K5 launch, the same tokens), and the
+  prefill's logits and first token held against the plain masked path and
+  float32 compute;
+* ``[lm ssm]``: mamba2-780m at full width and depth (48 SSD layers), the
+  same way with no kernel launched at all; its bf16 logits against float32
+  compute, the decode oracle in float32 compute (4 greedy steps, each
+  step's logits against ``forward`` over the extended sequence within the
+  reference's rtol = atol = 1e-3) and the decode cache's bytes equal after
+  prompts of 1,024 and 4,096 tokens;
+* ``[lm hybrid]``: hymba-1.5b at full width and depth (1 global and 31
+  windowed hybrid layers) with the banded path on: 31 K5 launches a
+  prefill, none a decode step (past the 1,024 ring), bitwise repeat, and
+  the gemma3 gate against the plain masked path and float32 compute;
+* for each model one prefill and one decode step under ``torch.profiler``
+  (device time by kernel and by operator, K5's share, the device idle
+  share) and, for mamba2 and hymba, the SSD's device time in a prefill by
+  CUDA events around its calls; then K5's time at both shapes beside its
+  bound, its plain version and SDPA with the band as a mask.
 
 The K1-K4 rows of the kernels line carry ``launches_api_serve``, the
 ``[api]`` and ``[serve]`` launches, and ``launches_stream_cluster``, those
-of ``[stream]`` and ``[cluster]`` (summed over a cluster's workers). Any failed check raises, so the exit
+of ``[stream]`` and ``[cluster]`` (summed over a cluster's workers); the
+K5 row carries ``launches_lm_paths`` (each model's ``generate``) and
+``at_hymba_shape`` (its numbers at hymba's shape). Any failed check raises, so the exit
 code is non-zero. The line before the last is a JSON object of
 per-kernel numbers; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
@@ -211,8 +225,24 @@ LM_TOKENS = 16
 # oracle's rounding (round_weights=True). The plain version at window
 # W - 1 must fail the same gate.
 K5_TOL = 2.0
-# (B, S, H, KV, hd, W): the serving shape, a ragged S and an S < W.
-K5_CASES = ((4, 4096, 16, 8, 256, 1024), (4, 4000, 16, 8, 256, 1024), (4, 700, 16, 8, 256, 1024))
+# (B, S, H, KV, hd, W): gemma3's serving shape, a ragged S and an S < W;
+# then hymba-1.5b's (25 / 5 heads: G = 5 is odd, so one warpgroup a block;
+# hd 64 is one TMA box).
+K5_CASES = ((4, 4096, 16, 8, 256, 1024), (4, 4000, 16, 8, 256, 1024), (4, 700, 16, 8, 256, 1024),
+            (4, 4096, 25, 5, 64, 1024))
+K5_GEMMA, K5_HYMBA = (4, 16, 8, 256), (4, 25, 5, 64)  # (B, H, KV, hd) of each model's launches
+# The SSM and hybrid serving paths at full width and full depth
+# (configs/mamba2_780m.py, configs/hymba_1_5b.py: 48 and 32 layers), random
+# weights from a seeded generator, float32 parameters, bf16 compute, the
+# same batch, prompt and tokens as [lm]. hymba's 31 windowed layers run K5.
+SSM_ARCH = "mamba2-780m"
+HYBRID_ARCH = "hymba-1.5b"
+HYBRID_LOCAL_LAYERS = 31
+# The reference's decode oracle: decode logits against forward over the
+# extended sequence, rtol = atol = 1e-3 (tests/test_models.py:40-42), here
+# in float32 compute with TF32 off, after each of ORACLE_STEPS greedy steps.
+ORACLE_STEPS = 4
+LM_DECODE_TOL = dict(rtol=1e-3, atol=1e-3)
 
 
 class SmokeFailure(AssertionError):
@@ -2315,6 +2345,15 @@ def device_us(e) -> float:
     return 0.0
 
 
+def device_total_us(e) -> float:
+    """A profile row's device time with its children's: the kernels an
+    operator launched, those of the operators it called included."""
+    for attr in ("device_time_total", "cuda_time_total"):
+        if hasattr(e, attr):
+            return getattr(e, attr)
+    return 0.0
+
+
 def device_events(prof) -> list:
     """The profile's device-side rows (kernels, copies), longest first."""
     from torch.autograd import DeviceType
@@ -2391,10 +2430,10 @@ def band_pairs(s: int, w: int) -> int:
     return s * (s + 1) // 2 if s <= w else w * (w + 1) // 2 + (s - w) * w
 
 
-def band_inputs(np, torch, dev):
-    """bf16 q, k, v at the serving shape, drawn with numpy from a seed as
-    the reference's kernel test draws them (q, k ~ 0.5 N(0, 1), v ~ N(0, 1))."""
-    b, s, h, kvh, hd, _ = K5_CASES[0]
+def band_inputs(np, torch, dev, case):
+    """bf16 q, k, v at ``case``'s shape, drawn with numpy from a seed as the
+    reference's kernel test draws them (q, k ~ 0.5 N(0, 1), v ~ N(0, 1))."""
+    b, s, h, kvh, hd, _ = case
     rng = np.random.default_rng(0)
 
     def draw(shape, std):
@@ -2405,21 +2444,30 @@ def band_inputs(np, torch, dev):
     return draw((b, s, h, hd), 0.5), draw((b, s, kvh, hd), 0.5), draw((b, s, kvh, hd), 1.0)
 
 
+def head_shape(case) -> tuple:
+    """(B, H, KV, hd) of a K5 case."""
+    return (case[0],) + tuple(case[2:5])
+
+
 def compare_band_attn(np, torch, dev):
     """K5 against its plain version at K5_CASES (each a prefix of one seeded
-    draw): its worst row within K5_TOL times that of the plain version with
-    the oracle's rounding, a repeat bitwise equal, the launch count up by one
-    a launch, and where S > W a window off by one (the plain version at
-    W - 1) rejected by the same gate. Returns (the serving inputs, the max
-    abs difference from the plain version over the cases)."""
+    draw a head shape, made at that shape's longest S): its worst row within
+    K5_TOL times that of the plain version with the oracle's rounding, a
+    repeat bitwise equal, the launch count up by one a launch, and where
+    S > W a window off by one (the plain version at W - 1) rejected by the
+    same gate. Returns ({(B, H, KV, hd): that draw}, {(B, H, KV, hd): the max
+    abs difference from the plain version over its cases})."""
     from repro_torch.kernels.band_attn import kernel as bk
     from repro_torch.kernels.band_attn.ref import banded_attention_ref, row_errors
 
-    qkv = band_inputs(np, torch, dev)
-    worst = 0.0
+    draws, worst = {}, {}
     for case in K5_CASES:
         b, s, h, kvh, hd, w = case
-        q, k, v = (t[:, :s].contiguous() for t in qkv)
+        key = head_shape(case)
+        if key not in draws:
+            longest = max((c for c in K5_CASES if head_shape(c) == key), key=lambda c: c[1])
+            draws[key] = band_inputs(np, torch, dev, longest)
+        q, k, v = (t[:, :s].contiguous() for t in draws[key])
         before = bk.banded_attention_kernel.launches
         got = bk.banded_attention_kernel(q, k, v, w)
         check(bk.banded_attention_kernel.launches == before + 1, f"[K5] {case}: launch not counted")
@@ -2447,14 +2495,14 @@ def compare_band_attn(np, torch, dev):
             check(e_off > limit, f"[K5] {case}: the plain version at window W - 1 passes the gate "
                                  f"(worst row {e_off} <= {limit})")
             planted = f"the plain version at W - 1 rejected (worst row {e_off})"
-        worst = max(worst, max_abs)
+        worst[key] = max(worst.get(key, 0.0), max_abs)
         log(f"[K5] (B, S, H, KV, hd, W) = {case} bf16: worst row |got - truth| / |truth| {e_got}, "
             f"limit {limit} ({K5_TOL} x the oracle rounding's {e_oracle}); max abs from the plain "
             f"version {max_abs} ({n_diff} of {got.numel()} outputs not bitwise equal); repeat bitwise, "
             f"launches counted; {planted}")
         del got, truth
         torch.cuda.empty_cache()
-    return qkv, worst
+    return draws, worst
 
 
 def lm_config():
@@ -2463,34 +2511,35 @@ def lm_config():
     return registry.get(LM_ARCH).replace(num_layers=LM_LAYERS, block_local_attn=True)
 
 
-def serve_phase(np, torch, dev, smi):
-    """gemma3-12b at full width, 12 layers, random weights from a seeded
-    generator on the card; LM_BATCH prompts of LM_PROMPT random tokens.
-    Drives ``generate`` (prefill + LM_TOKENS greedy steps) once with the
-    counts set to 0 (10 K5 launches); then a prefill alone twice (10 each,
-    bitwise equal logits), the decode steps alone (0 launches, generate's
-    tokens again), and the same prefill on the plain masked path and in
-    float32 compute. Returns the model, config, prompt and numbers."""
+def cache_bytes(caches) -> int:
+    return sum(t.numel() * t.element_size() for c in caches for sub in c.values() for t in sub.values())
+
+
+def lm_generate(np, torch, dev, smi, cfg, label, k5_per_prefill, shape_note):
+    """``cfg`` with random weights from a seeded generator on the card (seed
+    0) and LM_BATCH prompts of LM_PROMPT random tokens. Drives ``generate``
+    (prefill + LM_TOKENS greedy steps) once with the counts set to 0
+    (``k5_per_prefill`` K5 launches, nothing else); then a prefill alone
+    twice (as many launches, bitwise equal logits) and the decode steps
+    alone (no launch, generate's tokens again), each step timed. Returns the
+    model, the prompt, the prefill's logits, generate's launches and the
+    numbers."""
     from repro_torch.launch.serve_decode import generate
     from repro_torch.models import transformer as T
 
-    cfg = lm_config()
-    check(sum(1 for bd in cfg.layer_defs() if bd.window) == LM_LOCAL_LAYERS, "[lm] local layer count")
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(0)
     model = T.init_params(cfg, gen, dev)
     prompt = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), generator=gen, device=dev)
     sync(torch, dev)
     n_params = T.count_params(model)
-    log(f"[lm] {cfg.name} d_model={cfg.d_model} heads={cfg.q_heads}/{cfg.kv_heads} head_dim="
-        f"{cfg.head_dim} d_ff={cfg.d_ff} vocab={cfg.vocab}, {cfg.num_layers} of 48 layers "
-        f"({LM_LOCAL_LAYERS} local with window {cfg.pattern[0].window}, "
-        f"{cfg.num_layers - LM_LOCAL_LAYERS} global), block_local_attn, params {n_params} in "
-        f"{cfg.param_dtype} ({n_params * 4} B), compute {cfg.compute_dtype}; init on the card in "
-        f"{time.perf_counter() - t0} s; batch {LM_BATCH} x prompt {LM_PROMPT} + {LM_TOKENS} tokens")
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"[{label}] {cfg.name} {shape_note}; params {n_params} in {cfg.param_dtype} ({n_bytes} B), "
+        f"compute {cfg.compute_dtype}; init on the card in {time.perf_counter() - t0} s; batch "
+        f"{LM_BATCH} x prompt {LM_PROMPT} + {LM_TOKENS} tokens")
     max_len = LM_PROMPT + LM_TOKENS
 
-    T.prefill(model, prompt[:, :2 * cfg.pattern[0].window], cfg)  # warm-up: cuBLAS, allocator
+    T.prefill(model, prompt[:, :LM_PROMPT // 2], cfg)  # warm-up: cuBLAS, allocator
     sync(torch, dev)
     torch.cuda.reset_peak_memory_stats(dev)
     zero_counts()
@@ -2500,9 +2549,9 @@ def serve_phase(np, torch, dev, smi):
     wall = time.perf_counter() - t0
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated(dev)
-    check_launches(launches, {"banded_attention_kernel": LM_LOCAL_LAYERS}, "lm generate")
-    check(tokens.shape == (LM_BATCH, LM_TOKENS) and tokens.dtype == torch.int32, "[lm] tokens shape")
-    check(bool(((tokens >= 0) & (tokens < cfg.vocab)).all()), "[lm] token out of range")
+    check_launches(launches, {"banded_attention_kernel": k5_per_prefill}, f"{label} generate")
+    check(tokens.shape == (LM_BATCH, LM_TOKENS) and tokens.dtype == torch.int32, f"[{label}] tokens shape")
+    check(bool(((tokens >= 0) & (tokens < cfg.vocab)).all()), f"[{label}] token out of range")
 
     zero_counts()
     sync(torch, dev)
@@ -2510,11 +2559,11 @@ def serve_phase(np, torch, dev, smi):
     logits, caches = T.prefill(model, prompt, cfg, max_len=max_len)
     sync(torch, dev)
     prefill_s = time.perf_counter() - t0
-    check(read_counts()["banded_attention_kernel"] == LM_LOCAL_LAYERS, "[lm] K5 launches per prefill")
+    check(read_counts()["banded_attention_kernel"] == k5_per_prefill, f"[{label}] K5 launches per prefill")
     again, _ = T.prefill(model, prompt, cfg, max_len=max_len)
     check(logits.shape == (LM_BATCH, cfg.vocab) and bool(torch.isfinite(logits).all()),
-          "[lm] prefill logits shape or finiteness")
-    check(torch.equal(logits, again), "[lm] prefill logits do not repeat bitwise")
+          f"[{label}] prefill logits shape or finiteness")
+    check(torch.equal(logits, again), f"[{label}] prefill logits do not repeat bitwise")
     del again
 
     zero_counts()
@@ -2528,59 +2577,207 @@ def serve_phase(np, torch, dev, smi):
         tok = torch.argmax(step_logits, -1).to(torch.int32)
         sync(torch, dev)
         steps_ms.append((time.perf_counter() - t0) * 1e3)
-        check(bool(torch.isfinite(step_logits).all()), f"[lm] decode step {i}: non-finite logits")
-    check(read_counts()["banded_attention_kernel"] == 0, "[lm] K5 launched by a decode step")
-    check(torch.equal(torch.stack(decoded, 1), tokens), "[lm] decode steps differ from generate's tokens")
+        check(bool(torch.isfinite(step_logits).all()), f"[{label}] decode step {i}: non-finite logits")
+    check(read_counts()["banded_attention_kernel"] == 0, f"[{label}] K5 launched by a decode step")
+    check(torch.equal(torch.stack(decoded, 1), tokens), f"[{label}] decode steps differ from generate's "
+                                                        f"tokens")
+    n_cache = cache_bytes(caches)
     del caches, step_logits
     decode_ms = sorted(steps_ms)[len(steps_ms) // 2]
+    nums = dict(generate_s=wall, prefill_s=prefill_s, decode_ms_per_token=decode_ms,
+                tokens_per_s=LM_BATCH * LM_TOKENS / wall, decode_tokens_per_s=LM_BATCH / decode_ms * 1e3,
+                prefill_tokens_per_s=LM_BATCH * LM_PROMPT / prefill_s, max_memory_allocated_bytes=peak,
+                cache_bytes=n_cache)
+    log(f"[{label}] {smi}: generate {wall} s for {LM_BATCH} x {LM_TOKENS} tokens ({nums['tokens_per_s']} "
+        f"tokens/s with the prefill); prefill {prefill_s} s ({nums['prefill_tokens_per_s']} prompt "
+        f"tokens/s); decode {decode_ms} ms a step, median of {LM_TOKENS} ({nums['decode_tokens_per_s']} "
+        f"tokens/s); max_memory_allocated {peak} B; decode cache {n_cache} B; launches "
+        f"{json.dumps(launches)}; sample {tokens[0, :8].tolist()}")
+    return model, prompt, logits, launches, nums
 
-    # The same prefill on the plain masked path (bf16), and in float32 compute.
+
+def plain_path_gate(torch, model, prompt, cfg, logits, label) -> dict:
+    """The same prefill on the plain masked path (bf16) and in float32
+    compute, neither launching K5. Tolerance: the banded path (K5: bf16
+    weights, float32 softmax and sum) may move the logits at most twice as
+    far from the plain bf16 path as bf16 compute itself moves them from
+    float32 compute; the first greedy token must equal the plain path's
+    wherever its top-2 margin exceeds that."""
+    from repro_torch.models import transformer as T
+
+    max_len = LM_PROMPT + LM_TOKENS
     zero_counts()
     plain, _ = T.prefill(model, prompt, cfg.replace(block_local_attn=False), max_len=max_len)
     f32, _ = T.prefill(model, prompt, cfg.replace(block_local_attn=False, compute_dtype=torch.float32),
                        max_len=max_len)
-    check(read_counts()["banded_attention_kernel"] == 0, "[lm] K5 launched on the plain path")
+    check(read_counts()["banded_attention_kernel"] == 0, f"[{label}] K5 launched on the plain path")
     d_band = float((logits - plain).abs().max())
     d_bf16 = float((plain - f32).abs().max())
-    # Tolerance: the banded path (K5: bf16 weights, float32 softmax and
-    # sum) may move the logits at most twice as far from the plain bf16 path
-    # as bf16 compute itself moves them from float32 compute.
     tol = 2.0 * d_bf16
-    check(d_band <= tol, f"[lm] banded vs plain prefill logits differ by {d_band}, more than {tol}")
+    check(d_band <= tol, f"[{label}] banded vs plain prefill logits differ by {d_band}, more than {tol}")
     top2 = torch.topk(plain, 2, dim=-1).values
     sure = (top2[:, 0] - top2[:, 1]) > tol
     same = torch.argmax(logits, -1) == torch.argmax(plain, -1)
-    check(bool(same[sure].all()), f"[lm] first greedy token differs from the plain path where its "
+    check(bool(same[sure].all()), f"[{label}] first greedy token differs from the plain path where its "
                                   f"top-2 margin exceeds {tol}")
-    log(f"[lm] prefill logits: banded (K5) vs plain masked path max abs {d_band}; plain bf16 vs "
+    log(f"[{label}] prefill logits: banded (K5) vs plain masked path max abs {d_band}; plain bf16 vs "
         f"float32 compute {d_bf16}; tolerance {tol}; max |logit| {float(plain.abs().max())}; first "
         f"token equal in {int(same.sum())}/{LM_BATCH} rows ({int(sure.sum())} with a top-2 margin "
         f"above the tolerance); vs float32 equal in "
         f"{int((torch.argmax(f32, -1) == torch.argmax(plain, -1)).sum())}/{LM_BATCH}")
-    del plain, f32, logits
+    del plain, f32
     torch.cuda.empty_cache()
+    return dict(logits_band_vs_plain=d_band, logits_bf16_vs_f32=d_bf16)
 
-    nums = dict(generate_s=wall, prefill_s=prefill_s, decode_ms_per_token=decode_ms,
-                tokens_per_s=LM_BATCH * LM_TOKENS / wall, decode_tokens_per_s=LM_BATCH / decode_ms * 1e3,
-                prefill_tokens_per_s=LM_BATCH * LM_PROMPT / prefill_s, max_memory_allocated_bytes=peak,
-                logits_band_vs_plain=d_band, logits_bf16_vs_f32=d_bf16)
-    log(f"[lm] {smi}: generate {wall} s for {LM_BATCH} x {LM_TOKENS} tokens ({nums['tokens_per_s']} "
-        f"tokens/s with the prefill); prefill {prefill_s} s ({nums['prefill_tokens_per_s']} prompt "
-        f"tokens/s); decode {decode_ms} ms a step, median of {LM_TOKENS} ({nums['decode_tokens_per_s']} "
-        f"tokens/s); max_memory_allocated {peak} B; launches {json.dumps(launches)}; sample "
-        f"{tokens[0, :8].tolist()}")
+
+def serve_phase(np, torch, dev, smi):
+    """[lm]: gemma3-12b at full width, 12 layers (10 K5 launches a
+    prefill), through ``lm_generate`` and ``plain_path_gate``. Returns the
+    model, config, prompt, generate's launches and the numbers."""
+    cfg = lm_config()
+    check(sum(1 for bd in cfg.layer_defs() if bd.window) == LM_LOCAL_LAYERS, "[lm] local layer count")
+    note = (f"d_model={cfg.d_model} heads={cfg.q_heads}/{cfg.kv_heads} head_dim={cfg.head_dim} "
+            f"d_ff={cfg.d_ff} vocab={cfg.vocab}, {cfg.num_layers} of 48 layers ({LM_LOCAL_LAYERS} local "
+            f"with window {cfg.pattern[0].window}, {cfg.num_layers - LM_LOCAL_LAYERS} global), "
+            f"block_local_attn")
+    model, prompt, logits, launches, nums = lm_generate(np, torch, dev, smi, cfg, "lm", LM_LOCAL_LAYERS,
+                                                        note)
+    nums.update(plain_path_gate(torch, model, prompt, cfg, logits, "lm"))
     return model, cfg, prompt, launches, nums
 
 
-def profile_lm(torch, model, cfg, prompt, dev, prefill_s, decode_ms):
+def ssm_phase(np, torch, dev, smi):
+    """[lm ssm]: mamba2-780m at full width and depth (48 SSD layers, no
+    attention: no kernel launches), through ``lm_generate``; then its bf16
+    prefill logits against float32 compute (the spread logged, the first
+    token equal wherever the float32 top-2 margin exceeds it), the decode
+    oracle in float32 compute (after each of ORACLE_STEPS greedy steps the
+    decode logits against ``forward`` over the extended sequence, within
+    LM_DECODE_TOL) and the decode cache's bytes after prompts of 1,024 and
+    LM_PROMPT tokens (equal: the SSD's state does not grow)."""
+    from repro_torch.configs import registry
+    from repro_torch.models import ssm as S
+    from repro_torch.models import transformer as T
+
+    cfg = registry.get(SSM_ARCH)
+    d_inner, heads = S.ssm_dims(cfg)
+    note = (f"d_model={cfg.d_model} d_inner={d_inner} ssm heads={heads} x {cfg.ssm_head_dim} "
+            f"state={cfg.ssm_state} chunk={cfg.ssm_chunk} conv={cfg.ssm_conv} vocab={cfg.vocab}, all "
+            f"{cfg.num_layers} layers (SSD, no FFN)")
+    model, prompt, logits, launches, nums = lm_generate(np, torch, dev, smi, cfg, "lm ssm", 0, note)
+
+    zero_counts()
+    cfg32 = cfg.replace(compute_dtype=torch.float32)
+    f32, caches = T.prefill(model, prompt, cfg32, max_len=LM_PROMPT + ORACLE_STEPS)
+    spread = float((logits - f32).abs().max())
+    top2 = torch.topk(f32, 2, dim=-1).values
+    sure = (top2[:, 0] - top2[:, 1]) > spread
+    same = torch.argmax(logits, -1) == torch.argmax(f32, -1)
+    check(bool(same[sure].all()), f"[lm ssm] first greedy token differs from float32 compute where its "
+                                  f"top-2 margin exceeds the bf16 spread {spread}")
+    log(f"[lm ssm] prefill logits: bf16 vs float32 compute max abs {spread}; max |logit| "
+        f"{float(f32.abs().max())}; first token equal in {int(same.sum())}/{LM_BATCH} rows "
+        f"({int(sure.sum())} with a float32 top-2 margin above the spread)")
+    del logits
+
+    seq, errs = prompt, []
+    for i in range(ORACLE_STEPS):
+        nxt = torch.argmax(f32, -1).to(torch.int32)
+        f32, caches = T.decode_step(model, nxt, caches, LM_PROMPT + i, cfg32)
+        seq = torch.cat([seq, nxt[:, None].to(seq.dtype)], 1)
+        want = T.forward(model, seq, cfg32)[:, -1]
+        errs.append(close_report(torch, f32, want, what=f"[lm ssm] float32 decode step {i} vs forward",
+                                 **LM_DECODE_TOL))
+        del want
+    del caches, f32
+    log(f"[lm ssm] decode oracle, float32 compute, TF32 off: {ORACLE_STEPS} greedy steps, decode logits "
+        f"vs forward over the extended sequence within rtol = atol = {LM_DECODE_TOL['rtol']}; max abs "
+        f"{errs}")
+
+    sizes = {}
+    for s in (1024, LM_PROMPT):
+        _, c = T.prefill(model, prompt[:, :s], cfg, max_len=s + LM_TOKENS)
+        sizes[s] = cache_bytes(c)
+        del c
+    check(read_counts()["banded_attention_kernel"] == 0, "[lm ssm] K5 launched")
+    check(len(set(sizes.values())) == 1 and sizes[LM_PROMPT] == nums["cache_bytes"],
+          f"[lm ssm] decode cache bytes depend on the prompt: {sizes}")
+    log(f"[lm ssm] decode cache bytes after prompts of {list(sizes)} tokens: {list(sizes.values())}")
+    torch.cuda.empty_cache()
+    nums.update(logits_bf16_vs_f32=spread, decode_oracle_max_abs=max(errs),
+                cache_bytes_by_prompt=sizes)
+    return model, cfg, prompt, launches, nums
+
+
+def hybrid_phase(np, torch, dev, smi):
+    """[lm hybrid]: hymba-1.5b at full width and depth (one global hybrid
+    layer, 31 with a 1,024 window) with ``block_local_attn``: 31 K5 launches
+    a prefill at (4, 4096, 25, 5, 64, 1024), none a decode step (the decode
+    runs past the window's ring), through ``lm_generate`` and
+    ``plain_path_gate``."""
+    from repro_torch.configs import registry
+    from repro_torch.models import ssm as S
+
+    cfg = registry.get(HYBRID_ARCH).replace(block_local_attn=True)
+    windows = [bd.window for bd in cfg.layer_defs() if bd.window]
+    check(len(windows) == HYBRID_LOCAL_LAYERS and LM_PROMPT > windows[0], "[lm hybrid] local layers")
+    d_inner, heads = S.ssm_dims(cfg)
+    note = (f"d_model={cfg.d_model} heads={cfg.q_heads}/{cfg.kv_heads} head_dim={cfg.head_dim} "
+            f"d_ff={cfg.d_ff} vocab={cfg.vocab}, ssm heads={heads} x {cfg.ssm_head_dim} "
+            f"state={cfg.ssm_state}, all {cfg.num_layers} layers (hybrid: 1 global, "
+            f"{HYBRID_LOCAL_LAYERS} with window {windows[0]}), block_local_attn")
+    model, prompt, logits, launches, nums = lm_generate(np, torch, dev, smi, cfg, "lm hybrid",
+                                                        HYBRID_LOCAL_LAYERS, note)
+    nums.update(plain_path_gate(torch, model, prompt, cfg, logits, "lm hybrid"))
+    return model, cfg, prompt, launches, nums
+
+
+def ssd_event_times(torch, model, cfg, prompt, dev) -> dict:
+    """The SSD's device time in one prefill, by CUDA events recorded around
+    each ``ssd`` call and each inter-chunk scan (the functions wrapped for
+    this prefill only). The host runs ahead of the card in a prefill (the
+    profile's idle share ~0), so each pair brackets that call's kernels."""
+    from repro_torch.models import ssm as S
+    from repro_torch.models import transformer as T
+
+    spans = {"ssd": [], "scan": []}
+
+    def timed(fn, name):
+        def call(*args, **kw):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(*args, **kw)
+            b.record()
+            spans[name].append((a, b))
+            return out
+        return call
+
+    saved = S.ssd, S._chunk_scan
+    S.ssd, S._chunk_scan = timed(saved[0], "ssd"), timed(saved[1], "scan")
+    try:
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        T.prefill(model, prompt, cfg, max_len=LM_PROMPT + LM_TOKENS)
+        sync(torch, dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        S.ssd, S._chunk_scan = saved
+    ms = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
+    return dict(prefill_ms=wall_ms, ssd_calls=len(spans["ssd"]), ssd_ms=ms["ssd"], scan_ms=ms["scan"],
+                ssd_share=ms["ssd"] / wall_ms)
+
+
+def profile_lm(torch, model, cfg, prompt, dev, prefill_s, decode_ms, label="lm"):
     """One prefill, then one decode step, each under torch.profiler: device
-    time by kernel, K5's share of the prefill's, and the device's idle
-    share of the unprofiled prefill wall and decode step."""
+    time by kernel and by operator (inclusive: an operator's row counts
+    the kernels of the operators it calls too), K5's share and the device's
+    idle share of the unprofiled prefill wall and decode step; for a model
+    with SSD layers, their device time in a prefill (``ssd_event_times``)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import transformer as T
 
-    out = {}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         logits, caches = T.prefill(model, prompt, cfg, max_len=LM_PROMPT + LM_TOKENS)
         sync(torch, dev)
@@ -2588,20 +2785,33 @@ def profile_lm(torch, model, cfg, prompt, dev, prefill_s, decode_ms):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_d:
         T.decode_step(model, tok, caches, LM_PROMPT, cfg)
         sync(torch, dev)
-    for label, p, wall_ms in (("prefill", prof, prefill_s * 1e3), ("decode step", prof_d, decode_ms)):
+    del caches, logits
+    out = {}
+    for what, p, wall_ms in (("prefill", prof, prefill_s * 1e3), ("decode step", prof_d, decode_ms)):
+        tag = f"[profile {label} {what}]"
         kern = device_events(p)
         busy_ms = sum(device_us(e) for e in kern) / 1e3
         if not kern or busy_ms == 0:
-            log(f"[profile lm {label}] the profiler saw no device time: device busy share not measured")
+            log(f"{tag} the profiler saw no device time: device busy share not measured")
             continue
         k5_ms = sum(device_us(e) for e in kern if "band_attn" in e.key) / 1e3
-        out[label] = dict(busy_ms=busy_ms, k5_ms=k5_ms, idle_share=1 - busy_ms / wall_ms)
-        log(f"[profile lm {label}] device busy {busy_ms} ms over {len(kern)} kernel/copy names "
+        out[what] = dict(busy_ms=busy_ms, k5_ms=k5_ms, idle_share=1 - busy_ms / wall_ms)
+        log(f"{tag} device busy {busy_ms} ms over {len(kern)} kernel/copy names "
             f"({sum(e.count for e in kern)} launches); unprofiled wall {wall_ms} ms; device idle share "
             f"{1 - busy_ms / wall_ms}; K5 {k5_ms} ms, {k5_ms / busy_ms} of the device time")
         for e in kern[:15]:
-            log(f"[profile lm {label}]   {device_us(e) / 1e3:10.3f} ms  x{e.count:<5d} "
+            log(f"{tag}   {device_us(e) / 1e3:10.3f} ms  x{e.count:<5d} "
                 f"{device_us(e) / 1e3 / max(e.count, 1):.4f} ms a launch  {e.key[:90]}")
+        ops = sorted((e for e in p.key_averages() if e.device_type == DeviceType.CPU
+                      and e.key.startswith("aten::") and device_total_us(e) > 0),
+                     key=device_total_us, reverse=True)
+        for e in ops[:12]:
+            log(f"{tag} op  {device_total_us(e) / 1e3:10.3f} ms inclusive  x{e.count:<5d} {e.key[:60]}")
+    if any(bd.mixer != "attn" for bd in cfg.layer_defs()):
+        out["ssd"] = ssd_event_times(torch, model, cfg, prompt, dev)
+        log(f"[profile {label} prefill] the SSD by CUDA events around its {out['ssd']['ssd_calls']} "
+            f"calls: {out['ssd']['ssd_ms']} ms of a {out['ssd']['prefill_ms']} ms prefill (share "
+            f"{out['ssd']['ssd_share']}), its inter-chunk scan {out['ssd']['scan_ms']} ms")
     return out
 
 
@@ -2643,7 +2853,7 @@ def time_band_attn(np, torch, qkv, dev, launches, max_abs_err):
 
     q, k, v = qkv
     b, s, h, hd = q.shape
-    kvh, w = k.shape[2], K5_CASES[0][-1]
+    kvh, w = k.shape[2], K5_CASES[0][-1]  # every case's window
     flush = torch.empty(128 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
     i = torch.arange(s, device=dev)
     band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - w)
@@ -2818,14 +3028,24 @@ def main() -> int:
         f"4types_L1000 {json.dumps(launches1000)}, 4types_L2000 {json.dumps(launches2000)}")
     del x, cases
 
-    # The LM serving path.
-    qkv, err_k5 = compare_band_attn(np, torch, dev)
-    model, cfg, prompt, launches_lm, lm = serve_phase(np, torch, dev, smi)
-    prof = profile_lm(torch, model, cfg, prompt, dev, lm["prefill_s"], lm["decode_ms_per_token"])
-    del model
-    torch.cuda.empty_cache()
-    rows.append(time_band_attn(np, torch, qkv, dev, launches_lm, err_k5))
-    log(f"[summary lm] {smi}: {json.dumps(lm)}; profile {json.dumps(prof)}")
+    # The LM serving path: gemma3-12b (dense), then mamba2-780m (SSM) and
+    # hymba-1.5b (hybrid), each model freed before the next.
+    draws, err_k5 = compare_band_attn(np, torch, dev)
+    launches_lm, nums_lm, profs = {}, {}, {}
+    for label, phase in (("lm", serve_phase), ("lm ssm", ssm_phase), ("lm hybrid", hybrid_phase)):
+        model, cfg, prompt, launches_lm[label], nums_lm[label] = phase(np, torch, dev, smi)
+        profs[label] = profile_lm(torch, model, cfg, prompt, dev, nums_lm[label]["prefill_s"],
+                                  nums_lm[label]["decode_ms_per_token"], label)
+        del model, prompt
+        torch.cuda.empty_cache()
+        log(f"[summary {label}] {smi}: {cfg.name}: {json.dumps(nums_lm[label])}; profile "
+            f"{json.dumps(profs[label])}")
+    row = time_band_attn(np, torch, draws[K5_GEMMA], dev, launches_lm["lm"], err_k5[K5_GEMMA])
+    at_hymba = time_band_attn(np, torch, draws[K5_HYMBA], dev, launches_lm["lm hybrid"], err_k5[K5_HYMBA])
+    row["at_hymba_shape"] = {k: v for k, v in at_hymba.items()
+                             if k not in ("name", "route", "source", "replaces")}
+    row["launches_lm_paths"] = {label: n["banded_attention_kernel"] for label, n in launches_lm.items()}
+    rows.append(row)
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

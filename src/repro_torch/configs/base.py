@@ -9,7 +9,7 @@ card: ``remat``, ``scan_unroll``, ``fsdp``, ``sequence_parallel`` and
 ``gqa_repeat_kv`` (the reference repeats K/V to the query heads only so
 that its partitioner can shard the score einsum by head; the grouped
 einsum computes the same values).
-``unported(cfg)`` names what the port does not run yet (MoE, SSM, hybrid,
+``unported(cfg)`` names what the port does not run yet (MoE,
 cross-attention, enc-dec, VLM, flash-decode and the optimizer knobs); the
 model's entry points refuse such a config through ``check_ported``.
 """
@@ -142,15 +142,15 @@ class ArchConfig:
 def unported(cfg: ArchConfig) -> list[str]:
     """What ``cfg`` asks for that the port does not run yet."""
     missing = []
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "ssm", "hybrid"):
         missing.append(f"family {cfg.family!r}")
     for bd in cfg.layer_defs():
-        if bd.mixer != "attn":
+        if bd.mixer not in ("attn", "ssm", "hybrid"):
             missing.append(f"mixer {bd.mixer!r}")
-        if bd.ffn != "dense":
+        if bd.ffn not in ("dense", "none"):
             missing.append(f"ffn {bd.ffn!r}")
-    for f in ("num_experts", "moe_top_k", "moe_shared_ff", "ssm_state",
-              "num_patches", "enc_layers", "dec_layers"):
+    for f in ("num_experts", "moe_top_k", "moe_shared_ff", "num_patches", "enc_layers",
+              "dec_layers"):
         if getattr(cfg, f):
             missing.append(f)
     for f in ("moe_scan_dispatch", "flash_decode", "adam_moments_bf16", "use_adafactor"):

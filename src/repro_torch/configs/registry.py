@@ -1,9 +1,17 @@
 """Architecture registry of the port: ``--arch <id>`` lookup. It lists only
-the configs the port runs (the dense attention-only models)."""
+the configs the port runs (the dense attention-only models, mamba2-780m and
+hymba-1.5b)."""
 
 from __future__ import annotations
 
-from repro_torch.configs import command_r_35b, gemma3_12b, granite_3_8b, mistral_nemo_12b
+from repro_torch.configs import (
+    command_r_35b,
+    gemma3_12b,
+    granite_3_8b,
+    hymba_1_5b,
+    mamba2_780m,
+    mistral_nemo_12b,
+)
 from repro_torch.configs.base import ArchConfig
 
 ARCHS: dict[str, ArchConfig] = {
@@ -13,6 +21,8 @@ ARCHS: dict[str, ArchConfig] = {
         gemma3_12b.CONFIG,
         command_r_35b.CONFIG,
         mistral_nemo_12b.CONFIG,
+        mamba2_780m.CONFIG,
+        hymba_1_5b.CONFIG,
     ]
 }
 

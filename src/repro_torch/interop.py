@@ -79,8 +79,12 @@ def lm_params_from_numpy(tree: Mapping, cfg: ArchConfig, device: torch.device | 
 
     ``tree["prefix"][i]`` becomes layer i; each leaf of
     ``tree["groups"][j]`` is stacked over the repeats, and its slice r
-    becomes layer ``len(cfg.prefix) + r * len(cfg.pattern) + j``. Raises on
-    a missing or unexpected leaf and on a shape that differs."""
+    becomes layer ``len(cfg.prefix) + r * len(cfg.pattern) + j``. Each
+    value is copied into the port's parameter of the same name and keeps
+    that parameter's type: the SSD's ``a_log``, ``d_skip`` and ``dt_bias``
+    are float32 under any ``param_dtype``, as in the reference. Raises on a
+    missing or unexpected leaf (the SSM and hybrid ones included) and on a
+    shape that differs."""
     from repro_torch.models.transformer import Transformer
 
     flat: dict[str, np.ndarray] = {}

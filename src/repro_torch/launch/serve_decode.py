@@ -1,9 +1,11 @@
 """Batched LM prefill + greedy decode loop.
 
-``python -m repro_torch.launch.serve_decode --arch gemma3-12b --device cpu``
+``python -m repro_torch.launch.serve_decode --arch mamba2-780m --device cpu``
 
-Port of ``repro.launch.serve_decode``: one prefill, then one decode step
-per generated token reusing the caches in place. It runs on ``cuda``
+Port of ``repro.launch.serve_decode`` for the configs of the port's
+registry (the dense models, mamba2-780m and hymba-1.5b): one prefill, then
+one decode step per generated token reusing the caches in place (K/V
+rings and the SSD's O(1) state). It runs on ``cuda``
 unless ``--device`` says otherwise; as in the reference, ``--reduced`` is
 on and cannot be turned off from the command line (``generate`` takes any
 config, the full width included). Weights are random, drawn from a seeded

@@ -1,7 +1,9 @@
-"""Decoder LM of the serving path: the dense, attention-only family.
+"""Decoder LM of the serving path: the dense, SSM and hybrid families.
 
-Port of ``repro.models.transformer`` for ``attn`` mixers and ``dense``
-FFNs. A model is ``cfg.prefix`` blocks followed by ``cfg.pattern`` repeated
+Port of ``repro.models.transformer`` for ``attn``, ``ssm`` and ``hybrid``
+mixers (a hybrid layer runs attention and the SSD side by side and averages
+their normed outputs, as Hymba does) and ``dense`` or ``none`` FFNs. A
+model is ``cfg.prefix`` blocks followed by ``cfg.pattern`` repeated
 ``cfg.num_repeats`` times; the reference stacks each pattern position's
 repeats and runs them under ``lax.scan``, the port keeps one flat list of
 layers (layer ``len(prefix) + r * len(pattern) + j`` is repeat r of pattern
@@ -14,9 +16,12 @@ Entry points:
   prefill(params, tokens, cfg, max_len)    -> (last-position logits, caches)
   decode_step(params, token, caches, pos)  -> (logits, caches)
 
-Caches are one dict per layer, ``{"attn": {"k", "v"}}``, in the reference's
-layouts (a ring of the window for sliding layers); ``decode_step`` updates
-them in place. Everything runs under ``torch.inference_mode``.
+Caches are one dict per layer, ``{"attn": {"k", "v"}, "ssm": {"state",
+"conv"}}`` with the keys of the layer's mixer, in the reference's layouts (a
+ring of the window for sliding layers); ``decode_step`` updates them in
+place. The reference's prefill runs each layer's SSD and K/V projections a
+second time to build the cache; the port keeps what the layer's own pass
+computed, the same values. Everything runs under ``torch.inference_mode``.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig, BlockDef, check_ported
 from repro_torch.core.pipeline import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 
 
 def _mask_padded_logits(logits: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
@@ -42,21 +48,31 @@ def _mask_padded_logits(logits: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 
 
 class Block(nn.Module):
-    """One layer (the reference's ``init_block``): ``ln1``, ``attn``,
-    ``ln2``, ``mlp``, the reference's keys."""
+    """One layer (the reference's ``init_block``) under the reference's
+    keys: ``ln1``; ``attn`` and/or ``ssm`` by mixer, with ``norm_attn`` and
+    ``norm_ssm`` for ``hybrid``; ``ln2`` and ``mlp`` unless ``ffn="none"``."""
 
     def __init__(self, bd: BlockDef, cfg: ArchConfig, device=None):
         super().__init__()
-        self.ln1 = L.RMSNorm(cfg.d_model, cfg.param_dtype, device)
-        self.attn = L.Attention(cfg, device)
-        self.ln2 = L.RMSNorm(cfg.d_model, cfg.param_dtype, device)
-        self.mlp = L.MLP(cfg, device)
+        d, dt = cfg.d_model, cfg.param_dtype
+        self.ln1 = L.RMSNorm(d, dt, device)
+        if bd.mixer in ("attn", "hybrid"):
+            self.attn = L.Attention(cfg, device)
+        if bd.mixer in ("ssm", "hybrid"):
+            self.ssm = S.SSD(cfg, device)
+        if bd.mixer == "hybrid":
+            self.norm_attn = L.RMSNorm(d, dt, device)
+            self.norm_ssm = L.RMSNorm(d, dt, device)
+        if bd.ffn != "none":
+            self.ln2 = L.RMSNorm(d, dt, device)
+            self.mlp = L.MLP(cfg, device)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        self.ln1.reset_parameters()
-        self.attn.reset_parameters(generator)
-        self.ln2.reset_parameters()
-        self.mlp.reset_parameters(generator)
+        for mod in self.children():
+            if isinstance(mod, L.RMSNorm):
+                mod.reset_parameters()
+            else:
+                mod.reset_parameters(generator)
 
 
 class Transformer(nn.Module):
@@ -74,19 +90,35 @@ class Transformer(nn.Module):
         self.layers = nn.ModuleList(Block(bd, cfg, device) for bd in cfg.layer_defs())
 
 
+def _fuse(bd: BlockDef, p: Block, a, m, cfg: ArchConfig) -> torch.Tensor:
+    """The mixer's output from its attention (a) and SSD (m) outputs:
+    Hymba's fusion for ``hybrid``, each path normed, then their mean."""
+    if bd.mixer == "attn":
+        return a
+    if bd.mixer == "ssm":
+        return m
+    return 0.5 * (L.rmsnorm(p.norm_attn, a, cfg.norm_eps) + L.rmsnorm(p.norm_ssm, m, cfg.norm_eps))
+
+
 def _mixer(bd: BlockDef, p: Block, h: torch.Tensor, cfg: ArchConfig, positions) -> torch.Tensor:
     x = L.rmsnorm(p.ln1, h, cfg.norm_eps)
-    return L.attention(p.attn, x, cfg=cfg, positions=positions, window=bd.window)
+    a = m = None
+    if bd.mixer in ("attn", "hybrid"):
+        a = L.attention(p.attn, x, cfg=cfg, positions=positions, window=bd.window)
+    if bd.mixer in ("ssm", "hybrid"):
+        m = S.ssd(p.ssm, x, cfg)
+    return _fuse(bd, p, a, m, cfg)
 
 
-def _ffn(bd: BlockDef, p: Block, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    x = L.rmsnorm(p.ln2, h, cfg.norm_eps)
-    return L.mlp(p.mlp, x, cfg)
+def _with_ffn(bd: BlockDef, p: Block, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """h plus the layer's FFN of h (h itself when ``ffn="none"``)."""
+    if bd.ffn == "none":
+        return h
+    return h + L.mlp(p.mlp, L.rmsnorm(p.ln2, h, cfg.norm_eps), cfg)
 
 
 def apply_block(bd: BlockDef, p: Block, h: torch.Tensor, cfg: ArchConfig, positions) -> torch.Tensor:
-    h = h + _mixer(bd, p, h, cfg, positions)
-    return h + _ffn(bd, p, h, cfg)
+    return _with_ffn(bd, p, h + _mixer(bd, p, h, cfg, positions), cfg)
 
 
 # -- model init -------------------------------------------------------------------
@@ -97,7 +129,8 @@ def init_params(cfg: ArchConfig, generator: torch.Generator | None = None,
                 device: torch.device | str | None = None) -> Transformer:
     """Random weights with the reference's distributions (``_dense_init``:
     embed N(0, 1), each matrix N(0, 1/fan_in), ``wo`` N(0, 1/(H hd)),
-    ``w_out`` N(0, 1/d_ff), norms zero), drawn from ``generator`` on
+    ``w_out`` N(0, 1/d_ff), norms zero; the SSD's as ``SSD.reset_parameters``
+    says), drawn from ``generator`` on
     ``device`` (default ``cuda``; raises without a CUDA device unless the
     caller passes ``device="cpu"``). The same distributions as the
     reference, not the same bits: carry the reference's own weights with
@@ -145,38 +178,51 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig) -> torch
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None, device=None) -> list[dict]:
     """Zero caches in ``prefill``'s layout (``max_len`` >= every window)."""
     dtype = dtype or cfg.compute_dtype
-    return [{"attn": L.init_attn_cache(cfg, batch, max_len, bd.window, dtype, device)}
-            for bd in cfg.layer_defs()]
+    caches = []
+    for bd in cfg.layer_defs():
+        c = {}
+        if bd.mixer in ("attn", "hybrid"):
+            c["attn"] = L.init_attn_cache(cfg, batch, max_len, bd.window, dtype, device)
+        if bd.mixer in ("ssm", "hybrid"):
+            c["ssm"] = S.init_ssd_cache(cfg, batch, dtype, device)
+        caches.append(c)
+    return caches
+
+
+def _attn_cache(k: torch.Tensor, v: torch.Tensor, window: int | None,
+                max_len: int | None) -> dict[str, torch.Tensor]:
+    """The decode cache from a prefill's keys and values (B, S, KV, hd)."""
+    s = k.shape[1]
+    if window:
+        # Ring layout: position p lives at slot p % w. The last min(s, w)
+        # positions are a contiguous run, so a roll (s >= w) or
+        # right-padding (s < w) produces the ring.
+        cov = min(s, window)
+        ks_, vs_ = k[:, -cov:], v[:, -cov:]
+        if s >= window:
+            return {"k": torch.roll(ks_, s % window, dims=1), "v": torch.roll(vs_, s % window, dims=1)}
+        pad = (0, 0, 0, 0, 0, window - s)
+    else:
+        ks_, vs_ = k, v
+        pad = (0, 0, 0, 0, 0, (max_len or s) - s)
+    return {"k": torch.nn.functional.pad(ks_, pad), "v": torch.nn.functional.pad(vs_, pad)}
 
 
 def _block_with_cache(bd: BlockDef, p: Block, h: torch.Tensor, cfg: ArchConfig, positions,
                       max_len: int | None) -> tuple[torch.Tensor, dict]:
     """``apply_block`` that also returns the layer's cache, built from the
-    keys and values its attention computed."""
-    s = h.shape[1]
+    keys and values its attention computed and its SSD's final state and
+    conv tail."""
     x = L.rmsnorm(p.ln1, h, cfg.norm_eps)
-    y, k, v = L.attention(p.attn, x, cfg=cfg, positions=positions, window=bd.window,
-                          return_kv=True)
-    w = bd.window
-    if w:
-        # Ring layout: position p lives at slot p % w. The last min(s, w)
-        # positions are a contiguous run, so a roll (s >= w) or
-        # right-padding (s < w) produces the ring.
-        cov = min(s, w)
-        ks_, vs_ = k[:, -cov:], v[:, -cov:]
-        if s >= w:
-            ks_ = torch.roll(ks_, s % w, dims=1)
-            vs_ = torch.roll(vs_, s % w, dims=1)
-        else:
-            ks_ = torch.nn.functional.pad(ks_, (0, 0, 0, 0, 0, w - s))
-            vs_ = torch.nn.functional.pad(vs_, (0, 0, 0, 0, 0, w - s))
-        cache = {"attn": {"k": ks_, "v": vs_}}
-    else:
-        pad = (max_len or s) - s
-        cache = {"attn": {"k": torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad)),
-                          "v": torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))}}
-    h = h + y
-    return h + _ffn(bd, p, h, cfg), cache
+    cache, a, m = {}, None, None
+    if bd.mixer in ("attn", "hybrid"):
+        a, k, v = L.attention(p.attn, x, cfg=cfg, positions=positions, window=bd.window,
+                              return_kv=True)
+        cache["attn"] = _attn_cache(k, v, bd.window, max_len)
+    if bd.mixer in ("ssm", "hybrid"):
+        m, (state, conv) = S.ssd(p.ssm, x, cfg, return_final_state=True)
+        cache["ssm"] = {"state": state, "conv": conv}
+    return _with_ffn(bd, p, h + _fuse(bd, p, a, m, cfg), cfg), cache
 
 
 @torch.inference_mode()
@@ -201,15 +247,16 @@ def decode_step(params: Transformer, token: torch.Tensor, caches: list[dict], po
                 cfg: ArchConfig) -> tuple[torch.Tensor, list[dict]]:
     """token (B,) int, pos int -> (logits (B, V) f32, caches, updated in place)."""
     h = params.embed[token[:, None]].to(cfg.compute_dtype)  # (B, 1, d)
-    new = []
     for bd, p, c in zip(cfg.layer_defs(), params.layers, caches):
         x = L.rmsnorm(p.ln1, h, cfg.norm_eps)
-        y, c2 = L.decode_attention(p.attn, x, c["attn"], pos, cfg=cfg, window=bd.window)
-        h = h + y
-        h = h + _ffn(bd, p, h, cfg)
-        new.append({**c, "attn": c2})
+        a = m = None
+        if bd.mixer in ("attn", "hybrid"):
+            a, _ = L.decode_attention(p.attn, x, c["attn"], pos, cfg=cfg, window=bd.window)
+        if bd.mixer in ("ssm", "hybrid"):
+            m, _ = S.ssd_decode(p.ssm, x, c["ssm"], cfg)
+        h = _with_ffn(bd, p, h + _fuse(bd, p, a, m, cfg), cfg)
     h = L.rmsnorm(params.final_norm, h, cfg.norm_eps)
-    return _logits(params, h[:, 0], cfg), new
+    return _logits(params, h[:, 0], cfg), caches
 
 
 def count_params(params: nn.Module) -> int:

@@ -72,6 +72,14 @@ def test_chip_smoke_refuses_without_cuda_or_checkout(tmp_path):
         assert '"ok"' not in out.stdout
 
 
+def test_lm_modules_are_covered():
+    """The LM serving path's modules, the SSD's included, are among those
+    checked above."""
+    assert {"repro_torch.models.ssm", "repro_torch.models.transformer", "repro_torch.models.layers",
+            "repro_torch.configs.mamba2_780m", "repro_torch.configs.hymba_1_5b",
+            "repro_torch.launch.serve_decode"} <= set(MODULES)
+
+
 def test_streaming_and_cluster_modules_are_covered():
     """The modules of the streaming and cluster layers are among those
     checked above, and the port's cluster launcher starts only the port,

@@ -486,8 +486,9 @@ def test_device_select_indices_need_no_sync(dev):
 # K5 against its plain version. (B, S, H, KV, hd, W): GQA, MHA, ragged
 # tails, G = 3, S < W, S = 1, and hd 256 / 136 / 40; then S not a multiple
 # of 64 with S > W at G = 1 (hd 8), G = 3 (hd 136 and 256: one warpgroup a
-# block) and G = 4 (two blocks a kv head). hd 8, 40 and 136 are not
-# multiples of 16: the bf16 kernel pads them in shared memory.
+# block) and G = 4 (two blocks a kv head); last G = 5 at hd 64 (hymba-1.5b's
+# H / KV = 25 / 5: one warpgroup a block, one TMA box). hd 8, 40 and 136 are
+# not multiples of 16: the bf16 kernel pads them in shared memory.
 BAND_CASES = [
     (2, 64, 4, 2, 16, 16),
     (1, 48, 8, 8, 32, 16),
@@ -503,6 +504,7 @@ BAND_CASES = [
     (1, 1000, 6, 2, 136, 256),
     (1, 517, 3, 1, 256, 128),
     (1, 200, 8, 2, 64, 64),
+    (1, 2100, 10, 2, 64, 1024),
 ]
 # float32: the repo's attention tolerance, per entry. bf16: the kernel
 # rounds the softmax weights to bf16 for P V (as the reference's oracle
