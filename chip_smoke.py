@@ -142,6 +142,17 @@ Last comes the LM serving path (``band_attn``, K5):
   windowed hybrid layers) with the banded path on: 31 K5 launches a
   prefill, none a decode step (past the 1,024 ring), bitwise repeat, and
   the gemma3 gate against the plain masked path and float32 compute;
+* ``[lm encdec]``, ``[lm vlm]``, ``[lm moe]``, ``[lm moe kimi]``
+  (``XMODEL_PHASES``): seamless-m4t-medium at full depth (its frames 4 x
+  4,096 x 1,024 from the seeded generator), llama-3.2-vision-90b cut to
+  one pattern period (4 self + 1 cross layer; patches 4 x 1,601 x 8,192),
+  arctic-480b and kimi-k2-1t cut to 2 layers with bf16 parameters and 2
+  prompts, all at full width, the same way with no kernel launched; each
+  one's decode
+  oracle in float32 compute at full width (2 x 16 tokens: prefill within
+  1e-4 of ``forward``, 3 greedy steps within 1e-3), and for the MoE each
+  layer's capacity and dropped choices in a prefill and a decode step
+  (which must drop none);
 * for each model one prefill and one decode step under ``torch.profiler``
   (device time by kernel and by operator, K5's share, the device idle
   share) and, for mamba2 and hymba, the SSD's device time in a prefill by
@@ -151,7 +162,8 @@ Last comes the LM serving path (``band_attn``, K5):
 The K1-K4 rows of the kernels line carry ``launches_api_serve``, the
 ``[api]`` and ``[serve]`` launches, and ``launches_stream_cluster``, those
 of ``[stream]`` and ``[cluster]`` (summed over a cluster's workers); the
-K5 row carries ``launches_lm_paths`` (each model's ``generate``) and
+K5 row carries ``launches_lm_paths`` (each model's ``generate``: 0 on the
+enc-dec, VLM and MoE paths) and
 ``at_hymba_shape`` (its numbers at hymba's shape). Any failed check raises, so the exit
 code is non-zero. The line before the last is a JSON object of
 per-kernel numbers; the last line is
@@ -243,6 +255,28 @@ HYBRID_LOCAL_LAYERS = 31
 # in float32 compute with TF32 off, after each of ORACLE_STEPS greedy steps.
 ORACLE_STEPS = 4
 LM_DECODE_TOL = dict(rtol=1e-3, atol=1e-3)
+# The cross-attention and MoE serving paths at full width, random weights
+# (seed 0), bf16 compute, the same prompt and tokens as [lm]: (label, arch,
+# layers kept, parameters in bf16, batch). seamless-m4t-medium at full
+# depth (12 encoder + 12 decoder layers, f32 parameters); llama-3.2-vision-90b
+# cut to one pattern period (4 self + 1 cross of 100 layers, f32);
+# arctic-480b to 2 of 35 layers and kimi-k2-1t to 2 of 61 (its dense layer
+# 0 and one MoE layer), both with bf16 parameters (in float32 one arctic
+# layer is 53.6 GB) and at batch 2: at batch 4 the plain masked path's
+# float32 scores, their softmax and its bf16 cast (37.6 GB at 56 heads,
+# 43.0 GB at 64) do not fit beside the weights on an 80 GB H100 (arctic
+# stopped at 78.7 GB allocated, asking 14 GiB more; kimi at 74.4 GB, asking
+# 8 GiB). Widths, heads, experts, top-k and capacity are never cut.
+XMODEL_PHASES = (("lm encdec", "seamless-m4t-medium", None, False, LM_BATCH),
+                 ("lm vlm", "llama-3.2-vision-90b", 5, False, LM_BATCH),
+                 ("lm moe", "arctic-480b", 2, True, LM_BATCH // 2),
+                 ("lm moe kimi", "kimi-k2-1t-a32b", 2, True, LM_BATCH // 2))
+# Their decode oracle (tests/test_models.py:28-44), in float32 compute at
+# full width: a prompt of ORACLE_PROMPT tokens for ORACLE_BATCH rows (the
+# MoE drop-free at T <= 256), prefill's last logits against forward within
+# LM_PREFILL_TOL, then ORACLE_DECODE greedy steps within LM_DECODE_TOL.
+ORACLE_BATCH, ORACLE_PROMPT, ORACLE_DECODE = 2, 16, 3
+LM_PREFILL_TOL = dict(rtol=1e-4, atol=1e-4)
 
 
 class SmokeFailure(AssertionError):
@@ -2512,56 +2546,72 @@ def lm_config():
 
 
 def cache_bytes(caches) -> int:
-    return sum(t.numel() * t.element_size() for c in caches for sub in c.values() for t in sub.values())
+    """Bytes of every tensor in a cache tree (lists and dicts of tensors)."""
+    if isinstance(caches, dict):
+        return sum(cache_bytes(c) for c in caches.values())
+    if isinstance(caches, (list, tuple)):
+        return sum(cache_bytes(c) for c in caches)
+    return caches.numel() * caches.element_size()
 
 
-def lm_generate(np, torch, dev, smi, cfg, label, k5_per_prefill, shape_note):
+def trim_extras(extras, s: int):
+    """``extras`` for a prompt cut to ``s`` tokens: the enc-dec's frames
+    cut with it, the VLM's memory as it is."""
+    if not extras:
+        return extras
+    return {k: (v[:, :s] if k == "frames" else v) for k, v in extras.items()}
+
+
+def lm_generate(np, torch, dev, smi, cfg, label, k5_per_prefill, shape_note, batch=LM_BATCH):
     """``cfg`` with random weights from a seeded generator on the card (seed
-    0) and LM_BATCH prompts of LM_PROMPT random tokens. Drives ``generate``
-    (prefill + LM_TOKENS greedy steps) once with the counts set to 0
-    (``k5_per_prefill`` K5 launches, nothing else); then a prefill alone
-    twice (as many launches, bitwise equal logits) and the decode steps
-    alone (no launch, generate's tokens again), each step timed. Returns the
-    model, the prompt, the prefill's logits, generate's launches and the
-    numbers."""
-    from repro_torch.launch.serve_decode import generate
-    from repro_torch.models import transformer as T
+    0), ``batch`` prompts of LM_PROMPT random tokens and the stub frontend's
+    input (``serve_decode.stub_extras``: the VLM's patches, the enc-dec's
+    frames). Drives ``generate`` (prefill + LM_TOKENS greedy steps) once
+    with the counts set to 0 (``k5_per_prefill`` K5 launches, nothing
+    else); then a prefill alone twice (as many launches, bitwise equal
+    logits) and the decode steps alone (no launch, generate's tokens
+    again), each step timed. Returns the model, the prompt, the extras, the
+    prefill's logits, generate's launches and the numbers."""
+    from repro_torch.launch import serve_decode as sd
 
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(0)
-    model = T.init_params(cfg, gen, dev)
-    prompt = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), generator=gen, device=dev)
+    model = sd.init_params(cfg, gen, dev)
+    prompt = torch.randint(0, cfg.vocab, (batch, LM_PROMPT), generator=gen, device=dev)
+    extras = sd.stub_extras(cfg, batch, LM_PROMPT, gen, dev)
     sync(torch, dev)
-    n_params = T.count_params(model)
+    n_params = sum(p.numel() for p in model.parameters())
     n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
     log(f"[{label}] {cfg.name} {shape_note}; params {n_params} in {cfg.param_dtype} ({n_bytes} B), "
         f"compute {cfg.compute_dtype}; init on the card in {time.perf_counter() - t0} s; batch "
-        f"{LM_BATCH} x prompt {LM_PROMPT} + {LM_TOKENS} tokens")
+        f"{batch} x prompt {LM_PROMPT} + {LM_TOKENS} tokens"
+        + "".join(f"; {k} {tuple(v.shape)}" for k, v in (extras or {}).items()))
     max_len = LM_PROMPT + LM_TOKENS
 
-    T.prefill(model, prompt[:, :LM_PROMPT // 2], cfg)  # warm-up: cuBLAS, allocator
+    # warm-up: cuBLAS, allocator
+    sd.prefill(cfg, model, prompt[:, :LM_PROMPT // 2], trim_extras(extras, LM_PROMPT // 2))
     sync(torch, dev)
     torch.cuda.reset_peak_memory_stats(dev)
     zero_counts()
     t0 = time.perf_counter()
-    tokens = generate(cfg, model, prompt, LM_TOKENS)
+    tokens = sd.generate(cfg, model, prompt, LM_TOKENS, extras)
     sync(torch, dev)
     wall = time.perf_counter() - t0
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated(dev)
     check_launches(launches, {"banded_attention_kernel": k5_per_prefill}, f"{label} generate")
-    check(tokens.shape == (LM_BATCH, LM_TOKENS) and tokens.dtype == torch.int32, f"[{label}] tokens shape")
+    check(tokens.shape == (batch, LM_TOKENS) and tokens.dtype == torch.int32, f"[{label}] tokens shape")
     check(bool(((tokens >= 0) & (tokens < cfg.vocab)).all()), f"[{label}] token out of range")
 
     zero_counts()
     sync(torch, dev)
     t0 = time.perf_counter()
-    logits, caches = T.prefill(model, prompt, cfg, max_len=max_len)
+    logits, caches = sd.prefill(cfg, model, prompt, extras, max_len)
     sync(torch, dev)
     prefill_s = time.perf_counter() - t0
     check(read_counts()["banded_attention_kernel"] == k5_per_prefill, f"[{label}] K5 launches per prefill")
-    again, _ = T.prefill(model, prompt, cfg, max_len=max_len)
-    check(logits.shape == (LM_BATCH, cfg.vocab) and bool(torch.isfinite(logits).all()),
+    again, _ = sd.prefill(cfg, model, prompt, extras, max_len)
+    check(logits.shape == (batch, cfg.vocab) and bool(torch.isfinite(logits).all()),
           f"[{label}] prefill logits shape or finiteness")
     check(torch.equal(logits, again), f"[{label}] prefill logits do not repeat bitwise")
     del again
@@ -2573,7 +2623,7 @@ def lm_generate(np, torch, dev, smi, cfg, label, k5_per_prefill, shape_note):
         decoded.append(tok)
         sync(torch, dev)
         t0 = time.perf_counter()
-        step_logits, caches = T.decode_step(model, tok, caches, LM_PROMPT + i, cfg)
+        step_logits, caches = sd.decode_step(cfg, model, tok, caches, LM_PROMPT + i)
         tok = torch.argmax(step_logits, -1).to(torch.int32)
         sync(torch, dev)
         steps_ms.append((time.perf_counter() - t0) * 1e3)
@@ -2584,16 +2634,16 @@ def lm_generate(np, torch, dev, smi, cfg, label, k5_per_prefill, shape_note):
     n_cache = cache_bytes(caches)
     del caches, step_logits
     decode_ms = sorted(steps_ms)[len(steps_ms) // 2]
-    nums = dict(generate_s=wall, prefill_s=prefill_s, decode_ms_per_token=decode_ms,
-                tokens_per_s=LM_BATCH * LM_TOKENS / wall, decode_tokens_per_s=LM_BATCH / decode_ms * 1e3,
-                prefill_tokens_per_s=LM_BATCH * LM_PROMPT / prefill_s, max_memory_allocated_bytes=peak,
+    nums = dict(batch=batch, generate_s=wall, prefill_s=prefill_s, decode_ms_per_token=decode_ms,
+                tokens_per_s=batch * LM_TOKENS / wall, decode_tokens_per_s=batch / decode_ms * 1e3,
+                prefill_tokens_per_s=batch * LM_PROMPT / prefill_s, max_memory_allocated_bytes=peak,
                 cache_bytes=n_cache)
-    log(f"[{label}] {smi}: generate {wall} s for {LM_BATCH} x {LM_TOKENS} tokens ({nums['tokens_per_s']} "
+    log(f"[{label}] {smi}: generate {wall} s for {batch} x {LM_TOKENS} tokens ({nums['tokens_per_s']} "
         f"tokens/s with the prefill); prefill {prefill_s} s ({nums['prefill_tokens_per_s']} prompt "
         f"tokens/s); decode {decode_ms} ms a step, median of {LM_TOKENS} ({nums['decode_tokens_per_s']} "
         f"tokens/s); max_memory_allocated {peak} B; decode cache {n_cache} B; launches "
         f"{json.dumps(launches)}; sample {tokens[0, :8].tolist()}")
-    return model, prompt, logits, launches, nums
+    return model, prompt, extras, logits, launches, nums
 
 
 def plain_path_gate(torch, model, prompt, cfg, logits, label) -> dict:
@@ -2640,10 +2690,10 @@ def serve_phase(np, torch, dev, smi):
             f"d_ff={cfg.d_ff} vocab={cfg.vocab}, {cfg.num_layers} of 48 layers ({LM_LOCAL_LAYERS} local "
             f"with window {cfg.pattern[0].window}, {cfg.num_layers - LM_LOCAL_LAYERS} global), "
             f"block_local_attn")
-    model, prompt, logits, launches, nums = lm_generate(np, torch, dev, smi, cfg, "lm", LM_LOCAL_LAYERS,
-                                                        note)
+    model, prompt, _, logits, launches, nums = lm_generate(np, torch, dev, smi, cfg, "lm",
+                                                           LM_LOCAL_LAYERS, note)
     nums.update(plain_path_gate(torch, model, prompt, cfg, logits, "lm"))
-    return model, cfg, prompt, launches, nums
+    return model, cfg, prompt, None, launches, nums
 
 
 def ssm_phase(np, torch, dev, smi):
@@ -2664,7 +2714,7 @@ def ssm_phase(np, torch, dev, smi):
     note = (f"d_model={cfg.d_model} d_inner={d_inner} ssm heads={heads} x {cfg.ssm_head_dim} "
             f"state={cfg.ssm_state} chunk={cfg.ssm_chunk} conv={cfg.ssm_conv} vocab={cfg.vocab}, all "
             f"{cfg.num_layers} layers (SSD, no FFN)")
-    model, prompt, logits, launches, nums = lm_generate(np, torch, dev, smi, cfg, "lm ssm", 0, note)
+    model, prompt, _, logits, launches, nums = lm_generate(np, torch, dev, smi, cfg, "lm ssm", 0, note)
 
     zero_counts()
     cfg32 = cfg.replace(compute_dtype=torch.float32)
@@ -2706,7 +2756,7 @@ def ssm_phase(np, torch, dev, smi):
     torch.cuda.empty_cache()
     nums.update(logits_bf16_vs_f32=spread, decode_oracle_max_abs=max(errs),
                 cache_bytes_by_prompt=sizes)
-    return model, cfg, prompt, launches, nums
+    return model, cfg, prompt, None, launches, nums
 
 
 def hybrid_phase(np, torch, dev, smi):
@@ -2726,10 +2776,127 @@ def hybrid_phase(np, torch, dev, smi):
             f"d_ff={cfg.d_ff} vocab={cfg.vocab}, ssm heads={heads} x {cfg.ssm_head_dim} "
             f"state={cfg.ssm_state}, all {cfg.num_layers} layers (hybrid: 1 global, "
             f"{HYBRID_LOCAL_LAYERS} with window {windows[0]}), block_local_attn")
-    model, prompt, logits, launches, nums = lm_generate(np, torch, dev, smi, cfg, "lm hybrid",
-                                                        HYBRID_LOCAL_LAYERS, note)
+    model, prompt, _, logits, launches, nums = lm_generate(np, torch, dev, smi, cfg, "lm hybrid",
+                                                           HYBRID_LOCAL_LAYERS, note)
     nums.update(plain_path_gate(torch, model, prompt, cfg, logits, "lm hybrid"))
-    return model, cfg, prompt, launches, nums
+    return model, cfg, prompt, None, launches, nums
+
+
+def xmodel_config(torch, arch, layers, bf16_params):
+    """An XMODEL_PHASES config: the registry's at full width, ``layers``
+    kept (the enc-dec: all), bf16 parameters where asked."""
+    from repro_torch.configs import registry
+
+    cfg = registry.get(arch)
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
+    return cfg.replace(param_dtype=torch.bfloat16) if bf16_params else cfg
+
+
+def xmodel_note(cfg, arch) -> str:
+    from repro_torch.configs import registry
+
+    full = registry.get(arch)
+    note = (f"d_model={cfg.d_model} heads={cfg.q_heads}/{cfg.kv_heads} head_dim={cfg.head_dim} "
+            f"d_ff={cfg.d_ff} vocab={cfg.vocab}")
+    if cfg.family == "encdec":
+        return note + f", all {cfg.enc_layers} encoder + {cfg.dec_layers} decoder layers"
+    defs = cfg.layer_defs()
+    note += (f", {cfg.num_layers} of {full.num_layers} layers "
+             f"({', '.join(f'{bd.mixer}/{bd.ffn}' for bd in defs)})")
+    if cfg.family == "vlm":
+        note += f", {cfg.num_patches} image patches"
+    if cfg.num_experts:
+        note += (f", {cfg.num_experts} experts top-{cfg.moe_top_k}"
+                 + (f", shared expert {cfg.moe_shared_ff}" if cfg.moe_shared_ff else ""))
+    return note
+
+
+def decode_oracle(torch, model, cfg, prompt, extras, label) -> dict:
+    """The reference's decode oracle in float32 compute, TF32 off, on the
+    full-width model: ORACLE_BATCH x ORACLE_PROMPT tokens of the phase's
+    prompt (and extras), prefill's last logits against ``forward`` within
+    LM_PREFILL_TOL, then each of ORACLE_DECODE greedy steps against
+    ``forward`` over the extended sequence within LM_DECODE_TOL. At T <=
+    256 the MoE keeps every choice, so the two paths compute the same
+    function."""
+    from repro_torch.launch import serve_decode as sd
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import transformer as T
+
+    cfg32 = cfg.replace(compute_dtype=torch.float32)
+    seq = prompt[:ORACLE_BATCH, :ORACLE_PROMPT]
+    ext = trim_extras({k: v[:ORACLE_BATCH] for k, v in extras.items()} if extras else None,
+                      ORACLE_PROMPT)
+
+    def forward(tokens):
+        if cfg.family == "encdec":
+            return ED.forward(model, ext["frames"], tokens, cfg32)[:, -1]
+        return T.forward(model, tokens, cfg32, ext)[:, -1]
+
+    logits, caches = sd.prefill(cfg32, model, seq, ext, ORACLE_PROMPT + ORACLE_DECODE)
+    errs = [close_report(torch, logits, forward(seq), what=f"[{label}] float32 prefill vs forward",
+                         **LM_PREFILL_TOL)]
+    for i in range(ORACLE_DECODE):
+        nxt = torch.argmax(logits, -1).to(torch.int32)
+        logits, caches = sd.decode_step(cfg32, model, nxt, caches, ORACLE_PROMPT + i)
+        seq = torch.cat([seq, nxt[:, None].to(seq.dtype)], 1)
+        errs.append(close_report(torch, logits, forward(seq),
+                                 what=f"[{label}] float32 decode step {i} vs forward", **LM_DECODE_TOL))
+    del caches, logits
+    torch.cuda.empty_cache()
+    log(f"[{label}] decode oracle, float32 compute, TF32 off, full width: {ORACLE_BATCH} x "
+        f"{ORACLE_PROMPT} tokens, prefill vs forward within rtol = atol = {LM_PREFILL_TOL['rtol']}, "
+        f"{ORACLE_DECODE} greedy steps within {LM_DECODE_TOL['rtol']}; max abs {errs}")
+    return dict(oracle_prefill_max_abs=errs[0], decode_oracle_max_abs=max(errs[1:]))
+
+
+def moe_drops(torch, model, cfg, prompt, label) -> dict:
+    """Each MoE layer's capacity and dropped (token, choice) pairs in one
+    prefill of the phase's prompt and in one decode step after it (none
+    may drop there: T = batch <= 256), by wrapping ``layers.moe`` for these
+    two calls with a count from its own ``moe_route``."""
+    from repro_torch.launch import serve_decode as sd
+    from repro_torch.models import layers as L
+
+    calls, saved = [], L.moe
+
+    def counted(p, x, cfg_, capacity_factor=None, _inner=saved):
+        t = x.shape[0] * x.shape[1]
+        cap = L.moe_capacity(t, cfg_.num_experts, cfg_.moe_top_k, capacity_factor)
+        pos = L.moe_route(p, x.reshape(t, -1).to(cfg_.compute_dtype), cfg_)[2]
+        calls.append(dict(tokens=t, capacity=cap, dropped=int((pos >= cap).sum())))
+        return _inner(p, x, cfg_, capacity_factor)
+
+    L.moe = counted
+    try:
+        logits, caches = sd.prefill(cfg, model, prompt, None, LM_PROMPT + 1)
+        n_prefill = len(calls)
+        sd.decode_step(cfg, model, torch.argmax(logits, -1).to(torch.int32), caches, LM_PROMPT)
+    finally:
+        L.moe = saved
+    del caches, logits
+    prefill, decode = calls[:n_prefill], calls[n_prefill:]
+    n_moe = sum(bd.ffn in ("moe", "moe_dense") for bd in cfg.layer_defs())
+    check(len(prefill) == len(decode) == n_moe, f"[{label}] MoE calls {len(prefill)}/{len(decode)}, "
+                                                f"expected {n_moe} each")
+    check(all(c["dropped"] == 0 for c in decode), f"[{label}] a decode step dropped choices: {decode}")
+    log(f"[{label}] MoE dispatch, each MoE layer: prefill {json.dumps(prefill)} ({cfg.moe_top_k} choices "
+        f"a token); decode step {json.dumps(decode)}")
+    return dict(moe_prefill=prefill, moe_decode=decode)
+
+
+def xmodel_phase(np, torch, dev, smi, label, arch, layers, bf16_params, batch):
+    """One XMODEL_PHASES entry: ``lm_generate`` (no K5 launch: none of these
+    configs has a windowed layer), the float32 decode oracle and, for the
+    MoE, each layer's capacity and drops."""
+    cfg = xmodel_config(torch, arch, layers, bf16_params)
+    model, prompt, extras, _, launches, nums = lm_generate(
+        np, torch, dev, smi, cfg, label, 0, xmodel_note(cfg, arch), batch)
+    nums.update(decode_oracle(torch, model, cfg, prompt, extras, label))
+    if cfg.num_experts:
+        nums.update(moe_drops(torch, model, cfg, prompt, label))
+    return model, cfg, prompt, extras, launches, nums
 
 
 def ssd_event_times(torch, model, cfg, prompt, dev) -> dict:
@@ -2767,7 +2934,7 @@ def ssd_event_times(torch, model, cfg, prompt, dev) -> dict:
                 ssd_share=ms["ssd"] / wall_ms)
 
 
-def profile_lm(torch, model, cfg, prompt, dev, prefill_s, decode_ms, label="lm"):
+def profile_lm(torch, model, cfg, prompt, dev, prefill_s, decode_ms, label="lm", extras=None):
     """One prefill, then one decode step, each under torch.profiler: device
     time by kernel and by operator (inclusive: an operator's row counts
     the kernels of the operators it calls too), K5's share and the device's
@@ -2776,14 +2943,14 @@ def profile_lm(torch, model, cfg, prompt, dev, prefill_s, decode_ms, label="lm")
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.models import transformer as T
+    from repro_torch.launch import serve_decode as sd
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        logits, caches = T.prefill(model, prompt, cfg, max_len=LM_PROMPT + LM_TOKENS)
+        logits, caches = sd.prefill(cfg, model, prompt, extras, LM_PROMPT + LM_TOKENS)
         sync(torch, dev)
     tok = torch.argmax(logits, -1).to(torch.int32)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_d:
-        T.decode_step(model, tok, caches, LM_PROMPT, cfg)
+        sd.decode_step(cfg, model, tok, caches, LM_PROMPT)
         sync(torch, dev)
     del caches, logits
     out = {}
@@ -2807,7 +2974,7 @@ def profile_lm(torch, model, cfg, prompt, dev, prefill_s, decode_ms, label="lm")
                      key=device_total_us, reverse=True)
         for e in ops[:12]:
             log(f"{tag} op  {device_total_us(e) / 1e3:10.3f} ms inclusive  x{e.count:<5d} {e.key[:60]}")
-    if any(bd.mixer != "attn" for bd in cfg.layer_defs()):
+    if cfg.family != "encdec" and any(bd.mixer in ("ssm", "hybrid") for bd in cfg.layer_defs()):
         out["ssd"] = ssd_event_times(torch, model, cfg, prompt, dev)
         log(f"[profile {label} prefill] the SSD by CUDA events around its {out['ssd']['ssd_calls']} "
             f"calls: {out['ssd']['ssd_ms']} ms of a {out['ssd']['prefill_ms']} ms prefill (share "
@@ -3028,15 +3195,22 @@ def main() -> int:
         f"4types_L1000 {json.dumps(launches1000)}, 4types_L2000 {json.dumps(launches2000)}")
     del x, cases
 
-    # The LM serving path: gemma3-12b (dense), then mamba2-780m (SSM) and
-    # hymba-1.5b (hybrid), each model freed before the next.
+    # The LM serving path: gemma3-12b (dense), then mamba2-780m (SSM),
+    # hymba-1.5b (hybrid), seamless-m4t-medium (enc-dec), llama-3.2-vision-90b
+    # (VLM), arctic-480b and kimi-k2-1t (MoE), each model freed before the
+    # next.
     draws, err_k5 = compare_band_attn(np, torch, dev)
     launches_lm, nums_lm, profs = {}, {}, {}
-    for label, phase in (("lm", serve_phase), ("lm ssm", ssm_phase), ("lm hybrid", hybrid_phase)):
-        model, cfg, prompt, launches_lm[label], nums_lm[label] = phase(np, torch, dev, smi)
+    phases = [(label, lambda phase=phase: phase(np, torch, dev, smi))
+              for label, phase in (("lm", serve_phase), ("lm ssm", ssm_phase),
+                                   ("lm hybrid", hybrid_phase))]
+    phases += [(spec[0], lambda spec=spec: xmodel_phase(np, torch, dev, smi, *spec))
+               for spec in XMODEL_PHASES]
+    for label, phase in phases:
+        model, cfg, prompt, extras, launches_lm[label], nums_lm[label] = phase()
         profs[label] = profile_lm(torch, model, cfg, prompt, dev, nums_lm[label]["prefill_s"],
-                                  nums_lm[label]["decode_ms_per_token"], label)
-        del model, prompt
+                                  nums_lm[label]["decode_ms_per_token"], label, extras)
+        del model, prompt, extras
         torch.cuda.empty_cache()
         log(f"[summary {label}] {smi}: {cfg.name}: {json.dumps(nums_lm[label])}; profile "
             f"{json.dumps(profs[label])}")

@@ -8,10 +8,12 @@ Fields that only shape XLA compilation or sharding have no effect on one
 card: ``remat``, ``scan_unroll``, ``fsdp``, ``sequence_parallel`` and
 ``gqa_repeat_kv`` (the reference repeats K/V to the query heads only so
 that its partitioner can shard the score einsum by head; the grouped
-einsum computes the same values).
-``unported(cfg)`` names what the port does not run yet (MoE,
-cross-attention, enc-dec, VLM, flash-decode and the optimizer knobs); the
-model's entry points refuse such a config through ``check_ported``.
+einsum computes the same values). ``moe_scan_dispatch`` has none either:
+the reference's blocked prefix sum and a plain ``cumsum`` give the MoE
+the same integer positions, so the port computes them one way.
+``unported(cfg)`` names what the port does not run yet (flash-decode and
+the optimizer knobs); the model's entry points refuse such a config
+through ``check_ported``.
 """
 
 from __future__ import annotations
@@ -77,7 +79,7 @@ class ArchConfig:
 
     # -- optimization knobs of the reference ---------------------------------
     block_local_attn: bool = False  # windowed layers through the banded kernel (K5)
-    moe_scan_dispatch: bool = False
+    moe_scan_dispatch: bool = False  # no effect: the same positions as cumsum
     pad_vocab_to_multiple: int = 0
     gqa_repeat_kv: bool = False  # no effect on one card
     adam_moments_bf16: bool = False
@@ -141,22 +143,7 @@ class ArchConfig:
 
 def unported(cfg: ArchConfig) -> list[str]:
     """What ``cfg`` asks for that the port does not run yet."""
-    missing = []
-    if cfg.family not in ("dense", "ssm", "hybrid"):
-        missing.append(f"family {cfg.family!r}")
-    for bd in cfg.layer_defs():
-        if bd.mixer not in ("attn", "ssm", "hybrid"):
-            missing.append(f"mixer {bd.mixer!r}")
-        if bd.ffn not in ("dense", "none"):
-            missing.append(f"ffn {bd.ffn!r}")
-    for f in ("num_experts", "moe_top_k", "moe_shared_ff", "num_patches", "enc_layers",
-              "dec_layers"):
-        if getattr(cfg, f):
-            missing.append(f)
-    for f in ("moe_scan_dispatch", "flash_decode", "adam_moments_bf16", "use_adafactor"):
-        if getattr(cfg, f):
-            missing.append(f)
-    return list(dict.fromkeys(missing))
+    return [f for f in ("flash_decode", "adam_moments_bf16", "use_adafactor") if getattr(cfg, f)]
 
 
 def check_ported(cfg: ArchConfig) -> None:

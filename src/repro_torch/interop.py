@@ -6,7 +6,8 @@ bitwise from the same source (``data/simulation``), and
 ``pdf_config_from_dict``, ``moments_from_numpy`` and ``tree_from_numpy``
 carry the rest. The LM
 serving path's state is its weights: ``lm_params_from_numpy`` carries the
-reference's parameter tree into the port's ``Transformer``. All take plain
+reference's parameter tree into the port's ``Transformer`` and
+``encdec_params_from_numpy`` into its ``EncDec``. All take plain
 Python and numpy values, so neither package imports the other.
 """
 
@@ -72,43 +73,24 @@ def _flatten(tree, prefix: str, out: dict) -> None:
         out[prefix] = tree
 
 
-def lm_params_from_numpy(tree: Mapping, cfg: ArchConfig, device: torch.device | str):
-    """The port's ``Transformer`` for ``cfg`` on ``device``, holding the
-    reference's parameters ``tree`` (``jax.tree.map(np.asarray, params)``
-    of ``repro.models.transformer.init_params``).
+def _unstack(tree, name: str, n: int, layer_name, flat: dict) -> None:
+    """Each leaf of ``tree`` is stacked over ``n`` layers (``jax.vmap`` or
+    ``lax.scan`` of the reference); its slice r goes into ``flat`` under
+    ``layer_name(r)`` + the leaf's path."""
+    stacked: dict[str, np.ndarray] = {}
+    _flatten(tree, "", stacked)
+    for leaf, arr in stacked.items():
+        arr = np.asarray(arr)
+        if arr.ndim == 0 or arr.shape[0] != n:
+            raise ValueError(f"{name}.{leaf}: shape {arr.shape} is not stacked over {n} layers")
+        for r in range(n):
+            flat[f"{layer_name(r)}.{leaf}"] = arr[r]
 
-    ``tree["prefix"][i]`` becomes layer i; each leaf of
-    ``tree["groups"][j]`` is stacked over the repeats, and its slice r
-    becomes layer ``len(cfg.prefix) + r * len(cfg.pattern) + j``. Each
-    value is copied into the port's parameter of the same name and keeps
-    that parameter's type: the SSD's ``a_log``, ``d_skip`` and ``dt_bias``
-    are float32 under any ``param_dtype``, as in the reference. Raises on a
-    missing or unexpected leaf (the SSM and hybrid ones included) and on a
-    shape that differs."""
-    from repro_torch.models.transformer import Transformer
 
-    flat: dict[str, np.ndarray] = {}
-    top = {k: v for k, v in tree.items() if k not in ("prefix", "groups")}
-    _flatten(top, "", flat)
-    prefix, groups = list(tree.get("prefix", [])), list(tree.get("groups", []))
-    n_pre, n_pat = len(cfg.prefix), len(cfg.pattern)
-    if len(prefix) != n_pre or len(groups) != n_pat:
-        raise ValueError(f"tree has {len(prefix)} prefix blocks and {len(groups)} pattern groups; "
-                         f"{cfg.name} has {n_pre} and {n_pat}")
-    for i, blk in enumerate(prefix):
-        _flatten(blk, f"layers.{i}", flat)
-    for j, grp in enumerate(groups):
-        stacked: dict[str, np.ndarray] = {}
-        _flatten(grp, "", stacked)
-        for name, arr in stacked.items():
-            arr = np.asarray(arr)
-            if arr.ndim == 0 or arr.shape[0] != cfg.num_repeats:
-                raise ValueError(f"groups[{j}].{name}: shape {arr.shape} is not stacked over "
-                                 f"{cfg.num_repeats} repeats")
-            for r in range(cfg.num_repeats):
-                flat[f"layers.{n_pre + r * n_pat + j}.{name}"] = arr[r]
-
-    model = Transformer(cfg, device)
+def _fill(model, flat: dict):
+    """Copy ``flat`` into ``model``'s parameters of the same names, each
+    keeping its parameter's type; raises on a missing or unexpected leaf
+    and on a shape that differs."""
     params = dict(model.named_parameters())
     missing, extra = sorted(set(params) - set(flat)), sorted(set(flat) - set(params))
     if missing or extra:
@@ -122,3 +104,55 @@ def lm_params_from_numpy(tree: Mapping, cfg: ArchConfig, device: torch.device | 
                 arr = arr.astype(np.float32)
             p.copy_(torch.tensor(arr))
     return model
+
+
+def lm_params_from_numpy(tree: Mapping, cfg: ArchConfig, device: torch.device | str):
+    """The port's ``Transformer`` for ``cfg`` on ``device``, holding the
+    reference's parameters ``tree`` (``jax.tree.map(np.asarray, params)``
+    of ``repro.models.transformer.init_params``).
+
+    ``tree["prefix"][i]`` becomes layer i; each leaf of
+    ``tree["groups"][j]`` is stacked over the repeats, and its slice r
+    becomes layer ``len(cfg.prefix) + r * len(cfg.pattern) + j``. Each
+    value is copied into the port's parameter of the same name and keeps
+    that parameter's type: the SSD's ``a_log``, ``d_skip`` and ``dt_bias``
+    and the MoE's ``router`` are float32 under any ``param_dtype``, as in
+    the reference. The MoE's leaves (``moe.router``, the expert stacks
+    ``moe.w_gate|w_in|w_out`` with E first, ``moe.shared.*``) and a cross
+    block's (``attn.*``, as a self-attention block's) come through under
+    their names. Raises on a missing or unexpected leaf and on a shape that
+    differs."""
+    from repro_torch.models.transformer import Transformer
+
+    flat: dict[str, np.ndarray] = {}
+    top = {k: v for k, v in tree.items() if k not in ("prefix", "groups")}
+    _flatten(top, "", flat)
+    prefix, groups = list(tree.get("prefix", [])), list(tree.get("groups", []))
+    n_pre, n_pat = len(cfg.prefix), len(cfg.pattern)
+    if len(prefix) != n_pre or len(groups) != n_pat:
+        raise ValueError(f"tree has {len(prefix)} prefix blocks and {len(groups)} pattern groups; "
+                         f"{cfg.name} has {n_pre} and {n_pat}")
+    for i, blk in enumerate(prefix):
+        _flatten(blk, f"layers.{i}", flat)
+    for j, grp in enumerate(groups):
+        _unstack(grp, f"groups[{j}]", cfg.num_repeats,
+                 lambda r, j=j: f"layers.{n_pre + r * n_pat + j}", flat)
+    return _fill(Transformer(cfg, device), flat)
+
+
+def encdec_params_from_numpy(tree: Mapping, cfg: ArchConfig, device: torch.device | str):
+    """The port's ``EncDec`` for ``cfg`` on ``device``, holding the
+    reference's parameters ``tree`` (``jax.tree.map(np.asarray, params)``
+    of ``repro.models.encdec.init_params``): each leaf of
+    ``tree["encoder"]`` and ``tree["decoder"]`` is stacked over
+    ``cfg.enc_layers`` / ``cfg.dec_layers``, and its slice i becomes block
+    i of ``encoder`` / ``decoder``. Raises as ``lm_params_from_numpy``."""
+    from repro_torch.models.encdec import EncDec
+
+    flat: dict[str, np.ndarray] = {}
+    _flatten({k: v for k, v in tree.items() if k not in ("encoder", "decoder")}, "", flat)
+    for stack, n in (("encoder", cfg.enc_layers), ("decoder", cfg.dec_layers)):
+        if stack not in tree:
+            raise ValueError(f"tree has no {stack!r}")
+        _unstack(tree[stack], stack, n, lambda r, stack=stack: f"{stack}.{r}", flat)
+    return _fill(EncDec(cfg, device), flat)

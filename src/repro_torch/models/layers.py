@@ -1,8 +1,9 @@
 """Building blocks of the LM serving path: norm, RoPE, GQA attention (causal
-/ sliding window, block-local through the banded kernel K5), one-token
-decode attention and the gated MLP.
+/ sliding window, block-local through the banded kernel K5, cross), one-token
+decode attention (self and cross), the gated MLP and the top-k MoE.
 
-Port of the dense parts of ``repro.models.layers``. Parameters live in
+Port of ``repro.models.layers`` but ``flash_decode_attention`` (a
+``shard_map`` over a mesh) and ``moe_aux_loss`` (training). Parameters live in
 ``nn.Module``s under the reference's names (``wq``, ``q_norm.scale``, ...)
 and never take gradients: the port serves, it does not train yet.
 
@@ -36,7 +37,9 @@ def empty_param(shape, dtype, device) -> nn.Parameter:
 def dense_init_(p: torch.Tensor, generator: torch.Generator, scale: float | None = None) -> None:
     """The reference's ``_dense_init`` distribution: normal times
     ``fan_in ** -0.5`` (``fan_in`` = first dimension) unless ``scale`` is
-    given; drawn in float32, then cast to the parameter's type."""
+    given; drawn in float32, then cast to the parameter's type. For an
+    expert stack (E, d, f) the first dimension is E, so the reference draws
+    N(0, 1/E) there: its distribution, kept."""
     fan_in = p.shape[0] if p.ndim >= 2 else 1
     scale = scale if scale is not None else fan_in**-0.5
     draw = torch.randn(p.shape, generator=generator, device=p.device, dtype=torch.float32)
@@ -120,11 +123,12 @@ def _attn_scores_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
     return torch.where(ok, zero, torch.full_like(zero, -1e30))
 
 
-def _qkv(p: Attention, x: torch.Tensor, cdt):
+def _qkv(p: Attention, x: torch.Tensor, cdt, kv_x: torch.Tensor | None = None):
     xq = x.to(cdt)
+    xkv = xq if kv_x is None else kv_x.to(cdt)
     q = torch.einsum("bsd,dhk->bshk", xq, p.wq.to(cdt))
-    k = torch.einsum("bsd,dhk->bshk", xq, p.wk.to(cdt))
-    v = torch.einsum("bsd,dhk->bshk", xq, p.wv.to(cdt))
+    k = torch.einsum("btd,dhk->bthk", xkv, p.wk.to(cdt))
+    v = torch.einsum("btd,dhk->bthk", xkv, p.wv.to(cdt))
     if hasattr(p, "q_norm"):
         q = rmsnorm(p.q_norm, q)
         k = rmsnorm(p.k_norm, k)
@@ -132,29 +136,36 @@ def _qkv(p: Attention, x: torch.Tensor, cdt):
 
 
 def attention(p: Attention, x: torch.Tensor, *, cfg, positions: torch.Tensor,
-              causal: bool = True, window: int | None = None, return_kv: bool = False):
-    """Full (prefill) self-attention. x (B, S, d) -> (B, S, d); with
+              kv_x: torch.Tensor | None = None, causal: bool = True, window: int | None = None,
+              use_rope: bool = True, return_kv: bool = False):
+    """Full (prefill) attention. x (B, S, d) -> (B, S, d); with
     ``return_kv`` also the keys (after norm and RoPE) and values, each
     (B, S, KV, hd), that ``prefill`` keeps as its cache.
 
-    A windowed layer with ``cfg.block_local_attn`` and S > window goes
-    through ``banded_attention`` (K5 on the card); the other layers take
-    the plain masked path."""
+    ``kv_x`` (B, T, d) switches to cross-attention: keys and values are
+    projected from it, no mask applies, and its keys are never rotated
+    (the queries are unless ``use_rope`` is off, as every caller sets it
+    for cross-attention). A windowed self-attention layer with
+    ``cfg.block_local_attn`` and S > window goes through
+    ``banded_attention`` (K5 on the card); the other layers take the plain
+    masked path."""
     cdt = cfg.compute_dtype
-    q, k, v = _qkv(p, x, cdt)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    q, k, v = _qkv(p, x, cdt, kv_x)
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        if kv_x is None:
+            k = rope(k, positions, cfg.rope_theta)
 
     b, s, h, hd = q.shape
     kvh = k.shape[2]
-    if window is not None and cfg.block_local_attn and s > window:
+    if kv_x is None and window is not None and cfg.block_local_attn and s > window:
         out = banded_attention(q, k, v, window)
     else:
         g = h // kvh
-        mask = _attn_scores_mask(positions, positions, causal, window)
         scores = torch.einsum("bskgd,btkd->bkgst", q.reshape(b, s, kvh, g, hd), k).float()
         scores *= hd**-0.5
-        scores += mask[:, None, None, :, :]
+        if kv_x is None:
+            scores += _attn_scores_mask(positions, positions, causal, window)[:, None, None, :, :]
         w = torch.softmax(scores, dim=-1).to(cdt)
         del scores
         out = torch.einsum("bkgst,btkd->bskgd", w, v).reshape(b, s, h, hd)
@@ -210,6 +221,24 @@ def decode_attention(p: Attention, x: torch.Tensor, cache: dict[str, torch.Tenso
     return y, {"k": ck, "v": cv}
 
 
+def cross_decode_attention(p: Attention, x: torch.Tensor, cache: dict[str, torch.Tensor], *,
+                           cfg) -> torch.Tensor:
+    """One query token against a cross K/V computed once at prefill (the
+    memory's keys and values, (B, T, KV, hd), unrotated). x (B, 1, d) ->
+    (B, 1, d); no mask, no RoPE. Like the reference's decode, it applies no
+    ``q_norm``: no config sets ``qk_norm`` with cross-attention."""
+    cdt = cfg.compute_dtype
+    q = torch.einsum("bsd,dhk->bshk", x.to(cdt), p.wq.to(cdt))
+    ck, cv = cache["k"].to(cdt), cache["v"].to(cdt)
+    b, _, h, hd = q.shape
+    kvh = ck.shape[2]
+    qr = q.reshape(b, 1, kvh, h // kvh, hd)
+    scores = torch.einsum("bskgd,btkd->bkgst", qr, ck).float() * hd**-0.5
+    w = torch.softmax(scores, dim=-1).to(cdt)
+    out = torch.einsum("bkgst,btkd->bskgd", w, cv).reshape(b, 1, h, hd)
+    return torch.einsum("bshk,hkd->bsd", out, p.wo.to(cdt))
+
+
 # -- gated MLP ----------------------------------------------------------------
 
 
@@ -235,3 +264,102 @@ def mlp(p: MLP, x: torch.Tensor, cfg) -> torch.Tensor:
     g = F.silu(x @ p.w_gate.to(cdt))
     u = x @ p.w_in.to(cdt)
     return (g * u) @ p.w_out.to(cdt)
+
+
+# -- mixture of experts ---------------------------------------------------------
+
+
+class MoE(nn.Module):
+    """The reference's ``init_moe`` leaves: ``router`` (d, E), float32
+    whatever ``cfg.param_dtype`` is; ``w_gate`` and ``w_in`` (E, d, f),
+    ``w_out`` (E, f, d); with ``cfg.moe_shared_ff`` a ``shared`` MLP of that
+    width."""
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        d, ff, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+        dt = cfg.param_dtype
+        self.router = empty_param((d, e), torch.float32, device)
+        self.w_gate = empty_param((e, d, ff), dt, device)
+        self.w_in = empty_param((e, d, ff), dt, device)
+        self.w_out = empty_param((e, ff, d), dt, device)
+        if cfg.moe_shared_ff:
+            self.shared = MLP(cfg, device, d_ff=cfg.moe_shared_ff)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """``init_moe``'s distributions: ``router`` N(0, 1/d); ``w_gate``
+        and ``w_in`` N(0, 1/E) (``dense_init_``'s fan-in of a stack),
+        ``w_out`` N(0, 1/f); each stack drawn one expert at a time, so the
+        float32 draw is one expert's (an arctic-480b stack is 17.8 GB in
+        float32)."""
+        dense_init_(self.router, generator)
+        e, ff = self.w_out.shape[:2]
+        for w, scale in ((self.w_gate, e**-0.5), (self.w_in, e**-0.5), (self.w_out, ff**-0.5)):
+            for slab in w:
+                dense_init_(slab, generator, scale=scale)
+        if hasattr(self, "shared"):
+            self.shared.reset_parameters(generator)
+
+
+def moe_capacity(tokens: int, num_experts: int, top_k: int,
+                 capacity_factor: float | None = None) -> int:
+    """Slots an expert has: every token (drop-free) up to 256 tokens, else
+    ``k T / E`` times 1.25, truncated as Python's ``int`` does; with
+    ``capacity_factor`` that factor at any T."""
+    if capacity_factor is None:
+        if tokens <= 256:
+            return tokens
+        capacity_factor = 1.25
+    return max(1, int(top_k * tokens / num_experts * capacity_factor))
+
+
+def moe_route(p: MoE, xt: torch.Tensor, cfg):
+    """Router, top-k and each choice's slot. xt (T, d) -> gates (T, k)
+    float32 (renormalised over the k choices), experts (T, k) int64 in
+    descending probability, and pos (T k,): the choice's position in its
+    expert's buffer, counting the earlier choices of that expert in
+    token-major order (token t's choice j is entry t k + j)."""
+    e, k = cfg.num_experts, cfg.moe_top_k
+    probs = torch.softmax(xt.float() @ p.router, dim=-1)  # (T, E)
+    gates, experts = torch.topk(probs, k, dim=-1, sorted=True)
+    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+    flat = experts.reshape(-1)
+    onehot = F.one_hot(flat, e)  # (T k, E)
+    pos = (torch.cumsum(onehot, dim=0) - onehot).gather(1, flat[:, None])[:, 0]
+    return gates, experts, pos
+
+
+def moe(p: MoE, x: torch.Tensor, cfg, capacity_factor: float | None = None) -> torch.Tensor:
+    """Top-k MoE with capacity-based dispatch, as the reference's ``moe``:
+    a choice past its expert's capacity (``moe_capacity``) is dropped and
+    adds nothing. x (B, S, d) -> (B, S, d).
+
+    Kept choices are written into the (E, C, d) buffer by index assignment:
+    their (expert, slot) pairs are unique, so the buffer holds what the
+    reference's scatter-add into zeros holds, with no atomics (two prefills
+    give the same bits). The three expert products are batched GEMMs over
+    E; each choice then reads its row (a dropped one row C - 1, weighted
+    0), scaled by its gate, and the k rows of a token are summed."""
+    cdt = cfg.compute_dtype
+    b, s, d = x.shape
+    t, k = b * s, cfg.moe_top_k
+    cap = moe_capacity(t, cfg.num_experts, k, capacity_factor)
+    xt = x.reshape(t, d).to(cdt)
+    gates, experts, pos = moe_route(p, xt, cfg)
+    flat = experts.reshape(-1)
+    keep = pos < cap
+    kept = keep.nonzero()[:, 0]
+
+    buf = torch.zeros((cfg.num_experts, cap, d), dtype=cdt, device=x.device)
+    buf[flat[kept], pos[kept]] = xt[kept // k]
+    g = F.silu(torch.bmm(buf, p.w_gate.to(cdt)))
+    u = torch.bmm(buf, p.w_in.to(cdt))
+    del buf
+    out_buf = torch.bmm(g * u, p.w_out.to(cdt))  # (E, C, d)
+    del g, u
+
+    gathered = out_buf[flat, torch.where(keep, pos, cap - 1)].reshape(t, k, d)
+    y = (gathered * (gates * keep.reshape(t, k))[..., None].to(cdt)).sum(dim=1)
+    if hasattr(p, "shared"):
+        y = y + mlp(p.shared, xt, cfg)
+    return y.reshape(b, s, d)

@@ -1,27 +1,32 @@
-"""Decoder LM of the serving path: the dense, SSM and hybrid families.
+"""Decoder LM of the serving path: the dense, MoE, SSM, hybrid and VLM
+families.
 
-Port of ``repro.models.transformer`` for ``attn``, ``ssm`` and ``hybrid``
-mixers (a hybrid layer runs attention and the SSD side by side and averages
-their normed outputs, as Hymba does) and ``dense`` or ``none`` FFNs. A
-model is ``cfg.prefix`` blocks followed by ``cfg.pattern`` repeated
-``cfg.num_repeats`` times; the reference stacks each pattern position's
-repeats and runs them under ``lax.scan``, the port keeps one flat list of
-layers (layer ``len(prefix) + r * len(pattern) + j`` is repeat r of pattern
-position j) and loops over it in Python.
+Port of ``repro.models.transformer`` for every mixer (``attn``, ``ssm``,
+``hybrid``: attention and the SSD side by side, their normed outputs
+averaged as Hymba does; ``cross_attn``: attention from the text to
+``extras["memory"]``, the VLM's image patches) and every FFN (``dense``,
+``moe``, ``moe_dense``: the MoE plus a parallel dense MLP, as arctic has it,
+or ``none``). A model is ``cfg.prefix`` blocks followed by ``cfg.pattern``
+repeated ``cfg.num_repeats`` times; the reference stacks each pattern
+position's repeats and runs them under ``lax.scan``, the port keeps one
+flat list of layers (layer ``len(prefix) + r * len(pattern) + j`` is repeat
+r of pattern position j) and loops over it in Python.
 
 Entry points:
-  init_params(cfg, generator, device)      -> Transformer (random weights, on cuda
-                                              unless device says otherwise)
-  forward(params, tokens, cfg)             -> (B, S, V) f32 logits
-  prefill(params, tokens, cfg, max_len)    -> (last-position logits, caches)
-  decode_step(params, token, caches, pos)  -> (logits, caches)
+  init_params(cfg, generator, device)            -> Transformer (random weights, on cuda
+                                                    unless device says otherwise)
+  forward(params, tokens, cfg, extras)           -> (B, S, V) f32 logits
+  prefill(params, tokens, cfg, extras, max_len)  -> (last-position logits, caches)
+  decode_step(params, token, caches, pos, cfg)   -> (logits, caches)
 
 Caches are one dict per layer, ``{"attn": {"k", "v"}, "ssm": {"state",
-"conv"}}`` with the keys of the layer's mixer, in the reference's layouts (a
-ring of the window for sliding layers); ``decode_step`` updates them in
-place. The reference's prefill runs each layer's SSD and K/V projections a
-second time to build the cache; the port keeps what the layer's own pass
-computed, the same values. Everything runs under ``torch.inference_mode``.
+"conv"}, "cross": {"k", "v"}}`` with the keys of the layer's mixer, in the
+reference's layouts (a ring of the window for sliding layers; the
+memory's K/V for a cross layer, computed once at prefill and only read by
+the decode steps); ``decode_step`` updates them in place. The reference's
+prefill runs each layer's SSD and K/V projections a second time to build
+the cache; the port keeps what the layer's own pass computed, the same
+values. Everything runs under ``torch.inference_mode``.
 """
 
 from __future__ import annotations
@@ -49,14 +54,20 @@ def _mask_padded_logits(logits: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 
 class Block(nn.Module):
     """One layer (the reference's ``init_block``) under the reference's
-    keys: ``ln1``; ``attn`` and/or ``ssm`` by mixer, with ``norm_attn`` and
-    ``norm_ssm`` for ``hybrid``; ``ln2`` and ``mlp`` unless ``ffn="none"``."""
+    keys: ``ln1``; ``attn`` and/or ``ssm`` by mixer (``attn`` for
+    ``cross_attn`` too), with ``norm_attn`` and ``norm_ssm`` for
+    ``hybrid``; ``ln2`` unless ``ffn="none"``, then ``mlp`` (``dense``),
+    ``moe`` (``moe``) or both (``moe_dense``)."""
 
     def __init__(self, bd: BlockDef, cfg: ArchConfig, device=None):
         super().__init__()
         d, dt = cfg.d_model, cfg.param_dtype
+        if bd.mixer not in ("attn", "ssm", "hybrid", "cross_attn"):
+            raise ValueError(bd.mixer)
+        if bd.ffn not in ("dense", "moe", "moe_dense", "none"):
+            raise ValueError(bd.ffn)
         self.ln1 = L.RMSNorm(d, dt, device)
-        if bd.mixer in ("attn", "hybrid"):
+        if bd.mixer in ("attn", "hybrid", "cross_attn"):
             self.attn = L.Attention(cfg, device)
         if bd.mixer in ("ssm", "hybrid"):
             self.ssm = S.SSD(cfg, device)
@@ -65,6 +76,9 @@ class Block(nn.Module):
             self.norm_ssm = L.RMSNorm(d, dt, device)
         if bd.ffn != "none":
             self.ln2 = L.RMSNorm(d, dt, device)
+        if bd.ffn in ("moe", "moe_dense"):
+            self.moe = L.MoE(cfg, device)
+        if bd.ffn in ("dense", "moe_dense"):
             self.mlp = L.MLP(cfg, device)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -90,35 +104,53 @@ class Transformer(nn.Module):
         self.layers = nn.ModuleList(Block(bd, cfg, device) for bd in cfg.layer_defs())
 
 
-def _fuse(bd: BlockDef, p: Block, a, m, cfg: ArchConfig) -> torch.Tensor:
-    """The mixer's output from its attention (a) and SSD (m) outputs:
-    Hymba's fusion for ``hybrid``, each path normed, then their mean."""
-    if bd.mixer == "attn":
+def _fuse(p: Block, a, m, cfg: ArchConfig) -> torch.Tensor:
+    """The mixer's output from its attention (a) and SSD (m) outputs, the
+    one that ran; both for ``hybrid``: Hymba's fusion, each path normed,
+    then their mean."""
+    if m is None:
         return a
-    if bd.mixer == "ssm":
+    if a is None:
         return m
     return 0.5 * (L.rmsnorm(p.norm_attn, a, cfg.norm_eps) + L.rmsnorm(p.norm_ssm, m, cfg.norm_eps))
 
 
-def _mixer(bd: BlockDef, p: Block, h: torch.Tensor, cfg: ArchConfig, positions) -> torch.Tensor:
+def _cross(p: Block, x: torch.Tensor, cfg: ArchConfig, positions, extras, return_kv=False):
+    """Cross-attention to ``extras["memory"]`` (B, T, d): no mask, no RoPE."""
+    return L.attention(p.attn, x, cfg=cfg, positions=positions, kv_x=extras["memory"],
+                       causal=False, use_rope=False, return_kv=return_kv)
+
+
+def _mixer(bd: BlockDef, p: Block, h: torch.Tensor, cfg: ArchConfig, positions,
+           extras) -> torch.Tensor:
     x = L.rmsnorm(p.ln1, h, cfg.norm_eps)
+    if bd.mixer == "cross_attn":
+        return _cross(p, x, cfg, positions, extras)
     a = m = None
     if bd.mixer in ("attn", "hybrid"):
         a = L.attention(p.attn, x, cfg=cfg, positions=positions, window=bd.window)
     if bd.mixer in ("ssm", "hybrid"):
         m = S.ssd(p.ssm, x, cfg)
-    return _fuse(bd, p, a, m, cfg)
+    return _fuse(p, a, m, cfg)
 
 
 def _with_ffn(bd: BlockDef, p: Block, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """h plus the layer's FFN of h (h itself when ``ffn="none"``)."""
+    """h plus the layer's FFN of h (h itself when ``ffn="none"``): the MLP,
+    the MoE, or for ``moe_dense`` the MoE plus the MLP."""
     if bd.ffn == "none":
         return h
-    return h + L.mlp(p.mlp, L.rmsnorm(p.ln2, h, cfg.norm_eps), cfg)
+    x = L.rmsnorm(p.ln2, h, cfg.norm_eps)
+    if bd.ffn == "dense":
+        return h + L.mlp(p.mlp, x, cfg)
+    f = L.moe(p.moe, x, cfg)
+    if bd.ffn == "moe_dense":
+        f = f + L.mlp(p.mlp, x, cfg)
+    return h + f
 
 
-def apply_block(bd: BlockDef, p: Block, h: torch.Tensor, cfg: ArchConfig, positions) -> torch.Tensor:
-    return _with_ffn(bd, p, h + _mixer(bd, p, h, cfg, positions), cfg)
+def apply_block(bd: BlockDef, p: Block, h: torch.Tensor, cfg: ArchConfig, positions,
+                extras=None) -> torch.Tensor:
+    return _with_ffn(bd, p, h + _mixer(bd, p, h, cfg, positions, extras), cfg)
 
 
 # -- model init -------------------------------------------------------------------
@@ -129,8 +161,8 @@ def init_params(cfg: ArchConfig, generator: torch.Generator | None = None,
                 device: torch.device | str | None = None) -> Transformer:
     """Random weights with the reference's distributions (``_dense_init``:
     embed N(0, 1), each matrix N(0, 1/fan_in), ``wo`` N(0, 1/(H hd)),
-    ``w_out`` N(0, 1/d_ff), norms zero; the SSD's as ``SSD.reset_parameters``
-    says), drawn from ``generator`` on
+    ``w_out`` N(0, 1/d_ff), norms zero; the SSD's and the MoE's as their
+    ``reset_parameters`` say), drawn from ``generator`` on
     ``device`` (default ``cuda``; raises without a CUDA device unless the
     caller passes ``device="cpu"``). The same distributions as the
     reference, not the same bits: carry the reference's own weights with
@@ -161,13 +193,14 @@ def _logits(params: Transformer, h: torch.Tensor, cfg: ArchConfig) -> torch.Tens
 
 
 @torch.inference_mode()
-def forward(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """tokens (B, S) -> (B, S, V) f32 logits (the decode oracle)."""
+def forward(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig, extras=None) -> torch.Tensor:
+    """tokens (B, S) -> (B, S, V) f32 logits (the decode oracle).
+    ``extras["memory"]`` (B, T, d) is what cross-attention layers attend."""
     b, s = tokens.shape
     positions = _positions(b, s, tokens.device)
     h = params.embed[tokens].to(cfg.compute_dtype)
     for bd, p in zip(cfg.layer_defs(), params.layers):
-        h = apply_block(bd, p, h, cfg, positions)
+        h = apply_block(bd, p, h, cfg, positions, extras)
     h = L.rmsnorm(params.final_norm, h, cfg.norm_eps)
     return _logits(params, h, cfg)
 
@@ -176,7 +209,8 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig) -> torch
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None, device=None) -> list[dict]:
-    """Zero caches in ``prefill``'s layout (``max_len`` >= every window)."""
+    """Zero caches in ``prefill``'s layout (``max_len`` >= every window; a
+    cross layer's memory ``cfg.num_patches`` long)."""
     dtype = dtype or cfg.compute_dtype
     caches = []
     for bd in cfg.layer_defs():
@@ -185,6 +219,10 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None, device=Non
             c["attn"] = L.init_attn_cache(cfg, batch, max_len, bd.window, dtype, device)
         if bd.mixer in ("ssm", "hybrid"):
             c["ssm"] = S.init_ssd_cache(cfg, batch, dtype, device)
+        if bd.mixer == "cross_attn":
+            shape = (batch, cfg.num_patches, cfg.kv_heads, cfg.head_dim)
+            c["cross"] = {"k": torch.zeros(shape, dtype=dtype, device=device),
+                          "v": torch.zeros(shape, dtype=dtype, device=device)}
         caches.append(c)
     return caches
 
@@ -209,12 +247,15 @@ def _attn_cache(k: torch.Tensor, v: torch.Tensor, window: int | None,
 
 
 def _block_with_cache(bd: BlockDef, p: Block, h: torch.Tensor, cfg: ArchConfig, positions,
-                      max_len: int | None) -> tuple[torch.Tensor, dict]:
+                      max_len: int | None, extras) -> tuple[torch.Tensor, dict]:
     """``apply_block`` that also returns the layer's cache, built from the
-    keys and values its attention computed and its SSD's final state and
-    conv tail."""
+    keys and values its attention computed (the memory's for a cross
+    layer) and its SSD's final state and conv tail."""
     x = L.rmsnorm(p.ln1, h, cfg.norm_eps)
     cache, a, m = {}, None, None
+    if bd.mixer == "cross_attn":
+        a, k, v = _cross(p, x, cfg, positions, extras, return_kv=True)
+        cache["cross"] = {"k": k, "v": v}
     if bd.mixer in ("attn", "hybrid"):
         a, k, v = L.attention(p.attn, x, cfg=cfg, positions=positions, window=bd.window,
                               return_kv=True)
@@ -222,11 +263,11 @@ def _block_with_cache(bd: BlockDef, p: Block, h: torch.Tensor, cfg: ArchConfig, 
     if bd.mixer in ("ssm", "hybrid"):
         m, (state, conv) = S.ssd(p.ssm, x, cfg, return_final_state=True)
         cache["ssm"] = {"state": state, "conv": conv}
-    return _with_ffn(bd, p, h + _fuse(bd, p, a, m, cfg), cfg), cache
+    return _with_ffn(bd, p, h + _fuse(p, a, m, cfg), cfg), cache
 
 
 @torch.inference_mode()
-def prefill(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig,
+def prefill(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig, extras=None,
             max_len: int | None = None) -> tuple[torch.Tensor, list[dict]]:
     """Full-sequence pass building the decode cache; returns (logits at the
     last position (B, V) f32, caches). ``max_len`` sizes full-attention
@@ -236,7 +277,7 @@ def prefill(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig,
     h = params.embed[tokens].to(cfg.compute_dtype)
     caches = []
     for bd, p in zip(cfg.layer_defs(), params.layers):
-        h, c = _block_with_cache(bd, p, h, cfg, positions, max_len)
+        h, c = _block_with_cache(bd, p, h, cfg, positions, max_len, extras)
         caches.append(c)
     h = L.rmsnorm(params.final_norm, h, cfg.norm_eps)
     return _logits(params, h[:, -1], cfg), caches
@@ -245,16 +286,21 @@ def prefill(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig,
 @torch.inference_mode()
 def decode_step(params: Transformer, token: torch.Tensor, caches: list[dict], pos: int,
                 cfg: ArchConfig) -> tuple[torch.Tensor, list[dict]]:
-    """token (B,) int, pos int -> (logits (B, V) f32, caches, updated in place)."""
+    """token (B,) int, pos int -> (logits (B, V) f32, caches, updated in
+    place). A cross layer reads the memory's K/V from its cache, so unlike
+    the reference's (whose ``extras`` carry flash-decode's mesh) it takes
+    no ``extras``."""
     h = params.embed[token[:, None]].to(cfg.compute_dtype)  # (B, 1, d)
     for bd, p, c in zip(cfg.layer_defs(), params.layers, caches):
         x = L.rmsnorm(p.ln1, h, cfg.norm_eps)
         a = m = None
+        if bd.mixer == "cross_attn":
+            a = L.cross_decode_attention(p.attn, x, c["cross"], cfg=cfg)
         if bd.mixer in ("attn", "hybrid"):
             a, _ = L.decode_attention(p.attn, x, c["attn"], pos, cfg=cfg, window=bd.window)
         if bd.mixer in ("ssm", "hybrid"):
             m, _ = S.ssd_decode(p.ssm, x, c["ssm"], cfg)
-        h = _with_ffn(bd, p, h + _fuse(bd, p, a, m, cfg), cfg)
+        h = _with_ffn(bd, p, h + _fuse(p, a, m, cfg), cfg)
     h = L.rmsnorm(params.final_norm, h, cfg.norm_eps)
     return _logits(params, h[:, 0], cfg), caches
 

@@ -73,11 +73,15 @@ def test_chip_smoke_refuses_without_cuda_or_checkout(tmp_path):
 
 
 def test_lm_modules_are_covered():
-    """The LM serving path's modules, the SSD's included, are among those
-    checked above."""
+    """The LM serving path's modules, the SSD's, the enc-dec's and the
+    four MoE, VLM and enc-dec configs included, are among those checked
+    above."""
     assert {"repro_torch.models.ssm", "repro_torch.models.transformer", "repro_torch.models.layers",
-            "repro_torch.configs.mamba2_780m", "repro_torch.configs.hymba_1_5b",
-            "repro_torch.launch.serve_decode"} <= set(MODULES)
+            "repro_torch.models.encdec", "repro_torch.configs.mamba2_780m",
+            "repro_torch.configs.hymba_1_5b", "repro_torch.configs.seamless_m4t_medium",
+            "repro_torch.configs.llama32_vision_90b", "repro_torch.configs.arctic_480b",
+            "repro_torch.configs.kimi_k2_1t", "repro_torch.launch.serve_decode",
+            "repro_torch.launch.serve"} <= set(MODULES)
 
 
 def test_streaming_and_cluster_modules_are_covered():

@@ -399,14 +399,16 @@ def test_main_on_cpu(name, capsys):
 
 
 def test_serve_lm_example_on_cpu(capsys):
-    """examples/serve_lm_torch.py serves its three models through the
-    port on the CPU."""
+    """examples/serve_lm_torch.py serves its seven models (one of each
+    family) through the port on the CPU."""
     import runpy
     from pathlib import Path
 
     path = Path(__file__).resolve().parents[1] / "examples" / "serve_lm_torch.py"
     runpy.run_path(str(path))["main"](["--device", "cpu"])
     out = capsys.readouterr().out
-    for arch in ("mamba2-780m", "granite-3-8b", "hymba-1.5b"):
+    archs = ("mamba2-780m", "granite-3-8b", "hymba-1.5b", "seamless-m4t-medium",
+             "llama-3.2-vision-90b", "arctic-480b", "kimi-k2-1t-a32b")
+    for arch in archs:
         assert f"=== {arch} (reduced) ===" in out
-    assert out.count("generated (4, 16)") == 3
+    assert out.count("generated (4, 16)") == len(archs)
