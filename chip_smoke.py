@@ -153,6 +153,28 @@ Last comes the LM serving path (``band_attn``, K5):
   1e-4 of ``forward``, 3 greedy steps within 1e-3), and for the MoE each
   layer's capacity and dropped choices in a prefill and a decode step
   (which must drop none);
+* ``[train hymba]``: the training path (``repro_torch.launch.train``'s
+  ``build_step``) on hymba-1.5b at full width and depth with the banded
+  path on and remat "full", AdamW (lr 3e-4, cosine over 6 steps),
+  ``TokenPipeline(32,001, 4,096, 4, seed 0)`` (batch 2 if 4 does not fit,
+  the refusal logged): 6 steps, each with a finite loss and gnorm (so
+  every gradient finite) and exactly 62 K5 launches (31 forward, 31 in
+  the remat recompute, none in the backward); step time (median of steps
+  2-6), tokens/s, peak memory; the banded backward's device time by CUDA
+  events around its calls; one step under ``torch.profiler``; a step
+  repeated from a host copy of the state bitwise equal (parameters,
+  moments, step);
+* ``[train hymba grad]``: hymba at full width cut to 4 layers (the global
+  one and 3 windowed): every parameter's gradient with K5 (bf16), on the
+  plain masked path (bf16) and in float32 compute; per tensor the
+  relative 2-norm distance K5 vs plain at most twice plain bf16 vs
+  float32;
+* ``[train reduced]``: every registry config's ``reduced()`` from the same
+  seed-0 weights and batch on the card and on the CPU: finite gradients,
+  the losses within rtol 1e-5, one step on the card; then
+  ``examples/train_lm_torch.py``'s flow on granite-3-8b reduced (60 steps,
+  the loss falls, a resume from the halfway checkpoint bitwise the
+  uninterrupted run);
 * for each model one prefill and one decode step under ``torch.profiler``
   (device time by kernel and by operator, K5's share, the device idle
   share) and, for mamba2 and hymba, the SSD's device time in a prefill by
@@ -163,8 +185,10 @@ The K1-K4 rows of the kernels line carry ``launches_api_serve``, the
 ``[api]`` and ``[serve]`` launches, and ``launches_stream_cluster``, those
 of ``[stream]`` and ``[cluster]`` (summed over a cluster's workers); the
 K5 row carries ``launches_lm_paths`` (each model's ``generate``: 0 on the
-enc-dec, VLM and MoE paths) and
-``at_hymba_shape`` (its numbers at hymba's shape). Any failed check raises, so the exit
+enc-dec, VLM and MoE paths), ``at_hymba_shape`` (its numbers at hymba's
+shape), ``launches_train`` (a ``[train hymba]`` step's, the grad phase's
+K5 way's, ``[train reduced]``'s) and ``train_hymba`` (the step's time,
+K5's device time in the profiled step, the banded backward's). Any failed check raises, so the exit
 code is non-zero. The line before the last is a JSON object of
 per-kernel numbers; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
@@ -277,6 +301,32 @@ XMODEL_PHASES = (("lm encdec", "seamless-m4t-medium", None, False, LM_BATCH),
 # LM_PREFILL_TOL, then ORACLE_DECODE greedy steps within LM_DECODE_TOL.
 ORACLE_BATCH, ORACLE_PROMPT, ORACLE_DECODE = 2, 16, 3
 LM_PREFILL_TOL = dict(rtol=1e-4, atol=1e-4)
+# The training path (launch/train.py): hymba-1.5b at full width and depth
+# with the banded path on and its registry remat ("full": each layer after
+# the global prefix keeps only its input and is recomputed in the
+# backward), f32 parameters, bf16 compute, AdamW (lr 3e-4, cosine over the
+# phase's TRAIN_STEPS), TokenPipeline(32,001, LM_PROMPT, batch, seed 0).
+# Batch TRAIN_BATCH (serving's) if it fits, else half. K5 runs in each
+# windowed layer's forward and again in its recompute, never in the
+# backward (the blocked plain form's gradient): 62 launches a step.
+TRAIN_STEPS = 6
+TRAIN_BATCH = LM_BATCH
+TRAIN_LR = 3e-4
+TRAIN_K5_PER_STEP = 2 * HYBRID_LOCAL_LAYERS
+# [train hymba grad]: hymba at full width cut to the global prefix layer
+# and 3 windowed ones; every parameter's gradient with K5, with the plain
+# masked path (bf16) and in float32 compute. Per tensor, the relative
+# 2-norm distance K5 vs plain bf16 at most TRAIN_GRAD_TOL times plain bf16
+# vs float32 (the [lm] logits gate, on gradients).
+TRAIN_GRAD_LAYERS = 4
+TRAIN_GRAD_TOL = 2.0
+# [train reduced]: every registry config's reduced() one step on the card
+# and on the CPU from the same weights and batch (float32, TF32 off): the
+# losses within float32 tolerance. Then examples/train_lm_torch.py's flow
+# on granite-3-8b reduced (EXAMPLE_STEPS, batch 4 x 64 tokens).
+TRAIN_REDUCED_SEQ, TRAIN_REDUCED_BATCH = 64, 2
+TRAIN_LOSS_TOL = dict(rtol=1e-5, atol=0.0)
+EXAMPLE_ARCH, EXAMPLE_STEPS = "granite-3-8b", 60
 
 
 class SmokeFailure(AssertionError):
@@ -3061,6 +3111,344 @@ def time_band_attn(np, torch, qkv, dev, launches, max_abs_err):
                 bound_share=bound / ms, tflops=tflops, library_kernels=lib_backends["kernels"], **attrs)
 
 
+def hymba_train_config():
+    """hymba-1.5b as the registry has it (remat "full") with the banded path on."""
+    from repro_torch.configs import registry
+
+    return registry.get(HYBRID_ARCH).replace(block_local_attn=True)
+
+
+def state_bytes(model, opt) -> int:
+    """Bytes of the parameters and the optimizer's moments."""
+    tensors = list(model.parameters()) + list(opt.mu.values()) + list(opt.nu.values())
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def host_state(model, opt) -> dict:
+    """A host copy of every parameter, both moments and the step."""
+    out = {f"p.{n}": p.detach().to("cpu", copy=True) for n, p in model.named_parameters()}
+    out.update({f"m.{n}": t.to("cpu", copy=True) for n, t in opt.mu.items()})
+    out.update({f"v.{n}": t.to("cpu", copy=True) for n, t in opt.nu.items()})
+    out["step"] = opt.step.to("cpu", copy=True)
+    return out
+
+
+def live_state(model, opt) -> dict:
+    out = {f"p.{n}": p for n, p in model.named_parameters()}
+    out.update({f"m.{n}": t for n, t in opt.mu.items()})
+    out.update({f"v.{n}": t for n, t in opt.nu.items()})
+    out["step"] = opt.step
+    return out
+
+
+def banded_backward_times(torch, fn):
+    """Run ``fn()`` with CUDA events around each call of K5's backward
+    (``band_attn.ops.banded_attention_backward``, wrapped for this call
+    only); returns (fn's result, the backward's calls, its device ms)."""
+    from repro_torch.kernels.band_attn import ops
+
+    spans = []
+    real = ops.banded_attention_backward
+
+    def timed(*args):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = real(*args)
+        b.record()
+        spans.append((a, b))
+        return out
+
+    ops.banded_attention_backward = timed
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        ops.banded_attention_backward = real
+    return out, len(spans), sum(a.elapsed_time(b) for a, b in spans)
+
+
+def profile_train_step(torch, fn, step_ms, label):
+    """One training step under torch.profiler: device busy and idle share
+    of the unprofiled step, K5's device time, the longest kernels and
+    operators. Returns (fn's result, the numbers)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        result = fn()
+        torch.cuda.synchronize()
+    tag = f"[profile {label} step]"
+    kern = device_events(prof)
+    busy_ms = sum(device_us(e) for e in kern) / 1e3
+    if not kern or busy_ms == 0:
+        log(f"{tag} the profiler saw no device time: device busy share not measured")
+        return result, {}
+    k5_ms = sum(device_us(e) for e in kern if "band_attn" in e.key) / 1e3
+    # The backward's scatters (the embedding gather's index_put_ with
+    # accumulate, a sort-based kernel on CUDA, and the loss's gather).
+    scatter = [e for e in kern if any(w in e.key.lower() for w in ("index", "sort", "scatter"))]
+    out = dict(busy_ms=busy_ms, k5_ms=k5_ms, idle_share=1 - busy_ms / step_ms,
+               launches=sum(e.count for e in kern),
+               scatter_ms=sum(device_us(e) for e in scatter) / 1e3)
+    log(f"{tag} device busy {busy_ms} ms over {len(kern)} kernel/copy names ({out['launches']} "
+        f"launches); unprofiled step {step_ms} ms; device idle share {out['idle_share']}; K5 {k5_ms} ms, "
+        f"{k5_ms / busy_ms} of the device time; index/sort/scatter kernels {out['scatter_ms']} ms "
+        f"({[e.key[:60] for e in scatter[:6]]})")
+    for e in kern[:15]:
+        log(f"{tag}   {device_us(e) / 1e3:10.3f} ms  x{e.count:<5d} "
+            f"{device_us(e) / 1e3 / max(e.count, 1):.4f} ms a launch  {e.key[:90]}")
+    ops = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CPU
+                  and e.key.startswith("aten::") and device_total_us(e) > 0),
+                 key=device_total_us, reverse=True)
+    for e in ops[:15]:
+        log(f"{tag} op  {device_total_us(e) / 1e3:10.3f} ms inclusive  x{e.count:<5d} {e.key[:60]}")
+    return result, out
+
+
+def _train_hymba(np, torch, dev, smi, cfg, batch_size):
+    import math
+
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels._timing import median
+    from repro_torch.launch import train
+    from repro_torch.optim import AdamWConfig
+
+    t0 = time.perf_counter()
+    model = train.init_model(cfg, dev)
+    opt_cfg = AdamWConfig(lr=TRAIN_LR)
+    opt = train.init_optimizer(cfg, dict(model.named_parameters()), opt_cfg)
+    step_fn = train.build_step(cfg, opt_cfg, TRAIN_STEPS)
+    pipe = TokenPipeline(cfg.vocab, LM_PROMPT, batch_size, seed=0)
+    sync(torch, dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    n_state = state_bytes(model, opt)
+    log(f"[train hymba] {cfg.name}: all {cfg.num_layers} layers at full width (1 global, "
+        f"{HYBRID_LOCAL_LAYERS} with window {cfg.pattern[0].window}), block_local_attn, remat "
+        f"{cfg.remat}; params {n_params} in {cfg.param_dtype}, compute {cfg.compute_dtype}; parameters "
+        f"and moments {n_state} B (+ {n_state // 3} B of gradients); AdamW lr {TRAIN_LR}, cosine over "
+        f"{TRAIN_STEPS} steps; batch {batch_size} x {LM_PROMPT} tokens; init {time.perf_counter() - t0} s")
+
+    def batch_at(i):
+        tokens, targets = pipe.next_batch()
+        return train.make_batch(cfg, tokens, targets, i, dev)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    records, launches = [], None
+    for i in range(TRAIN_STEPS):
+        batch = batch_at(i)
+        zero_counts()
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        model, opt, loss, gnorm = step_fn(model, opt, batch)
+        sync(torch, dev)
+        dt = time.perf_counter() - t0
+        launches = read_counts()
+        loss, gnorm = float(loss), float(gnorm)
+        # gnorm is the square root of every gradient entry's square summed:
+        # finite only if every gradient is.
+        check(math.isfinite(loss) and math.isfinite(gnorm), f"[train hymba] step {i}: loss {loss}, "
+                                                            f"gnorm {gnorm}")
+        check_launches(launches, {"banded_attention_kernel": TRAIN_K5_PER_STEP}, f"train hymba step {i}")
+        records.append(dict(s=dt, loss=loss, gnorm=gnorm))
+        log(f"[train hymba] step {i}: {dt} s, loss {loss}, gnorm {gnorm}, launches {json.dumps(launches)}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(all(bool(torch.isfinite(p).all()) for p in model.parameters()), "[train hymba] non-finite "
+                                                                          "parameter after the steps")
+    step_s = median([r["s"] for r in records[1:]])
+    tokens = batch_size * LM_PROMPT
+    flops = 6 * n_params * tokens
+    nums = dict(batch=batch_size, seq=LM_PROMPT, step_s=step_s, tokens_per_s=tokens / step_s,
+                max_memory_allocated_bytes=peak, state_bytes=n_state, params=n_params,
+                model_flops_per_step=flops, model_flops_share_of_bf16_peak=flops / step_s / BF16_OPS_PER_S,
+                losses=[r["loss"] for r in records], gnorms=[r["gnorm"] for r in records],
+                step_seconds=[r["s"] for r in records], k5_launches_per_step=launches["banded_attention_kernel"])
+    log(f"[train hymba] {smi}: step {step_s} s (median of steps 2-{TRAIN_STEPS}), {nums['tokens_per_s']} "
+        f"tokens/s, max_memory_allocated {peak} B; loss {nums['losses'][0]} -> {nums['losses'][-1]}; "
+        f"6 N T = {flops} FLOPs a step, {nums['model_flops_share_of_bf16_peak']} of the bf16 peak; K5 "
+        f"{TRAIN_K5_PER_STEP} launches a step")
+
+    # The banded backward's share of a step, by CUDA events around its calls.
+    batch = batch_at(TRAIN_STEPS)
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    (model, opt, _, _), calls, bwd_ms = banded_backward_times(torch, lambda: step_fn(model, opt, batch))
+    ev_step_ms = (time.perf_counter() - t0) * 1e3
+    check(calls == HYBRID_LOCAL_LAYERS, f"[train hymba] K5's backward ran {calls} times, expected "
+                                        f"{HYBRID_LOCAL_LAYERS}")
+    nums.update(banded_backward_ms=bwd_ms, banded_backward_share=bwd_ms / ev_step_ms)
+    log(f"[train hymba] the banded backward (blocked plain form, autograd) by CUDA events around its "
+        f"{calls} calls: {bwd_ms} ms of a {ev_step_ms} ms step (share {bwd_ms / ev_step_ms})")
+
+    # A profile of one step.
+    batch = batch_at(TRAIN_STEPS + 1)
+    (model, opt, _, _), nums["profile"] = profile_train_step(
+        torch, lambda: step_fn(model, opt, batch), step_s * 1e3, "train hymba")
+
+    # A step repeated from a saved state: bitwise the same state after it.
+    batch = batch_at(TRAIN_STEPS + 2)
+    saved = host_state(model, opt)
+    model, opt, loss_a, _ = step_fn(model, opt, batch)
+    after = host_state(model, opt)
+    with torch.no_grad():
+        for name, t in live_state(model, opt).items():
+            t.copy_(saved[name])
+    del saved
+    model, opt, loss_b, _ = step_fn(model, opt, batch)
+    sync(torch, dev)
+    differ = [n for n, t in live_state(model, opt).items() if not torch.equal(t.cpu(), after[n])]
+    check(not differ and float(loss_a) == float(loss_b),
+          f"[train hymba] a step repeated from a saved state differs: {differ[:5]} "
+          f"({len(differ)} tensors), loss {float(loss_a)} vs {float(loss_b)}")
+    log(f"[train hymba] a step repeated from a saved state: all {len(after)} tensors (parameters, "
+        f"moments, step) bitwise equal, loss {float(loss_a)}")
+    del after, model, opt
+    return launches, nums
+
+
+def train_hymba_phase(np, torch, dev, smi):
+    """[train hymba]: ``build_step`` on hymba-1.5b at full width and depth
+    (TRAIN_STEPS steps: finite loss, gnorm and parameters, TRAIN_K5_PER_STEP
+    K5 launches each), the step time, tokens/s and peak memory, the banded
+    backward's share of a step, a profiled step, and a step repeated from a
+    saved state bitwise. At TRAIN_BATCH if it fits, else at half of it
+    (the failure logged). Returns one step's launches and the numbers."""
+    import gc
+
+    cfg = hymba_train_config()
+    check(sum(1 for bd in cfg.layer_defs() if bd.window) == HYBRID_LOCAL_LAYERS and cfg.remat == "full",
+          "[train hymba] config")
+    refused = None
+    for batch_size in (TRAIN_BATCH, TRAIN_BATCH // 2):
+        try:
+            launches, nums = _train_hymba(np, torch, dev, smi, cfg, batch_size)
+            nums["batch_refused"] = refused
+            return launches, nums
+        except torch.OutOfMemoryError as e:
+            if batch_size != TRAIN_BATCH:
+                raise
+            refused = dict(batch=batch_size, max_memory_allocated_bytes=torch.cuda.max_memory_allocated(dev),
+                           error=str(e).splitlines()[0])
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[train hymba] batch {TRAIN_BATCH} does not fit: {json.dumps(refused)}; at batch "
+            f"{TRAIN_BATCH // 2}")
+    raise SmokeFailure("unreachable")
+
+
+def train_grad_phase(np, torch, dev, smi, batch_size):
+    """[train hymba grad]: hymba at full width cut to TRAIN_GRAD_LAYERS
+    layers (the global prefix + windowed ones), one batch of LM_PROMPT
+    tokens: every parameter's gradient with K5 (bf16), on the plain masked
+    path (bf16) and in float32 compute on the plain path; per tensor the
+    K5 distance at most TRAIN_GRAD_TOL times the bf16 one. Returns the K5
+    way's launches and the numbers."""
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch import train
+
+    cfg = hymba_train_config().replace(num_layers=TRAIN_GRAD_LAYERS)
+    local = sum(1 for bd in cfg.layer_defs() if bd.window)
+    model = train.init_model(cfg, dev)
+    tokens, targets = TokenPipeline(cfg.vocab, LM_PROMPT, batch_size, seed=0).next_batch()
+    batch = train.make_batch(cfg, tokens, targets, 0, dev)
+    ways, launches = {}, {}
+    for way, c in (("k5", cfg), ("plain_bf16", cfg.replace(block_local_attn=False)),
+                   ("plain_f32", cfg.replace(block_local_attn=False, compute_dtype=torch.float32))):
+        zero_counts()
+        loss, grads = train.value_and_grad(model, batch, c)
+        sync(torch, dev)
+        launches[way] = read_counts()
+        ways[way] = (float(loss), {n: g.float() for n, g in grads.items()})
+        del grads
+        torch.cuda.empty_cache()
+    check_launches(launches["k5"], {"banded_attention_kernel": 2 * local}, "train hymba grad k5")
+    check_launches(launches["plain_bf16"], {}, "train hymba grad plain")
+    worst, ratios = 0.0, {}
+    for n in ways["k5"][1]:
+        k5, plain, f32 = (ways[w][1][n] for w in ("k5", "plain_bf16", "plain_f32"))
+        check(bool(torch.isfinite(k5).all()), f"[train hymba grad] {n}: non-finite gradient")
+        d_k5 = float((k5 - plain).norm() / plain.norm())
+        d_bf16 = float((plain - f32).norm() / f32.norm())
+        check(d_k5 <= TRAIN_GRAD_TOL * d_bf16, f"[train hymba grad] {n}: K5 vs plain {d_k5} above "
+                                               f"{TRAIN_GRAD_TOL} x plain bf16 vs float32 {d_bf16}")
+        ratios[n] = d_k5 / d_bf16
+        worst = max(worst, ratios[n])
+    top = sorted(ratios.items(), key=lambda kv: -kv[1])[:5]
+    nums = dict(layers=cfg.num_layers, batch=batch_size, losses={w: v[0] for w, v in ways.items()},
+                tensors=len(ratios), worst_ratio=worst, worst_tensors=top)
+    log(f"[train hymba grad] {smi}: {cfg.num_layers} layers (1 global, {local} windowed) at full width, "
+        f"batch {batch_size} x {LM_PROMPT}; losses {json.dumps(nums['losses'])}; per tensor |g_K5 - "
+        f"g_plain| / |g_plain| at most {worst} x |g_plain - g_f32| / |g_f32| (limit {TRAIN_GRAD_TOL}) over "
+        f"{len(ratios)} tensors; largest ratios {top}; K5 launches {launches['k5']['banded_attention_kernel']}"
+        f" (forward + recompute)")
+    del ways, model
+    torch.cuda.empty_cache()
+    return launches["k5"], nums
+
+
+def train_reduced_phase(np, torch, dev, smi):
+    """[train reduced]: each registry config's ``reduced()`` (float32),
+    seed-0 weights made on the CPU and copied to the card, one batch of
+    the token pipeline (and the family's stub input) made on the CPU: the
+    loss and gradients on the card (finite) against the CPU's (the loss
+    within TRAIN_LOSS_TOL), then one ``build_step`` step on the card
+    (finite gnorm). Then examples/train_lm_torch.py's flow on
+    EXAMPLE_ARCH reduced on the card: the loss falls over EXAMPLE_STEPS
+    steps, and the run resumed from its halfway checkpoint ends on the
+    uninterrupted run's bits."""
+    import copy
+    import math
+    import runpy
+
+    from repro_torch.configs import registry
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch import train
+    from repro_torch.optim import AdamWConfig
+
+    cpu = torch.device("cpu")
+    nums = {}
+    zero_counts()
+    for name in registry.names():
+        cfg = registry.get(name).reduced()
+        model_cpu = train.init_model(cfg, cpu)
+        model = copy.deepcopy(model_cpu).to(dev)
+        tokens, targets = TokenPipeline(cfg.vocab, TRAIN_REDUCED_SEQ, TRAIN_REDUCED_BATCH).next_batch()
+        batch_cpu = train.make_batch(cfg, tokens, targets, 0, cpu)
+        batch = {k: v.to(dev) for k, v in batch_cpu.items()}
+        loss_cpu, grads_cpu = train.value_and_grad(model_cpu, batch_cpu, cfg)
+        loss, grads = train.value_and_grad(model, batch, cfg)
+        check(all(bool(torch.isfinite(g).all()) for g in grads.values()), f"[train reduced] {name}: "
+                                                                          f"non-finite gradient")
+        close_report(torch, loss.cpu(), loss_cpu, what=f"[train reduced] {name} loss card vs CPU",
+                     **TRAIN_LOSS_TOL)
+        grad_rel = max(float((grads[n].cpu() - g).norm() / g.norm().clamp_min(1e-30))
+                       for n, g in grads_cpu.items())
+        opt_cfg = AdamWConfig(lr=1e-3)
+        opt = train.init_optimizer(cfg, dict(model.named_parameters()), opt_cfg)
+        _, _, step_loss, gnorm = train.build_step(cfg, opt_cfg, 10)(model, opt, batch)
+        check(math.isfinite(float(gnorm)) and float(step_loss) == float(loss),
+              f"[train reduced] {name}: step loss {float(step_loss)} vs {float(loss)}, gnorm {float(gnorm)}")
+        nums[name] = dict(loss_card=float(loss), loss_cpu=float(loss_cpu), grad_rel_max=grad_rel,
+                          gnorm=float(gnorm))
+        log(f"[train reduced] {name}: loss card {float(loss)} vs CPU {float(loss_cpu)}; largest relative "
+            f"gradient distance card vs CPU {grad_rel}; one step on the card, gnorm {float(gnorm)}")
+    launches = read_counts()
+    check_launches(launches, {}, "train reduced")
+
+    example = runpy.run_path(str(ROOT / "examples" / "train_lm_torch.py"))
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        t0 = time.perf_counter()
+        flow = example["run"](EXAMPLE_ARCH, EXAMPLE_STEPS, 4, 64, dev, Path(tmp))
+        flow["wall_s"] = time.perf_counter() - t0
+    check(flow["resumed_bitwise"] and flow["final_loss"] < flow["first_loss"],
+          f"[train reduced] example flow: {json.dumps(flow)}")
+    nums["example"] = flow
+    log(f"[train reduced] {smi}: examples/train_lm_torch.py on {EXAMPLE_ARCH} reduced: loss "
+        f"{flow['first_loss']} -> {flow['final_loss']} over {EXAMPLE_STEPS} steps, resumed from step "
+        f"{flow['resumed_from']} bitwise the uninterrupted run ({flow['leaves']} leaves), 10 more steps "
+        f"{flow['loss_after_10_more']}; {flow['wall_s']} s")
+    return launches, nums
+
+
 def main() -> int:
     import torch
 
@@ -3214,11 +3602,27 @@ def main() -> int:
         torch.cuda.empty_cache()
         log(f"[summary {label}] {smi}: {cfg.name}: {json.dumps(nums_lm[label])}; profile "
             f"{json.dumps(profs[label])}")
+    # The training path: hymba-1.5b at full width and depth, its gradients
+    # against the plain path, every reduced config on the card.
+    launches_train, nums_train = {}, {}
+    launches_train["train hymba"], nums_train["train hymba"] = train_hymba_phase(np, torch, dev, smi)
+    torch.cuda.empty_cache()
+    launches_train["train hymba grad"], nums_train["train hymba grad"] = train_grad_phase(
+        np, torch, dev, smi, nums_train["train hymba"]["batch"])
+    launches_train["train reduced"], nums_train["train reduced"] = train_reduced_phase(np, torch, dev, smi)
+    for label, n in nums_train.items():
+        log(f"[summary {label}] {smi}: {json.dumps(n)}")
+
     row = time_band_attn(np, torch, draws[K5_GEMMA], dev, launches_lm["lm"], err_k5[K5_GEMMA])
     at_hymba = time_band_attn(np, torch, draws[K5_HYMBA], dev, launches_lm["lm hybrid"], err_k5[K5_HYMBA])
     row["at_hymba_shape"] = {k: v for k, v in at_hymba.items()
                              if k not in ("name", "route", "source", "replaces")}
     row["launches_lm_paths"] = {label: n["banded_attention_kernel"] for label, n in launches_lm.items()}
+    row["launches_train"] = {label: n["banded_attention_kernel"] for label, n in launches_train.items()}
+    hymba_train = nums_train["train hymba"]
+    row["train_hymba"] = dict(batch=hymba_train["batch"], step_s=hymba_train["step_s"],
+                              k5_ms_in_step=hymba_train["profile"].get("k5_ms"),
+                              banded_backward_ms=hymba_train["banded_backward_ms"])
     rows.append(row)
 
     print(json.dumps({"kernels": rows}), flush=True)

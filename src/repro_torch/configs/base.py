@@ -5,15 +5,18 @@ field of the reference, dtypes as torch dtypes. ``reduced()`` derives the
 small CPU variant exactly as the reference does.
 
 Fields that only shape XLA compilation or sharding have no effect on one
-card: ``remat``, ``scan_unroll``, ``fsdp``, ``sequence_parallel`` and
+card: ``scan_unroll``, ``fsdp``, ``sequence_parallel`` and
 ``gqa_repeat_kv`` (the reference repeats K/V to the query heads only so
 that its partitioner can shard the score einsum by head; the grouped
 einsum computes the same values). ``moe_scan_dispatch`` has none either:
 the reference's blocked prefix sum and a plain ``cumsum`` give the MoE
-the same integer positions, so the port computes them one way.
-``unported(cfg)`` names what the port does not run yet (flash-decode and
-the optimizer knobs); the model's entry points refuse such a config
-through ``check_ported``.
+the same integer positions, so the port computes them one way. ``remat``
+acts in training (``models/transformer._remat``): it is what lets
+hymba-1.5b train at full width on one card; serving ignores it.
+``adam_moments_bf16`` and ``use_adafactor`` choose the trainer's optimizer
+(``launch/train.py``). ``unported(cfg)`` names what the port does not run
+yet (flash-decode); the model's entry points refuse such a config through
+``check_ported``.
 """
 
 from __future__ import annotations
@@ -73,7 +76,7 @@ class ArchConfig:
     norm_eps: float = 1e-6
     param_dtype: Any = torch.float32
     compute_dtype: Any = torch.bfloat16
-    remat: str = "full"  # no effect on one card
+    remat: str = "full"  # training only: full | dots | none
     scan_unroll: int = 1  # no effect: the repeats are a Python loop
     fsdp: bool = False  # no effect on one card
 
@@ -143,7 +146,7 @@ class ArchConfig:
 
 def unported(cfg: ArchConfig) -> list[str]:
     """What ``cfg`` asks for that the port does not run yet."""
-    return [f for f in ("flash_decode", "adam_moments_bf16", "use_adafactor") if getattr(cfg, f)]
+    return [f for f in ("flash_decode",) if getattr(cfg, f)]
 
 
 def check_ported(cfg: ArchConfig) -> None:

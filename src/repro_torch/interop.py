@@ -7,8 +7,12 @@ bitwise from the same source (``data/simulation``), and
 carry the rest. The LM
 serving path's state is its weights: ``lm_params_from_numpy`` carries the
 reference's parameter tree into the port's ``Transformer`` and
-``encdec_params_from_numpy`` into its ``EncDec``. All take plain
-Python and numpy values, so neither package imports the other.
+``encdec_params_from_numpy`` into its ``EncDec``. Training adds the way
+back, ``params_to_numpy`` (a model's parameters, or gradients under their
+names, as the reference's stacked tree, so the two can be compared leaf
+by leaf), and ``adamw_state_from_numpy`` for the reference's AdamW state.
+All take and give plain Python and numpy values, so neither package
+imports the other.
 """
 
 from __future__ import annotations
@@ -106,6 +110,35 @@ def _fill(model, flat: dict):
     return model
 
 
+def _lm_flat(tree: Mapping, cfg: ArchConfig) -> dict:
+    """The reference's LM tree as ``{port parameter name: array}``."""
+    flat: dict[str, np.ndarray] = {}
+    top = {k: v for k, v in tree.items() if k not in ("prefix", "groups")}
+    _flatten(top, "", flat)
+    prefix, groups = list(tree.get("prefix", [])), list(tree.get("groups", []))
+    n_pre, n_pat = len(cfg.prefix), len(cfg.pattern)
+    if len(prefix) != n_pre or len(groups) != n_pat:
+        raise ValueError(f"tree has {len(prefix)} prefix blocks and {len(groups)} pattern groups; "
+                         f"{cfg.name} has {n_pre} and {n_pat}")
+    for i, blk in enumerate(prefix):
+        _flatten(blk, f"layers.{i}", flat)
+    for j, grp in enumerate(groups):
+        _unstack(grp, f"groups[{j}]", cfg.num_repeats,
+                 lambda r, j=j: f"layers.{n_pre + r * n_pat + j}", flat)
+    return flat
+
+
+def _encdec_flat(tree: Mapping, cfg: ArchConfig) -> dict:
+    """The reference's enc-dec tree as ``{port parameter name: array}``."""
+    flat: dict[str, np.ndarray] = {}
+    _flatten({k: v for k, v in tree.items() if k not in ("encoder", "decoder")}, "", flat)
+    for stack, n in (("encoder", cfg.enc_layers), ("decoder", cfg.dec_layers)):
+        if stack not in tree:
+            raise ValueError(f"tree has no {stack!r}")
+        _unstack(tree[stack], stack, n, lambda r, stack=stack: f"{stack}.{r}", flat)
+    return flat
+
+
 def lm_params_from_numpy(tree: Mapping, cfg: ArchConfig, device: torch.device | str):
     """The port's ``Transformer`` for ``cfg`` on ``device``, holding the
     reference's parameters ``tree`` (``jax.tree.map(np.asarray, params)``
@@ -124,20 +157,7 @@ def lm_params_from_numpy(tree: Mapping, cfg: ArchConfig, device: torch.device | 
     differs."""
     from repro_torch.models.transformer import Transformer
 
-    flat: dict[str, np.ndarray] = {}
-    top = {k: v for k, v in tree.items() if k not in ("prefix", "groups")}
-    _flatten(top, "", flat)
-    prefix, groups = list(tree.get("prefix", [])), list(tree.get("groups", []))
-    n_pre, n_pat = len(cfg.prefix), len(cfg.pattern)
-    if len(prefix) != n_pre or len(groups) != n_pat:
-        raise ValueError(f"tree has {len(prefix)} prefix blocks and {len(groups)} pattern groups; "
-                         f"{cfg.name} has {n_pre} and {n_pat}")
-    for i, blk in enumerate(prefix):
-        _flatten(blk, f"layers.{i}", flat)
-    for j, grp in enumerate(groups):
-        _unstack(grp, f"groups[{j}]", cfg.num_repeats,
-                 lambda r, j=j: f"layers.{n_pre + r * n_pat + j}", flat)
-    return _fill(Transformer(cfg, device), flat)
+    return _fill(Transformer(cfg, device), _lm_flat(tree, cfg))
 
 
 def encdec_params_from_numpy(tree: Mapping, cfg: ArchConfig, device: torch.device | str):
@@ -149,10 +169,72 @@ def encdec_params_from_numpy(tree: Mapping, cfg: ArchConfig, device: torch.devic
     i of ``encoder`` / ``decoder``. Raises as ``lm_params_from_numpy``."""
     from repro_torch.models.encdec import EncDec
 
-    flat: dict[str, np.ndarray] = {}
-    _flatten({k: v for k, v in tree.items() if k not in ("encoder", "decoder")}, "", flat)
-    for stack, n in (("encoder", cfg.enc_layers), ("decoder", cfg.dec_layers)):
-        if stack not in tree:
-            raise ValueError(f"tree has no {stack!r}")
-        _unstack(tree[stack], stack, n, lambda r, stack=stack: f"{stack}.{r}", flat)
-    return _fill(EncDec(cfg, device), flat)
+    return _fill(EncDec(cfg, device), _encdec_flat(tree, cfg))
+
+
+def _to_numpy(t) -> np.ndarray:
+    return t.detach().float().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+def _nest(tree: dict, path: list[str], value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+def params_to_numpy(model, cfg: ArchConfig, tensors: Mapping | None = None) -> dict:
+    """``model``'s parameters (or ``tensors``, e.g. their gradients, under
+    the parameter names) as the reference's tree of float32 numpy arrays:
+    for the enc-dec family ``encoder``/``decoder`` stacked over their
+    blocks, for the others ``prefix`` blocks and ``groups`` stacked over
+    the repeats, the inverse of ``lm_params_from_numpy`` /
+    ``encdec_params_from_numpy``."""
+    values = dict(model.named_parameters()) if tensors is None else dict(tensors)
+    params = dict(model.named_parameters())
+    if set(values) != set(params):
+        raise ValueError(f"names differ from the model's: missing {sorted(set(params) - set(values))}, "
+                         f"unexpected {sorted(set(values) - set(params))}")
+    n_pre, n_pat = len(cfg.prefix), len(cfg.pattern)
+    tree: dict = {} if cfg.family == "encdec" else {"prefix": [{} for _ in range(n_pre)],
+                                                    "groups": [{} for _ in range(n_pat)]}
+    stacks: dict[tuple, dict[int, np.ndarray]] = {}
+    for name in params:
+        head, *rest = name.split(".")
+        arr = _to_numpy(values[name])
+        if head in ("encoder", "decoder"):
+            stacks.setdefault((head, None, tuple(rest[1:])), {})[int(rest[0])] = arr
+        elif head == "layers":
+            i, leaf = int(rest[0]), rest[1:]
+            if i < n_pre:
+                _nest(tree["prefix"][i], leaf, arr)
+            else:
+                r, j = divmod(i - n_pre, n_pat)
+                stacks.setdefault(("groups", j, tuple(leaf)), {})[r] = arr
+        else:
+            _nest(tree, [head, *rest], arr)
+    for (head, j, leaf), by_index in stacks.items():
+        stacked = np.stack([by_index[i] for i in sorted(by_index)])
+        _nest(tree[head][j] if head == "groups" else tree.setdefault(head, {}), list(leaf), stacked)
+    return tree
+
+
+def adamw_state_from_numpy(step, mu: Mapping, nu: Mapping, cfg: ArchConfig,
+                           device: torch.device | str):
+    """The port's ``optim.OptState`` from the reference's (``step``, ``mu``
+    and ``nu``, each a tree of numpy arrays in the reference's parameter
+    layout), on ``device``; the moments keep their type (bfloat16 ones
+    arrive as ml_dtypes arrays and become torch bfloat16)."""
+    from repro_torch.optim import OptState
+
+    flat = _encdec_flat if cfg.family == "encdec" else _lm_flat
+
+    def moments(tree):
+        out = {}
+        for name, arr in flat(tree, cfg).items():
+            arr = np.asarray(arr)
+            dtype = torch.bfloat16 if arr.dtype.name == "bfloat16" else torch.float32
+            out[name] = torch.tensor(arr.astype(np.float32), device=device).to(dtype)
+        return out
+
+    return OptState(torch.tensor(int(np.asarray(step)), dtype=torch.int32, device=device),
+                    moments(mu), moments(nu))

@@ -46,3 +46,41 @@ def row_errors(got: torch.Tensor, truth: torch.Tensor) -> torch.Tensor:
     kept in float32."""
     got, truth = got.double(), truth.double()
     return (got - truth).norm(dim=-1) / truth.norm(dim=-1).clamp_min(1e-300)
+
+
+def block_local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          window: int) -> torch.Tensor:
+    """The same function in the reference's training form
+    (``repro/models/layers.py::_block_local_attention``): queries in blocks
+    of W, each block against the previous and its own key block, so
+    O(S * 2W) scores instead of O(S^2). Scores and softmax in float32, the
+    weights rounded to q's type before the weighted sum (where K5 rounds
+    them). Differentiable; K5's backward is this function's autograd
+    gradient."""
+    b, s, h, hd = q.shape
+    kvh = k.shape[2]
+    g, w = h // kvh, window
+    pad = (-s) % w
+    if pad:
+        q, k, v = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
+    nb = (s + pad) // w
+    qb = q.reshape(b, nb, w, kvh, g, hd)
+    kb = k.reshape(b, nb, w, kvh, hd)
+    vb = v.reshape(b, nb, w, kvh, hd)
+    k2 = torch.cat([torch.cat([torch.zeros_like(kb[:, :1]), kb[:, :-1]], 1), kb], 2)  # (b, nb, 2w, kvh, hd)
+    v2 = torch.cat([torch.cat([torch.zeros_like(vb[:, :1]), vb[:, :-1]], 1), vb], 2)
+    # In place: the einsum's backward saves its inputs, not its output.
+    scores = torch.einsum("bnikgd,bnjkd->bnkgij", qb, k2).float()
+    scores.mul_(hd**-0.5)
+    qi = torch.arange(w, device=q.device)[:, None]
+    kj = torch.arange(2 * w, device=q.device)[None, :]
+    ok = (kj > qi) & (kj <= qi + w)  # (w, 2w) window + causal band
+    first = (torch.arange(nb, device=q.device)[:, None, None] > 0) | (kj >= w)[None]  # block 0 has no previous
+    zero = torch.zeros((), dtype=torch.float32, device=q.device)
+    neg = torch.full((), -1e30, dtype=torch.float32, device=q.device)
+    mask = torch.where(ok[None], zero, neg) + torch.where(first, zero, neg)  # (nb, w, 2w)
+    scores.add_(mask[None, :, None, None])
+    wts = torch.softmax(scores, dim=-1).to(q.dtype)
+    del scores
+    out = torch.einsum("bnkgij,bnjkd->bnikgd", wts, v2).reshape(b, nb * w, h, hd)
+    return out[:, :s]

@@ -1,10 +1,10 @@
 """Encoder-decoder transformer of the serving path (the seamless-m4t-medium
 backbone).
 
-Port of ``repro.models.encdec`` but its ``loss_fn`` (training). As in the
-reference, the modality frontend is a stub: the encoder takes precomputed
-frame embeddings (B, S_enc, d_model); the decoder is a text decoder with
-cross-attention to the encoder's output. The encoder's self-attention is
+Port of ``repro.models.encdec``. As in the reference, the modality
+frontend is a stub: the encoder takes precomputed frame embeddings (B,
+S_enc, d_model); the decoder is a text decoder with cross-attention to the
+encoder's output. The encoder's self-attention is
 non-causal and rotates q and k; cross-attention rotates neither.
 
 Entry points, as in ``models/transformer.py``:
@@ -14,6 +14,9 @@ Entry points, as in ``models/transformer.py``:
   forward(params, frames, tokens, cfg)              -> (B, S, V) f32 logits
   prefill(params, frames, tokens, cfg, max_len)     -> (last-position logits, caches)
   decode_step(params, token, caches, pos, cfg)      -> (logits, caches)
+  loss_fn(params, frames, tokens, targets, cfg)     -> scalar CE, differentiable (the
+                                                       encoder and decoder layers under
+                                                       the config's remat)
 
 The caches are the reference's layout: ``{"self": {"k", "v"}, "cross":
 {"k", "v"}}``, each stacked over the decoder layers, (n, B, max_len, KV,
@@ -25,13 +28,15 @@ reference projects them a second time: the same values.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig, check_ported
 from repro_torch.core.pipeline import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import _logits, _positions
+from repro_torch.models.transformer import _logits, _positions, _remat, cross_entropy
 
 
 class EncBlock(nn.Module):
@@ -101,18 +106,28 @@ def init_params(cfg: ArchConfig, generator: torch.Generator | None = None,
     return model
 
 
-@torch.inference_mode()
-def encode(params: EncDec, frames: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """frames (B, S_enc, d) stub embeddings -> the encoder's memory (B,
-    S_enc, d) in the compute type."""
+def _enc_block(p: EncBlock, h: torch.Tensor, cfg: ArchConfig, positions) -> torch.Tensor:
+    x = L.rmsnorm(p.ln1, h, cfg.norm_eps)
+    h = h + L.attention(p.attn, x, cfg=cfg, positions=positions, causal=False)
+    return h + L.mlp(p.mlp, L.rmsnorm(p.ln2, h, cfg.norm_eps), cfg)
+
+
+def _encode(params: EncDec, frames: torch.Tensor, cfg: ArchConfig, wrap=lambda fn: fn) -> torch.Tensor:
+    """The encoder, each layer as ``wrap`` makes it (the remat policy in
+    training)."""
     b, s, _ = frames.shape
     positions = _positions(b, s, frames.device)
     h = frames.to(cfg.compute_dtype)
     for p in params.encoder:
-        x = L.rmsnorm(p.ln1, h, cfg.norm_eps)
-        h = h + L.attention(p.attn, x, cfg=cfg, positions=positions, causal=False)
-        h = h + L.mlp(p.mlp, L.rmsnorm(p.ln2, h, cfg.norm_eps), cfg)
+        h = wrap(functools.partial(_enc_block, p, cfg=cfg, positions=positions))(h)
     return L.rmsnorm(params.enc_norm, h, cfg.norm_eps)
+
+
+@torch.inference_mode()
+def encode(params: EncDec, frames: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """frames (B, S_enc, d) stub embeddings -> the encoder's memory (B,
+    S_enc, d) in the compute type."""
+    return _encode(params, frames, cfg)
 
 
 def _dec_block(p: DecBlock, h: torch.Tensor, memory: torch.Tensor, cfg: ArchConfig, positions):
@@ -128,18 +143,30 @@ def _dec_block(p: DecBlock, h: torch.Tensor, memory: torch.Tensor, cfg: ArchConf
     return h + L.mlp(p.mlp, L.rmsnorm(p.ln2, h, cfg.norm_eps), cfg), sk, sv, ck, cv
 
 
-@torch.inference_mode()
-def forward(params: EncDec, frames: torch.Tensor, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """frames (B, S_enc, d), tokens (B, S) -> (B, S, V) f32 logits (the
-    decode oracle)."""
-    memory = encode(params, frames, cfg)
+def _forward(params: EncDec, frames: torch.Tensor, tokens: torch.Tensor, cfg: ArchConfig,
+             wrap=lambda fn: fn) -> torch.Tensor:
+    memory = _encode(params, frames, cfg, wrap)
     b, s = tokens.shape
     positions = _positions(b, s, tokens.device)
     h = params.embed[tokens].to(cfg.compute_dtype)
     for p in params.decoder:
-        h = _dec_block(p, h, memory, cfg, positions)[0]
+        h = wrap(lambda h, p=p: _dec_block(p, h, memory, cfg, positions)[0])(h)
     h = L.rmsnorm(params.final_norm, h, cfg.norm_eps)
     return _logits(params, h, cfg)
+
+
+@torch.inference_mode()
+def forward(params: EncDec, frames: torch.Tensor, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """frames (B, S_enc, d), tokens (B, S) -> (B, S, V) f32 logits (the
+    decode oracle)."""
+    return _forward(params, frames, tokens, cfg)
+
+
+def loss_fn(params: EncDec, frames: torch.Tensor, tokens: torch.Tensor, targets: torch.Tensor,
+            cfg: ArchConfig) -> torch.Tensor:
+    """The CE of ``forward``'s logits, differentiable; every encoder and
+    decoder layer under ``_remat`` (as the reference's scan bodies)."""
+    return cross_entropy(_forward(params, frames, tokens, cfg, lambda fn: _remat(fn, cfg)), targets)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, mem_len: int, dtype=None,

@@ -3,9 +3,13 @@
 decode attention (self and cross), the gated MLP and the top-k MoE.
 
 Port of ``repro.models.layers`` but ``flash_decode_attention`` (a
-``shard_map`` over a mesh) and ``moe_aux_loss`` (training). Parameters live in
-``nn.Module``s under the reference's names (``wq``, ``q_norm.scale``, ...)
-and never take gradients: the port serves, it does not train yet.
+``shard_map`` over a mesh). Parameters live in ``nn.Module``s under the
+reference's names (``wq``, ``q_norm.scale``, ...); they are created with
+``requires_grad=False`` for serving, and the trainer
+(``launch/train.py``) turns gradients on. Every function here is
+differentiable: the in-place updates of the attention scores touch only
+tensors no backward saves, and the banded path goes through
+``banded_attention``'s ``autograd.Function`` when gradients are wanted.
 
 Conventions, as in the reference:
 
@@ -163,7 +167,12 @@ def attention(p: Attention, x: torch.Tensor, *, cfg, positions: torch.Tensor,
     else:
         g = h // kvh
         scores = torch.einsum("bskgd,btkd->bkgst", q.reshape(b, s, kvh, g, hd), k).float()
-        scores *= hd**-0.5
+        if scores.dtype == cdt and torch.is_grad_enabled():
+            # float32 compute: .float() returned the product itself, which
+            # remat="dots" keeps for the backward, so no write into it.
+            scores = scores * hd**-0.5
+        else:
+            scores *= hd**-0.5
         if kv_x is None:
             scores += _attn_scores_mask(positions, positions, causal, window)[:, None, None, :, :]
         w = torch.softmax(scores, dim=-1).to(cdt)
@@ -313,6 +322,11 @@ def moe_capacity(tokens: int, num_experts: int, top_k: int,
     return max(1, int(top_k * tokens / num_experts * capacity_factor))
 
 
+def router_probs(p: MoE, xt: torch.Tensor) -> torch.Tensor:
+    """The router's softmax over the experts, float32. xt (T, d) -> (T, E)."""
+    return torch.softmax(xt.float() @ p.router, dim=-1)
+
+
 def moe_route(p: MoE, xt: torch.Tensor, cfg):
     """Router, top-k and each choice's slot. xt (T, d) -> gates (T, k)
     float32 (renormalised over the k choices), experts (T, k) int64 in
@@ -320,7 +334,7 @@ def moe_route(p: MoE, xt: torch.Tensor, cfg):
     expert's buffer, counting the earlier choices of that expert in
     token-major order (token t's choice j is entry t k + j)."""
     e, k = cfg.num_experts, cfg.moe_top_k
-    probs = torch.softmax(xt.float() @ p.router, dim=-1)  # (T, E)
+    probs = router_probs(p, xt)  # (T, E)
     gates, experts = torch.topk(probs, k, dim=-1, sorted=True)
     gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
     flat = experts.reshape(-1)
@@ -363,3 +377,14 @@ def moe(p: MoE, x: torch.Tensor, cfg, capacity_factor: float | None = None) -> t
     if hasattr(p, "shared"):
         y = y + mlp(p.shared, xt, cfg)
     return y.reshape(b, s, d)
+
+
+def moe_aux_loss(p: MoE, x: torch.Tensor, cfg) -> torch.Tensor:
+    """Load-balancing auxiliary loss (Switch-style): E * sum_e f_e * p_e,
+    f_e the share of the top-k choices that pick expert e (``topk`` ordered
+    as ``lax.top_k``, as ``moe_route`` takes it) and p_e its mean router
+    probability. x (B, S, d) -> float32 scalar."""
+    probs = router_probs(p, x.reshape(-1, x.shape[-1]))
+    _, idx = torch.topk(probs, cfg.moe_top_k, dim=-1, sorted=True)
+    frac = F.one_hot(idx, cfg.num_experts).float().mean(dim=(0, 1))
+    return cfg.num_experts * torch.sum(frac * probs.mean(dim=0))

@@ -103,13 +103,33 @@ def _chunk_scan(bx: torch.Tensor, gamma: torch.Tensor) -> torch.Tensor:
     h = 0, in float32, one chunk after another (the reference's
     ``lax.associative_scan``). bx (B, Nc, H, N, P), gamma (B, Nc, H) ->
     the state after each chunk (B, Nc, H, N, P)."""
-    states = torch.empty_like(bx)
     run = bx[:, 0]
-    states[:, 0] = run
+    states = [run]
     for c in range(1, bx.shape[1]):
         run = run * gamma[:, c, :, None, None] + bx[:, c]
-        states[:, c] = run
-    return states
+        states.append(run)
+    return torch.stack(states, dim=1)
+
+
+def _intra_chunk(cb: torch.Tensor, ca: torch.Tensor) -> torch.Tensor:
+    """The intra-chunk matrix M[i, j] = (C_i . B_j) exp(ca_i - ca_j) for
+    j <= i, else 0, in float32. cb (B, Nc, H, Q, Q), ca (B, Nc, Q, H).
+
+    Above the diagonal the exponent is positive and overflows to inf once
+    a chunk's decay passes ~88; the ``where`` drops those entries. Under
+    autograd the exponent is also masked to -inf there before the exp,
+    which gives 0 with a zero gradient: the reference masks only after the
+    exp, so its backward multiplies that inf by the ``where``'s zero
+    cotangent and its gradients turn NaN (ROADMAP queue 3). The forward is
+    the same bits either way; serving skips the extra pass over the
+    (B, Nc, H, Q, Q) exponents (~5 % of an SSM prefill)."""
+    q = ca.shape[2]
+    causal = torch.ones((q, q), dtype=torch.bool, device=ca.device).tril()
+    decay = (ca[..., :, None, :] - ca[..., None, :, :]).movedim(-1, 2)  # (B,Nc,H,Q,Q) i, j
+    if decay.requires_grad:
+        decay.masked_fill_(~causal, float("-inf"))  # the subtraction's backward saves nothing
+    return torch.where(causal, cb.float() * torch.exp(decay),
+                       torch.zeros((), dtype=torch.float32, device=ca.device))
 
 
 def ssd(p: SSD, x_in: torch.Tensor, cfg, return_final_state: bool = False):
@@ -146,15 +166,9 @@ def ssd(p: SSD, x_in: torch.Tensor, cfg, return_final_state: bool = False):
     ca = torch.cumsum(da.reshape(b, nc, q, h), dim=2)  # inclusive, float32
     xdt = xh * dt.reshape(b, nc, q, h)[..., None].to(cdt)
 
-    # Intra-chunk: M[i, j] = (C_i . B_j) exp(ca_i - ca_j) for j <= i. Above
-    # the diagonal the exponent is positive and may overflow to inf, so
-    # the mask is a where (a 0/1 product would make 0 * inf = NaN).
     cb = torch.einsum("bcqgn,bckgn->bcgqk", cm, bm).repeat_interleave(hpg, dim=2)  # (B,Nc,H,Q,Q)
-    decay = (ca[..., :, None, :] - ca[..., None, :, :]).movedim(-1, 2)  # (B,Nc,H,Q,Q) i, j
-    causal = torch.ones((q, q), dtype=torch.bool, device=ca.device).tril()
-    m = torch.where(causal, cb.float() * torch.exp(decay),
-                    torch.zeros((), dtype=torch.float32, device=ca.device)).to(cdt)
-    del cb, decay
+    m = _intra_chunk(cb, ca).to(cdt)
+    del cb
     y_intra = torch.einsum("bchqk,bckhp->bcqhp", m, xdt)
     del m
 

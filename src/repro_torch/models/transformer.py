@@ -16,6 +16,7 @@ Entry points:
   init_params(cfg, generator, device)            -> Transformer (random weights, on cuda
                                                     unless device says otherwise)
   forward(params, tokens, cfg, extras)           -> (B, S, V) f32 logits
+  loss_fn(params, tokens, targets, cfg, extras)  -> scalar CE (+ MoE aux), differentiable
   prefill(params, tokens, cfg, extras, max_len)  -> (last-position logits, caches)
   decode_step(params, token, caches, pos, cfg)   -> (logits, caches)
 
@@ -26,13 +27,18 @@ memory's K/V for a cross layer, computed once at prefill and only read by
 the decode steps); ``decode_step`` updates them in place. The reference's
 prefill runs each layer's SSD and K/V projections a second time to build
 the cache; the port keeps what the layer's own pass computed, the same
-values. Everything runs under ``torch.inference_mode``.
+values. The serving entry points run under ``torch.inference_mode``;
+``loss_fn`` runs with autograd, the layers after the prefix under the
+config's ``remat`` policy (``_remat``), as the reference's scan body.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.configs.base import ArchConfig, BlockDef, check_ported
 from repro_torch.core.pipeline import resolve_device
@@ -203,6 +209,82 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig, extras=N
         h = apply_block(bd, p, h, cfg, positions, extras)
     h = L.rmsnorm(params.final_norm, h, cfg.norm_eps)
     return _logits(params, h, cfg)
+
+
+# -- training -----------------------------------------------------------------------
+
+_MATMULS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                      torch.ops.aten.addmm.default})
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """``remat="dots"``: keep the products' outputs that autograd records,
+    recompute the rest (the reference's ``dots_with_no_batch_dims_saveable``).
+    A product inside an ``autograd.Function``'s forward (grad off there,
+    as in K5's plain version) is not recorded, so it is not kept."""
+    if op in _MATMULS and torch.is_grad_enabled():
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg: ArchConfig):
+    """``fn`` under the config's rematerialisation policy: ``"full"`` keeps
+    only its inputs and recomputes the rest in the backward (non-reentrant
+    ``torch.utils.checkpoint``), ``"dots"`` keeps the matrix products'
+    outputs too, ``"none"`` keeps everything. The values and gradients are
+    the same; what moves is memory (``"full"`` is what lets hymba-1.5b
+    train at 4 x 4,096 tokens on one 80 GB card) and the recompute."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if cfg.remat == "dots":
+        return functools.partial(checkpoint, fn, use_reentrant=False, context_fn=functools.partial(
+            create_selective_checkpoint_contexts, _save_matmuls))
+    raise ValueError(cfg.remat)
+
+
+def _aux(bd: BlockDef, p: Block, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The layer's MoE load-balancing loss on the FFN's input (float32
+    zero without a MoE)."""
+    if bd.ffn not in ("moe", "moe_dense"):
+        return torch.zeros((), dtype=torch.float32, device=h.device)
+    return L.moe_aux_loss(p.moe, L.rmsnorm(p.ln2, h, cfg.norm_eps), cfg)
+
+
+def _train_block(bd: BlockDef, p: Block, h: torch.Tensor, cfg: ArchConfig, positions,
+                extras=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """``apply_block`` that also returns the layer's aux loss."""
+    h = h + _mixer(bd, p, h, cfg, positions, extras)
+    return _with_ffn(bd, p, h, cfg), _aux(bd, p, h, cfg)
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean of logsumexp minus the target's logit (the reference's CE)."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, targets[..., None].long())[..., 0]
+    return torch.mean(logz - gold)
+
+
+def loss_fn(params: Transformer, tokens: torch.Tensor, targets: torch.Tensor, cfg: ArchConfig,
+            extras=None, aux_weight: float = 0.01) -> torch.Tensor:
+    """tokens, targets (B, S) -> float32 scalar: the CE of the masked logits
+    plus ``aux_weight`` times the layers' summed MoE aux loss over
+    ``num_layers``. Differentiable; the layers after the prefix run under
+    ``_remat`` (the reference rematerialises its scan body, not the
+    prefix)."""
+    b, s = tokens.shape
+    positions = _positions(b, s, tokens.device)
+    h = params.embed[tokens].to(cfg.compute_dtype)
+    aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    n_pre = len(cfg.prefix)
+    for i, (bd, p) in enumerate(zip(cfg.layer_defs(), params.layers)):
+        fn = functools.partial(_train_block, bd, p, cfg=cfg, positions=positions, extras=extras)
+        h, aux = (fn if i < n_pre else _remat(fn, cfg))(h)
+        aux_total = aux_total + aux
+    h = L.rmsnorm(params.final_norm, h, cfg.norm_eps)
+    ce = cross_entropy(_logits(params, h, cfg), targets)
+    return ce + aux_weight * aux_total / max(cfg.num_layers, 1)
 
 
 # -- serving: prefill + decode --------------------------------------------------------

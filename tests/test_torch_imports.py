@@ -96,3 +96,12 @@ def test_streaming_and_cluster_modules_are_covered():
     assert "-m repro_torch.runtime.cluster" in script
     for jax_only in ("-m repro.", "XLA_FLAGS", "JAX_", "CPU_DEVICES_PER_PROC"):
         assert jax_only not in script, jax_only
+
+
+def test_training_modules_are_covered():
+    """The training path's modules (optimizers, checkpoints, the token
+    pipeline, the trainer) are among those checked above."""
+    assert {"repro_torch.optim", "repro_torch.optim.adamw", "repro_torch.optim.adafactor",
+            "repro_torch.optim.schedule", "repro_torch.optim.compression",
+            "repro_torch.checkpoint", "repro_torch.checkpoint.manager",
+            "repro_torch.data.tokens", "repro_torch.launch.train"} <= set(MODULES)

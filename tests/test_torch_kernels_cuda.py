@@ -555,6 +555,44 @@ def test_banded_attention_kernel(dev, case, dtype):
         assert float(row_errors(banded_attention_ref(q, k, v, w - 1), truth).max()) > limit
 
 
+# K5 under autograd: the forward is the kernel, the backward the blocked
+# plain form's gradient (repro_torch.kernels.band_attn.ops.BandedAttention).
+# gemma3's and hymba-1.5b's head shapes, at S = 700 < W and a ragged 4,000.
+GRAD_CASES = [(1, s, h, kv, hd, 1024) for s in (700, 4000) for h, kv, hd in ((16, 8, 256), (25, 5, 64))]
+
+
+def _grads(fn, inputs, grad_out):
+    inputs = [x.detach().requires_grad_() for x in inputs]
+    return torch.autograd.grad(fn(*inputs), inputs, grad_out)
+
+
+@pytest.mark.parametrize("case", GRAD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_banded_attention_backward(dev, case, dtype):
+    """dq, dk, dv through ``banded_attention``'s ``autograd.Function`` (one
+    K5 launch, none in the backward) against autograd of the plain version
+    (the full S x S masked attention) on the float32 inputs. bf16: the K5
+    gate's rule per row of each gradient (at most BAND_TOL times the worst
+    row of the plain version with the oracle's rounding, in bf16); float32:
+    each row within 1e-4 relative. A repeat is bitwise."""
+    q, k, v = _band_inputs(case, dtype, dev)
+    w = case[-1]
+    g = torch.from_numpy(np.random.default_rng(7).standard_normal(q.shape).astype(np.float32)).to(dev)
+    before = tbk.banded_attention_kernel.launches
+    got = _grads(lambda a, b, c: banded_attention(a, b, c, w), (q, k, v), g.to(dtype))
+    torch.cuda.synchronize()
+    assert tbk.banded_attention_kernel.launches == before + 1
+    again = _grads(lambda a, b, c: banded_attention(a, b, c, w), (q, k, v), g.to(dtype))
+    truth = _grads(lambda a, b, c: banded_attention_ref(a, b, c, w), (q.float(), k.float(), v.float()), g)
+    oracle = _grads(lambda a, b, c: banded_attention_ref(a, b, c, w, round_weights=True), (q, k, v),
+                    g.to(dtype))
+    for name, a, b, t, o in zip(("dq", "dk", "dv"), got, again, truth, oracle):
+        assert a.dtype == dtype and a.shape == t.shape and torch.equal(a, b), name
+        worst = float(row_errors(a, t).max())
+        limit = 1e-4 if dtype == torch.float32 else BAND_TOL[torch.bfloat16] * float(row_errors(o, t).max())
+        assert worst <= limit, (name, worst, limit)
+
+
 @pytest.mark.parametrize("widths", [(256, 16, 8), (256, 3, 1), (136, 6, 2), (8, 2, 1)])
 def test_banded_attention_tc_no_spills(dev, widths):
     """The bf16 kernel's instantiation keeps its float32 accumulators in

@@ -110,7 +110,14 @@ def test_unported_configs_raise_naming_roadmap(name):
 
 @pytest.mark.parametrize("knob", ["flash_decode", "adam_moments_bf16", "use_adafactor"])
 def test_unported_knobs_raise(knob):
+    """``flash_decode``, still to port, raises naming the knob. The
+    optimizer knobs are ported (``launch/train.py`` builds the optimizer
+    they name), so with them the model builds."""
     cfg = registry.get("granite-3-8b").reduced().replace(**{knob: True})
+    if knob != "flash_decode":
+        assert tb.unported(cfg) == []
+        assert T.count_params(T.init_params(cfg, device="cpu")) > 0
+        return
     with pytest.raises(NotImplementedError, match=knob):
         T.init_params(cfg)
 
