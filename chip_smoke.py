@@ -181,6 +181,23 @@ Last comes the LM serving path (``band_attn``, K5):
   CUDA events around its calls; then K5's time at both shapes beside its
   bound, its plain version and SDPA with the band as a mask.
 
+The accounting layer (``repro_torch.launch.roofline``, ``dryrun``,
+``dryrun_pdf``, ``report``) is held against the card:
+
+* ``[roofline kernels]``: every ``[time]`` line's bound comes from
+  ``launch/roofline.py``'s work models and must be the float this script's
+  inline formulas gave before they moved there (``premove_bound_ms``); each
+  measured time (kernel ms for K1-K4, call ms for K5) at most MAX_SHARE of
+  its bound;
+* ``[roofline lm]``: the meta dry run (``dryrun.run_cell``) of the runs
+  measured above (gemma3-12b's 12-layer prefill, mamba2-780m's and
+  hymba-1.5b's, hymba-1.5b's training step): each bound beside the
+  measured seconds, the share at most MAX_SHARE, the argument bytes equal
+  to the live model's and optimizer's;
+* ``[dryrun]``: ``python -m repro_torch.launch.dryrun --all --mesh 1x1``,
+  ``dryrun_pdf --all`` and ``report`` as subprocesses, their walls and
+  cells; a failed cell fails the run.
+
 The K1-K4 rows of the kernels line carry ``launches_api_serve``, the
 ``[api]`` and ``[serve]`` launches, and ``launches_stream_cluster``, those
 of ``[stream]`` and ``[cluster]`` (summed over a cluster's workers); the
@@ -231,12 +248,15 @@ K1_TOL = {
 }
 EDGE_TOL = dict(rtol=1e-6, atol=1e-3)
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 and float64
-# (outside the tensor cores) op/s.
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-F64_OPS_PER_S = 34e12
-BF16_OPS_PER_S = 989e12  # dense, tensor cores
+# The card's peaks and every kernel's work model live in
+# src/repro_torch/launch/roofline.py. [roofline kernels] holds each bound it
+# gives to the float this script's inline formulas gave before they moved
+# there (premove_bound_ms: the same H100 SXM data-sheet peaks, HBM bytes/s,
+# float32, float64 and bf16 op/s), and every measured time to at most
+# MAX_SHARE of its bound: a time more than 5 % under its bound means the
+# work count is wrong.
+PREMOVE_PEAKS = dict(hbm=3.35e12, f32=67e12, f64=34e12, bf16=989e12)
+MAX_SHARE = 1.05
 
 SET1_SLICE = 201  # configs/pdf_seismic.py: slice_index
 SET1_WINDOWS = 21  # ceil(501 lines / 25 lines per window)
@@ -2120,102 +2140,29 @@ def time_cuda(torch, fn, reps, flush) -> float:
     return median(cuda_times(torch, fn, reps, flush))
 
 
-def bound_ms(bytes_moved: int, f32_ops: int, f64_ops: int = 0) -> tuple[float, str]:
-    """The least time for the work: bytes over the HBM rate, float32 and
-    float64 operations each over their peak, whichever is largest."""
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = max(f32_ops / F32_OPS_PER_S, f64_ops / F64_OPS_PER_S) * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def premove_bound_ms(bytes_moved: int, f32_ops: int = 0, f64_ops: int = 0, bf16_ops: int = 0) -> float:
+    """A bound as this script computed it before the work models moved to
+    ``launch/roofline.py``: bytes over the HBM rate, the operations of each
+    type over their peak, whichever is largest (K5's bf16 operations alone,
+    as its timing took them)."""
+    pk = PREMOVE_PEAKS
+    t_bytes = bytes_moved / pk["hbm"] * 1e3
+    t_ops = bf16_ops / pk["bf16"] * 1e3 if bf16_ops else max(f32_ops / pk["f32"], f64_ops / pk["f64"]) * 1e3
+    return t_bytes if t_bytes >= t_ops else t_ops
 
 
-def loop_trips(np, count, step, max_iter):
-    """Trip counts of a loop run on ``count`` entries at once: ``step(idx,
-    i)`` runs trip ``i`` on the entries ``idx`` still looping and says which
-    of them break after it."""
-    trips = np.zeros(count, np.int64)
-    idx = np.arange(count)
-    for i in range(1, max_iter + 1):
-        if not len(idx):
-            break
-        trips[idx] += 1
-        idx = idx[~step(idx, i)]
-    return trips
-
-
-def special_function_ops(np, params, edges, types) -> int:
-    """Float64 operations K2's incomplete gamma and beta do on these inputs.
-    Each CDF evaluation's loop is replayed in float64 as csrc/fitpdf.cu runs
-    it (gammainc_lower, betacf) to count its trips; a trip, and the set-up
-    of an evaluation, count the operations written in the source, a
-    division or a transcendental as one."""
-    tiny, ops = 1e-300, 0
-    for t, name in enumerate(types):
-        p0, p1, p2 = (np.broadcast_to(params[:, 3 * t + j, None], edges.shape) for j in range(3))
-        with np.errstate(all="ignore"):
-            if name == "gamma":  # cdf_eval case 5
-                xs = np.maximum(edges, np.float32(0)) / p1
-                sel = (edges > 0) & ~(p0 > np.float32(1e4))
-                a = np.minimum(p0[sel], np.float32(1e4)).astype(np.float64)
-                x = np.minimum(xs[sel], np.float32(2e4)).astype(np.float64)
-                keep = ~np.isnan(a) & (x > 0) & np.isfinite(x)
-                a, x = a[keep], x[keep]
-                ser = x < a + 1.0
-                sa, sx = a[ser], x[ser]
-                ap, dl = sa.copy(), 1.0 / sa
-                sm = dl.copy()
-
-                def series(idx, i):
-                    ap[idx] += 1.0
-                    dl[idx] *= sx[idx] / ap[idx]
-                    sm[idx] += dl[idx]
-                    return np.abs(dl[idx]) < np.abs(sm[idx]) * 1e-16
-
-                ca, cx = a[~ser], x[~ser]
-                b = cx + 1.0 - ca
-                c, d = np.full_like(b, 1.0 / tiny), 1.0 / b
-
-                def fraction(idx, i):
-                    an = -i * (i - ca[idx])
-                    b[idx] += 2.0
-                    dd = an * d[idx] + b[idx]
-                    dd = np.where(np.abs(dd) < tiny, tiny, dd)
-                    cc = b[idx] + an / c[idx]
-                    cc = np.where(np.abs(cc) < tiny, tiny, cc)
-                    d[idx], c[idx] = 1.0 / dd, cc
-                    return np.abs(d[idx] * cc - 1.0) < 1e-16
-
-                ops += 8 * len(a) + 6 * int(loop_trips(np, len(sa), series, 4000).sum()) \
-                    + 15 * int(loop_trips(np, len(ca), fraction, 4000).sum())
-            elif name == "student_t":  # cdf_eval case 8, betainc
-                tt = (edges - p0) / p1
-                xb = (p2 / (p2 + tt * tt)).astype(np.float64)
-                a = (np.float32(0.5) * p2).astype(np.float64)
-                keep = ~np.isnan(a) & ~np.isnan(xb) & (xb > 0) & (xb < 1)
-                a, xb = a[keep], xb[keep]
-                swap = xb > (a + 1.0) / (a + 0.5 + 2.0)
-                ba, bb = np.where(swap, 0.5, a), np.where(swap, a, 0.5)
-                bx = np.where(swap, 1.0 - xb, xb)
-                qab, qap, qam = ba + bb, ba + 1.0, ba - 1.0
-                d = 1.0 - qab * bx / qap
-                d = 1.0 / np.where(np.abs(d) < tiny, tiny, d)
-                c = np.ones_like(d)
-
-                def half(idx, aa):
-                    dd = 1.0 + aa * d[idx]
-                    dd = np.where(np.abs(dd) < tiny, tiny, dd)
-                    cc = 1.0 + aa / c[idx]
-                    cc = np.where(np.abs(cc) < tiny, tiny, cc)
-                    d[idx], c[idx] = 1.0 / dd, cc
-
-                def betacf(idx, m):
-                    m2 = 2.0 * m
-                    a_, b_, x_ = ba[idx], bb[idx], bx[idx]
-                    half(idx, m * (b_ - m) * x_ / ((qam[idx] + m2) * (a_ + m2)))
-                    half(idx, -(a_ + m) * (qab[idx] + m) * x_ / ((a_ + m2) * (qap[idx] + m2)))
-                    return np.abs(d[idx] * c[idx] - 1.0) < 1e-16
-
-                ops += 14 * len(a) + 37 * int(loop_trips(np, len(a), betacf, 300).sum())
-    return ops
+def roofline_line(label: str, bound: float, premove: float, ms: float) -> float:
+    """[roofline kernels]: ``bound`` (``launch/roofline.py``) must be the
+    pre-move formula's float, and ``ms`` at most MAX_SHARE of it. Returns
+    the share bound / ms."""
+    share = bound / ms
+    log(f"[roofline kernels] {label}: bound {bound} ms (launch/roofline.py; the pre-move formula "
+        f"{premove}), measured {ms} ms, share {share}")
+    check(bound == premove, f"[roofline kernels] {label}: bound {bound} differs from the pre-move "
+                            f"formula's {premove}")
+    check(share <= MAX_SHARE, f"[roofline kernels] {label}: {ms} ms is {share} of its bound {bound} "
+                              f"ms, above {MAX_SHARE}: the work count is wrong")
+    return share
 
 
 def time_kernels(np, torch, x, dev, launches, worst_k1, err_k2):
@@ -2224,6 +2171,7 @@ def time_kernels(np, torch, x, dev, launches, worst_k1, err_k2):
     from repro_torch.core import distributions as dists
     from repro_torch.core import pdf_error as pe
     from repro_torch.kernels.fitpdf import kernel
+    from repro_torch.launch import roofline as rl
 
     p, n = x.shape
     flush = torch.empty(128 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
@@ -2231,9 +2179,9 @@ def time_kernels(np, torch, x, dev, launches, worst_k1, err_k2):
     k1_call = time_cuda(torch, lambda: kernel.moments_edges_stats(x, L), 50, flush)
     k1 = time_kernel(lambda: kernel.moments_edges_stats(x, L), flush)
     k1_plain = time_cuda(torch, lambda: kernel.moments_edges_stats_plain(x, L), 10, flush)
-    # Bytes: the window read once, stats and edges written once. Operations:
-    # ~10 per value (shift, three products, four sums, min, max).
-    b1, by1 = bound_ms(4 * (p * n + 8 * p + p * (L + 1)), 10 * p * n)
+    b1, by1 = rl.bound_ms(*rl.k1_work(p, n, L))
+    share1 = roofline_line(f"K1 ({p}, {n}) L={L}", b1,
+                           premove_bound_ms(4 * (p * n + 8 * p + p * (L + 1)), 10 * p * n), k1)
     err_stat = max(worst_k1, key=lambda s: worst_k1[s][0])
     log(f"[time] K1 moments_edges_stats ({p}, {n}) L={L}: call {k1_call} ms, kernel {k1} ms "
         f"({100 * b1 / k1} % of bound), plain {k1_plain} ms, bound {b1} ms by {by1}; no single "
@@ -2243,7 +2191,7 @@ def time_kernels(np, torch, x, dev, launches, worst_k1, err_k2):
                  replaces="src/repro/kernels/fitpdf/kernel.py:112",
                  launches=launches["moments_edges_stats"], max_abs_err=worst_k1[err_stat][0],
                  ms=k1_call, kernel_ms=k1, plain_ms=k1_plain, bound_ms=b1, bound_by=by1,
-                 library_ms=None)]
+                 library_ms=None, bound_share=share1)]
 
     stats, _ = kernel.moments_edges_stats(x, L)
     m = dists.Moments(*(stats[:, i].contiguous() for i in range(6)))
@@ -2256,18 +2204,19 @@ def time_kernels(np, torch, x, dev, launches, worst_k1, err_k2):
         call = time_cuda(torch, lambda: kernel.fit_error_counts(*args), 50, flush)
         ms = time_kernel(lambda: kernel.fit_error_counts(*args), flush)
         plain = time_cuda(torch, lambda: kernel.fit_error_counts_plain(*args), 5, flush)
-        # Bytes: window, vmin/vmax, edges and params read once, errors written
-        # once. Float32 operations: 4 per value for the bin, ~30 per CDF
-        # evaluation, 3 per mass term. Float64: the incomplete gamma and beta
-        # loops, counted on this window's data.
-        f64 = special_function_ops(np, params.cpu().numpy(), edges.cpu().numpy(), types)
-        b, by = bound_ms(4 * (p * n + 2 * p + p * (L + 1) + 3 * t * p + t * p),
-                         4 * p * n + 30 * p * t * (L + 1) + 3 * p * t * L, f64)
-        k2[(t, L)] = dict(ms=call, kernel_ms=ms, plain_ms=plain, bound_ms=b, bound_by=by)
+        # Float64: the incomplete gamma and beta loops, counted on this
+        # window's data.
+        f64 = rl.special_function_ops(params.cpu().numpy(), edges.cpu().numpy(), types)
+        b, by = rl.bound_ms(*rl.k2_work(p, n, t, L, f64_ops=f64))
+        share = roofline_line(f"K2 ({p}, {n}) T={t} L={L}", b, premove_bound_ms(
+            4 * (p * n + 2 * p + p * (L + 1) + 3 * t * p + t * p),
+            4 * p * n + 30 * p * t * (L + 1) + 3 * p * t * L, f64), ms)
+        k2[(t, L)] = dict(ms=call, kernel_ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                          bound_share=share)
         attrs = kernel.fit_error_attributes(types, L)
         log(f"[time] K2 fit_error_counts ({p}, {n}) T={t} L={L}: call {call} ms, kernel {ms} ms "
             f"({100 * b / ms} % of bound), plain {plain} ms, bound {b} ms by {by} (float64 "
-            f"special-function operations {f64}, {f64 / F64_OPS_PER_S * 1e3} ms at the float64 "
+            f"special-function operations {f64}, {f64 / rl.F64_FLOPS * 1e3} ms at the float64 "
             f"peak); {json.dumps(attrs)} (registers a thread, local memory bytes a thread: 0 means "
             f"no spills, dynamic shared memory bytes a block); no single PyTorch call computes this "
             f"function")
@@ -2287,6 +2236,7 @@ def time_new_kernels(np, torch, x, dev, launches_k, launches_rows, worst_k3, err
     from repro_torch.kernels.fitpdf import kernel
     from repro_torch.kernels.hist import kernel as hk
     from repro_torch.kernels.moments import kernel as mk
+    from repro_torch.launch import roofline as rl
 
     p, n = x.shape
     L = 64
@@ -2296,9 +2246,8 @@ def time_new_kernels(np, torch, x, dev, launches_k, launches_rows, worst_k3, err
     k3_call = time_cuda(torch, lambda: mk.moments_stats(x), 50, flush)
     k3 = time_kernel(lambda: mk.moments_stats(x), flush)
     k3_plain = time_cuda(torch, lambda: mk.moments_stats_plain(x), 10, flush)
-    # Bytes: the window read once, the stats written once; ~10 float32
-    # operations per value, as K1.
-    b3, by3 = bound_ms(4 * (p * n + 8 * p), 10 * p * n)
+    b3, by3 = rl.bound_ms(*rl.k3_work(p, n))
+    share3 = roofline_line(f"K3 ({p}, {n})", b3, premove_bound_ms(4 * (p * n + 8 * p), 10 * p * n), k3)
     err_stat = max(worst_k3, key=lambda s: worst_k3[s][0])
     log(f"[time] K3 moments_stats ({p}, {n}): call {k3_call} ms, kernel {k3} ms ({100 * b3 / k3} % "
         f"of bound), plain {k3_plain} ms, bound {b3} ms by {by3}; no single PyTorch call computes "
@@ -2307,16 +2256,16 @@ def time_new_kernels(np, torch, x, dev, launches_k, launches_rows, worst_k3, err
                      replaces="src/repro/kernels/moments/kernel.py:77",
                      launches=launches_k["moments_stats"], max_abs_err=worst_k3[err_stat][0],
                      ms=k3_call, kernel_ms=k3, plain_ms=k3_plain, bound_ms=b3, bound_by=by3,
-                     library_ms=None))
+                     library_ms=None, bound_share=share3))
 
     stats = mk.moments_stats(x)
     vmin, vmax = stats[:, 4].contiguous(), stats[:, 5].contiguous()
     k4_call = time_cuda(torch, lambda: hk.hist_counts(x, vmin, vmax, L), 50, flush)
     k4 = time_kernel(lambda: hk.hist_counts(x, vmin, vmax, L), flush)
     k4_plain = time_cuda(torch, lambda: hk.hist_counts_plain(x, vmin, vmax, L), 10, flush)
-    # Bytes: the window, vmin and vmax read once, the counts written once;
-    # ~4 float32 operations per value for its bin.
-    b4, by4 = bound_ms(4 * (p * n + 2 * p + p * L), 4 * p * n)
+    b4, by4 = rl.bound_ms(*rl.k4_work(p, n, L))
+    share4 = roofline_line(f"K4 ({p}, {n}) L={L}", b4,
+                           premove_bound_ms(4 * (p * n + 2 * p + p * L), 4 * p * n), k4)
     log(f"[time] K4 hist_counts ({p}, {n}) L={L}: call {k4_call} ms, kernel {k4} ms ({100 * b4 / k4} "
         f"% of bound), plain {k4_plain} ms, bound {b4} ms by {by4}; "
         f"{json.dumps(hk.hist_attributes(L))}; no single PyTorch call computes this function")
@@ -2324,7 +2273,7 @@ def time_new_kernels(np, torch, x, dev, launches_k, launches_rows, worst_k3, err
                      replaces="src/repro/kernels/hist/kernel.py:50",
                      launches=launches_k["hist_counts"], max_abs_err=0.0,
                      ms=k4_call, kernel_ms=k4, plain_ms=k4_plain, bound_ms=b4, bound_by=by4,
-                     library_ms=None))
+                     library_ms=None, bound_share=share4))
 
     types = dists.TYPES_4
     t = len(types)
@@ -2337,11 +2286,11 @@ def time_new_kernels(np, torch, x, dev, launches_k, launches_rows, worst_k3, err
     k2r_call = time_cuda(torch, lambda: kernel.fit_error_counts(x, *args, row_indices=idx), 50, flush)
     k2r = time_kernel(lambda: kernel._fit_error_counts_in_range(x, *args, idx), flush)
     k2r_plain = time_cuda(torch, lambda: kernel.fit_error_counts_plain(x[idx], *args), 10, flush)
-    # Bytes: the G representative rows, their vmin, vmax, edges, params and
-    # indices read once, the errors written once (no float64 work at T = 4).
-    b2r, by2r = bound_ms(4 * (g * n + 2 * g + g * (L + 1) + 3 * t * g + t * g) + 8 * g,
-                         4 * g * n + 30 * g * t * (L + 1) + 3 * g * t * L,
-                         special_function_ops(np, params.cpu().numpy(), edges.cpu().numpy(), types))
+    f64 = rl.special_function_ops(params.cpu().numpy(), edges.cpu().numpy(), types)
+    b2r, by2r = rl.bound_ms(*rl.k2_work(p, n, t, L, rows=g, f64_ops=f64))
+    share2r = roofline_line(f"K2 row_indices {g} of ({p}, {n}) T={t} L={L}", b2r, premove_bound_ms(
+        4 * (g * n + 2 * g + g * (L + 1) + 3 * t * g + t * g) + 8 * g,
+        4 * g * n + 30 * g * t * (L + 1) + 3 * g * t * L, f64), k2r)
     log(f"[time] K2 fit_error_counts with row_indices, {g} representatives of ({p}, {n}) T={t} "
         f"L={L}: call {k2r_call} ms (the public wrapper, its range check included), kernel {k2r} ms "
         f"(device Select's call, no range check; {100 * b2r / k2r} % of bound), plain (gather, then "
@@ -2352,7 +2301,7 @@ def time_new_kernels(np, torch, x, dev, launches_k, launches_rows, worst_k3, err
                      replaces="src/repro/kernels/fitpdf/ops.py:79",
                      launches=launches_rows["fit_error_counts_row_indices"], max_abs_err=err_rows,
                      ms=k2r_call, kernel_ms=k2r, plain_ms=k2r_plain, bound_ms=b2r, bound_by=by2r,
-                     library_ms=None))
+                     library_ms=None, bound_share=share2r))
     return rows
 
 
@@ -2371,6 +2320,7 @@ def time_large_bins(np, torch, x, dev) -> dict:
     from repro_torch.kernels.fitpdf import kernel
     from repro_torch.kernels.hist import kernel as hk
     from repro_torch.kernels.moments import kernel as mk
+    from repro_torch.launch import roofline as rl
 
     p, n = x.shape
     flush = torch.empty(128 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
@@ -2399,14 +2349,19 @@ def time_large_bins(np, torch, x, dev) -> dict:
             f"{forced} bins; K4 counts exact")
         k2 = time_kernel(lambda: kernel.fit_error_counts(*args), flush, reps=20)
         k2_plain = time_cuda(torch, lambda: kernel.fit_error_counts_plain(*args), 3, flush)
-        b2, by2 = bound_ms(4 * (p * n + 2 * p + p * (L + 1) + 3 * t * p + t * p),
-                           4 * p * n + 30 * p * t * (L + 1) + 3 * p * t * L)
+        b2, by2 = rl.bound_ms(*rl.k2_work(p, n, t, L))
+        share2 = roofline_line(f"K2 ({p}, {n}) T={t} L={L}", b2, premove_bound_ms(
+            4 * (p * n + 2 * p + p * (L + 1) + 3 * t * p + t * p),
+            4 * p * n + 30 * p * t * (L + 1) + 3 * p * t * L), k2)
         a2 = kernel.fit_error_attributes(types, L)
         k4 = time_kernel(lambda: hk.hist_counts(x, m.vmin, m.vmax, L), flush, reps=20)
         k4_plain = time_cuda(torch, lambda: hk.hist_counts_plain(x, m.vmin, m.vmax, L), 3, flush)
-        b4, by4 = bound_ms(4 * (p * n + 2 * p + p * L), 4 * p * n)
+        b4, by4 = rl.bound_ms(*rl.k4_work(p, n, L))
+        share4 = roofline_line(f"K4 ({p}, {n}) L={L}", b4,
+                               premove_bound_ms(4 * (p * n + 2 * p + p * L), 4 * p * n), k4)
         a4 = hk.hist_attributes(L)
         row = dict(k2_kernel_ms=k2, k2_plain_ms=k2_plain, k2_bound_ms=b2, k2_bound_by=by2,
+                   k2_bound_share=share2, k4_bound_share=share4,
                    k2_chunk=a2["chunk"], k2_smem_bytes=a2["smem_bytes"], k4_kernel_ms=k4,
                    k4_plain_ms=k4_plain, k4_bound_ms=b4, k4_bound_by=by4, k4_chunk=a4["chunk"],
                    k4_smem_bytes=a4["smem_bytes"])
@@ -2507,11 +2462,6 @@ def profile_slice(torch, cfg, label, sim, slice_i, dev, wall_unprofiled, tree=No
 # ---------------------------------------------------------------------------
 # the LM serving path: K5, then gemma3-12b prefill + greedy decode
 # ---------------------------------------------------------------------------
-
-
-def band_pairs(s: int, w: int) -> int:
-    """Valid (query, key) pairs of one (b, h): the sum over i of min(i + 1, w)."""
-    return s * (s + 1) // 2 if s <= w else w * (w + 1) // 2 + (s - w) * w
 
 
 def band_inputs(np, torch, dev, case):
@@ -2684,7 +2634,8 @@ def lm_generate(np, torch, dev, smi, cfg, label, k5_per_prefill, shape_note, bat
     n_cache = cache_bytes(caches)
     del caches, step_logits
     decode_ms = sorted(steps_ms)[len(steps_ms) // 2]
-    nums = dict(batch=batch, generate_s=wall, prefill_s=prefill_s, decode_ms_per_token=decode_ms,
+    nums = dict(batch=batch, param_bytes=n_bytes, generate_s=wall, prefill_s=prefill_s,
+                decode_ms_per_token=decode_ms,
                 tokens_per_s=batch * LM_TOKENS / wall, decode_tokens_per_s=batch / decode_ms * 1e3,
                 prefill_tokens_per_s=batch * LM_PROMPT / prefill_s, max_memory_allocated_bytes=peak,
                 cache_bytes=n_cache)
@@ -3067,6 +3018,7 @@ def time_band_attn(np, torch, qkv, dev, launches, max_abs_err):
     from repro_torch.kernels._timing import median
     from repro_torch.kernels.band_attn import kernel as bk
     from repro_torch.kernels.band_attn.ref import banded_attention_ref
+    from repro_torch.launch import roofline as rl
 
     q, k, v = qkv
     b, s, h, hd = q.shape
@@ -3090,10 +3042,13 @@ def time_band_attn(np, torch, qkv, dev, launches, max_abs_err):
     ms, lib = median(ms_runs[0] + ms_runs[1]), median(lib_runs[0] + lib_runs[1])
     lib_err = float((sdpa().transpose(1, 2).float() - kernel().float()).abs().max())
     lib_backends = sdpa_backends(torch, sdpa, dev)
-    flops = 4 * hd * band_pairs(s, w) * b * h
-    nbytes = q.element_size() * (2 * b * s * h * hd + 2 * b * s * kvh * hd)
-    t_ops, t_bytes = flops / BF16_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    bound, by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    work = rl.k5_work(b, s, h, kvh, hd, w, q.dtype)
+    flops, nbytes = work.bf16_ops, work.bytes
+    t_ops, t_bytes = flops / rl.PEAK_FLOPS * 1e3, nbytes / rl.HBM_BW * 1e3
+    bound, by = rl.bound_ms(*work)
+    roofline_line(f"K5 {(b, s, h, kvh, hd, w)} bf16", bound, premove_bound_ms(
+        q.element_size() * (2 * b * s * h * hd + 2 * b * s * kvh * hd),
+        bf16_ops=4 * hd * rl.band_pairs(s, w) * b * h), ms)
     tflops = flops / (ms * 1e-3) / 1e12
     attrs = bk.tc_attributes(hd, h, kvh) if dev.type == "cuda" else {}
     log(f"[K5] the bf16 kernel's instantiation for hd {hd}, {h}/{kvh} heads: {json.dumps(attrs)} "
@@ -3210,7 +3165,8 @@ def _train_hymba(np, torch, dev, smi, cfg, batch_size):
 
     from repro_torch.data.tokens import TokenPipeline
     from repro_torch.kernels._timing import median
-    from repro_torch.launch import train
+    from repro_torch.launch import dryrun, train
+    from repro_torch.launch import roofline as rl
     from repro_torch.optim import AdamWConfig
 
     t0 = time.perf_counter()
@@ -3259,7 +3215,8 @@ def _train_hymba(np, torch, dev, smi, cfg, batch_size):
     flops = 6 * n_params * tokens
     nums = dict(batch=batch_size, seq=LM_PROMPT, step_s=step_s, tokens_per_s=tokens / step_s,
                 max_memory_allocated_bytes=peak, state_bytes=n_state, params=n_params,
-                model_flops_per_step=flops, model_flops_share_of_bf16_peak=flops / step_s / BF16_OPS_PER_S,
+                param_bytes=dryrun.tensor_bytes(model), optimizer_bytes=dryrun.tensor_bytes(opt),
+                model_flops_per_step=flops, model_flops_share_of_bf16_peak=flops / step_s / rl.PEAK_FLOPS,
                 losses=[r["loss"] for r in records], gnorms=[r["gnorm"] for r in records],
                 step_seconds=[r["s"] for r in records], k5_launches_per_step=launches["banded_attention_kernel"])
     log(f"[train hymba] {smi}: step {step_s} s (median of steps 2-{TRAIN_STEPS}), {nums['tokens_per_s']} "
@@ -3449,6 +3406,117 @@ def train_reduced_phase(np, torch, dev, smi):
     return launches, nums
 
 
+# ---------------------------------------------------------------------------
+# the accounting layer on the card: dry runs of the measured runs, and the CLIs
+# ---------------------------------------------------------------------------
+
+
+def roofline_lm_phase(smi, nums_lm, nums_train) -> dict:
+    """[roofline lm]: ``launch/dryrun.run_cell`` (on meta, nothing
+    allocated) of the runs the LM phases measured: gemma3-12b at LM_LAYERS
+    layers, mamba2-780m and hymba-1.5b at full depth, each the prefill of
+    LM_BATCH x LM_PROMPT tokens with caches for LM_TOKENS more, and
+    hymba-1.5b's training step at its batch x LM_PROMPT. Each bound beside
+    the measured seconds: the share may be at most MAX_SHARE. The dry
+    run's parameter bytes must equal the live model's, and for the step its
+    optimizer bytes the live optimizer's (with them, ``state_bytes``).
+    Returns the numbers a run."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.shapes import ShapeDef
+    from repro_torch.launch import dryrun
+
+    hymba = nums_train["train hymba"]
+    runs = (("lm", lm_config(), "prefill", LM_BATCH, nums_lm["lm"]),
+            ("lm ssm", registry.get(SSM_ARCH), "prefill", LM_BATCH, nums_lm["lm ssm"]),
+            ("lm hybrid", registry.get(HYBRID_ARCH).replace(block_local_attn=True), "prefill", LM_BATCH,
+             nums_lm["lm hybrid"]),
+            ("train hymba", hymba_train_config(), "train", hymba["batch"], hymba))
+    out = {}
+    for label, cfg, kind, batch, nums in runs:
+        measured = nums["prefill_s"] if kind == "prefill" else nums["step_s"]
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(cfg, ShapeDef(label, kind, LM_PROMPT, batch), verbose=False,
+                              max_len=LM_PROMPT + LM_TOKENS)
+        count_s = time.perf_counter() - t0
+        mem, t = rec["memory_analysis"], rec["terms_seconds"]
+        args = mem["arguments"]
+        share = rec["bound_seconds"] / measured
+        peak = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+        log(f"[roofline lm] {label}: {cfg.name} {cfg.num_layers} layers, {kind} {batch} x {LM_PROMPT}: "
+            f"bound {rec['bound_seconds']} s by {rec['dominant']} (compute {t['compute']} s: "
+            f"{rec['flops_per_device']} FLOPs; memory {t['memory']} s: {rec['bytes_per_device']} B op "
+            f"by op; kernels {json.dumps(rec['kernels'])}), measured {measured} s, share {share}; "
+            f"argument bytes {json.dumps(args)}; predicted peak (arguments + temporaries) {peak} B, "
+            f"measured max_memory_allocated {nums['max_memory_allocated_bytes']} B; {smi}; counted on "
+            f"meta in {count_s} s")
+        check(args["params"] == nums["param_bytes"], f"[roofline lm] {label}: the dry run's parameter "
+                                                     f"bytes {args['params']}, the live model's "
+                                                     f"{nums['param_bytes']}")
+        if kind == "train":
+            check(args["optimizer"] == nums["optimizer_bytes"],
+                  f"[roofline lm] {label}: the dry run's optimizer bytes {args['optimizer']}, the live "
+                  f"optimizer's {nums['optimizer_bytes']}")
+            log(f"[roofline lm] {label}: parameters and optimizer state {args['params'] + args['optimizer']} "
+                f"B on meta = state_bytes(model, opt) {nums['state_bytes']} B + the step counter's "
+                f"{nums['optimizer_bytes'] + nums['param_bytes'] - nums['state_bytes']} B")
+        check(share <= MAX_SHARE, f"[roofline lm] {label}: measured {measured} s is {share} of its bound "
+                                  f"{rec['bound_seconds']} s, above {MAX_SHARE}: the count is wrong")
+        out[label] = dict(bound_s=rec["bound_seconds"], dominant=rec["dominant"], measured_s=measured,
+                          share=share, terms_seconds=t, flops=rec["flops_per_device"],
+                          bytes=rec["bytes_per_device"], kernels=rec["kernels"], arguments=args,
+                          predicted_peak_bytes=peak, count_s=count_s)
+    return out
+
+
+def cell_counts(out_dir: Path) -> dict:
+    """ok / skipped by design / failed records of a dry run's output."""
+    recs = [json.loads(f.read_text()) for f in sorted(out_dir.glob("*.json"))]
+    ok = sum(1 for r in recs if r.get("ok"))
+    skipped = sum(1 for r in recs if r.get("skipped"))
+    return dict(ok=ok, skipped=skipped, failed=len(recs) - ok - skipped)
+
+
+def dryrun_phase(smi, tmp: Path) -> dict:
+    """[dryrun]: ``python -m repro_torch.launch.dryrun --all --mesh 1x1``
+    (all 40 LM cells, ~2 min of host time), ``python -m
+    repro_torch.launch.dryrun_pdf --all`` and ``python -m
+    repro_torch.launch.report`` over the LM records, each a subprocess on
+    this machine: each one's wall, exit code and its cells ok, skipped by
+    design and failed. A failed cell fails the phase."""
+    import os
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+
+    def run(label, argv):
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m", *argv], cwd=ROOT, env=env, capture_output=True,
+                           text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        check(p.returncode == 0, f"[dryrun] {label} exited {p.returncode}: {p.stderr[-2000:]}")
+        return p.stdout, wall
+
+    lm_dir, pdf_dir = tmp / "dryrun", tmp / "dryrun_pdf"
+    out = {}
+    _, wall = run("dryrun --all", ["repro_torch.launch.dryrun", "--all", "--mesh", "1x1", "--out",
+                                   str(lm_dir)])
+    out["dryrun"] = dict(wall_s=wall, **cell_counts(lm_dir))
+    _, wall = run("dryrun_pdf --all", ["repro_torch.launch.dryrun_pdf", "--all", "--out", str(pdf_dir)])
+    out["dryrun_pdf"] = dict(wall_s=wall, **cell_counts(pdf_dir))
+    table, wall = run("report", ["repro_torch.launch.report", "--dir", str(lm_dir), "--mesh", "1x1"])
+    out["report"] = dict(wall_s=wall)
+    for kind in ("dryrun", "dryrun_pdf"):
+        log(f"[dryrun] python -m repro_torch.launch.{kind} --all: {json.dumps(out[kind])} (wall s, "
+            f"cells ok, skipped by design, failed)")
+        check(out[kind]["failed"] == 0, f"[dryrun] {kind}: {out[kind]['failed']} failed cells")
+    log(f"[dryrun] python -m repro_torch.launch.report in {wall} s:\n{table}")
+    reported = table.strip().splitlines()[-1]
+    want = (f"cells: {out['dryrun']['ok']} ok, {out['dryrun']['skipped']} skipped-by-design, "
+            f"0 failed")
+    check(reported == want, f"[dryrun] report says {reported!r}, the records {want!r}")
+    log(f"[summary dryrun] {smi}: {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3612,6 +3680,12 @@ def main() -> int:
     launches_train["train reduced"], nums_train["train reduced"] = train_reduced_phase(np, torch, dev, smi)
     for label, n in nums_train.items():
         log(f"[summary {label}] {smi}: {json.dumps(n)}")
+    # The accounting layer: the dry run of the measured LM runs, then its
+    # command-line tools.
+    nums_roofline = roofline_lm_phase(smi, nums_lm, nums_train)
+    log(f"[summary roofline lm] {smi}: {json.dumps(nums_roofline)}")
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp_name:
+        dryrun_phase(smi, Path(tmp_name))
 
     row = time_band_attn(np, torch, draws[K5_GEMMA], dev, launches_lm["lm"], err_k5[K5_GEMMA])
     at_hymba = time_band_attn(np, torch, draws[K5_HYMBA], dev, launches_lm["lm hybrid"], err_k5[K5_HYMBA])

@@ -1,6 +1,7 @@
 """What the CUDA kernel wrappers of repro_torch share: binding a library's C
-functions with ``ctypes``, the launch stream, the checks of their inputs
-and the check of a launch's return code."""
+functions with ``ctypes``, the launch stream, the checks of their inputs,
+the check of a launch's return code, and the meta device's accounting
+hook (``on_meta``)."""
 
 from __future__ import annotations
 
@@ -11,6 +12,17 @@ import torch
 VP, I32, SIZE_T = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
 
 _bound: dict[str, ctypes.CDLL] = {}
+
+# A wrapper given meta tensors builds and launches nothing (no launch is
+# counted): it returns its outputs on meta and reports its kernel and shape
+# to each meter active here (``launch/dryrun.Meter``, which charges the
+# kernel's work model, ``launch/roofline.KERNEL_WORK``).
+METERS: list = []
+
+
+def on_meta(kernel: str, *shape) -> None:
+    for meter in METERS:
+        meter.charge_kernel(kernel, *shape)
 
 
 def bind(name: str, signatures: dict[str, tuple[list, object]]) -> ctypes.CDLL:
@@ -46,13 +58,13 @@ def device_index(device: torch.device) -> int:
 
 
 def check_values(values: torch.Tensor) -> None:
-    """A (P, n) float32 window on the CPU or a CUDA device, n >= 1, with
-    extents that fit the kernels' int arguments."""
+    """A (P, n) float32 window on the CPU, a CUDA device or meta, n >= 1,
+    with extents that fit the kernels' int arguments."""
     if values.dtype != torch.float32:
         raise TypeError(f"values must be float32, got {values.dtype}")
     if values.ndim != 2 or values.shape[1] < 1:
         raise ValueError(f"values must be (P, n) with n >= 1, got {tuple(values.shape)}")
-    if values.device.type not in ("cpu", "cuda"):
+    if values.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"values on unsupported device {values.device}")
     if values.shape[0] >= 2**31 or values.shape[1] >= 2**31:
         raise ValueError(f"values shape {tuple(values.shape)} exceeds int32 extents")

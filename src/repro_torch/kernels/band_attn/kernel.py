@@ -19,7 +19,8 @@ float32 runs on the CUDA cores, so it keeps float32 products.
 
 The wrapper dispatches on the tensor's device: a CPU tensor gets the plain
 version (``ref.banded_attention_ref``), a CUDA tensor the kernel or an
-exception. It counts its launches, of either dtype, in
+exception, a meta tensor its output's shape and the dry run's charge
+(``_launch.on_meta``). It counts its launches, of either dtype, in
 ``banded_attention_kernel.launches``.
 """
 
@@ -66,7 +67,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int) -> No
         raise ValueError(f"head_dim {hd} unsupported: it must be a multiple of 8 up to {MAX_HEAD_DIM}")
     if window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"q on unsupported device {q.device}")
 
 
@@ -77,6 +78,9 @@ def banded_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return banded_attention_ref(q, k, v, window)
     b, s, h, hd = q.shape
+    if q.device.type == "meta":
+        _launch.on_meta("banded_attention_kernel", b, s, h, k.shape[2], hd, window, q.dtype)
+        return torch.empty_like(q)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")

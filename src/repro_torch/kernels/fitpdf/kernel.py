@@ -54,7 +54,8 @@
 
 Each wrapper dispatches on the tensor's device: a CPU tensor gets the plain
 PyTorch version (``*_plain``, the same arithmetic, the CPU tests' path), a
-CUDA tensor gets the kernel or an exception. Each counts its kernel
+CUDA tensor gets the kernel or an exception, a meta tensor its outputs'
+shapes and the dry run's charge (``_launch.on_meta``). Each counts its kernel
 launches in ``<wrapper>.launches``, one a chunk of bins for K2 (the CPU
 path counts nothing).
 """
@@ -109,10 +110,13 @@ def moments_edges_stats(values: torch.Tensor, num_bins: int):
         raise ValueError(f"num_bins must be >= 1, got {num_bins}")
     if values.device.type == "cpu":
         return moments_edges_stats_plain(values, num_bins)
-    _launch.check_contiguous(values)
     p, n = values.shape
     stats = torch.empty((p, NUM_STATS), dtype=torch.float32, device=values.device)
     edges = torch.empty((p, num_bins + 1), dtype=torch.float32, device=values.device)
+    if values.device.type == "meta":
+        _launch.on_meta("moments_edges_stats", p, n, num_bins)
+        return stats, edges
+    _launch.check_contiguous(values)
     if p:
         lib = _library()
         rc = lib.fitpdf_moments_edges_stats(
@@ -167,7 +171,7 @@ def fit_error_counts(values, vmin, vmax, edges, params, types: Sequence[str],
     An index outside [0, P) raises ``IndexError``, which on a CUDA tensor
     costs one host synchronisation. Device Select, whose indices are in
     range by construction, calls ``_fit_error_counts_in_range`` instead."""
-    if row_indices is not None and row_indices.numel() and bool(
+    if row_indices is not None and row_indices.numel() and values.device.type != "meta" and bool(
             ((row_indices < 0) | (row_indices >= len(values))).any()):
         raise IndexError(f"row_indices out of range for {len(values)} rows")
     return _fit_error_counts_in_range(values, vmin, vmax, edges, params, types, num_bins,
@@ -207,8 +211,12 @@ def _fit_error_counts_in_range(values, vmin, vmax, edges, params, types: Sequenc
         rows = values[safe] if p else values.new_zeros((g, values.shape[1]))
         err = fit_error_counts_plain(rows, vmin, vmax, edges, params, types, num_bins)
         return torch.where(inside[:, None], err, float("nan"))
-    _launch.check_contiguous(values)
     err = torch.empty((g, t), dtype=torch.float32, device=values.device)
+    if values.device.type == "meta":
+        _launch.on_meta("fit_error_counts", p, values.shape[1], t, num_bins,
+                        None if row_indices is None else g)
+        return err
+    _launch.check_contiguous(values)
     if g:
         lib = _library()
         dev = _launch.device_index(values.device)

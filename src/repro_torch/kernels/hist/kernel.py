@@ -17,7 +17,8 @@ block counts the bins in chunks, reading the row again for each.
 
 The wrapper dispatches on the tensor's device: a CPU tensor gets the plain
 version (``pe.histogram_scatter``), a CUDA tensor the kernel or an
-exception. It counts its kernel launches, one a chunk of bins, in
+exception, a meta tensor its output's shape and the dry run's charge
+(``_launch.on_meta``). It counts its kernel launches, one a chunk of bins, in
 ``hist_counts.launches``.
 """
 
@@ -64,9 +65,12 @@ def _hist_counts(values, vmin, vmax, num_bins: int, chunk: int = 0) -> torch.Ten
     _launch.check_operand("vmax", vmax, (p,), values.device)
     if values.device.type == "cpu":
         return hist_counts_plain(values, vmin, vmax, num_bins)
+    counts = torch.empty((p, num_bins), dtype=torch.float32, device=values.device)
+    if values.device.type == "meta":
+        _launch.on_meta("hist_counts", p, n, num_bins)
+        return counts
     _launch.check_contiguous(values)
     lib = _library()
-    counts = torch.empty((p, num_bins), dtype=torch.float32, device=values.device)
     if p:
         dev = _launch.device_index(values.device)
         rc = lib.hist_counts(values.data_ptr(), vmin.data_ptr(), vmax.data_ptr(),

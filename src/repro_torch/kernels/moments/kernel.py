@@ -15,7 +15,8 @@ stats do not depend on where the row lies. The TPU kernel pads P to its
 8-row tile; this one masks its own ragged edge, so no row is padded.
 
 The wrapper dispatches on the tensor's device: a CPU tensor gets the plain
-version, a CUDA tensor the kernel or an exception. It counts its launches in
+version, a CUDA tensor the kernel or an exception, a meta tensor its
+output's shape and the dry run's charge (``_launch.on_meta``). It counts its launches in
 ``moments_stats.launches`` (the CPU path counts nothing).
 """
 
@@ -73,9 +74,12 @@ def moments_stats(values: torch.Tensor) -> torch.Tensor:
     _launch.check_values(values)
     if values.device.type == "cpu":
         return moments_stats_plain(values)
-    _launch.check_contiguous(values)
     p, n = values.shape
     stats = torch.empty((p, NUM_STATS), dtype=torch.float32, device=values.device)
+    if values.device.type == "meta":
+        _launch.on_meta("moments_stats", p, n)
+        return stats
+    _launch.check_contiguous(values)
     if p:
         lib = _library()
         rc = lib.moments_stats(values.data_ptr(), stats.data_ptr(), p, n,

@@ -105,3 +105,16 @@ def test_training_modules_are_covered():
             "repro_torch.optim.schedule", "repro_torch.optim.compression",
             "repro_torch.checkpoint", "repro_torch.checkpoint.manager",
             "repro_torch.data.tokens", "repro_torch.launch.train"} <= set(MODULES)
+
+
+def test_accounting_modules_are_covered():
+    """The accounting layer's modules (shapes, mesh, placements, roofline,
+    the dry runs and the report) are among those checked above, and the
+    dry runs set no XLA flags."""
+    new = {"repro_torch.configs.shapes", "repro_torch.launch.mesh", "repro_torch.models.sharding",
+           "repro_torch.launch.roofline", "repro_torch.launch.dryrun",
+           "repro_torch.launch.dryrun_pdf", "repro_torch.launch.report"}
+    assert new <= set(MODULES)
+    for name in ("dryrun", "dryrun_pdf"):
+        source = (ROOT / "src" / "repro_torch" / "launch" / f"{name}.py").read_text()
+        assert "os.environ" not in source, name
