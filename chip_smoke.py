@@ -198,6 +198,38 @@ The accounting layer (``repro_torch.launch.roofline``, ``dryrun``,
   ``dryrun_pdf --all`` and ``report`` as subprocesses, their walls and
   cells; a failed cell fails the run.
 
+The multi-device half (``launch/mesh.py``, ``models/sharding.py``, the
+sharded train step, flash decode, the compressed all-reduce, the split
+stager, the dry run above 1x1) runs last, on the one card:
+
+* ``[mesh 1x1]``: a one-rank NCCL world in this process and its 1x1
+  ``DeviceMesh``: hymba-1.5b at full width cut to 4 layers (the global
+  one and 3 windowed; remat full, AdamW, 4 x 4,096 tokens) for 2 steps
+  through ``train.build_step`` on DTensor parameters (K5 on each rank's
+  heads through ``local_map``: 6 launches a step) and on the one device
+  from the same weights and batches: losses and every parameter bitwise
+  equal; then gemma3-12b as ``[lm]`` has it, in float32 compute, with
+  ``flash_decode`` and the mesh in ``extras``: its 2 global layers decode
+  by ``flash_decode_attention`` against caches placed on the mesh, each
+  of 16 steps' logits within the decode oracle's 1e-3 of the plain
+  decode's, ``generate``'s 16 tokens equal, no K5 launch in decode;
+* ``[mesh 2 ranks]``: two NCCL ranks on the card once (NCCL refuses two
+  ranks on one device; its message is logged), then two processes with
+  ``backend="gloo"`` passed explicitly and logged: flash decode at
+  gemma3's attention width (float32, a 4 x 4,112 cache split over the
+  ranks) within 2e-5 of the one-rank plain decode, each rank's block of
+  the cache equal to it and written only by the owner of the position;
+  ``pod_allreduce_compressed`` of a tensor of hymba's embedding gradient's
+  shape within 1e-6 of the scheme and 0.05 of the mean; Set1 slice 201's
+  21 windows split over the ranks by ``ShardedStager`` (K1 and K2 once a
+  window on each rank), each window bitwise the one-rank window;
+* ``[dryrun mesh]``: the dry run's sharded step for granite-3-8b
+  ``decode_32k`` on 16x16 (``python -m repro_torch.launch.dryrun``) and
+  hymba-1.5b ``long_500k`` on 2x16x16 (``run_cell``), ``dryrun_pdf``'s
+  ``grouping_global`` on 16x16 (its command line) and
+  ``fused_scatter_shmap`` on 2x16x16: each cell's wall, collectives and
+  collective term; a failed cell fails the run.
+
 The K1-K4 rows of the kernels line carry ``launches_api_serve``, the
 ``[api]`` and ``[serve]`` launches, and ``launches_stream_cluster``, those
 of ``[stream]`` and ``[cluster]`` (summed over a cluster's workers); the
@@ -205,7 +237,9 @@ K5 row carries ``launches_lm_paths`` (each model's ``generate``: 0 on the
 enc-dec, VLM and MoE paths), ``at_hymba_shape`` (its numbers at hymba's
 shape), ``launches_train`` (a ``[train hymba]`` step's, the grad phase's
 K5 way's, ``[train reduced]``'s) and ``train_hymba`` (the step's time,
-K5's device time in the profiled step, the banded backward's). Any failed check raises, so the exit
+K5's device time in the profiled step, the banded backward's); K1 and K2
+carry ``launches_mesh`` (each rank's in the split stager), K5 a sharded
+step's in ``[mesh 1x1]``. Any failed check raises, so the exit
 code is non-zero. The line before the last is a JSON object of
 per-kernel numbers; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
@@ -347,6 +381,28 @@ TRAIN_GRAD_TOL = 2.0
 TRAIN_REDUCED_SEQ, TRAIN_REDUCED_BATCH = 64, 2
 TRAIN_LOSS_TOL = dict(rtol=1e-5, atol=0.0)
 EXAMPLE_ARCH, EXAMPLE_STEPS = "granite-3-8b", 60
+
+
+# The multi-device half ([mesh 1x1], [mesh 2 ranks], [dryrun mesh]). [mesh
+# 1x1] trains hymba-1.5b at full width cut to MESH_HYMBA_LAYERS layers (the
+# global prefix and 3 windowed ones: K5 twice a windowed layer a step, as
+# in [train hymba]) MESH_TRAIN_STEPS steps through the sharded step on a
+# one-rank NCCL world, bitwise the one-device step; then gemma3-12b's
+# [lm] cut with flash_decode on the 1x1 mesh. [mesh 2 ranks] spawns two
+# processes on the one card with gloo; flash decode at gemma3's attention
+# width at a position in each half of the cache.
+MESH_HYMBA_LAYERS = 4
+MESH_TRAIN_STEPS = 2
+MESH_K5_PER_STEP = 2 * (MESH_HYMBA_LAYERS - 1)
+MESH_FLASH_TOL = dict(rtol=0.0, atol=2e-5)  # the reference's (tests/test_mesh_multidevice.py:190)
+MESH_TIMEOUT = 300
+MESH_PROBE_TIMEOUT = 60
+# [dryrun mesh]: the LM dry run and the PDF window step's mesh variants on
+# the production meshes (fake worlds of 256 and 512 ranks): (arch or
+# variant, shape, multi_pod, through the command line or in this process).
+DRYRUN_MESH_CELLS = (("granite-3-8b", "decode_32k", False, True), ("hymba-1.5b", "long_500k", True, False))
+DRYRUN_PDF_MESH_CELLS = (("grouping_global", "window_small", False, True),
+                         ("fused_scatter_shmap", "window_prod", True, False))
 
 
 class SmokeFailure(AssertionError):
@@ -3517,6 +3573,379 @@ def dryrun_phase(smi, tmp: Path) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the multi-device half: meshes, collectives, the sharded step
+# ---------------------------------------------------------------------------
+
+
+def mesh_train_1x1(np, torch, dev, smi, dmesh) -> dict:
+    """hymba-1.5b at full width, MESH_HYMBA_LAYERS layers, MESH_TRAIN_STEPS
+    steps of ``train.build_step`` on the same batches twice from the same
+    seed-0 weights: on the one device, and on DTensor parameters placed on
+    the 1x1 mesh (``sharding.distribute_params``, the batch by
+    ``shard_batch``; K5 on each rank's heads through ``local_heads``). The
+    losses and every parameter after the steps bitwise equal; K5
+    MESH_K5_PER_STEP launches a step on both."""
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch import train
+    from repro_torch.models import sharding as sh
+    from repro_torch.optim import AdamWConfig
+
+    cfg = hymba_train_config().replace(num_layers=MESH_HYMBA_LAYERS)
+    check(sum(1 for bd in cfg.layer_defs() if bd.window) == MESH_HYMBA_LAYERS - 1, "[mesh 1x1] config")
+    pipe = TokenPipeline(cfg.vocab, LM_PROMPT, TRAIN_BATCH, seed=0)
+    batches = [train.make_batch(cfg, *pipe.next_batch(), i, dev) for i in range(MESH_TRAIN_STEPS)]
+    opt_cfg = AdamWConfig(lr=TRAIN_LR)
+
+    def run(label, sharded):
+        model = train.init_model(cfg, dev)
+        if sharded:
+            sh.distribute_params(cfg, dmesh, model)
+        opt = train.init_optimizer(cfg, dict(model.named_parameters()), opt_cfg)
+        step_fn = train.build_step(cfg, opt_cfg, MESH_TRAIN_STEPS)
+        losses, secs, launches = [], [], None
+        for i, batch in enumerate(batches):
+            if sharded:
+                batch = sh.shard_batch(batch, dmesh)
+            zero_counts()
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            model, opt, loss, _ = step_fn(model, opt, batch)
+            sync(torch, dev)
+            secs.append(time.perf_counter() - t0)
+            launches = read_counts()
+            check_launches(launches, {"banded_attention_kernel": MESH_K5_PER_STEP},
+                           f"mesh 1x1 {label} step {i}")
+            losses.append(float(loss))
+        params = {n: (p.to_local() if sh.is_dtensor(p) else p).detach()
+                  for n, p in model.named_parameters()}
+        kinds = sorted({type(p).__name__ for p in model.parameters()})
+        log(f"[mesh 1x1] {label}: hymba-1.5b, {cfg.num_layers} layers at full width, batch "
+            f"{TRAIN_BATCH} x {LM_PROMPT}: losses {losses}, step seconds {secs}, parameters {kinds}, "
+            f"launches a step {json.dumps(launches)}")
+        return losses, params, secs, launches
+
+    one = run("one device", False)
+    mesh = run("sharded step", True)
+    differ = [n for n, p in one[1].items() if not torch.equal(p, mesh[1][n])]
+    check(one[0] == mesh[0] and not differ,
+          f"[mesh 1x1] the sharded step differs from the one-device step: losses {one[0]} vs {mesh[0]}, "
+          f"parameters {differ[:5]} ({len(differ)})")
+    log(f"[mesh 1x1] {smi}: the sharded step on the 1x1 mesh is bitwise the one-device step over "
+        f"{MESH_TRAIN_STEPS} steps (losses and all {len(one[1])} parameters); step seconds one device "
+        f"{one[2]}, sharded {mesh[2]}")
+    k5 = mesh[3]["banded_attention_kernel"]
+    del one, mesh, batches
+    torch.cuda.empty_cache()
+    return dict(layers=cfg.num_layers, steps=MESH_TRAIN_STEPS, k5_per_step=k5, bitwise=True)
+
+
+def mesh_flash_1x1(np, torch, dev, smi, dmesh) -> dict:
+    """gemma3-12b as [lm] has it (full width, 12 layers) in float32 compute
+    (the decode oracle's; TF32 off) with ``flash_decode`` and the 1x1 mesh
+    in ``extras``: its two global layers decode by
+    ``flash_decode_attention`` against caches placed on the mesh
+    (``shard_decode_caches``). Each of LM_TOKENS steps' logits against the
+    plain decode's on the same tokens within LM_DECODE_TOL, no K5 launch in
+    decode; ``generate``'s tokens equal the plain path's. (In bf16 compute
+    the two round differently: flash decode casts the unnormalised
+    weights, as the reference's does, the plain path the normalised ones.)"""
+    from repro_torch.launch import serve_decode as sd
+    from repro_torch.models import sharding as sh
+    from repro_torch.models import transformer as T
+
+    cfg = lm_config().replace(compute_dtype=torch.float32)
+    flash = cfg.replace(flash_decode=True)
+    extras = {"mesh": dmesh}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = sd.init_params(cfg, gen, dev)
+    prompt = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), generator=gen, device=dev)
+    max_len = LM_PROMPT + LM_TOKENS
+    logits, plain = sd.prefill(cfg, model, prompt, None, max_len)
+    flogits, caches = sd.prefill(flash, model, prompt, extras, max_len)
+    check(torch.equal(logits, flogits), "[mesh 1x1] flash decode's prefill differs from the plain one")
+    caches = T.shard_decode_caches(flash, caches, extras)
+    placed = sum(1 for c in caches if "attn" in c and sh.is_dtensor(c["attn"]["k"]))
+    check(placed == LM_LAYERS - LM_LOCAL_LAYERS, f"[mesh 1x1] {placed} caches on the mesh, expected "
+                                                 f"the {LM_LAYERS - LM_LOCAL_LAYERS} global layers'")
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    errs, steps_ms = [], []
+    zero_counts()
+    for i in range(LM_TOKENS):
+        want, plain = sd.decode_step(cfg, model, tok, plain, LM_PROMPT + i)
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        got, caches = sd.decode_step(flash, model, tok, caches, LM_PROMPT + i, extras)
+        sync(torch, dev)
+        steps_ms.append((time.perf_counter() - t0) * 1e3)
+        errs.append(close_report(torch, got, want, what=f"[mesh 1x1] flash decode step {i} vs the plain "
+                                                         f"decode", **LM_DECODE_TOL))
+        tok = torch.argmax(want, -1).to(torch.int32)
+    check(read_counts()["banded_attention_kernel"] == 0, "[mesh 1x1] K5 launched in a decode step")
+    tokens = sd.generate(flash, model, prompt, LM_TOKENS, extras)
+    check(torch.equal(tokens, sd.generate(cfg, model, prompt, LM_TOKENS)),
+          "[mesh 1x1] flash decode's greedy tokens differ from the plain decode's")
+    nums = dict(flash_layers=placed, max_abs_vs_plain=max(errs),
+                flash_decode_ms_per_token=sorted(steps_ms)[len(steps_ms) // 2])
+    log(f"[mesh 1x1] {smi}: gemma3-12b, {LM_LAYERS} layers, float32 compute, flash_decode on the "
+        f"1x1 mesh ({placed} global layers by flash_decode_attention): {LM_TOKENS} greedy tokens "
+        f"equal to the plain "
+        f"decode's; logits max abs {max(errs)} from the plain decode's (tolerance rtol = atol = "
+        f"{LM_DECODE_TOL['rtol']}); {nums['flash_decode_ms_per_token']} ms a step (median)")
+    del model, plain, caches
+    torch.cuda.empty_cache()
+    return nums
+
+
+def mesh_1x1_phase(np, torch, dev, smi, tmp: Path) -> dict:
+    """[mesh 1x1]: a one-rank NCCL world in this process (its FileStore
+    under ``tmp``), its 1x1 ``DeviceMesh``, then ``mesh_train_1x1`` and
+    ``mesh_flash_1x1``; the world is left at the end."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as M
+
+    t0 = time.perf_counter()
+    backend = M.backend_for(dev)
+    dist.init_process_group(backend, store=dist.FileStore(str(tmp / "store_1x1"), 1), rank=0,
+                            world_size=1)
+    try:
+        dmesh = M.device_mesh(M.make_mesh((1, 1), ("data", "model")), dev.type)
+        log(f"[mesh 1x1] a one-rank {dist.get_backend()} world, mesh {dmesh}")
+        nums = {"backend": dist.get_backend(), "train": mesh_train_1x1(np, torch, dev, smi, dmesh),
+                "flash": mesh_flash_1x1(np, torch, dev, smi, dmesh)}
+    finally:
+        dist.destroy_process_group()
+    nums["wall_s"] = time.perf_counter() - t0
+    log(f"[summary mesh 1x1] {smi}: {json.dumps(nums)}")
+    return nums
+
+
+def _nccl_probe_rank(rank, world_size):
+    import torch
+    import torch.distributed as dist
+
+    x = torch.ones(4, device="cuda")
+    dist.all_reduce(x)
+    return float(x[0])
+
+
+def _flash_2rank(np, torch, dev, dmesh) -> dict:
+    """Flash decode at gemma3's attention width in float32 (d 3840, 16
+    heads, 8 KV heads, hd 256, qk-norm), batch LM_BATCH against a cache of
+    LM_PROMPT + LM_TOKENS positions split over the two ranks' ``model``
+    axis, at a position in each rank's half: the output against the
+    one-rank plain decode on the whole cache within MESH_FLASH_TOL, this
+    rank's block of the written cache equal to the plain cache's block,
+    changed only on the rank that owns the position."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import sharding as sh
+
+    cfg = lm_config().replace(compute_dtype=torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p = L.Attention(cfg, dev)
+    p.reset_parameters(gen)
+    s = LM_PROMPT + LM_TOKENS
+    x = torch.randn((LM_BATCH, 1, cfg.d_model), generator=gen, device=dev)
+    ck = torch.randn((LM_BATCH, s, cfg.kv_heads, cfg.head_dim), generator=gen, device=dev)
+    cv = torch.randn((LM_BATCH, s, cfg.kv_heads, cfg.head_dim), generator=gen, device=dev)
+    where = sh.Sharding(dmesh, sh.to_placements(("data", "model", None, None), dmesh))
+    idx, shard_len = dmesh.get_local_rank("model"), s // 2
+    out = {}
+    for pos in (s // 4, 3 * s // 4):
+        cache = {"k": sh.place(ck.clone(), where), "v": sh.place(cv.clone(), where)}
+        before = cache["k"].to_local().clone()
+        whole = {"k": ck.clone(), "v": cv.clone()}
+        with torch.no_grad():
+            y, c = L.flash_decode_attention(p, x, cache, pos, cfg=cfg, mesh=dmesh)
+            want, whole = L.decode_attention(p, x, whole, pos, cfg=cfg)
+        err = float((y - want).abs().max())
+        check(bool(torch.allclose(y, want, **MESH_FLASH_TOL)),
+              f"[mesh 2 ranks] flash decode at pos {pos}: max abs {err} from the plain decode")
+        block = slice(idx * shard_len, (idx + 1) * shard_len)
+        check(torch.equal(c["k"].to_local(), whole["k"][:, block])
+              and torch.equal(c["v"].to_local(), whole["v"][:, block]),
+              f"[mesh 2 ranks] flash decode at pos {pos}: rank {idx}'s cache block differs")
+        changed = not torch.equal(before, c["k"].to_local())
+        check(changed == (pos // shard_len == idx), f"[mesh 2 ranks] the new K/V at pos {pos} landed "
+                                                    f"{'on' if changed else 'off'} rank {idx}")
+        out[pos] = dict(max_abs=err, wrote_here=changed)
+    return out
+
+
+def _allreduce_2rank(np, torch, dev, rank) -> dict:
+    """``pod_allreduce_compressed`` of a tensor of hymba-1.5b's largest
+    gradient (its embedding's), a standard normal from seed ``rank`` on
+    each rank: every rank's result equal to the scheme computed here from
+    both inputs within 1e-6, and within 0.05 of the mean."""
+    from repro_torch.configs import registry
+    from repro_torch.optim import compress_int8, pod_allreduce_compressed
+
+    cfg = registry.get(HYBRID_ARCH)
+    shape = (cfg.padded_vocab, cfg.d_model)
+    xs = [torch.randn(shape, generator=torch.Generator(device=dev).manual_seed(r), device=dev)
+          for r in range(2)]
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    got = pod_allreduce_compressed(xs[rank])
+    sync(torch, dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    qs = [compress_int8(x) for x in xs]
+    top = torch.maximum(qs[0][1], qs[1][1])
+    want = (qs[0][0].float() * (qs[0][1] / top) + qs[1][0].float() * (qs[1][1] / top)) * top / 2
+    err = float((got - want).abs().max())
+    err_mean = float((got - (xs[0] + xs[1]) / 2).abs().max())
+    check(err <= 1e-6 and err_mean <= 0.05, f"[mesh 2 ranks] compressed all-reduce: {err} from the "
+                                            f"scheme, {err_mean} from the mean")
+    return dict(shape=list(shape), bytes=xs[0].numel() * 4, ms=ms, max_abs_vs_scheme=err,
+                max_abs_vs_mean=err_mean)
+
+
+def _stager_2rank(np, torch, dev, dmesh) -> dict:
+    """Set1 slice SET1_SLICE's windows split over the two ranks by
+    ``ShardedStager`` and ``run_window_sharded`` on the fused backend: K1
+    and K2 once a window on each rank, each window's results bitwise the
+    one-rank ``run_window``'s."""
+    from repro_torch.core import regions
+    from repro_torch.core.executor import RESULT_FIELDS
+    from repro_torch.core.pipeline import PDFConfig, StagedExecutor
+    from repro_torch.data.loader import ShardedStager
+    from repro_torch.data.simulation import SeismicSimulation
+
+    sim = SeismicSimulation()
+    cfg = PDFConfig()
+    ex = StagedExecutor(cfg, sim, dev)
+    sharded = ShardedStager(ex.stager, mesh=dmesh, axes=("data",))
+    windows = list(regions.iter_windows(sim.geometry, SET1_SLICE, cfg.window_lines))[:SET1_WINDOWS]
+    launches = {name: 0 for name in launch_counters()}
+    t0 = time.perf_counter()
+    for w in windows:
+        zero_counts()
+        got = ex.run_window_sharded(w, sharded)
+        for name, n in read_counts().items():
+            launches[name] += n
+        want = ex.run_window(w)
+        differ = [f for f in RESULT_FIELDS
+                  if not np.array_equal(getattr(got, f), getattr(want, f), equal_nan=True)]
+        check(not differ, f"[mesh 2 ranks] window {w}: the split window differs from the one-rank "
+                          f"window in {differ}")
+    check_launches(launches, {"moments_edges_stats": len(windows), "fit_error_counts": len(windows)},
+                   "mesh 2 ranks stager")
+    staged, valid = sharded.stage(sim.load_window(windows[0]))
+    return dict(windows=len(windows), points=valid, rows_here=int(staged.values.shape[0]),
+                wall_s=time.perf_counter() - t0, launches=launches)
+
+
+def _mesh_rank(rank, world_size, device_type):
+    """One rank of [mesh 2 ranks]: on the card both ranks use CUDA device 0."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as M
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device_type, 0) if device_type == "cuda" else torch.device(device_type)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    out = {"backend": dist.get_backend()}
+    seq = M.device_mesh(M.make_mesh((1, 2), ("data", "model")), dev.type)
+    out["flash"] = _flash_2rank(np, torch, dev, seq)
+    out["allreduce"] = _allreduce_2rank(np, torch, dev, rank)
+    data = M.device_mesh(M.make_mesh((2, 1), ("data", "model")), dev.type)
+    out["stager"] = _stager_2rank(np, torch, dev, data)
+    return out
+
+
+def mesh_2rank_phase(np, torch, smi, tmp: Path, device_type: str = "cuda", rank_fn=_mesh_rank) -> dict:
+    """[mesh 2 ranks]: first two NCCL ranks on the one card, once (NCCL
+    normally refuses two ranks on one device; what it says is logged), then
+    two gloo ranks, the backend passed explicitly (gloo carries CUDA
+    tensors for all_reduce, which flash decode and the compressed
+    all-reduce use; the split stager gathers its results on the host):
+    ``_flash_2rank``, ``_allreduce_2rank`` and ``_stager_2rank`` on each
+    rank. Returns the numbers and each rank's launches."""
+    from repro_torch.launch import mesh as M
+
+    t0 = time.perf_counter()
+    try:  # a probe whose refusal is the expected finding, logged either way
+        got = M.run_world(_nccl_probe_rank, 2, "nccl", tmp / "nccl", timeout=MESH_PROBE_TIMEOUT)
+        nccl = f"ran: all_reduce gave {got}"
+    except (RuntimeError, TimeoutError) as e:
+        lines = [ln.strip() for ln in str(e).splitlines() if ln.strip()]
+        keys = ("Error", "error", "NCCL", "Duplicate", "duplicate")
+        nccl = "refused: " + " | ".join(ln for ln in lines if any(k in ln for k in keys))[-900:]
+    log(f"[mesh 2 ranks] two NCCL ranks on one card ({time.perf_counter() - t0} s): {nccl}")
+    t1 = time.perf_counter()
+    ranks = M.run_world(rank_fn, 2, "gloo", tmp / "gloo", args=(device_type,), timeout=MESH_TIMEOUT)
+    wall = time.perf_counter() - t1
+    for r, out in enumerate(ranks):
+        check(out["backend"] == "gloo", f"[mesh 2 ranks] rank {r} ran on {out['backend']}")
+        log(f"[mesh 2 ranks] rank {r} (backend {out['backend']}, passed explicitly): flash decode "
+            f"{json.dumps(out['flash'])}; compressed all-reduce {json.dumps(out['allreduce'])}; split "
+            f"stager {json.dumps(out['stager'])}")
+    nums = dict(nccl_two_ranks=nccl, backend="gloo", wall_s=wall, ranks=ranks)
+    log(f"[summary mesh 2 ranks] {smi}: two gloo ranks on one card in {wall} s; flash decode, the "
+        f"compressed all-reduce and the split stager held on both")
+    return nums
+
+
+def dryrun_mesh_phase(smi, tmp: Path) -> dict:
+    """[dryrun mesh]: the dry run's sharded step on DRYRUN_MESH_CELLS and
+    the PDF window step on DRYRUN_PDF_MESH_CELLS, each in a fake world of
+    the mesh's size: one of each through its command line (``python -m
+    repro_torch.launch.dryrun`` / ``dryrun_pdf``, a subprocess), the other
+    through ``run_cell`` / ``run_pdf_cell`` here. Each one's wall, its
+    collectives and collective term. A failed cell fails the phase."""
+    import os
+
+    from repro_torch.launch import dryrun, dryrun_pdf
+    from repro_torch.launch.mesh import make_production_mesh
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = {}
+
+    def cli(label, argv):
+        out_dir = tmp / label.replace(" ", "_")
+        p = subprocess.run([sys.executable, "-m", *argv, "--out", str(out_dir)], cwd=ROOT, env=env,
+                           capture_output=True, text=True, timeout=600)
+        check(p.returncode == 0, f"[dryrun mesh] {label} exited {p.returncode}: {p.stderr[-2000:]}")
+        recs = [json.loads(f.read_text()) for f in sorted(out_dir.glob("*.json"))]
+        check(len(recs) == 1 and recs[0].get("ok"), f"[dryrun mesh] {label}: {recs}")
+        return recs[0]
+
+    def record(label, run):
+        t0 = time.perf_counter()
+        rec = run()
+        out[label] = dict(wall_s=time.perf_counter() - t0, mesh=rec["mesh"],
+                          collective_ops=rec["collective_ops"],
+                          collective_traffic_per_device=rec["collective_traffic_per_device"],
+                          terms_seconds=rec["terms_seconds"], flops_per_device=rec["flops_per_device"],
+                          bytes_per_device=rec["bytes_per_device"])
+        log(f"[dryrun mesh] {label}: {json.dumps(out[label])}")
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.shapes import SHAPES
+
+    for arch, shape, multi_pod, through_cli in DRYRUN_MESH_CELLS:
+        mesh = make_production_mesh(multi_pod=multi_pod)
+        text = "x".join(map(str, mesh.shape))
+        label = f"{arch} {shape} {text} {'cli' if through_cli else 'run_cell'}"
+        record(label, (lambda: cli(label, ["repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+                                           "--mesh", text])) if through_cli else
+               (lambda: dryrun.run_cell(registry.get(arch), SHAPES[shape], mesh, verbose=False)))
+    for variant, shape, multi_pod, through_cli in DRYRUN_PDF_MESH_CELLS:
+        mesh = make_production_mesh(multi_pod=multi_pod)
+        label = f"pdf {variant} {shape} {'x'.join(map(str, mesh.shape))} " \
+                f"{'cli' if through_cli else 'run_pdf_cell'}"
+        record(label, (lambda: cli(label, ["repro_torch.launch.dryrun_pdf", "--variant", variant,
+                                           "--pdf-shape", shape] + (["--multi-pod"] if multi_pod else [])))
+               if through_cli else
+               (lambda: dryrun_pdf.run_pdf_cell(variant, shape, verbose=False, mesh=mesh)))
+    log(f"[summary dryrun mesh] {smi}: {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3687,12 +4116,25 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp_name:
         dryrun_phase(smi, Path(tmp_name))
 
+    # The multi-device half: a one-rank NCCL world, two gloo ranks on the
+    # card, the dry run on the production meshes.
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp_name:
+        tmp = Path(tmp_name)
+        nums_mesh = {"mesh 1x1": mesh_1x1_phase(np, torch, dev, smi, tmp),
+                     "mesh 2 ranks": mesh_2rank_phase(np, torch, smi, tmp),
+                     "dryrun mesh": dryrun_mesh_phase(smi, tmp)}
+    for r in rows:  # K1-K4: each rank's launches in the split stager's windows
+        r["launches_mesh"] = {f"mesh 2 ranks stager rank {i}": out["stager"]["launches"][r["name"]]
+                              for i, out in enumerate(nums_mesh["mesh 2 ranks"]["ranks"])
+                              if out["stager"]["launches"][r["name"]]}
+
     row = time_band_attn(np, torch, draws[K5_GEMMA], dev, launches_lm["lm"], err_k5[K5_GEMMA])
     at_hymba = time_band_attn(np, torch, draws[K5_HYMBA], dev, launches_lm["lm hybrid"], err_k5[K5_HYMBA])
     row["at_hymba_shape"] = {k: v for k, v in at_hymba.items()
                              if k not in ("name", "route", "source", "replaces")}
     row["launches_lm_paths"] = {label: n["banded_attention_kernel"] for label, n in launches_lm.items()}
     row["launches_train"] = {label: n["banded_attention_kernel"] for label, n in launches_train.items()}
+    row["launches_mesh"] = {"mesh 1x1 sharded step": nums_mesh["mesh 1x1"]["train"]["k5_per_step"]}
     hymba_train = nums_train["train hymba"]
     row["train_hymba"] = dict(batch=hymba_train["batch"], step_s=hymba_train["step_s"],
                               k5_ms_in_step=hymba_train["profile"].get("k5_ms"),

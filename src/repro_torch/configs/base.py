@@ -14,9 +14,10 @@ the same integer positions, so the port computes them one way. ``remat``
 acts in training (``models/transformer._remat``): it is what lets
 hymba-1.5b train at full width on one card; serving ignores it.
 ``adam_moments_bf16`` and ``use_adafactor`` choose the trainer's optimizer
-(``launch/train.py``). ``unported(cfg)`` names what the port does not run
-yet (flash-decode); the model's entry points refuse such a config through
-``check_ported``.
+(``launch/train.py``). ``flash_decode`` acts in decode when a mesh is
+given (``models/transformer.decode_step``). ``unported(cfg)`` names what
+the port does not run, today nothing; the model's entry points would
+refuse such a config through ``check_ported``.
 """
 
 from __future__ import annotations
@@ -145,13 +146,14 @@ class ArchConfig:
 
 
 def unported(cfg: ArchConfig) -> list[str]:
-    """What ``cfg`` asks for that the port does not run yet."""
-    return [f for f in ("flash_decode",) if getattr(cfg, f)]
+    """What ``cfg`` asks for that the port does not run: nothing since
+    flash decode was ported (a knob that lands in the reference before the
+    port goes here)."""
+    return []
 
 
 def check_ported(cfg: ArchConfig) -> None:
     missing = unported(cfg)
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: not ported to repro_torch yet: {', '.join(missing)} "
-            "(ROADMAP.md, queue 1 item 18)")
+            f"{cfg.name}: not ported to repro_torch yet: {', '.join(missing)}")

@@ -78,7 +78,8 @@ from repro_torch.core import sampling as smp
 from repro_torch.core.grouping import DEFAULT_TOL
 from repro_torch.core.ml_predict import TREE_FEATURES, tree_features, tree_features_np  # noqa: F401
 from repro_torch.core.reuse import ReuseCache
-from repro_torch.data.loader import PrefetchError, StagedValues, WindowPrefetcher, WindowStager
+from repro_torch.data.loader import (PrefetchError, ShardedStager, StagedValues, WindowPrefetcher,
+                                     WindowStager)
 from repro_torch.runtime.faults import ShardLostError, is_transient
 from repro_torch.runtime.monitor import StepMonitor, StragglerPolicy
 
@@ -490,6 +491,24 @@ class PersistStage:
         if not f.exists():
             return {"next_line": 0}
         return json.loads(f.read_text())
+
+    def run_window_sharded(self, w: regions.Window, sharded: ShardedStager) -> WindowResult:
+        """One window with its points split over the ranks of ``sharded``'s
+        mesh: each rank loads the window, stages its block of the rows
+        onto its own device, runs moments and the fit on them (K1 and K2
+        on the fused backend), copies its results to the host, and the
+        ranks' rows are gathered back into the whole window's result. The
+        fit is row by row, so it is the one-rank ``run_window``'s result
+        bit for bit. For the methods that fit every row (``baseline``,
+        ``ml``); every rank of the mesh must call it."""
+        if self.config.method not in ("baseline", "ml"):
+            raise ValueError(f"run_window_sharded fits every row; method {self.config.method!r} "
+                             "groups, reuses or samples over the whole window")
+        staged, p = sharded.stage(self.data.load_window(w))
+        values = self.stager.ready(staged)
+        moments = self._backend.moments(values)
+        t, params, e = self._fit(values, moments)
+        return WindowResult(w, *sharded.gather([t, params, e, *self._moments_np(moments)], p))
 
     def watermark(self, slice_i: int) -> int:
         return int(self.watermark_info(slice_i)["next_line"])
@@ -1290,6 +1309,24 @@ class StagedExecutor:
             for dst, col in zip((mean, std, skew, kurt), mom_np):
                 dst[sample_idx] = col
         return WindowResult(w, t, p, e, mean, std, skew, kurt)
+
+    def run_window_sharded(self, w: regions.Window, sharded: ShardedStager) -> WindowResult:
+        """One window with its points split over the ranks of ``sharded``'s
+        mesh: each rank loads the window, stages its block of the rows
+        onto its own device, runs moments and the fit on them (K1 and K2
+        on the fused backend), copies its results to the host, and the
+        ranks' rows are gathered back into the whole window's result. The
+        fit is row by row, so it is the one-rank ``run_window``'s result
+        bit for bit. For the methods that fit every row (``baseline``,
+        ``ml``); every rank of the mesh must call it."""
+        if self.config.method not in ("baseline", "ml"):
+            raise ValueError(f"run_window_sharded fits every row; method {self.config.method!r} "
+                             "groups, reuses or samples over the whole window")
+        staged, p = sharded.stage(self.data.load_window(w))
+        values = self.stager.ready(staged)
+        moments = self._backend.moments(values)
+        t, params, e = self._fit(values, moments)
+        return WindowResult(w, *sharded.gather([t, params, e, *self._moments_np(moments)], p))
 
     def watermark(self, slice_i: int) -> int:
         return PersistStage(self.out_dir, async_writes=False).watermark(slice_i)

@@ -133,11 +133,16 @@ def quantize_keys(mean: torch.Tensor, var: torch.Tensor, tol: float = DEFAULT_TO
 
 class DeviceGroups(NamedTuple):
     """Every point's representative (the lowest row index holding its key)
-    and the group count, which the host needs for its bookkeeping."""
+    and the group counts, which the host needs for its bookkeeping.
+    ``num_groups`` counts the groups of the whole table; after
+    ``group_device_global`` the points are one shard's and
+    ``num_groups_local`` counts the representatives among them (its
+    ``is_rep.sum()``); on one device the two are equal."""
 
     rep_for_point: torch.Tensor  # (P,) int64
     is_rep: torch.Tensor  # (P,) bool
     num_groups: int
+    num_groups_local: int
 
 
 def group_device(keys: torch.Tensor) -> DeviceGroups:
@@ -154,7 +159,35 @@ def group_device(keys: torch.Tensor) -> DeviceGroups:
     first = torch.full((g,), p, dtype=torch.int64, device=keys.device)
     first.scatter_reduce_(0, inverse, idx, reduce="amin")
     rep_for_point = first[inverse]
-    return DeviceGroups(rep_for_point, rep_for_point == idx, g)
+    return DeviceGroups(rep_for_point, rep_for_point == idx, g, g)
+
+
+def group_device_global(keys: torch.Tensor, group=None) -> DeviceGroups:
+    """Global grouping across the ranks of ``group`` (default: the world):
+    the paper's cross-node shuffle.
+
+    Gathers every rank's (P_local, C) keys in rank order (the collective the
+    roofline's collective term prices), dedups the gathered table with
+    ``group_device``, and returns this rank's slice of it: each local
+    point's *global* representative (a row index of the gathered table),
+    its ``is_rep``, ``num_groups`` over the whole table and
+    ``num_groups_local`` = this slice's ``is_rep.sum()``. Every rank holds
+    the same number of points (a ``ShardedStager`` pads to that) and must
+    call it. The reference gathers over each mesh axis in turn; a group
+    over those axes in the same row-major order gathers the same table."""
+    import torch.distributed as dist
+
+    n = dist.get_world_size(group)
+    p_local = keys.shape[0]
+    parts = [torch.empty_like(keys) for _ in range(n)]
+    dist.all_gather(parts, keys.contiguous(), group=group)
+    groups = group_device(torch.cat(parts))
+    start = dist.get_rank(group) * p_local
+    local_rep = groups.rep_for_point[start:start + p_local]
+    local_is_rep = groups.is_rep[start:start + p_local]
+    num_local = local_is_rep.sum()  # a 0-d tensor on meta, where nothing is counted
+    return DeviceGroups(local_rep, local_is_rep, groups.num_groups,
+                        num_local if num_local.is_meta else int(num_local))
 
 
 def compact_representatives(

@@ -13,8 +13,8 @@ window goes through a pinned host buffer from a small pool and a
 ``non_blocking`` copy on a dedicated copy stream, so window *k+1*'s copy
 runs beside window *k*'s kernels; on the CPU it is ``torch.from_numpy``.
 ``ShardedStager`` pads a window to a shard divisor and stages it onto one
-device; splitting one window's points over several cards is still to come
-(ROADMAP: the multi-card ``ShardedStager``).
+device, or, on a mesh, stages each rank's block of the rows onto that
+rank's device.
 """
 
 from __future__ import annotations
@@ -187,30 +187,54 @@ class WindowStager:
 
 
 class ShardedStager:
-    """Stages (P, n_obs) windows for ``divisor`` shards of the points.
+    """Stages (P, n_obs) windows with the points split over ``divisor``
+    shards.
 
-    Port of the reference's ``ShardedStager`` on one device: pads the point
-    dimension to a multiple of ``divisor`` by repeating the last row (the
-    reference's rule) and stages the result through ``stager`` onto its one
-    device; callers slice results back with the returned valid count. On
-    one card the divisor is 1 and nothing is padded. Placing the shards'
-    rows on several cards is still to come (ROADMAP: the multi-card
-    ``ShardedStager``); cluster workers each stage whole windows onto their
-    own device (``runtime.cluster.device_placement``).
+    Port of the reference's ``ShardedStager``: pads the point dimension to a
+    multiple of ``divisor`` by repeating the last row (the reference's rule);
+    callers slice results back with the returned valid count. Without a
+    mesh the padded window is staged whole through ``stager`` onto its one
+    device (on one card the divisor is 1 and nothing is padded). With
+    ``mesh``, a ``DeviceMesh`` of the current world, the divisor is the
+    product of ``axes``' sizes and each rank stages only its own block of
+    the padded rows onto its own device (the reference's ``P(axes)``
+    split: block ``flat_index(mesh, axes)``); ``gather`` puts the ranks'
+    per-row results back together on the host.
     """
 
-    def __init__(self, stager: WindowStager, divisor: int = 1):
+    def __init__(self, stager: WindowStager, divisor: int = 1, mesh=None,
+                 axes: tuple[str, ...] = ("data",)):
+        if mesh is not None:
+            from repro_torch.launch.mesh import flat_index
+
+            self.index, divisor = flat_index(mesh, axes)
         if divisor < 1:
             raise ValueError(f"divisor must be >= 1, got {divisor}")
         self.stager = stager
         self.divisor = divisor
+        self.mesh = mesh
+        self.axes = tuple(axes)
 
     def stage(self, values: np.ndarray) -> tuple[StagedValues, int]:
         p = values.shape[0]
         pad = (-p) % self.divisor
         if pad:
             values = np.concatenate([values, np.repeat(values[-1:], pad, axis=0)])
+        if self.mesh is not None:
+            rows = values.shape[0] // self.divisor
+            values = values[self.index * rows:(self.index + 1) * rows]
         return self.stager.stage(values), p
+
+    def gather(self, arrays, valid: int) -> list[np.ndarray]:
+        """Each of ``arrays`` (this rank's per-row host results, rows first)
+        gathered over the mesh's ``axes`` in row order and cut back to the
+        ``valid`` rows ``stage`` returned. Every rank must call it."""
+        if self.mesh is None:
+            return [np.asarray(a)[:valid] for a in arrays]
+        from repro_torch.launch.mesh import gather_rows
+
+        return [gather_rows(torch.from_numpy(np.ascontiguousarray(a)), self.mesh,
+                            self.axes).numpy()[:valid] for a in arrays]
 
 
 class PrefetchError(RuntimeError):

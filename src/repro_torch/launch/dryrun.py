@@ -38,14 +38,27 @@ The MoE dispatch's ``nonzero`` has no data-independent shape: the meter
 takes every choice as kept (``torch.fx.experimental._config.
 meta_nonzero_assume_all_nonzero``'s assumption), an upper bound on the
 index traffic; the (E, C, d) expert products do not depend on it. The
-record says so (``moe_dispatch``). A config that ``check_ported`` refuses
-gets a skipped record with its reason.
+record says so (``moe_dispatch``); grouping's dedup (``unique``) is
+taken the same way, every row distinct.
 
-Meshes above 1x1: only the per-device argument bytes are counted, from
-``models/sharding.py``'s placements; FLOPs, bytes and collectives need a
-sharded program (ROADMAP.md queue 1, item 18, the multi-device pieces), so
-such a record is skipped with that reason. The dry run always runs on
-``meta``; it sets no XLA flags and has no CPU fallback.
+**Meshes above 1x1.** The step is the sharded step of a world of
+``mesh.size`` ranks, counted in this process as rank 0 of a fake world
+(``launch.mesh.fake_world``: collectives dispatch and move nothing): the
+parameters, the optimizer state, the batch and the caches are DTensors
+on meta tensors, placed by ``models/sharding.py``'s rules
+(``distribute_params``, the batch and caches by ``input_specs``'
+placements), and the step runs the same code as on one card, DTensor
+inserting the collectives. ``LocalMeter`` counts what rank 0 runs: its
+local operators' FLOPs (``torch.utils.flop_counter``'s formulas on the
+local shards) and bytes, and each collective priced by
+``roofline.collective_traffic``'s ring factors from its result's bytes
+and its group's size; DTensor's ``CommDebugMode`` counts the collectives
+by operator beside it (``comm_debug_counts``). A decode step of a config
+with ``flash_decode`` takes the mesh, as the reference's
+(``extras["mesh"]``, the batch over the non-model axes). The argument
+bytes are the local shards' bytes, which equal ``per_device_bytes``.
+The dry run always runs on ``meta``; it sets no XLA flags and has no CPU
+fallback.
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch hymba-1.5b --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--mesh 1x1] [--out results/dryrun_torch]
@@ -66,7 +79,7 @@ from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs import registry
-from repro_torch.configs.base import ArchConfig, unported
+from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.shapes import SHAPES, ShapeDef, applicable, input_specs
 from repro_torch.kernels import _launch
 from repro_torch.launch import roofline as rl
@@ -74,8 +87,6 @@ from repro_torch.launch.mesh import Mesh, make_mesh, parse_mesh
 from repro_torch.models import sharding as sh
 
 ONE_CARD = make_mesh((1, 1), ("data", "model"))
-MULTI_DEVICE = "ROADMAP.md queue 1, item 18, the multi-device pieces"
-MULTI_DEVICE_NOTE = f"FLOPs, bytes and collectives need a sharded program: {MULTI_DEVICE}"
 MOE_DISPATCH = "every choice kept (nonzero on meta assumed all nonzero): an upper bound"
 
 # -- the counting mode ----------------------------------------------------------
@@ -198,12 +209,150 @@ class Meter(TorchDispatchMode):
             x = args[0]
             self.assumed_nonzero += 1
             out = torch.empty((x.numel(), x.dim()), dtype=torch.long, device=x.device)
+        elif func is torch.ops.aten.unique_dim.default and args[0].is_meta:
+            # Grouping's dedup: every row taken as distinct, as nonzero above.
+            x, dim = args[0], args[1]
+            self.assumed_nonzero += 1
+            n = x.shape[dim]
+            out = (torch.empty_like(x), torch.empty((n,), dtype=torch.long, device=x.device),
+                   torch.empty((n,), dtype=torch.long, device=x.device))
         else:
             out = func(*args, **kwargs)
         self.ops += 1
         self.bytes += op_bytes(func, args, kwargs, out)
         self._track({_sid(t) for t in _tensors((args, kwargs))}, _tensors(out))
         return out
+
+
+_COLLECTIVES = {
+    "all_reduce": "all-reduce", "allreduce_": "all-reduce",
+    "all_gather_into_tensor": "all-gather", "_allgather_base_": "all-gather",
+    "allgather_": "all-gather", "allgather_into_tensor_coalesced_": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter", "_reduce_scatter_base_": "reduce-scatter",
+    "reduce_scatter_": "reduce-scatter",
+    "all_to_all_single": "all-to-all", "alltoall_base_": "all-to-all",
+    "send": "collective-permute",
+}
+
+
+def _group_size(args) -> int:
+    """The size of the process group a collective's arguments name."""
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    for a in args:
+        if isinstance(a, torch.ScriptObject):  # a c10d op's ProcessGroup
+            a = torch.distributed.ProcessGroup.unbox(a)
+        if isinstance(a, torch.distributed.ProcessGroup):
+            return a.size()
+        if isinstance(a, str):
+            try:
+                return _resolve_process_group(a).size()
+            except (KeyError, RuntimeError, ValueError):
+                continue
+    raise ValueError(f"no process group among a collective's {len(args)} arguments")
+
+
+def collective_of(func, args, out) -> tuple[str, int, int] | None:
+    """(kind, bytes of its result on one rank, group size) of a collective
+    operator (the functional ops DTensor issues, ``torch.distributed``'s
+    c10d ops), else None. The result is what ``collective_traffic`` prices:
+    the gathered buffer, the scattered shard, the reduced tensor."""
+    kind = _COLLECTIVES.get(func._overloadpacket.__name__)
+    if kind is None:
+        return None
+    if kind == "all-gather":
+        result = _tensors(args[0] if func._overloadpacket.__name__ != "all_gather_into_tensor"
+                          else out)
+    elif kind == "reduce-scatter":
+        result = _tensors(out if func._overloadpacket.__name__ == "reduce_scatter_tensor"
+                          else args[0])
+    else:
+        result = _tensors(args[0])
+    nbytes = sum(t.numel() * t.element_size() for t in result)
+    return kind, nbytes, _group_size(args)
+
+
+class LocalMeter(Meter):
+    """``Meter`` for a sharded step: counts what one rank runs. An operator
+    on DTensors is handed to DTensor (``NotImplemented``), which runs it as
+    local operators on the rank's shards, and those are counted: their
+    bytes, their FLOPs by ``torch.utils.flop_counter``'s formulas, and each
+    collective's link traffic (``collective_of`` priced by
+    ``roofline.collective_traffic``). DTensor's own shape propagation runs
+    on fake tensors and is not counted."""
+
+    def __init__(self):
+        super().__init__()
+        self.flops = 0
+        self.collectives = rl.CollectiveStats()
+        self._propagating = 0
+        self._restore = None
+
+    _PROPAGATORS = ("_propagate_tensor_meta_non_cached", "propagate_op_sharding_non_cached")
+
+    def __enter__(self):
+        # DTensor derives a new operator's output shape and sharding by
+        # running it (or its decomposition) on tensors of the global shapes,
+        # whose kernels reach this mode as plain meta tensors: nothing of
+        # that is a rank's work, so it is run uncounted.
+        from torch.distributed.tensor._sharding_prop import ShardingPropagator
+
+        saved = {name: getattr(ShardingPropagator, name) for name in self._PROPAGATORS}
+
+        def quiet(orig):
+            def run(*args, **kwargs):
+                self._propagating += 1
+                try:
+                    return orig(*args, **kwargs)
+                finally:
+                    self._propagating -= 1
+            return run
+
+        for name, orig in saved.items():
+            setattr(ShardingPropagator, name, quiet(orig))
+        self._restore = lambda: [setattr(ShardingPropagator, n, f) for n, f in saved.items()]
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        self._restore()
+        return super().__exit__(*exc)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch._subclasses.fake_tensor import FakeTensor
+        from torch.distributed.tensor import DTensor
+        from torch.utils.flop_counter import flop_registry
+
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        kwargs = kwargs or {}
+        if self._propagating or any(issubclass(t, FakeTensor) for t in types):
+            return func(*args, **kwargs)
+        out = super().__torch_dispatch__(func, types, args, kwargs)
+        formula = flop_registry.get(func._overloadpacket)
+        if formula is not None:
+            self.flops += formula(*args, **kwargs, out_val=out)
+        coll = collective_of(func, args, out)
+        if coll is not None:
+            kind, nbytes, n = coll
+            self.collectives.add(kind, rl.collective_traffic(kind, nbytes, n))
+        return out
+
+
+def count_local(fn) -> tuple[object, dict]:
+    """``count`` for a sharded step in a (fake) world: rank 0's local work
+    (``LocalMeter``) and the collectives ``CommDebugMode`` saw, by operator
+    (``comm_debug_counts``); ``collectives`` is the priced
+    ``roofline.CollectiveStats``."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    with CommDebugMode() as comm, LocalMeter() as meter:
+        out = fn()
+    debug = {str(op): n for op, n in comm.get_comm_counts().items()}
+    return out, dict(flops=meter.flops + meter.kernel_ops("bf16_ops"),
+                     f32_ops=meter.kernel_ops("f32_ops"), f64_ops=meter.kernel_ops("f64_ops"),
+                     bytes=meter.bytes, ops=meter.ops, kernels=meter.kernels,
+                     temp_bytes=meter.peak_bytes, assumed_nonzero=meter.assumed_nonzero,
+                     collectives=meter.collectives, comm_debug_counts=debug)
 
 
 def count(fn) -> tuple[object, dict]:
@@ -219,20 +368,28 @@ def count(fn) -> tuple[object, dict]:
                      temp_bytes=meter.peak_bytes, assumed_nonzero=meter.assumed_nonzero)
 
 
-def step_roofline(costs: dict, model_flops: float) -> rl.Roofline:
-    """``make_roofline`` on one card, with the kernels' float32 and float64
-    operations charged at their own peaks."""
-    r = rl.make_roofline(costs["flops"], costs["bytes"], rl.CollectiveStats(), 1, model_flops)
+def step_roofline(costs: dict, model_flops: float, chips: int = 1) -> rl.Roofline:
+    """``make_roofline`` for one device of ``chips`` (the collective term
+    from ``costs["collectives"]``, none on one card), with the kernels'
+    float32 and float64 operations charged at their own peaks."""
+    r = rl.make_roofline(costs["flops"], costs["bytes"],
+                         costs.get("collectives") or rl.CollectiveStats(), chips, model_flops)
     r.compute_s += costs["f32_ops"] / rl.F32_FLOPS + costs["f64_ops"] / rl.F64_FLOPS
     return r
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if sh.is_dtensor(t) else t
+
+
 def tensor_bytes(tree) -> int:
     """Bytes of every tensor in ``tree`` (modules' parameters, dicts, lists,
-    tuples, the optimizers' NamedTuples)."""
+    tuples, the optimizers' NamedTuples); of a DTensor, its local shard's."""
     if isinstance(tree, torch.nn.Module):
-        return sum(p.numel() * p.element_size() for p in tree.parameters())
-    return sum(t.numel() * t.element_size() for t in _tensors(tree))
+        tensors = list(tree.parameters())
+    else:
+        tensors = _tensors(tree)
+    return sum(_local(t).numel() * _local(t).element_size() for t in tensors)
 
 
 # -- the cell's step ----------------------------------------------------------------
@@ -246,14 +403,17 @@ def meta_model(cfg: ArchConfig):
     return (ED.EncDec if cfg.family == "encdec" else T.Transformer)(cfg, device="meta")
 
 
-def make_step(cfg: ArchConfig, shape: ShapeDef, max_len: int | None = None):
+def make_step(cfg: ArchConfig, shape: ShapeDef, max_len: int | None = None, dmesh=None):
     """(state, step): the arguments the cell's step takes beside its batch
-    (the model, and the optimizer for train) and ``step(state, batch)``."""
+    (the model, and the optimizer for train) and ``step(state, batch)``.
+    With ``dmesh`` (a ``DeviceMesh``) the parameters are placed on it."""
     from repro_torch.launch import serve_decode as sd
     from repro_torch.launch import train
     from repro_torch.optim import AdamWConfig
 
     model = meta_model(cfg)
+    if dmesh is not None:
+        sh.distribute_params(cfg, dmesh, model)
     if shape.kind == "train":
         opt_cfg = AdamWConfig()
         model.requires_grad_(True)
@@ -267,7 +427,12 @@ def make_step(cfg: ArchConfig, shape: ShapeDef, max_len: int | None = None):
 
         return {"params": model}, prefill
     pos = shape.seq_len - 1  # one new token against a full cache
-    return {"params": model}, lambda st, b: sd.decode_step(cfg, st["params"], b["token"], b["caches"], pos)
+    extras = None
+    if cfg.flash_decode and dmesh is not None:  # the reference's dryrun.py:82-86
+        extras = {"mesh": dmesh,
+                  "batch_axes": tuple(a for a in dmesh.mesh_dim_names if a != sh.MODEL_AXIS)}
+    return {"params": model}, lambda st, b: sd.decode_step(cfg, st["params"], b["token"],
+                                                           b["caches"], pos, extras)
 
 
 def model_flops_of(cfg: ArchConfig, shape: ShapeDef) -> float:
@@ -278,51 +443,48 @@ def model_flops_of(cfg: ArchConfig, shape: ShapeDef) -> float:
     return rl.model_flops_decode(cfg, shape.global_batch, shape.seq_len)
 
 
-def argument_bytes(state: dict, batch: dict, mesh: Mesh, cfg: ArchConfig, specs: dict) -> dict:
-    """Bytes of the step's arguments on one device: the whole tensors on
-    1x1, else each over the pieces its placement cuts it into (the
-    optimizer's moments placed as their parameters)."""
-    caches = batch.get("caches")
-    rest = {k: v for k, v in batch.items() if k != "caches"}
-    if mesh.size == 1:
-        out = {"params": tensor_bytes(state["params"]), "batch": tensor_bytes(rest)}
-        if "optimizer" in state:
-            out["optimizer"] = tensor_bytes(state["optimizer"])
-        if caches is not None:
-            out["caches"] = tensor_bytes(caches)
-        return out
-    pspecs = sh.make_pspecs(cfg, mesh, state["params"])
-    out = {"params": sh.per_device_bytes(state["params"], pspecs, mesh),
-           "batch": sum(sh.per_device_bytes(v, specs[k], mesh) for k, v in rest.items())}
+def argument_bytes(state: dict, batch: dict) -> dict:
+    """Bytes of the step's arguments on one device: each tensor's, or a
+    DTensor's local shard's (``models.sharding.per_device_bytes`` of its
+    placement, which the tests hold them to)."""
+    out = {"params": tensor_bytes(state["params"]),
+           "batch": tensor_bytes({k: v for k, v in batch.items() if k != "caches"})}
     if "optimizer" in state:
-        opt = state["optimizer"]
-        out["optimizer"] = tensor_bytes(opt.step) + sum(
-            sh.per_device_bytes(t, _moment_spec(pspecs[n], t), mesh)
-            for moments in opt[1:] for n, t in moments.items())
-    if caches is not None:
-        out["caches"] = sh.per_device_bytes(caches, specs["caches"], mesh)
+        out["optimizer"] = tensor_bytes(state["optimizer"])
+    if "caches" in batch:
+        out["caches"] = tensor_bytes(batch["caches"])
     return out
 
 
-def _moment_spec(spec: tuple, t: torch.Tensor) -> tuple:
-    """A moment's placement from its parameter's: AdamW's as it is, an
-    Adafactor row or column factor with the reduced dim dropped (the
-    reference's ``vr_spec`` / ``vc_spec``)."""
-    if t.ndim == len(spec):
-        return spec
-    if t.ndim == len(spec) - 1 and t.ndim >= 1:
-        return spec[:-1]  # vr: the last dim reduced
-    return (None,) * t.ndim
+def place_inputs(batch, specs, dmesh):
+    """``input_specs``' meta tensors as DTensors on ``dmesh`` by their
+    placements (the same structure)."""
+    if isinstance(batch, dict):
+        return {k: place_inputs(v, specs[k], dmesh) for k, v in batch.items()}
+    if isinstance(batch, (list, tuple)):
+        return type(batch)(place_inputs(v, pl, dmesh) for v, pl in zip(batch, specs, strict=True))
+    return sh.place(batch, sh.Sharding(dmesh, sh.to_placements(specs, dmesh)))
 
 
 def run_cell(cfg: ArchConfig, shape: ShapeDef, mesh: Mesh = ONE_CARD, verbose: bool = True,
              max_len: int | None = None) -> dict:
     """The cell's record (the reference's fields). ``max_len`` sizes a
     prefill's caches (default: the shape's sequence)."""
+    if mesh.size == 1:
+        return _run_cell(cfg, shape, mesh, verbose, max_len, None)
+    from repro_torch.launch.mesh import device_mesh, fake_world
+
+    with fake_world(mesh.size), sh.implicit_replication():
+        return _run_cell(cfg, shape, mesh, verbose, max_len, device_mesh(mesh, "cpu"))
+
+
+def _run_cell(cfg: ArchConfig, shape: ShapeDef, mesh: Mesh, verbose: bool, max_len, dmesh) -> dict:
     t0 = time.perf_counter()
     batch, specs = input_specs(cfg, shape, mesh)
-    state, step = make_step(cfg, shape, max_len)
-    args = argument_bytes(state, batch, mesh, cfg, specs)
+    if dmesh is not None:
+        batch = place_inputs(batch, specs, dmesh)
+    state, step = make_step(cfg, shape, max_len, dmesh)
+    args = argument_bytes(state, batch)
     arg_total = sum(args.values())
     model_flops = model_flops_of(cfg, shape)
     rec = {
@@ -331,16 +493,9 @@ def run_cell(cfg: ArchConfig, shape: ShapeDef, mesh: Mesh = ONE_CARD, verbose: b
         "model_flops": model_flops, "total_params": rl.total_param_count(cfg),
         "active_params": rl.active_param_count(cfg),
     }
-    if mesh.size > 1:
-        rec.update(ok=False, skipped=True, reason=MULTI_DEVICE_NOTE,
-                   memory_analysis={"argument_size_in_bytes": arg_total, "arguments": args},
-                   flops_per_device=None, bytes_per_device=None, collective_traffic_per_device=None)
-        if verbose:
-            print(f"[{cfg.name} x {shape.name} x {'x'.join(map(str, mesh.shape))}] argument bytes "
-                  f"a device {arg_total} {args}; {MULTI_DEVICE_NOTE}")
-        return rec
-    _, costs = count(lambda: step(state, batch))
-    roof = step_roofline(costs, model_flops)
+    _, costs = (count if dmesh is None else count_local)(lambda: step(state, batch))
+    roof = step_roofline(costs, model_flops, mesh.size)
+    coll = costs.get("collectives") or rl.CollectiveStats()
     temp = costs["temp_bytes"]
     rec.update({
         "count_seconds": round(time.perf_counter() - t0, 2),
@@ -349,9 +504,9 @@ def run_cell(cfg: ArchConfig, shape: ShapeDef, mesh: Mesh = ONE_CARD, verbose: b
         "f32_ops_per_device": costs["f32_ops"],
         "f64_ops_per_device": costs["f64_ops"],
         "bytes_per_device": costs["bytes"],
-        "collective_traffic_per_device": 0.0,
-        "collective_ops": {},
-        "collective_traffic_by_op": {},
+        "collective_traffic_per_device": coll.per_device_traffic_bytes,
+        "collective_ops": dict(coll.op_counts),
+        "collective_traffic_by_op": dict(coll.op_traffic),
         "memory_analysis": {
             "argument_size_in_bytes": arg_total, "arguments": args, "temp_size_in_bytes": temp,
             "fits": arg_total + temp <= rl.HBM_BYTES, "device_bytes": rl.HBM_BYTES,
@@ -365,12 +520,15 @@ def run_cell(cfg: ArchConfig, shape: ShapeDef, mesh: Mesh = ONE_CARD, verbose: b
         "useful_ratio": roof.useful_ratio,
         "roofline_fraction": roof.roofline_fraction,
     })
+    if "comm_debug_counts" in costs:
+        rec["comm_debug_counts"] = costs["comm_debug_counts"]
     if costs["assumed_nonzero"]:
         rec["moe_dispatch"] = MOE_DISPATCH
     if verbose:
         t = rec["terms_seconds"]
-        print(f"[{cfg.name} x {shape.name} x 1x1] counted in {rec['count_seconds']}s, "
-              f"{costs['ops']} operators")
+        print(f"[{cfg.name} x {shape.name} x {'x'.join(map(str, mesh.shape))}] counted in "
+              f"{rec['count_seconds']}s, {costs['ops']} operators; collectives "
+              f"{rec['collective_ops']} {coll.per_device_traffic_bytes:.3e} B/dev")
         print(f"  flops/dev {costs['flops']:.3e}  bytes/dev {costs['bytes']:.3e}  kernels "
               f"{ {k: v['launches'] for k, v in costs['kernels'].items()} }")
         print(f"  arguments {arg_total} B {args}; temporaries peak {temp} B; fits "
@@ -418,8 +576,6 @@ def main(argv=None):
             cid = cell_id(arch, shape_name, mesh)
             path = out / f"{cid}.json"
             ok, reason = applicable(cfg, shape)
-            if ok and unported(cfg):
-                ok, reason = False, f"skip(not ported: {', '.join(unported(cfg))})"
             if not ok:
                 path.write_text(json.dumps({"arch": arch, "shape": shape_name, "ok": False,
                                             "skipped": True, "reason": reason,

@@ -16,10 +16,22 @@ operators between them, counted op by op by ``dryrun.count``:
                   moments and a scatter-add histogram shared across types
 
 K2's float64 special-function work depends on the data, so a meta pass
-counts none of it (``f64_ops_per_device`` 0). ``fused_scatter_shmap`` and
-``grouping_global`` need a mesh (``shard_map``, ``group_device_global``):
-they raise, naming ROADMAP.md queue 1, item 18's multi-device pieces, and
-``--all`` records them as skipped.
+counts none of it (``f64_ops_per_device`` 0). Two variants run on the
+production mesh (16x16, or 2x16x16 with ``--multi-pod``), counted as rank
+0 of a fake world of its size (``launch.mesh.fake_world``, meta tensors,
+``dryrun.count_local``: one rank's work and its collectives):
+
+  fused_scatter_shmap  the per-rank window step: each rank runs
+                  ``fused_scatter`` on its own block of the window's rows
+                  (the reference's ``shard_map``: the per-point fit is the
+                  paper's Map, so no rank needs another's rows)
+  grouping_global faithful, then the quantised (mean, std) keys of the
+                  device Select and ``group_device_global`` over the whole
+                  world (every mesh axis): the paper's global shuffle, an
+                  all-gather of the keys (the reference's variant, which
+                  runs in faithful mode, ``repro/launch/dryrun_pdf.py:69``)
+
+Their points are split over every mesh axis, as the reference's ``P(axes)``.
 
 Shapes (--pdf-shape), the reference's:
   window_small    6,656 pts x 1,000 obs   (Set1's 6,275 padded to the 512-device mesh)
@@ -41,7 +53,9 @@ import torch
 
 from repro_torch.core import distributions as d
 from repro_torch.core import fitting
-from repro_torch.launch.dryrun import MULTI_DEVICE, ONE_CARD, count, step_roofline
+from repro_torch.core import grouping as grp
+from repro_torch.launch.dryrun import ONE_CARD, count, count_local, step_roofline
+from repro_torch.launch.mesh import Mesh, make_production_mesh
 
 PDF_SHAPES = {
     # Set1 window (25 lines x 251 points = 6,275) padded to the 512-device
@@ -57,7 +71,8 @@ NUM_BINS = 20
 TYPES = d.TYPES_4
 # The fit backend and mode each one-card variant runs.
 _BACKENDS = {"fused": ("fused", "fused"), "faithful": ("kernels", "faithful"),
-             "fused_scatter": ("reference", "fused")}
+             "fused_scatter": ("reference", "fused"), "fused_scatter_shmap": ("reference", "fused"),
+             "grouping_global": ("kernels", "faithful")}
 
 
 def _base_spec():
@@ -66,18 +81,23 @@ def _base_spec():
     return PipelineSpec(compute=ComputeSpec(num_bins=NUM_BINS, types=TYPES))
 
 
-def make_window_step(variant: str, types=TYPES, num_bins: int = NUM_BINS):
-    """step(values (P, n) f32) -> (type_idx, params, error, mean, var)."""
-    if variant in MESH_VARIANTS:
-        raise NotImplementedError(f"--variant {variant} needs a mesh and the global grouping "
-                                  f"shuffle, not ported yet ({MULTI_DEVICE})")
+def make_window_step(variant: str, types=TYPES, num_bins: int = NUM_BINS,
+                     group_tol: float = grp.DEFAULT_TOL):
+    """step(values (P, n) f32) -> (type_idx, params, error, mean, var), plus
+    each point's global representative for ``grouping_global``. A mesh
+    variant's ``values`` are this rank's rows, and the step must run on
+    every rank of a world (or a fake one)."""
     backend, mode = _BACKENDS[variant]
     fb = fitting.get_fit_backend(backend, num_bins)
 
     def step(values):
         m = fb.moments(values)
         r = fb.fit_all(values, m, types, num_bins, mode)
-        return (r.type_idx, r.params, r.error, m.mean, m.var)
+        out = (r.type_idx, r.params, r.error, m.mean, m.var)
+        if variant == "grouping_global":
+            keys = grp.quantize_keys(m.mean, m.var, tol=group_tol)
+            out += (grp.group_device_global(keys).rep_for_point,)
+        return out
 
     return step
 
@@ -89,15 +109,30 @@ def model_flops(points: int, obs: int, t_types: int, num_bins: int) -> float:
 
 
 def run_pdf_cell(variant: str, shape_name: str, verbose=True, types=TYPES,
-                 num_bins: int = NUM_BINS, spec_hash: str | None = None) -> dict:
+                 num_bins: int = NUM_BINS, spec_hash: str | None = None,
+                 mesh: Mesh | None = None, group_tol: float = grp.DEFAULT_TOL) -> dict:
+    """The cell's record. A mesh variant runs on ``mesh`` (default: the
+    production mesh), the others on one card."""
     points, obs = PDF_SHAPES[shape_name]
-    step = make_window_step(variant, types=types, num_bins=num_bins)
-    values = torch.empty((points, obs), dtype=torch.float32, device="meta")
+    if variant not in MESH_VARIANTS:
+        mesh = ONE_CARD
+    mesh = mesh or make_production_mesh()
+    if points % mesh.size:
+        raise ValueError(f"{points} points do not split over {mesh.size} devices")
+    step = make_window_step(variant, types=types, num_bins=num_bins, group_tol=group_tol)
+    values = torch.empty((points // mesh.size, obs), dtype=torch.float32, device="meta")
     t0 = time.perf_counter()
-    _, costs = count(lambda: step(values))
+    if mesh.size == 1:
+        _, costs = count(lambda: step(values))
+    else:
+        from repro_torch.launch.mesh import fake_world
+
+        with fake_world(mesh.size):
+            _, costs = count_local(lambda: step(values))
     t1 = time.perf_counter()
     mf = model_flops(points, obs, len(types), num_bins)
-    roof = step_roofline(costs, mf)
+    roof = step_roofline(costs, mf, mesh.size)
+    coll = costs.get("collectives")
     ops = costs["flops"] + costs["f32_ops"] + costs["f64_ops"]
     rec = {
         "workload": "pdf-seismic",
@@ -106,18 +141,18 @@ def run_pdf_cell(variant: str, shape_name: str, verbose=True, types=TYPES,
         "shape": shape_name,
         "points": points,
         "obs": obs,
-        "mesh": list(ONE_CARD.shape),
-        "chips": 1,
+        "mesh": list(mesh.shape),
+        "chips": mesh.size,
         "ok": True,
         "count_seconds": round(t1 - t0, 2),
         "flops_per_device": ops,
         "f32_ops_per_device": costs["f32_ops"],
         "f64_ops_per_device": costs["f64_ops"],
         "bytes_per_device": costs["bytes"],
-        "collective_traffic_per_device": 0.0,
-        "collective_ops": {},
+        "collective_traffic_per_device": coll.per_device_traffic_bytes if coll else 0.0,
+        "collective_ops": dict(coll.op_counts) if coll else {},
         "memory_analysis": {
-            "argument_size_in_bytes": points * obs * 4,
+            "argument_size_in_bytes": values.numel() * 4,
             "temp_size_in_bytes": costs["temp_bytes"],
         },
         "kernels": costs["kernels"],
@@ -130,12 +165,17 @@ def run_pdf_cell(variant: str, shape_name: str, verbose=True, types=TYPES,
         },
         "bound_seconds": roof.bound_s,
         "dominant": roof.dominant,
-        "useful_ratio": mf / ops if ops else 0.0,
+        "useful_ratio": mf / (ops * mesh.size) if ops else 0.0,
         "roofline_fraction": roof.roofline_fraction,
     }
+    if "comm_debug_counts" in costs:
+        rec["comm_debug_counts"] = costs["comm_debug_counts"]
+    if costs["assumed_nonzero"]:
+        rec["grouping_dedup"] = "every key distinct (unique on meta): an upper bound"
     if verbose:
         t = rec["terms_seconds"]
-        print(f"[pdf {variant} x {shape_name} x 1x1] counted in {rec['count_seconds']}s; kernels "
+        print(f"[pdf {variant} x {shape_name} x {'x'.join(map(str, mesh.shape))}] counted in "
+              f"{rec['count_seconds']}s; collectives {rec['collective_ops']}; kernels "
               f"{ {k: v['launches'] for k, v in costs['kernels'].items()} }")
         print(f"  ops/dev {ops:.3e} bytes/dev {costs['bytes']:.3e}")
         print(f"  compute {t['compute']*1e3:.3f}ms memory {t['memory']*1e3:.3f}ms "
@@ -151,6 +191,8 @@ def main(argv=None):
     ap.add_argument("--variant", choices=VARIANTS, default=None)
     ap.add_argument("--pdf-shape", choices=list(PDF_SHAPES), default=None)
     ap.add_argument("--all", action="store_true")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="the mesh variants on 2x16x16 (pod, data, model), else 16x16")
     ap.add_argument("--out", default="results/dryrun_pdf_torch",
                     help="directory for per-cell roofline records")
     # every pipeline knob (--group-tol, --types, --num-bins, --spec ...)
@@ -167,18 +209,16 @@ def main(argv=None):
     variants = VARIANTS if (args.all or not args.variant) else [args.variant]
     shapes = list(PDF_SHAPES) if (args.all or not args.pdf_shape) else [args.pdf_shape]
 
+    mesh = make_production_mesh(multi_pod=args.multi_pod)
     failures = []
     for v in variants:
         for s in shapes:
-            cid = f"pdf__{v}__{s}__1x1"
+            where = "x".join(map(str, mesh.shape)) if v in MESH_VARIANTS else "1x1"
+            cid = f"pdf__{v}__{s}__{where}"
             try:
                 rec = run_pdf_cell(v, s, types=tuple(spec.compute.types),
-                                   num_bins=spec.compute.num_bins, spec_hash=spec.content_hash())
-            except NotImplementedError as e:
-                if v not in MESH_VARIANTS:
-                    raise
-                rec = {"ok": False, "skipped": True, "variant": v, "shape": s, "reason": str(e)}
-                print(f"[pdf {v} x {s}] skipped: {e}")
+                                   num_bins=spec.compute.num_bins, spec_hash=spec.content_hash(),
+                                   mesh=mesh, group_tol=spec.method.group_tol)
             except Exception as e:  # noqa: BLE001
                 traceback.print_exc()
                 rec = {"ok": False, "variant": v, "shape": s, "error": str(e)}

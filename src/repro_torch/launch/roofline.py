@@ -10,9 +10,9 @@ no HLO. What it keeps:
   (``model_flops_{train,prefill,decode}``, ``active_param_count``,
   ``total_param_count``, ``_full_attn_layers``), copied unchanged;
 * ``CollectiveStats`` and the ring model's per-device traffic of one
-  collective (``collective_traffic``). Counting a sharded torch program's
-  collectives (e.g. DTensor's ``CommDebugMode``) comes with the
-  multi-device pieces of ROADMAP.md queue 1, item 18;
+  collective (``collective_traffic``), which prices the collectives the
+  dry run counts in a sharded step (``launch/dryrun.py``'s ``LocalMeter``
+  beside DTensor's ``CommDebugMode``);
 * the work models of the hand-written kernels K1-K5, as functions of shapes
   (``k1_work`` ... ``k5_work``; ``special_function_ops`` counts K2's
   float64 work on given data) and ``bound_ms``: the least time the card

@@ -26,6 +26,7 @@ import torch
 from repro_torch.configs import registry
 from repro_torch.core.pipeline import resolve_device
 from repro_torch.models import encdec as ED
+from repro_torch.models import sharding as sh
 from repro_torch.models import transformer as T
 
 
@@ -43,25 +44,36 @@ def prefill(cfg, params, prompt: torch.Tensor, extras=None, max_len: int | None 
     return T.prefill(params, prompt, cfg, extras, max_len=max_len)
 
 
-def decode_step(cfg, params, token: torch.Tensor, caches, pos: int):
-    """The family's decode step (the caches hold everything it reads)."""
+def decode_step(cfg, params, token: torch.Tensor, caches, pos: int, extras=None):
+    """The family's decode step (the caches hold everything it reads;
+    ``extras["mesh"]``, a ``DeviceMesh``, turns on flash decode for a
+    config with ``flash_decode``)."""
     if cfg.family == "encdec":
         return ED.decode_step(params, token, caches, pos, cfg)
-    return T.decode_step(params, token, caches, pos, cfg)
+    return T.decode_step(params, token, caches, pos, cfg, extras)
 
 
-@torch.inference_mode()
 def generate(cfg, params, prompt: torch.Tensor, num_tokens: int, extras=None,
              max_len: int | None = None):
-    """prompt (B, S) int -> (B, num_tokens) greedy tokens (int32)."""
+    """prompt (B, S) int -> (B, num_tokens) greedy tokens (int32). A
+    ``DeviceMesh`` in ``extras["mesh"]`` passes through to the decode
+    steps (flash decode, the prefill's caches placed on the mesh first);
+    every rank of the mesh must call it with the same inputs."""
+    with sh.serving_scope(params):
+        return _generate(cfg, params, prompt, num_tokens, extras, max_len)
+
+
+def _generate(cfg, params, prompt, num_tokens, extras, max_len):
     b, s = prompt.shape
     max_len = max_len or (s + num_tokens)
     logits, caches = prefill(cfg, params, prompt, extras, max_len)
+    if cfg.family != "encdec":
+        caches = T.shard_decode_caches(cfg, caches, extras)
     out = []
     tok = torch.argmax(logits, -1).to(torch.int32)
     for i in range(num_tokens):
         out.append(tok)
-        logits, caches = decode_step(cfg, params, tok, caches, s + i)
+        logits, caches = decode_step(cfg, params, tok, caches, s + i, extras)
         tok = torch.argmax(logits, -1).to(torch.int32)
     return torch.stack(out, dim=1)
 

@@ -36,6 +36,7 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig, check_ported
 from repro_torch.core.pipeline import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import sharding as sh
 from repro_torch.models.transformer import _logits, _positions, _remat, cross_entropy
 
 
@@ -108,8 +109,8 @@ def init_params(cfg: ArchConfig, generator: torch.Generator | None = None,
 
 def _enc_block(p: EncBlock, h: torch.Tensor, cfg: ArchConfig, positions) -> torch.Tensor:
     x = L.rmsnorm(p.ln1, h, cfg.norm_eps)
-    h = h + L.attention(p.attn, x, cfg=cfg, positions=positions, causal=False)
-    return h + L.mlp(p.mlp, L.rmsnorm(p.ln2, h, cfg.norm_eps), cfg)
+    h = sh.as_rows(h + L.attention(p.attn, x, cfg=cfg, positions=positions, causal=False))
+    return sh.as_rows(h + L.mlp(p.mlp, L.rmsnorm(p.ln2, h, cfg.norm_eps), cfg))
 
 
 def _encode(params: EncDec, frames: torch.Tensor, cfg: ArchConfig, wrap=lambda fn: fn) -> torch.Tensor:
@@ -123,7 +124,7 @@ def _encode(params: EncDec, frames: torch.Tensor, cfg: ArchConfig, wrap=lambda f
     return L.rmsnorm(params.enc_norm, h, cfg.norm_eps)
 
 
-@torch.inference_mode()
+@sh.serving
 def encode(params: EncDec, frames: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """frames (B, S_enc, d) stub embeddings -> the encoder's memory (B,
     S_enc, d) in the compute type."""
@@ -135,12 +136,12 @@ def _dec_block(p: DecBlock, h: torch.Tensor, memory: torch.Tensor, cfg: ArchConf
     cross K, cross V)."""
     x = L.rmsnorm(p.ln1, h, cfg.norm_eps)
     a, sk, sv = L.attention(p.self_attn, x, cfg=cfg, positions=positions, return_kv=True)
-    h = h + a
+    h = sh.as_rows(h + a)
     x = L.rmsnorm(p.lnx, h, cfg.norm_eps)
     a, ck, cv = L.attention(p.cross_attn, x, cfg=cfg, positions=positions, kv_x=memory,
                             causal=False, use_rope=False, return_kv=True)
-    h = h + a
-    return h + L.mlp(p.mlp, L.rmsnorm(p.ln2, h, cfg.norm_eps), cfg), sk, sv, ck, cv
+    h = sh.as_rows(h + a)
+    return sh.as_rows(h + L.mlp(p.mlp, L.rmsnorm(p.ln2, h, cfg.norm_eps), cfg)), sk, sv, ck, cv
 
 
 def _forward(params: EncDec, frames: torch.Tensor, tokens: torch.Tensor, cfg: ArchConfig,
@@ -148,14 +149,14 @@ def _forward(params: EncDec, frames: torch.Tensor, tokens: torch.Tensor, cfg: Ar
     memory = _encode(params, frames, cfg, wrap)
     b, s = tokens.shape
     positions = _positions(b, s, tokens.device)
-    h = params.embed[tokens].to(cfg.compute_dtype)
+    h = sh.as_rows(params.embed[tokens].to(cfg.compute_dtype))
     for p in params.decoder:
         h = wrap(lambda h, p=p: _dec_block(p, h, memory, cfg, positions)[0])(h)
     h = L.rmsnorm(params.final_norm, h, cfg.norm_eps)
     return _logits(params, h, cfg)
 
 
-@torch.inference_mode()
+@sh.serving
 def forward(params: EncDec, frames: torch.Tensor, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """frames (B, S_enc, d), tokens (B, S) -> (B, S, V) f32 logits (the
     decode oracle)."""
@@ -182,7 +183,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, mem_len: int, dtype=No
             "cross": {"k": zeros(mem_len), "v": zeros(mem_len)}}
 
 
-@torch.inference_mode()
+@sh.serving
 def prefill(params: EncDec, frames: torch.Tensor, tokens: torch.Tensor, cfg: ArchConfig,
             max_len: int | None = None) -> tuple[torch.Tensor, dict]:
     """Encode, then run the decoder over the prompt building the self and
@@ -193,7 +194,7 @@ def prefill(params: EncDec, frames: torch.Tensor, tokens: torch.Tensor, cfg: Arc
     b, s = tokens.shape
     pad = (0, 0, 0, 0, 0, (max_len or s) - s)
     positions = _positions(b, s, tokens.device)
-    h = params.embed[tokens].to(cfg.compute_dtype)
+    h = sh.as_rows(params.embed[tokens].to(cfg.compute_dtype))
     kv = {"sk": [], "sv": [], "ck": [], "cv": []}
     for p in params.decoder:
         h, sk, sv, ck, cv = _dec_block(p, h, memory, cfg, positions)
@@ -207,21 +208,21 @@ def prefill(params: EncDec, frames: torch.Tensor, tokens: torch.Tensor, cfg: Arc
     return _logits(params, h[:, -1], cfg), caches
 
 
-@torch.inference_mode()
+@sh.serving
 def decode_step(params: EncDec, token: torch.Tensor, caches: dict, pos: int,
                 cfg: ArchConfig) -> tuple[torch.Tensor, dict]:
     """token (B,) int, pos int -> (logits (B, V) f32, caches): the self K/V
     written at ``pos`` in place, the cross K/V read as they are."""
-    h = params.embed[token[:, None]].to(cfg.compute_dtype)  # (B, 1, d)
+    h = sh.as_rows(params.embed[token[:, None]].to(cfg.compute_dtype))  # (B, 1, d)
     self_c, cross_c = caches["self"], caches["cross"]
     for i, p in enumerate(params.decoder):
         x = L.rmsnorm(p.ln1, h, cfg.norm_eps)
         y, _ = L.decode_attention(p.self_attn, x, {"k": self_c["k"][i], "v": self_c["v"][i]}, pos,
                                   cfg=cfg)
-        h = h + y
+        h = sh.as_rows(h + y)
         x = L.rmsnorm(p.lnx, h, cfg.norm_eps)
-        h = h + L.cross_decode_attention(p.cross_attn, x, {"k": cross_c["k"][i], "v": cross_c["v"][i]},
-                                         cfg=cfg)
-        h = h + L.mlp(p.mlp, L.rmsnorm(p.ln2, h, cfg.norm_eps), cfg)
+        h = sh.as_rows(h + L.cross_decode_attention(
+            p.cross_attn, x, {"k": cross_c["k"][i], "v": cross_c["v"][i]}, cfg=cfg))
+        h = sh.as_rows(h + L.mlp(p.mlp, L.rmsnorm(p.ln2, h, cfg.norm_eps), cfg))
     h = L.rmsnorm(params.final_norm, h, cfg.norm_eps)
     return _logits(params, h[:, 0], cfg), caches

@@ -2,8 +2,9 @@
 / sliding window, block-local through the banded kernel K5, cross), one-token
 decode attention (self and cross), the gated MLP and the top-k MoE.
 
-Port of ``repro.models.layers`` but ``flash_decode_attention`` (a
-``shard_map`` over a mesh). Parameters live in ``nn.Module``s under the
+Port of ``repro.models.layers``, ``flash_decode_attention`` included (one
+token against a KV cache split over a mesh's sequence axis, combined
+with ``all_reduce``). Parameters live in ``nn.Module``s under the
 reference's names (``wq``, ``q_norm.scale``, ...); they are created with
 ``requires_grad=False`` for serving, and the trainer
 (``launch/train.py``) turns gradients on. Every function here is
@@ -32,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels.band_attn.ops import banded_attention
+from repro_torch.models import sharding as sh
 
 
 def empty_param(shape, dtype, device) -> nn.Parameter:
@@ -127,12 +129,21 @@ def _attn_scores_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
     return torch.where(ok, zero, torch.full_like(zero, -1e30))
 
 
+def _kv(p: Attention, xkv: torch.Tensor, cdt):
+    return (torch.einsum("btd,dhk->bthk", xkv, p.wk.to(cdt)),
+            torch.einsum("btd,dhk->bthk", xkv, p.wv.to(cdt)))
+
+
 def _qkv(p: Attention, x: torch.Tensor, cdt, kv_x: torch.Tensor | None = None):
     xq = x.to(cdt)
-    xkv = xq if kv_x is None else kv_x.to(cdt)
     q = torch.einsum("bsd,dhk->bshk", xq, p.wq.to(cdt))
-    k = torch.einsum("btd,dhk->bthk", xkv, p.wk.to(cdt))
-    v = torch.einsum("btd,dhk->bthk", xkv, p.wv.to(cdt))
+    if kv_x is None:
+        k, v = _kv(p, xq, cdt)
+    else:
+        # A DTensor memory (B, T, d): each rank projects its own rows with
+        # whole wk and wv (DTensor cannot unflatten the batch-by-patches
+        # product its einsum makes when the KV heads do not split).
+        k, v = sh.local_rows(_kv, p, kv_x.to(cdt), cdt, params=("wk", "wv"))
     if hasattr(p, "q_norm"):
         q = rmsnorm(p.q_norm, q)
         k = rmsnorm(p.k_norm, k)
@@ -161,12 +172,13 @@ def attention(p: Attention, x: torch.Tensor, *, cfg, positions: torch.Tensor,
             k = rope(k, positions, cfg.rope_theta)
 
     b, s, h, hd = q.shape
-    kvh = k.shape[2]
     if kv_x is None and window is not None and cfg.block_local_attn and s > window:
-        out = banded_attention(q, k, v, window)
+        out = sh.local_heads(banded_attention, q, k, v, window)
     else:
+        q, ka, va = sh.expand_kv(q, k, v)  # q, k, v themselves on one device
+        kvh = ka.shape[2]
         g = h // kvh
-        scores = torch.einsum("bskgd,btkd->bkgst", q.reshape(b, s, kvh, g, hd), k).float()
+        scores = torch.einsum("bskgd,btkd->bkgst", q.reshape(b, s, kvh, g, hd), ka).float()
         if scores.dtype == cdt and torch.is_grad_enabled():
             # float32 compute: .float() returned the product itself, which
             # remat="dots" keeps for the backward, so no write into it.
@@ -177,7 +189,7 @@ def attention(p: Attention, x: torch.Tensor, *, cfg, positions: torch.Tensor,
             scores += _attn_scores_mask(positions, positions, causal, window)[:, None, None, :, :]
         w = torch.softmax(scores, dim=-1).to(cdt)
         del scores
-        out = torch.einsum("bkgst,btkd->bskgd", w, v).reshape(b, s, h, hd)
+        out = torch.einsum("bkgst,btkd->bskgd", w, va).reshape(b, s, h, hd)
     y = torch.einsum("bshk,hkd->bsd", out, p.wo.to(cdt))
     return (y, k, v) if return_kv else y
 
@@ -208,6 +220,7 @@ def decode_attention(p: Attention, x: torch.Tensor, cache: dict[str, torch.Tenso
     slot = pos % buf_len if window else pos
     ck[:, slot] = k[:, 0].to(ck.dtype)
     cv[:, slot] = v[:, 0].to(cv.dtype)
+    q = sh.replicate_dim(q, 2)  # DTensor: every head of the token, as the cache groups them
 
     b, _, h, hd = q.shape
     kvh = ck.shape[2]
@@ -230,6 +243,79 @@ def decode_attention(p: Attention, x: torch.Tensor, cache: dict[str, torch.Tenso
     return y, {"k": ck, "v": cv}
 
 
+def flash_decode_attention(p: Attention, x: torch.Tensor, cache: dict, pos: int, *, cfg, mesh,
+                           batch_axes=("data",), seq_axis: str = "model") -> tuple[torch.Tensor, dict]:
+    """Flash decode: one-token attention against a sequence-sharded KV cache
+    without gathering it. x (B, 1, d), pos int -> (B, 1, d), cache.
+
+    ``mesh`` is a ``DeviceMesh``; the cache's k and v are DTensors on it
+    (B, S, KV, hd), the sequence split over ``seq_axis`` and the batch
+    over ``batch_axes`` or replicated (``models.sharding.cache_pspec``;
+    ``shard_decode_caches`` places a prefill's caches so). Each rank
+    takes its rows of the batch (every head), computes partial (max,
+    exp-sum, weighted V) statistics over its slice of the cache, and an
+    ``all_reduce(MAX)`` and two ``all_reduce(SUM)`` over the sequence
+    axis's group combine them into the exact softmax. The new K/V lands
+    in the one shard that owns ``pos``, at ``pos % shard_len``, in place.
+    ``x`` and the parameters may be plain tensors (whole on every rank;
+    the output is gathered whole again) or DTensors. Every rank of the
+    mesh must call it. No sliding window: ring caches stay on the plain
+    path, as in the reference."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    cdt = cfg.compute_dtype
+    q, k_new, v_new = _qkv(p, x, cdt)
+    posv = torch.full((x.shape[0], 1), pos, dtype=torch.int32, device=cache["k"].device)
+    q = rope(q, posv, cfg.rope_theta)
+    k_new = rope(k_new, posv, cfg.rope_theta)
+
+    ck, cv = cache["k"], cache["v"]
+    names = mesh.mesh_dim_names
+    seq_dim = names.index(seq_axis)
+    if mesh.size(seq_dim) > 1 and ck.placements[seq_dim] != Shard(1):
+        raise ValueError(f"flash decode: the cache's sequence must be split over {seq_axis!r}, "
+                         f"it is placed as {ck.placements}")
+    # This rank's rows of the batch, every head, as the cache holds them.
+    rows = tuple(Shard(0) if names[i] in batch_axes and pl == Shard(0) else Replicate()
+                 for i, pl in enumerate(ck.placements))
+
+    def local(t):
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        return t.redistribute(mesh, rows).to_local()
+
+    q_l, kn_l, vn_l = (local(t) for t in (q, k_new, v_new))
+    ck_l, cv_l = ck.to_local(), cv.to_local()
+    idx = mesh.get_local_rank(seq_axis)
+    shard_len = ck_l.shape[1]
+    if idx == pos // shard_len:
+        ck_l[:, pos % shard_len] = kn_l[:, 0].to(ck_l.dtype)
+        cv_l[:, pos % shard_len] = vn_l[:, 0].to(cv_l.dtype)
+
+    group = mesh.get_group(seq_axis)
+    bl, _, h, hd = q_l.shape
+    kvh = ck_l.shape[2]
+    qr = q_l.reshape(bl, 1, kvh, h // kvh, hd)
+    sc = torch.einsum("bskgd,btkd->bkgst", qr, ck_l.to(cdt)).float() * hd**-0.5
+    kpos = idx * shard_len + torch.arange(shard_len, device=sc.device)
+    sc = torch.where(kpos <= pos, sc, torch.full_like(sc, -1e30))
+    m = torch.amax(sc, dim=-1, keepdim=True)  # (b, kv, g, 1, 1)
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+    w = torch.exp(sc - m)
+    den = torch.sum(w, dim=-1)  # (b, kv, g, 1)
+    dist.all_reduce(den, op=dist.ReduceOp.SUM, group=group)
+    num = torch.einsum("bkgst,btkd->bskgd", w.to(cdt), cv_l.to(cdt))  # (b, 1, kv, g, hd)
+    dist.all_reduce(num, op=dist.ReduceOp.SUM, group=group)
+    den_r = den.permute(0, 3, 1, 2)[..., None]  # (b, 1, kv, g, 1)
+    out = (num / torch.clamp(den_r, min=1e-30)).reshape(bl, 1, h, hd).to(cdt)
+    out = DTensor.from_local(out, mesh, rows, run_check=False)
+    if not isinstance(x, DTensor):
+        out = out.full_tensor() if any(isinstance(r, Shard) for r in rows) else out.to_local()
+    y = torch.einsum("bshk,hkd->bsd", out, p.wo.to(cdt))
+    return y, {"k": ck, "v": cv}
+
+
 def cross_decode_attention(p: Attention, x: torch.Tensor, cache: dict[str, torch.Tensor], *,
                            cfg) -> torch.Tensor:
     """One query token against a cross K/V computed once at prefill (the
@@ -239,6 +325,7 @@ def cross_decode_attention(p: Attention, x: torch.Tensor, cache: dict[str, torch
     cdt = cfg.compute_dtype
     q = torch.einsum("bsd,dhk->bshk", x.to(cdt), p.wq.to(cdt))
     ck, cv = cache["k"].to(cdt), cache["v"].to(cdt)
+    q = sh.replicate_dim(q, 2)
     b, _, h, hd = q.shape
     kvh = ck.shape[2]
     qr = q.reshape(b, 1, kvh, h // kvh, hd)
@@ -343,6 +430,13 @@ def moe_route(p: MoE, xt: torch.Tensor, cfg):
     return gates, experts, pos
 
 
+def _no_dtensor_dispatch(x) -> None:
+    if sh.is_dtensor(x):
+        raise NotImplementedError(
+            "the MoE's capacity dispatch on DTensors: DTensor has no sharding rule for its "
+            "nonzero, and expert parallelism needs an all-to-all the port does not have")
+
+
 def moe(p: MoE, x: torch.Tensor, cfg, capacity_factor: float | None = None) -> torch.Tensor:
     """Top-k MoE with capacity-based dispatch, as the reference's ``moe``:
     a choice past its expert's capacity (``moe_capacity``) is dropped and
@@ -354,6 +448,7 @@ def moe(p: MoE, x: torch.Tensor, cfg, capacity_factor: float | None = None) -> t
     give the same bits). The three expert products are batched GEMMs over
     E; each choice then reads its row (a dropped one row C - 1, weighted
     0), scaled by its gate, and the k rows of a token are summed."""
+    _no_dtensor_dispatch(x)
     cdt = cfg.compute_dtype
     b, s, d = x.shape
     t, k = b * s, cfg.moe_top_k

@@ -14,14 +14,33 @@ stack dimension dropped: ``_rule`` runs on the stacked shape, so it sees
 what the reference sees (a dim that does not divide a mesh axis is
 replicated there).
 
-``per_device_bytes`` is what one device holds under the placements. Placing
-real DTensors (the reference's ``make_shardings``) comes with the
-multi-device pieces of ROADMAP.md queue 1, item 18.
+``per_device_bytes`` is what one device holds under the placements.
+
+On a real mesh (``launch.mesh.device_mesh``, a ``DeviceMesh`` whose
+dimensions carry the axis names) a placement becomes DTensor placements,
+one a mesh dimension (``to_placements``): an axis name on tensor dim d
+is ``Shard(d)`` on that mesh dimension, a tuple of axes ``Shard(d)`` on
+each of them (row-major, as the reference's ``P((a, b))``), and a mesh
+dimension no entry names is ``Replicate()``. ``make_shardings`` gives
+each parameter its ``Sharding`` (the reference's ``NamedSharding``),
+``distribute_params`` places a module's parameters by them and
+``shard_batch`` places a batch by ``batch_pspec``. A sharded program runs
+the model's code on DTensors under ``implicit_replication`` (a plain
+tensor made inside the model, a position or a mask, counts as
+replicated). Where the model needs a layout of its own it asks here:
+``replicate_dim`` (the loss's vocabulary, a decode query's heads),
+``expand_kv`` (KV heads that do not split as the query heads do),
+``local_heads`` (K5 on each rank's heads, through ``local_map``) and
+``local_rows`` (the SSD and the cross K/V projection on each rank's rows).
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
+import threading
+from typing import NamedTuple
 
 import torch
 
@@ -189,3 +208,258 @@ def per_device_bytes(model_or_cache, placements, mesh: Mesh) -> int:
     for t, placement in _pairs(model_or_cache, placements):
         total += -(-t.numel() * t.element_size() // _shards(placement, mesh))
     return total
+
+
+# -- placing tensors on a DeviceMesh ---------------------------------------------------
+
+
+class Sharding(NamedTuple):
+    """Where a tensor lives: a ``DeviceMesh`` and one DTensor placement a
+    mesh dimension (the reference's ``NamedSharding``)."""
+
+    mesh: object
+    placements: tuple
+
+
+def _dtensor_types():
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    return DTensor, Replicate, Shard
+
+
+def is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def to_placements(spec: tuple, dmesh) -> tuple:
+    """A placement tuple (one entry a tensor dimension) -> DTensor
+    placements on ``dmesh`` (one a mesh dimension). A mesh dimension of
+    one device replicates: splitting over it keeps the whole tensor, and
+    DTensor's view rules refuse some reshapes of a dimension marked split
+    even there."""
+    _, Replicate, Shard = _dtensor_types()
+    names = dmesh.mesh_dim_names
+    out = [Replicate()] * len(names)
+    for dim, entry in enumerate(spec):
+        for axis in (entry if isinstance(entry, tuple) else (entry,)):
+            if axis is not None and dmesh.size(names.index(axis)) > 1:
+                out[names.index(axis)] = Shard(dim)
+    return tuple(out)
+
+
+def make_shardings(cfg: ArchConfig, dmesh, model: torch.nn.Module) -> dict[str, Sharding]:
+    """``{parameter name: Sharding}`` on ``dmesh`` by ``make_pspecs``."""
+    from repro_torch.launch.mesh import describe
+
+    specs = make_pspecs(cfg, describe(dmesh), model)
+    return {n: Sharding(dmesh, to_placements(spec, dmesh)) for n, spec in specs.items()}
+
+
+def place(t: torch.Tensor, sharding: Sharding):
+    """``t`` (the whole tensor, the same on every rank) as a DTensor: each
+    rank keeps its own block, and nothing is communicated."""
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(t, sharding.mesh, sharding.placements, src_data_rank=None)
+
+
+@torch.no_grad()
+def distribute_params(cfg: ArchConfig, dmesh, model: torch.nn.Module) -> torch.nn.Module:
+    """Replaces every parameter of ``model`` (the same weights on every
+    rank) by a DTensor parameter placed by ``make_shardings``, in place;
+    returns ``model``."""
+    shardings = make_shardings(cfg, dmesh, model)
+    for mod_name, mod in model.named_modules():
+        for name, p in list(mod._parameters.items()):
+            if p is None:
+                continue
+            full = f"{mod_name}.{name}" if mod_name else name
+            mod._parameters[name] = torch.nn.Parameter(place(p.detach(), shardings[full]),
+                                                       requires_grad=p.requires_grad)
+    return model
+
+
+def batch_sharding(dmesh, ndim: int, dim: int = 0) -> Sharding:
+    """A batch tensor's ``Sharding``: dimension ``dim`` (the batch; 1 under
+    gradient accumulation, whose micro-batches lead) over every non-model
+    axis (``batch_pspec``), the rest replicated."""
+    from repro_torch.launch.mesh import describe
+
+    spec = [None] * ndim
+    spec[dim] = batch_pspec(describe(dmesh))[0]
+    return Sharding(dmesh, to_placements(tuple(spec), dmesh))
+
+
+def shard_batch(batch: dict, dmesh, dim: int = 0) -> dict:
+    """Every tensor of ``batch`` (the whole global batch on every rank)
+    placed by ``batch_sharding``."""
+    return {k: place(v, batch_sharding(dmesh, v.ndim, dim)) for k, v in batch.items()}
+
+
+def _rows(placements) -> tuple:
+    """Placements with the batch (dimension 0) split as they split it and
+    every other dimension whole."""
+    _, Replicate, Shard = _dtensor_types()
+    return tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate() for p in placements)
+
+
+def as_rows(t):
+    """``t`` with its batch split as it is and every other dimension whole
+    on every rank: the residual stream's layout between layers (Megatron's;
+    the row-parallel products' partial sums reduced, so the next layer's
+    column-parallel products split their heads and FFN, not the hidden
+    dimension). A plain tensor as it is."""
+    if not is_dtensor(t):
+        return t
+    rows = _rows(t.placements)
+    return t if rows == tuple(t.placements) else t.redistribute(t.device_mesh, rows)
+
+
+def replicate_dim(t, dim: int):
+    """``t`` with dimension ``dim`` whole on every rank (a DTensor sharded
+    or partial there is gathered or reduced over those mesh dimensions);
+    a plain tensor as it is. The loss's gather over the vocabulary needs
+    it: DTensor has no rule for a gather along a sharded dimension."""
+    if not is_dtensor(t):
+        return t
+    _, Replicate, Shard = _dtensor_types()
+    dim %= t.ndim
+    pls = tuple(Replicate() if (isinstance(p, Shard) and p.dim == dim) or p.is_partial() else p
+                for p in t.placements)
+    return t if pls == tuple(t.placements) else t.redistribute(t.device_mesh, pls)
+
+
+def expand_kv(q, k, v):
+    """(q, k, v) for attention with k and v (B, S, KV, hd) placed as q
+    (B, S, H, hd), when q is a DTensor whose heads are split where k's are
+    not (KV heads that do not divide the model axis, as 8 on a 16-way
+    one): each KV head repeated for its group of query heads, a local copy
+    of a replicated tensor, and each rank keeps its own heads' keys, so
+    the grouped einsum never splits a sharded head dimension (the group
+    count is 1 then). A q that is a partial sum is reduced first. Plain
+    tensors as they are."""
+    if not is_dtensor(q):
+        return q, k, v
+    if any(p.is_partial() for p in q.placements):
+        _, Replicate, _ = _dtensor_types()
+        q = q.redistribute(q.device_mesh, tuple(Replicate() if p.is_partial() else p
+                                                for p in q.placements))
+    if tuple(k.placements) == tuple(q.placements) and tuple(v.placements) == tuple(q.placements):
+        return q, k, v
+    g = q.shape[2] // k.shape[2]
+    if g > 1:
+        k, v = (t.repeat_interleave(g, dim=2) for t in (k, v))
+    return (q,) + tuple(t.redistribute(q.device_mesh, q.placements) for t in (k, v))
+
+
+class _Bound(torch.nn.Module):
+    """``fn(module, *args)`` as a module's forward, for ``functional_call``."""
+
+    def __init__(self, module: torch.nn.Module, fn):
+        super().__init__()
+        self.m, self.fn = module, fn
+
+    def forward(self, *args):
+        return self.fn(self.m, *args)
+
+
+def local_rows(fn, module: torch.nn.Module, x, *rest, params: tuple[str, ...] | None = None):
+    """``fn(module, x, *rest)`` run by each rank on plain tensors: its own
+    rows of x (dimension 0 split as x has it, the rest whole) and the
+    module's parameters whole (gathered where they are split); each tensor
+    of the result placed back as those rows. Under autograd a parameter's
+    gradient is a partial sum over the mesh dimensions that split the rows.
+    A plain call when x is a plain tensor. ``params`` names the
+    parameters ``fn`` reads (default: every one), the only ones gathered.
+    For a computation DTensor has no rule for end to end (the SSD's
+    chunked scan: its packed projection, its depthwise convolution, its
+    reshapes of split dimensions)."""
+    if not is_dtensor(x):
+        return fn(module, x, *rest)
+    from torch.distributed.tensor import DTensor, Partial
+    from torch.func import functional_call
+    from torch.utils._pytree import tree_map
+
+    _, Replicate, Shard = _dtensor_types()
+    mesh = x.device_mesh
+    rows = _rows(x.placements)
+    whole = (Replicate(),) * mesh.ndim
+    grads = tuple(Partial() if isinstance(p, Shard) else Replicate() for p in rows)
+    local = {f"m.{n}": p.redistribute(mesh, whole).to_local(grad_placements=grads)
+             if is_dtensor(p) else p for n, p in module.named_parameters()
+             if params is None or n in params}
+    out = functional_call(_Bound(module, fn), local, (as_rows(x).to_local(), *rest), strict=False)
+    return tree_map(lambda t: DTensor.from_local(t, mesh, rows, run_check=False)
+                    if isinstance(t, torch.Tensor) else t, out)
+
+
+def local_heads(fn, q, k, v, *rest):
+    """``fn(q, k, v, *rest)`` for (B, S, heads, hd) tensors that may be
+    DTensors: each rank runs ``fn`` on its own block of batch and heads
+    (``local_map``), never on a gathered tensor. Only the head dimension
+    (2) and the batch dimension (0) may be sharded. When k and v are not
+    split over heads as q is (KV heads that do not divide the model
+    axis), each KV head is repeated for its group of query heads first, a
+    local copy, so every rank holds its heads' keys. A plain call on plain
+    tensors."""
+    if not is_dtensor(q):
+        return fn(q, k, v, *rest)
+    from torch.distributed.tensor.experimental import local_map
+
+    _, Replicate, Shard = _dtensor_types()
+    q, k, v = expand_kv(q, k, v)
+    for p in q.placements:
+        if isinstance(p, Shard) and p.dim not in (0, 2):
+            raise ValueError(f"local_heads: q placed as {q.placements}")
+    pls = tuple(q.placements)
+    # One output: its placements a list (local_map reads a tuple as one per output).
+    mapped = local_map(fn, out_placements=list(pls), in_placements=(pls, pls, pls) + (None,) * len(rest),
+                       device_mesh=q.device_mesh)
+    return mapped(q, k, v, *rest)
+
+
+_DEPTH = threading.local()
+
+
+@contextlib.contextmanager
+def implicit_replication():
+    """DTensor's ``implicit_replication`` (a plain tensor beside DTensors
+    counts as replicated), re-entrant: DTensor's own switches the mode off
+    when any nested use of it ends."""
+    from torch.distributed.tensor.experimental import implicit_replication as on
+
+    depth = getattr(_DEPTH, "n", 0)
+    _DEPTH.n = depth + 1
+    try:
+        if depth:
+            yield
+        else:
+            with on():
+                yield
+    finally:
+        _DEPTH.n = depth
+
+
+def serving_scope(model: torch.nn.Module):
+    """``inference_mode`` for a model of plain tensors; for DTensor
+    parameters ``no_grad`` and ``implicit_replication`` (DTensor does not
+    run under inference mode, and the plain tensors a step makes, positions
+    and masks, count as replicated)."""
+    if not is_dtensor(next(model.parameters())):
+        return torch.inference_mode()
+    scope = contextlib.ExitStack()
+    scope.enter_context(torch.no_grad())
+    scope.enter_context(implicit_replication())
+    return scope
+
+
+def serving(fn):
+    """``fn(model, ...)`` under ``serving_scope(model)``."""
+    @functools.wraps(fn)
+    def run(model, *args, **kwargs):
+        with serving_scope(model):
+            return fn(model, *args, **kwargs)
+
+    return run

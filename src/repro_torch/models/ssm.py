@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.layers import RMSNorm, dense_init_, empty_param, rmsnorm
+from repro_torch.models import sharding as sh
 
 
 def ssm_dims(cfg) -> tuple[int, int]:
@@ -135,7 +136,13 @@ def _intra_chunk(cb: torch.Tensor, ca: torch.Tensor) -> torch.Tensor:
 def ssd(p: SSD, x_in: torch.Tensor, cfg, return_final_state: bool = False):
     """Chunked SSD forward. x_in (B, S, d) -> (B, S, d) [+ (state (B, H, N,
     P), conv_tail (B, K - 1, conv_dim)) if requested, both in the compute
-    type: the cache ``ssd_decode`` continues from]."""
+    type: the cache ``ssd_decode`` continues from]. On DTensors each rank
+    runs it on its own rows with the parameters whole
+    (``sharding.local_rows``)."""
+    return sh.local_rows(_ssd, p, x_in, cfg, return_final_state)
+
+
+def _ssd(p: SSD, x_in: torch.Tensor, cfg, return_final_state: bool = False):
     cdt = cfg.compute_dtype
     b, orig_s, _ = x_in.shape
     g, n, q, k = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_chunk, cfg.ssm_conv

@@ -27,7 +27,8 @@ memory's K/V for a cross layer, computed once at prefill and only read by
 the decode steps); ``decode_step`` updates them in place. The reference's
 prefill runs each layer's SSD and K/V projections a second time to build
 the cache; the port keeps what the layer's own pass computed, the same
-values. The serving entry points run under ``torch.inference_mode``;
+values. The serving entry points run under ``torch.inference_mode`` (on
+DTensor parameters ``no_grad``: ``sharding.serving``);
 ``loss_fn`` runs with autograd, the layers after the prefix under the
 config's ``remat`` policy (``_remat``), as the reference's scan body.
 """
@@ -43,6 +44,7 @@ from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selectiv
 from repro_torch.configs.base import ArchConfig, BlockDef, check_ported
 from repro_torch.core.pipeline import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import sharding as sh
 from repro_torch.models import ssm as S
 
 
@@ -142,16 +144,19 @@ def _mixer(bd: BlockDef, p: Block, h: torch.Tensor, cfg: ArchConfig, positions,
 
 def _with_ffn(bd: BlockDef, p: Block, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """h plus the layer's FFN of h (h itself when ``ffn="none"``): the MLP,
-    the MoE, or for ``moe_dense`` the MoE plus the MLP."""
+    the MoE, or for ``moe_dense`` the MoE plus the MLP. On DTensors the
+    residual stream is kept whole across ``model`` after each sum
+    (``sharding.as_rows``)."""
+    h = sh.as_rows(h)
     if bd.ffn == "none":
         return h
     x = L.rmsnorm(p.ln2, h, cfg.norm_eps)
     if bd.ffn == "dense":
-        return h + L.mlp(p.mlp, x, cfg)
+        return sh.as_rows(h + L.mlp(p.mlp, x, cfg))
     f = L.moe(p.moe, x, cfg)
     if bd.ffn == "moe_dense":
         f = f + L.mlp(p.mlp, x, cfg)
-    return h + f
+    return sh.as_rows(h + f)
 
 
 def apply_block(bd: BlockDef, p: Block, h: torch.Tensor, cfg: ArchConfig, positions,
@@ -198,13 +203,13 @@ def _logits(params: Transformer, h: torch.Tensor, cfg: ArchConfig) -> torch.Tens
     return _mask_padded_logits((h.to(cdt) @ params.lm_head.to(cdt)).float(), cfg)
 
 
-@torch.inference_mode()
+@sh.serving
 def forward(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig, extras=None) -> torch.Tensor:
     """tokens (B, S) -> (B, S, V) f32 logits (the decode oracle).
     ``extras["memory"]`` (B, T, d) is what cross-attention layers attend."""
     b, s = tokens.shape
     positions = _positions(b, s, tokens.device)
-    h = params.embed[tokens].to(cfg.compute_dtype)
+    h = sh.as_rows(params.embed[tokens].to(cfg.compute_dtype))
     for bd, p in zip(cfg.layer_defs(), params.layers):
         h = apply_block(bd, p, h, cfg, positions, extras)
     h = L.rmsnorm(params.final_norm, h, cfg.norm_eps)
@@ -261,6 +266,7 @@ def _train_block(bd: BlockDef, p: Block, h: torch.Tensor, cfg: ArchConfig, posit
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Mean of logsumexp minus the target's logit (the reference's CE)."""
+    logits = sh.replicate_dim(logits, -1)
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, targets[..., None].long())[..., 0]
     return torch.mean(logz - gold)
@@ -275,7 +281,7 @@ def loss_fn(params: Transformer, tokens: torch.Tensor, targets: torch.Tensor, cf
     prefix)."""
     b, s = tokens.shape
     positions = _positions(b, s, tokens.device)
-    h = params.embed[tokens].to(cfg.compute_dtype)
+    h = sh.as_rows(params.embed[tokens].to(cfg.compute_dtype))
     aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
     n_pre = len(cfg.prefix)
     for i, (bd, p) in enumerate(zip(cfg.layer_defs(), params.layers)):
@@ -348,7 +354,7 @@ def _block_with_cache(bd: BlockDef, p: Block, h: torch.Tensor, cfg: ArchConfig, 
     return _with_ffn(bd, p, h + _fuse(p, a, m, cfg), cfg), cache
 
 
-@torch.inference_mode()
+@sh.serving
 def prefill(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig, extras=None,
             max_len: int | None = None) -> tuple[torch.Tensor, list[dict]]:
     """Full-sequence pass building the decode cache; returns (logits at the
@@ -356,7 +362,7 @@ def prefill(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig, extras=N
     caches for later ``decode_step`` writes (default: the prompt length)."""
     b, s = tokens.shape
     positions = _positions(b, s, tokens.device)
-    h = params.embed[tokens].to(cfg.compute_dtype)
+    h = sh.as_rows(params.embed[tokens].to(cfg.compute_dtype))
     caches = []
     for bd, p in zip(cfg.layer_defs(), params.layers):
         h, c = _block_with_cache(bd, p, h, cfg, positions, max_len, extras)
@@ -365,20 +371,52 @@ def prefill(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig, extras=N
     return _logits(params, h[:, -1], cfg), caches
 
 
-@torch.inference_mode()
+def _flash(bd: BlockDef, cfg: ArchConfig, extras) -> bool:
+    """Whether layer ``bd`` decodes by flash decode: the reference's rule
+    (``cfg.flash_decode``, an attention layer with no window, a mesh in
+    ``extras``)."""
+    return bool(cfg.flash_decode and bd.mixer == "attn" and bd.window is None
+                and extras and "mesh" in extras)
+
+
+def shard_decode_caches(cfg: ArchConfig, caches: list[dict], extras) -> list[dict]:
+    """``caches`` (whole on every rank, as ``prefill`` leaves them) with
+    each flash-decode layer's K/V placed on ``extras["mesh"]`` by
+    ``sharding.cache_pspecs`` (batch over the data axes when it divides,
+    sequence over ``model``), each rank keeping its block; the other
+    layers' caches as they are. Without flash decode, ``caches``."""
+    from repro_torch.launch.mesh import describe
+
+    for bd, c in zip(cfg.layer_defs(), caches):
+        if _flash(bd, cfg, extras):
+            mesh = extras["mesh"]
+            batch = c["attn"]["k"].shape[0]
+            specs = sh.cache_pspecs(describe(mesh), c["attn"], batch)
+            c["attn"] = {k: sh.place(t, sh.Sharding(mesh, sh.to_placements(specs[k], mesh)))
+                         for k, t in c["attn"].items()}
+    return caches
+
+
+@sh.serving
 def decode_step(params: Transformer, token: torch.Tensor, caches: list[dict], pos: int,
-                cfg: ArchConfig) -> tuple[torch.Tensor, list[dict]]:
+                cfg: ArchConfig, extras=None) -> tuple[torch.Tensor, list[dict]]:
     """token (B,) int, pos int -> (logits (B, V) f32, caches, updated in
-    place). A cross layer reads the memory's K/V from its cache, so unlike
-    the reference's (whose ``extras`` carry flash-decode's mesh) it takes
-    no ``extras``."""
-    h = params.embed[token[:, None]].to(cfg.compute_dtype)  # (B, 1, d)
+    place). A cross layer reads the memory's K/V from its cache. With
+    ``cfg.flash_decode`` and a ``DeviceMesh`` in ``extras["mesh"]``
+    (``extras["batch_axes"]``, default ``("data",)``, the axes the batch
+    is split over), attention layers without a window decode by
+    ``flash_decode_attention`` against caches that ``shard_decode_caches``
+    placed; without a mesh they take the plain path, as the reference's."""
+    h = sh.as_rows(params.embed[token[:, None]].to(cfg.compute_dtype))  # (B, 1, d)
     for bd, p, c in zip(cfg.layer_defs(), params.layers, caches):
         x = L.rmsnorm(p.ln1, h, cfg.norm_eps)
         a = m = None
         if bd.mixer == "cross_attn":
             a = L.cross_decode_attention(p.attn, x, c["cross"], cfg=cfg)
-        if bd.mixer in ("attn", "hybrid"):
+        if _flash(bd, cfg, extras):
+            a, _ = L.flash_decode_attention(p.attn, x, c["attn"], pos, cfg=cfg, mesh=extras["mesh"],
+                                            batch_axes=extras.get("batch_axes", ("data",)))
+        elif bd.mixer in ("attn", "hybrid"):
             a, _ = L.decode_attention(p.attn, x, c["attn"], pos, cfg=cfg, window=bd.window)
         if bd.mixer in ("ssm", "hybrid"):
             m, _ = S.ssd_decode(p.ssm, x, c["ssm"], cfg)

@@ -21,13 +21,38 @@ def _factored(p: torch.Tensor) -> bool:
     return p.ndim >= 2
 
 
+def _zeros(p: torch.Tensor, shape, dropped: int | None) -> torch.Tensor:
+    """float32 zeros of ``shape`` on ``p``'s device. For a DTensor ``p``
+    a DTensor placed as ``p`` with dimension ``dropped`` removed (the
+    reference's ``vr_spec`` / ``vc_spec``): a mesh dimension that split
+    it replicates, one that split a later dimension splits the one
+    before; ``dropped`` None replicates everything (the (1,) placeholder)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(p, DTensor):
+        return torch.zeros(shape, dtype=torch.float32, device=p.device)
+    pls = []
+    for pl in p.placements:
+        if not isinstance(pl, Shard) or dropped is None or pl.dim == dropped:
+            pls.append(Replicate())
+        else:
+            pls.append(Shard(pl.dim - 1) if pl.dim > dropped else pl)
+    from torch.distributed.tensor import distribute_tensor
+
+    full = torch.zeros(shape, dtype=torch.float32, device=p.to_local().device)
+    return distribute_tensor(full, p.device_mesh, pls, src_data_rank=None)
+
+
 def adafactor_init(params: Mapping[str, torch.Tensor]) -> FactoredState:
     def vr(p):
-        return torch.zeros(p.shape[:-1] if _factored(p) else p.shape, dtype=torch.float32, device=p.device)
+        if _factored(p):
+            return _zeros(p, p.shape[:-1], p.ndim - 1)
+        return torch.zeros_like(p, dtype=torch.float32)
 
     def vc(p):
-        shape = p.shape[:-2] + p.shape[-1:] if _factored(p) else (1,)
-        return torch.zeros(shape, dtype=torch.float32, device=p.device)
+        if _factored(p):
+            return _zeros(p, p.shape[:-2] + p.shape[-1:], p.ndim - 2)
+        return _zeros(p, (1,), None)
 
     device = next(iter(params.values())).device
     return FactoredState(torch.zeros((), dtype=torch.int32, device=device),

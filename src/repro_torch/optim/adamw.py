@@ -36,7 +36,8 @@ class OptState(NamedTuple):
 
 def adamw_init(params: Mapping[str, torch.Tensor], cfg: AdamWConfig = AdamWConfig()) -> OptState:
     device = next(iter(params.values())).device
-    zeros = {n: torch.zeros(p.shape, dtype=cfg.moment_dtype, device=p.device) for n, p in params.items()}
+    # zeros_like: a DTensor parameter gets DTensor moments placed as it is.
+    zeros = {n: torch.zeros_like(p, dtype=cfg.moment_dtype) for n, p in params.items()}
     return OptState(step=torch.zeros((), dtype=torch.int32, device=device), mu=zeros,
                     nu={n: torch.zeros_like(z) for n, z in zeros.items()})
 

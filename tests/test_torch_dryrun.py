@@ -128,10 +128,18 @@ def test_moe_dispatch_is_stated():
 
 
 def test_meshes_above_one_card_give_per_device_argument_bytes():
+    """On 16x16 the record is the sharded step's, counted on one device:
+    FLOPs, bytes and collective traffic a device, the collective term in
+    its roofline, and the argument bytes of the local shards."""
     cfg = registry.get("granite-3-8b")
     rec = dryrun.run_cell(cfg, SHAPES["train_4k"], make_production_mesh(), verbose=False)
-    assert rec["skipped"] and rec["reason"] == dryrun.MULTI_DEVICE_NOTE
-    assert rec["flops_per_device"] is None and rec["bytes_per_device"] is None
+    assert rec["ok"] and "skipped" not in rec and rec["chips"] == 256
+    one = rl.model_flops_train(cfg, 256 * 4096) / 256
+    assert one <= rec["flops_per_device"] < 4 * one
+    assert 0 < rec["bytes_per_device"] and 0 < rec["collective_traffic_per_device"]
+    assert rec["collective_traffic_per_device"] == sum(rec["collective_traffic_by_op"].values())
+    assert rec["terms_seconds"]["collective"] == rec["collective_traffic_per_device"] / rl.LINK_BW
+    assert sum(rec["collective_ops"].values()) == sum(rec["comm_debug_counts"].values())
     args = rec["memory_analysis"]["arguments"]
     total = sum(p.numel() * 4 for p in dryrun.meta_model(cfg).parameters())
     assert total / 16 <= args["params"] < total
@@ -172,6 +180,10 @@ def test_temporaries_peak():
 
 
 def test_cli_writes_records_and_skips_what_is_not_ported(tmp_path, monkeypatch):
+    """Records for a flash-decode config and an SSM; only the reference's
+    own skip (full attention at 500k) is left. On one card there is no
+    mesh, so flash decode's cell is the plain decode's, as the reference's
+    decode takes the plain path without one."""
     real = registry.get
 
     def get(name):
@@ -186,12 +198,16 @@ def test_cli_writes_records_and_skips_what_is_not_ported(tmp_path, monkeypatch):
     assert set(recs) == {f"{a}__{s}__1x1.json" for a in ("granite-3-8b", "mamba2-780m")
                          for s in ("long_500k", "decode_32k")}
     assert recs["granite-3-8b__long_500k__1x1.json"]["reason"] == "skip(full-attn)"
-    assert recs["granite-3-8b__decode_32k__1x1.json"]["reason"] == "skip(not ported: flash_decode)"
+    flash = recs["granite-3-8b__decode_32k__1x1.json"]
+    assert flash["ok"] and flash["kernels"] == {}
+    assert flash["flops_per_device"] == dryrun.run_cell(registry.get("granite-3-8b"),
+                                                        SHAPES["decode_32k"],
+                                                        verbose=False)["flops_per_device"]
     for s in ("long_500k", "decode_32k"):
         rec = recs[f"mamba2-780m__{s}__1x1.json"]
         assert rec["ok"] and rec["costs_extrapolated"] is False and rec["kernels"] == {}
     table = report.markdown_table(report.load_cells(tmp_path, "1x1"))
-    assert table.count("\n") == 5 and "skip(not ported: flash_decode)" in table
+    assert table.count("\n") == 5 and "skip(full-attn)" in table and "not ported" not in table
 
 
 def ref_constants() -> dict:
@@ -242,16 +258,28 @@ def test_pdf_records(variant, shape):
 
 @pytest.mark.parametrize("variant", dryrun_pdf.MESH_VARIANTS)
 def test_pdf_mesh_variants_raise(variant):
-    with pytest.raises(NotImplementedError, match="item 18"):
-        dryrun_pdf.run_pdf_cell(variant, "window_small", verbose=False)
+    """The mesh variants run on the production mesh: one device's rows,
+    the global grouping's all-gather of the (P, 2) int64 keys priced by
+    the ring factor, no collective in the per-rank window step."""
+    rec = dryrun_pdf.run_pdf_cell(variant, "window_small", verbose=False)
+    points = dryrun_pdf.PDF_SHAPES["window_small"][0]
+    assert rec["ok"] and rec["mesh"] == [16, 16] and rec["chips"] == 256
+    assert rec["memory_analysis"]["argument_size_in_bytes"] == points // 256 * 1000 * 4
+    if variant == "grouping_global":
+        assert rec["collective_ops"] == {"all-gather": 1}
+        assert rec["collective_traffic_per_device"] == rl.collective_traffic(
+            "all-gather", points * 2 * 8, 256)
+        assert set(rec["kernels"]) == {"moments_stats", "hist_counts"}
+    else:
+        assert rec["collective_ops"] == {} and rec["kernels"] == {}
 
 
 def test_pdf_cli(tmp_path):
     dryrun_pdf.main(["--all", "--out", str(tmp_path)])
     recs = [json.loads(f.read_text()) for f in tmp_path.glob("*.json")]
     assert len(recs) == 15
-    assert sum(r["ok"] for r in recs) == 9
-    assert {r["variant"] for r in recs if r.get("skipped")} == set(dryrun_pdf.MESH_VARIANTS)
+    assert sum(r["ok"] for r in recs) == 15
+    assert {r["variant"] for r in recs if r["mesh"] == [16, 16]} == set(dryrun_pdf.MESH_VARIANTS)
 
 
 def fake_cells() -> dict:

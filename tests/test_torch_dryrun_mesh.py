@@ -1,0 +1,158 @@
+"""The dry run above 1x1 (``launch/dryrun.py``, ``dryrun_pdf.py``): the
+sharded step on meta tensors in a fake world of the mesh's size, one
+device's FLOPs, bytes and collectives.
+
+On one reduced cell (granite's ``reduced()``) at 1x4 and 2x2: the argument
+bytes a device equal ``per_device_bytes`` of the placements and the local
+shards' bytes; the counts scale with the shards; the collectives the meter
+prices are those ``CommDebugMode`` sees; and one tensor-parallel block of
+the same cell communicates what a hand count says. Which operators the
+two partitioners choose (DTensor's here, XLA's SPMD in the reference) is
+compared in PERF.md, not asserted: they choose differently."""
+
+import pytest
+import torch
+
+from repro_torch.configs import registry
+from repro_torch.configs.shapes import ShapeDef, input_specs
+from repro_torch.launch import dryrun, dryrun_pdf, report
+from repro_torch.launch import mesh as M
+from repro_torch.launch import roofline as rl
+from repro_torch.models import layers as L
+from repro_torch.models import sharding as sh
+
+MESHES = [(1, 4), (2, 2)]
+B, S = 4, 32
+
+
+def cfg():
+    return registry.get("granite-3-8b").reduced()
+
+
+@pytest.fixture(scope="module")
+def records():
+    out = {}
+    for kind in ("train", "prefill", "decode"):
+        shape = ShapeDef("t", kind, S, B)
+        out[(kind, (1, 1))] = dryrun.run_cell(cfg(), shape, verbose=False)
+        for m in MESHES:
+            out[(kind, m)] = dryrun.run_cell(cfg(), shape, M.make_mesh(m, ("data", "model")),
+                                             verbose=False)
+    return out
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+@pytest.mark.parametrize("shape", MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
+def test_argument_bytes_are_the_local_shards(records, kind, shape):
+    """Each argument's bytes a device equal ``per_device_bytes`` of its
+    placements: the parameters by ``make_pspecs``, the moments as their
+    parameters, the batch and caches by ``input_specs``."""
+    rec = records[(kind, shape)]
+    mesh = M.make_mesh(shape, ("data", "model"))
+    model = dryrun.meta_model(cfg())
+    pspecs = sh.make_pspecs(cfg(), mesh, model)
+    args = rec["memory_analysis"]["arguments"]
+    assert args["params"] == sh.per_device_bytes(model, pspecs, mesh)
+    batch, specs = input_specs(cfg(), ShapeDef("t", kind, S, B), mesh)
+    rest = {k: v for k, v in batch.items() if k != "caches"}
+    assert args["batch"] == sum(sh.per_device_bytes(v, specs[k], mesh) for k, v in rest.items())
+    if kind == "train":
+        assert args["optimizer"] == 4 + 2 * args["params"]  # the int32 step, mu and nu
+    if kind == "decode":
+        assert args["caches"] == sh.per_device_bytes(batch["caches"], specs["caches"], mesh)
+    assert rec["memory_analysis"]["argument_size_in_bytes"] == sum(args.values())
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_counts_split_with_the_shards(records, kind):
+    """Data parallel halves the products (the batch splits), tensor
+    parallel too (heads and the FFN split, the residual stream whole
+    between layers); the collective term prices the
+    traffic a device at the link rate, and the meter saw every collective
+    CommDebugMode saw."""
+    one = records[(kind, (1, 1))]
+    for shape in MESHES:
+        rec = records[(kind, shape)]
+        assert rec["ok"] and rec["chips"] == 4 and rec["costs_extrapolated"] is False
+        assert rec["flops_per_device"] < one["flops_per_device"]
+        assert sum(rec["collective_ops"].values()) == sum(rec["comm_debug_counts"].values()) > 0
+        assert rec["collective_traffic_per_device"] == pytest.approx(
+            sum(rec["collective_traffic_by_op"].values()))
+        assert rec["terms_seconds"]["collective"] == pytest.approx(
+            rec["collective_traffic_per_device"] / rl.LINK_BW)
+    quarter = records[(kind, (2, 2))]["flops_per_device"] * 4
+    if kind == "prefill":  # the batch over data, heads and FFN over model: exactly a quarter
+        assert quarter == one["flops_per_device"]
+    if kind == "train":  # DTensor's backward leaves some products whole across model
+        assert one["flops_per_device"] <= quarter <= 4 / 3 * one["flops_per_device"]
+
+
+def tp_block_counts(shape, block):
+    """(forward, backward) collectives of layer 0's ``block`` ("mlp" or
+    "attn") of the cell's model placed on ``shape``: x split over data
+    only, the output brought back to x's placement, the backward's dx too."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    c = cfg()
+    with M.fake_world(4):
+        dm = M.device_mesh(M.make_mesh(shape, ("data", "model")), "cpu")
+        model = dryrun.meta_model(c).requires_grad_(True)
+        sh.distribute_params(c, dm, model)
+        rows = sh.batch_sharding(dm, 3)
+        x = sh.place(torch.empty((B, S, c.d_model), device="meta"), rows).requires_grad_(True)
+        pos = torch.arange(S, device="meta").expand(B, S)
+        p = model.layers[0]
+        with sh.implicit_replication(), CommDebugMode() as fwd:
+            if block == "mlp":
+                y = L.mlp(p.mlp, x, c)
+            else:
+                y = L.attention(p.attn, x, cfg=c, positions=pos)
+            y = y.redistribute(dm, rows.placements)
+        with sh.implicit_replication(), CommDebugMode() as bwd:
+            (g,) = torch.autograd.grad(y.sum(), x)
+            g.redistribute(dm, rows.placements)
+
+    def named(comm):
+        return {str(op).split(".")[-1]: n for op, n in comm.get_comm_counts().items()}
+
+    return named(fwd), named(bwd)
+
+
+@pytest.mark.parametrize("block", ["mlp", "attn"])
+@pytest.mark.parametrize("shape", MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
+def test_tensor_parallel_block_collectives_equal_a_hand_count(shape, block):
+    """Megatron's count for a tensor-parallel block: the row-parallel
+    output (``wo``, ``w_out``) is a partial sum, one all-reduce forward;
+    the column-parallel inputs (``wq``/``wk``/``wv``, ``w_gate``/``w_in``)
+    give dx as a partial sum, one all-reduce backward. The cell has 2 KV
+    heads: on a 4-way model axis they do not divide, so K and V are
+    replicated and repeated for the local query heads (``expand_kv``), and
+    their gradients come back by one all-gather each; on 2x2 they divide."""
+    fwd, bwd = tp_block_counts(shape, block)
+    assert fwd == {"all_reduce": 1}
+    want = {"all_reduce": 1}
+    if block == "attn" and shape == (1, 4):
+        want["all_gather_into_tensor"] = 2
+    assert bwd == want
+
+
+def test_cli_writes_mesh_records_and_the_report_reads_them(tmp_path):
+    dryrun.main(["--arch", "mamba2-780m", "--shape", "long_500k", "--mesh", "2x2", "--out",
+                 str(tmp_path)])
+    cells = report.load_cells(tmp_path, "2x2")
+    rec = cells[("mamba2-780m", "long_500k")]
+    assert rec["ok"] and rec["mesh"] == [2, 2] and rec["collective_ops"]
+    assert "mamba2-780m" in report.markdown_table(cells)
+
+
+def test_pdf_mesh_variant_on_a_small_mesh():
+    """``grouping_global`` on 2x2: every rank's keys all-gathered once over
+    the world; a quarter of the rows a device."""
+    mesh = M.make_mesh((2, 2), ("data", "model"))
+    rec = dryrun_pdf.run_pdf_cell("grouping_global", "window_small", verbose=False, mesh=mesh)
+    points = dryrun_pdf.PDF_SHAPES["window_small"][0]
+    assert rec["mesh"] == [2, 2] and rec["collective_ops"] == {"all-gather": 1}
+    assert rec["comm_debug_counts"] == {"c10d.allgather_": 1}
+    assert rec["collective_traffic_per_device"] == points * 2 * 8 * 3 / 4
+    one = dryrun_pdf.run_pdf_cell("faithful", "window_small", verbose=False)
+    assert rec["kernels"]["hist_counts"]["bytes"] * 4 == one["kernels"]["hist_counts"]["bytes"]

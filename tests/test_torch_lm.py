@@ -98,28 +98,31 @@ def test_registry_lists_the_dense_configs_with_reference_fields():
 @pytest.mark.parametrize("name", ["kimi-k2-1t-a32b", "seamless-m4t-medium", "llama-3.2-vision-90b",
                                   "arctic-480b"])
 def test_unported_configs_raise_naming_roadmap(name):
-    """These four configs are ported now (MoE, enc-dec, VLM); with a knob
-    still to port (``flash_decode``) each raises naming ROADMAP."""
+    """These four configs are ported (MoE, enc-dec, VLM), and so is
+    ``flash_decode``: with it each config builds, and without a mesh in
+    ``extras`` it decodes as the plain path does, as the reference's
+    (``repro/models/transformer.py:272``: flash decode needs a mesh; its
+    enc-dec decode has no such branch)."""
     cfg = port_cfg(jregistry.get(name).reduced())
     assert tb.unported(cfg) == []
-    bad = cfg.replace(flash_decode=True)
-    assert tb.unported(bad) == ["flash_decode"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.Transformer(bad)
+    flash = cfg.replace(flash_decode=True)
+    assert tb.unported(flash) == []
+    gen = torch.Generator().manual_seed(0)
+    model = serve_decode.init_params(flash, gen, "cpu")
+    prompt = torch.randint(0, cfg.vocab, (2, 8), generator=gen)
+    extras = serve_decode.stub_extras(cfg, 2, 8, gen, "cpu")
+    want = serve_decode.generate(cfg, model, prompt, 4, extras)
+    assert torch.equal(serve_decode.generate(flash, model, prompt, 4, extras), want)
 
 
 @pytest.mark.parametrize("knob", ["flash_decode", "adam_moments_bf16", "use_adafactor"])
 def test_unported_knobs_raise(knob):
-    """``flash_decode``, still to port, raises naming the knob. The
-    optimizer knobs are ported (``launch/train.py`` builds the optimizer
-    they name), so with them the model builds."""
+    """Every knob is ported: ``flash_decode`` acts in decode given a mesh
+    (``tests/test_torch_flash_decode.py``), the optimizer knobs in
+    ``launch/train.py``; with each the model builds."""
     cfg = registry.get("granite-3-8b").reduced().replace(**{knob: True})
-    if knob != "flash_decode":
-        assert tb.unported(cfg) == []
-        assert T.count_params(T.init_params(cfg, device="cpu")) > 0
-        return
-    with pytest.raises(NotImplementedError, match=knob):
-        T.init_params(cfg)
+    assert tb.unported(cfg) == []
+    assert T.count_params(T.init_params(cfg, device="cpu")) > 0
 
 
 # -- layers ------------------------------------------------------------------------

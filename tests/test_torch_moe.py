@@ -295,20 +295,15 @@ def test_registry_configs_build_the_reference_tree(name):
 @pytest.mark.parametrize("knob", ["flash_decode", "use_adafactor", "adam_moments_bf16"])
 @pytest.mark.parametrize("name", MOE_ARCHS + ["llama-3.2-vision-90b"])
 def test_check_ported_still_refuses(name, knob):
-    """The knob still to port (``flash_decode``) raises, naming the knob and
-    ROADMAP, from every entry point's ``check_ported``; the optimizer knobs
-    are ported (``launch/train.py`` builds the optimizer they name), so with
-    them, as without any, the config runs."""
+    """Every knob is ported: ``flash_decode`` (it acts in decode given a
+    mesh, ``tests/test_torch_flash_decode.py``) and the optimizer knobs
+    (``launch/train.py`` builds the optimizer they name); with each, as
+    without any, ``check_ported`` refuses nothing and the config builds."""
     cfg = registry.get(name).reduced()
     assert tb.unported(cfg) == []
-    bad = cfg.replace(**{knob: True})
-    if knob != "flash_decode":
-        assert tb.unported(bad) == []
-        assert T.count_params(T.init_params(bad, device="cpu")) == T.count_params(T.Transformer(cfg))
-        return
-    assert tb.unported(bad) == [knob]
-    with pytest.raises(NotImplementedError, match=f"{knob}.*ROADMAP"):
-        T.init_params(bad, device="cpu")
+    knobbed = cfg.replace(**{knob: True})
+    assert tb.unported(knobbed) == []
+    assert T.count_params(T.init_params(knobbed, device="cpu")) == T.count_params(T.Transformer(cfg))
 
 
 @pytest.mark.parametrize("fault", ["misshapen_expert_stack", "missing_router", "extra_shared_leaf"])

@@ -390,7 +390,9 @@ def test_main_trains_every_reduced_config_on_cpu(name, capsys):
 def test_main_accumulates_and_refuses_a_mesh():
     assert np.isfinite(train.main(["--arch", "granite-3-8b", "--reduced", "--device", "cpu", "--steps",
                                    "1", "--batch", "4", "--seq", "8", "--accum", "2"]))
-    with pytest.raises(NotImplementedError, match="item 18"):
+    # A mesh above 1x1 needs a world of its size (tests/test_torch_sharded_train.py
+    # runs one): without one the trainer says how to launch it.
+    with pytest.raises(RuntimeError, match="torchrun --nproc-per-node 8"):
         train.main(["--arch", "granite-3-8b", "--reduced", "--device", "cpu", "--mesh", "2x4"])
 
 
