@@ -212,7 +212,13 @@ stager, the dry run above 1x1) runs last, on the one card:
   ``flash_decode`` and the mesh in ``extras``: its 2 global layers decode
   by ``flash_decode_attention`` against caches placed on the mesh, each
   of 16 steps' logits within the decode oracle's 1e-3 of the plain
-  decode's, ``generate``'s 16 tokens equal, no K5 launch in decode;
+  decode's, ``generate``'s 16 tokens equal, no K5 launch in decode; then
+  arctic-480b as ``[lm moe]`` has it (full width, 2 layers, bf16
+  parameters, 2 x 4,096 tokens): a prefill on the one device (its logits
+  and each MoE layer's kept set kept on the host), then the same
+  parameters placed on the mesh and the prefill again through the
+  sharded MoE (``sharding.local_experts``): logits bitwise, the same kept
+  set and drops in each layer;
 * ``[mesh 2 ranks]``: two NCCL ranks on the card once (NCCL refuses two
   ranks on one device; its message is logged), then two processes with
   ``backend="gloo"`` passed explicitly and logged: flash decode at
@@ -222,10 +228,17 @@ stager, the dry run above 1x1) runs last, on the one card:
   ``pod_allreduce_compressed`` of a tensor of hymba's embedding gradient's
   shape within 1e-6 of the scheme and 0.05 of the mean; Set1 slice 201's
   21 windows split over the ranks by ``ShardedStager`` (K1 and K2 once a
-  window on each rank), each window bitwise the one-rank window;
+  window on each rank), each window bitwise the one-rank window; one
+  arctic-480b MoE layer at full width on a 1x2 mesh (64 experts a rank,
+  bf16 parameters, float32 compute, 2 x 4,096 tokens with a shared
+  direction, so the capacity drops): the kept set of the one-rank layer
+  (computed in this process first), the output within the float32
+  oracle's 1e-4 of it, each rank's expert buffer as many rows as its
+  slab's largest kept count (only all-reduces cross the ranks);
 * ``[dryrun mesh]``: the dry run's sharded step for granite-3-8b
-  ``decode_32k`` on 16x16 (``python -m repro_torch.launch.dryrun``) and
-  hymba-1.5b ``long_500k`` on 2x16x16 (``run_cell``), ``dryrun_pdf``'s
+  ``decode_32k`` on 16x16 (``python -m repro_torch.launch.dryrun``),
+  arctic-480b ``decode_32k`` on 16x16 and hymba-1.5b ``long_500k`` on
+  2x16x16 (``run_cell``), ``dryrun_pdf``'s
   ``grouping_global`` on 16x16 (its command line) and
   ``fused_scatter_shmap`` on 2x16x16: each cell's wall, collectives and
   collective term; a failed cell fails the run.
@@ -248,6 +261,7 @@ checkout of the repository, it exits with code 2 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -397,10 +411,20 @@ MESH_K5_PER_STEP = 2 * (MESH_HYMBA_LAYERS - 1)
 MESH_FLASH_TOL = dict(rtol=0.0, atol=2e-5)  # the reference's (tests/test_mesh_multidevice.py:190)
 MESH_TIMEOUT = 300
 MESH_PROBE_TIMEOUT = 60
+# The MoE on a mesh: arctic-480b as [lm moe] has it (XMODEL_PHASES) in
+# [mesh 1x1]; one of its MoE layers at 1x2 in [mesh 2 ranks], float32
+# compute from bf16 parameters (each expert drawn from its own seed, so a
+# rank draws only its slab), held to the one-rank layer within the float32
+# oracle's LM_PREFILL_TOL. Two copies of the 2-layer model do not fit
+# beside each other, so the one-device prefill's logits and kept sets wait
+# on the host while the same parameters go onto the mesh.
+MESH_MOE_ARCH, MESH_MOE_LAYERS, MESH_MOE_BATCH = "arctic-480b", 2, LM_BATCH // 2
+MESH_MOE_SEED = 7
 # [dryrun mesh]: the LM dry run and the PDF window step's mesh variants on
 # the production meshes (fake worlds of 256 and 512 ranks): (arch or
 # variant, shape, multi_pod, through the command line or in this process).
-DRYRUN_MESH_CELLS = (("granite-3-8b", "decode_32k", False, True), ("hymba-1.5b", "long_500k", True, False))
+DRYRUN_MESH_CELLS = (("granite-3-8b", "decode_32k", False, True), ("arctic-480b", "decode_32k", False, False),
+                     ("hymba-1.5b", "long_500k", True, False))
 DRYRUN_PDF_MESH_CELLS = (("grouping_global", "window_small", False, True),
                          ("fused_scatter_shmap", "window_prod", True, False))
 
@@ -2908,30 +2932,45 @@ def decode_oracle(torch, model, cfg, prompt, extras, label) -> dict:
     return dict(oracle_prefill_max_abs=errs[0], decode_oracle_max_abs=max(errs[1:]))
 
 
-def moe_drops(torch, model, cfg, prompt, label) -> dict:
-    """Each MoE layer's capacity and dropped (token, choice) pairs in one
-    prefill of the phase's prompt and in one decode step after it (none
-    may drop there: T = batch <= 256), by wrapping ``layers.moe`` for these
-    two calls with a count from its own ``moe_route``."""
-    from repro_torch.launch import serve_decode as sd
+@contextlib.contextmanager
+def recording_moe(torch, calls: list, keep_masks: list | None = None):
+    """``layers.moe`` wrapped while the block runs: each call appends its
+    token count, capacity and dropped (token, choice) pairs to ``calls``,
+    from its own ``moe_route`` (on DTensors, the whole batch's positions),
+    and its kept mask on the host to ``keep_masks`` when given."""
     from repro_torch.models import layers as L
+    from repro_torch.models import sharding as sh
 
-    calls, saved = [], L.moe
+    saved = L.moe
 
-    def counted(p, x, cfg_, capacity_factor=None, _inner=saved):
+    def counted(p, x, cfg_, capacity_factor=None):
         t = x.shape[0] * x.shape[1]
         cap = L.moe_capacity(t, cfg_.num_experts, cfg_.moe_top_k, capacity_factor)
         pos = L.moe_route(p, x.reshape(t, -1).to(cfg_.compute_dtype), cfg_)[2]
-        calls.append(dict(tokens=t, capacity=cap, dropped=int((pos >= cap).sum())))
-        return _inner(p, x, cfg_, capacity_factor)
+        keep = (pos < cap).full_tensor() if sh.is_dtensor(pos) else pos < cap
+        calls.append(dict(tokens=t, capacity=cap, dropped=int((~keep).sum())))
+        if keep_masks is not None:
+            keep_masks.append(keep.cpu())
+        return saved(p, x, cfg_, capacity_factor)
 
     L.moe = counted
     try:
+        yield
+    finally:
+        L.moe = saved
+
+
+def moe_drops(torch, model, cfg, prompt, label) -> dict:
+    """Each MoE layer's capacity and dropped (token, choice) pairs in one
+    prefill of the phase's prompt and in one decode step after it (none
+    may drop there: T = batch <= 256), by ``recording_moe``."""
+    from repro_torch.launch import serve_decode as sd
+
+    calls = []
+    with recording_moe(torch, calls):
         logits, caches = sd.prefill(cfg, model, prompt, None, LM_PROMPT + 1)
         n_prefill = len(calls)
         sd.decode_step(cfg, model, torch.argmax(logits, -1).to(torch.int32), caches, LM_PROMPT)
-    finally:
-        L.moe = saved
     del caches, logits
     prefill, decode = calls[:n_prefill], calls[n_prefill:]
     n_moe = sum(bd.ffn in ("moe", "moe_dense") for bd in cfg.layer_defs())
@@ -3697,10 +3736,70 @@ def mesh_flash_1x1(np, torch, dev, smi, dmesh) -> dict:
     return nums
 
 
+def mesh_moe_1x1(np, torch, dev, smi, dmesh) -> dict:
+    """arctic-480b as [lm moe] has it (full width, MESH_MOE_LAYERS layers,
+    bf16 parameters, seed 0): a prefill of MESH_MOE_BATCH x LM_PROMPT
+    tokens on the one device, its logits and each MoE layer's kept set to
+    the host; then the same parameters placed on the 1x1 mesh
+    (``sharding.distribute_params``: no second copy) and the prefill twice
+    on DTensors, the MoE through ``sharding.local_experts``. Logits bitwise
+    equal, the same kept set and drops in every MoE layer; the second mesh
+    prefill times the mesh path once DTensor has cached its rules."""
+    from repro_torch.launch import serve_decode as sd
+    from repro_torch.models import sharding as sh
+
+    cfg = xmodel_config(torch, MESH_MOE_ARCH, MESH_MOE_LAYERS, True)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = sd.init_params(cfg, gen, dev)
+    prompt = torch.randint(0, cfg.vocab, (MESH_MOE_BATCH, LM_PROMPT), generator=gen, device=dev)
+
+    def run(tokens):
+        calls, keeps = [], []
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        with recording_moe(torch, calls, keeps):
+            logits, caches = sd.prefill(cfg, model, tokens, None, LM_PROMPT)
+        logits = logits.full_tensor() if sh.is_dtensor(logits) else logits
+        sync(torch, dev)
+        secs = time.perf_counter() - t0
+        out = logits.cpu()
+        del logits, caches
+        torch.cuda.empty_cache()
+        return out, calls, keeps, secs
+
+    one = run(prompt)
+    sh.distribute_params(cfg, dmesh, model)
+    kinds = sorted({type(p).__name__ for p in model.parameters()})
+    placed = sh.place(prompt, sh.batch_sharding(dmesh, 2))
+    mesh = run(placed)
+    again = run(placed)  # DTensor's sharding rules cached: the mesh prefill's own time
+    check(torch.equal(again[0], mesh[0]), "[mesh 1x1] arctic: the mesh prefill does not repeat bitwise")
+    n_moe = sum(bd.ffn in ("moe", "moe_dense") for bd in cfg.layer_defs())
+    check(len(one[1]) == len(mesh[1]) == n_moe, f"[mesh 1x1] MoE calls {len(one[1])} / {len(mesh[1])}, "
+                                                 f"expected {n_moe} each")
+    check(bool(torch.isfinite(one[0]).all()) and one[0].shape == (MESH_MOE_BATCH, cfg.vocab),
+          "[mesh 1x1] arctic prefill logits shape or finiteness")
+    differ = [i for i, (a, b) in enumerate(zip(one[2], mesh[2])) if not torch.equal(a, b)]
+    check(not differ and one[1] == mesh[1], f"[mesh 1x1] arctic: the mesh's kept set differs in MoE "
+                                            f"layers {differ}: {one[1]} vs {mesh[1]}")
+    check(torch.equal(one[0], mesh[0]), f"[mesh 1x1] arctic: the mesh's prefill logits differ from the "
+                                        f"one device's (max abs {float((one[0] - mesh[0]).abs().max())})")
+    nums = dict(arch=cfg.name, layers=cfg.num_layers, batch=MESH_MOE_BATCH, prompt=LM_PROMPT,
+                moe_layers=mesh[1], prefill_s_one_device=one[3], prefill_s_mesh_first=mesh[3],
+                prefill_s_mesh=again[3], bitwise=True)
+    log(f"[mesh 1x1] {smi}: {cfg.name}, {xmodel_note(cfg, MESH_MOE_ARCH)}, bf16 parameters: prefill of "
+        f"{MESH_MOE_BATCH} x {LM_PROMPT} tokens on the 1x1 mesh (parameters {kinds}) bitwise the one "
+        f"device's; each MoE layer's capacity and drops, the same kept set on both: {json.dumps(mesh[1])}; "
+        f"prefill s one device {one[3]}, mesh {mesh[3]} (first), {again[3]} (again, bitwise)")
+    del model, prompt
+    torch.cuda.empty_cache()
+    return nums
+
+
 def mesh_1x1_phase(np, torch, dev, smi, tmp: Path) -> dict:
     """[mesh 1x1]: a one-rank NCCL world in this process (its FileStore
-    under ``tmp``), its 1x1 ``DeviceMesh``, then ``mesh_train_1x1`` and
-    ``mesh_flash_1x1``; the world is left at the end."""
+    under ``tmp``), its 1x1 ``DeviceMesh``, then ``mesh_train_1x1``,
+    ``mesh_flash_1x1`` and ``mesh_moe_1x1``; the world is left at the end."""
     import torch.distributed as dist
 
     from repro_torch.launch import mesh as M
@@ -3713,7 +3812,8 @@ def mesh_1x1_phase(np, torch, dev, smi, tmp: Path) -> dict:
         dmesh = M.device_mesh(M.make_mesh((1, 1), ("data", "model")), dev.type)
         log(f"[mesh 1x1] a one-rank {dist.get_backend()} world, mesh {dmesh}")
         nums = {"backend": dist.get_backend(), "train": mesh_train_1x1(np, torch, dev, smi, dmesh),
-                "flash": mesh_flash_1x1(np, torch, dev, smi, dmesh)}
+                "flash": mesh_flash_1x1(np, torch, dev, smi, dmesh),
+                "moe": mesh_moe_1x1(np, torch, dev, smi, dmesh)}
     finally:
         dist.destroy_process_group()
     nums["wall_s"] = time.perf_counter() - t0
@@ -3836,8 +3936,143 @@ def _stager_2rank(np, torch, dev, dmesh) -> dict:
                 wall_s=time.perf_counter() - t0, launches=launches)
 
 
-def _mesh_rank(rank, world_size, device_type):
-    """One rank of [mesh 2 ranks]: on the card both ranks use CUDA device 0."""
+def moe_layer_cfg(torch):
+    """[mesh 2 ranks]'s MoE layer: MESH_MOE_ARCH at full width, bf16
+    parameters, float32 compute."""
+    return xmodel_config(torch, MESH_MOE_ARCH, MESH_MOE_LAYERS, True).replace(
+        compute_dtype=torch.float32)
+
+
+def moe_layer(torch, cfg, dev, dmesh=None):
+    """A MoE layer of ``cfg`` with experts drawn one at a time, each from its
+    own generator (seed MESH_MOE_SEED and its index), so the one-rank
+    layer and every rank's slab hold the same experts: ``MoE`` on meta
+    with plain parameters, or with ``dmesh`` (data x model) DTensor
+    parameters, the router replicated and each stack this rank's slab
+    (``Shard(0)`` on ``model``, as ``make_pspecs`` places it); and its
+    input x, (MESH_MOE_BATCH, LM_PROMPT, d) normals plus one shared
+    direction (the router then prefers some experts, and the capacity
+    drops choices)."""
+    from repro_torch.models import layers as L
+
+    d, ff, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    gen = torch.Generator(device=dev).manual_seed(MESH_MOE_SEED)
+    router = torch.randn((d, e), generator=gen, device=dev) * d**-0.5
+    x = (torch.randn((MESH_MOE_BATCH, LM_PROMPT, d), generator=gen, device=dev)
+         + 1.5 * torch.randn((d,), generator=gen, device=dev))
+    m = dmesh.size(dmesh.mesh_dim_names.index("model")) if dmesh is not None else 1
+    first = dmesh.get_local_rank("model") * (e // m) if dmesh is not None else 0
+    stacks = {}
+    for j, (name, shape, scale) in enumerate((("w_gate", (d, ff), e**-0.5), ("w_in", (d, ff), e**-0.5),
+                                               ("w_out", (ff, d), ff**-0.5))):
+        w = torch.empty((e // m,) + shape, dtype=cfg.param_dtype, device=dev)
+        for i in range(e // m):
+            g = torch.Generator(device=dev).manual_seed(MESH_MOE_SEED * 10_000 + 3 * (first + i) + j)
+            w[i] = torch.randn(shape, generator=g, device=dev) * scale
+        stacks[name] = w
+    p = L.MoE(cfg, device="meta")
+    if dmesh is None:
+        tensors = dict(router=router, **stacks)
+    else:
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        whole, slab = (Replicate(), Replicate()), (Replicate(), Shard(0))
+        tensors = {n: DTensor.from_local(t, dmesh, whole if n == "router" else slab, run_check=False)
+                   for n, t in dict(router=router, **stacks).items()}
+    for n, t in tensors.items():
+        setattr(p, n, torch.nn.Parameter(t, requires_grad=False))
+    return p, x
+
+
+def moe_one_rank(np, torch, dev, path: Path) -> dict:
+    """The one-rank layer of [mesh 2 ranks], in this process before the
+    ranks start: its output (to ``path``, an .npy the ranks read) and kept
+    mask (to ``path`` with ``.keep``), its capacity and drops."""
+    from repro_torch.models import layers as L
+
+    cfg = moe_layer_cfg(torch)
+    p, x = moe_layer(torch, cfg, dev)
+    t = x.shape[0] * x.shape[1]
+    cap = L.moe_capacity(t, cfg.num_experts, cfg.moe_top_k)
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        y = L.moe(p, x, cfg)
+        keep = L.moe_route(p, x.reshape(t, -1), cfg)[2] < cap
+    sync(torch, dev)
+    secs = time.perf_counter() - t0
+    np.save(path, y.cpu().numpy())
+    np.save(path.with_suffix(".keep.npy"), keep.cpu().numpy())
+    nums = dict(tokens=t, capacity=cap, dropped=int((~keep).sum()), seconds=secs,
+                param_bytes=sum(q.numel() * q.element_size() for q in p.parameters()))
+    del p, x, y
+    torch.cuda.empty_cache()
+    return nums
+
+
+def _moe_2rank(np, torch, dev, dmesh, ref: Path) -> dict:
+    """This rank's slab of the [mesh 2 ranks] MoE layer (E / 2 experts): the
+    sharded ``moe`` on it, every rank's output against the one-rank
+    layer's (``moe_one_rank``) within LM_PREFILL_TOL, the kept set equal,
+    and this rank's three expert products on a buffer of as many rows as
+    the largest kept count among its slab's experts."""
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import sharding as sh
+
+    class BmmShapes(TorchDispatchMode):
+        """The first operand's shape of each ``bmm`` on this rank's tensors."""
+
+        def __init__(self):
+            super().__init__()
+            self.shapes = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(issubclass(t, DTensor) for t in types):
+                return NotImplemented
+            if func is torch.ops.aten.bmm.default:
+                self.shapes.append(tuple(args[0].shape))
+            return func(*args, **(kwargs or {}))
+
+    cfg = moe_layer_cfg(torch)
+    p, x = moe_layer(torch, cfg, dev, dmesh)
+    t = x.shape[0] * x.shape[1]
+    cap = L.moe_capacity(t, cfg.num_experts, cfg.moe_top_k)
+    xd = sh.place(x, sh.batch_sharding(dmesh, 3))
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    with torch.no_grad(), sh.implicit_replication():
+        with BmmShapes() as rec:
+            y = L.moe(p, xd, cfg)
+        sync(torch, dev)
+        secs = time.perf_counter() - t0
+        _, experts, pos = L.moe_route(p, xd.reshape(t, -1), cfg)
+    experts, keep = experts.full_tensor().reshape(-1), pos.full_tensor() < cap
+    want = torch.from_numpy(np.load(ref)).to(dev)
+    want_keep = torch.from_numpy(np.load(ref.with_suffix(".keep.npy"))).to(dev)
+    check(all(not pl.is_partial() and not pl.is_shard() for pl in y.placements),
+          f"[mesh 2 ranks] MoE output placed {y.placements}")
+    check(torch.equal(keep, want_keep), f"[mesh 2 ranks] MoE: {int((keep != want_keep).sum())} choices "
+                                        f"kept differently from the one-rank layer")
+    err = close_report(torch, y.to_local(), want, what="[mesh 2 ranks] MoE layer at 1x2 vs the one-rank "
+                                                       "layer", **LM_PREFILL_TOL)
+    n = cfg.num_experts // dmesh.size(dmesh.mesh_dim_names.index("model"))
+    first = dmesh.get_local_rank("model") * n
+    here = experts[keep & (experts >= first) & (experts < first + n)] - first
+    rows = int(torch.bincount(here, minlength=n).max())
+    check(len(rec.shapes) == 3 and all(shp[:2] == (n, rows) for shp in rec.shapes),
+          f"[mesh 2 ranks] MoE products on {rec.shapes}, expected ({n}, {rows}, ...)")
+    return dict(experts_here=[first, first + n], buffer_rows=rows, capacity=cap,
+                dropped=int((~keep).sum()), max_abs_vs_one_rank=err, seconds=secs,
+                slab_bytes=sum(q.to_local().numel() * q.to_local().element_size()
+                               for q in (p.w_gate, p.w_in, p.w_out)))
+
+
+def _mesh_rank(rank, world_size, device_type, moe_ref):
+    """One rank of [mesh 2 ranks]: on the card both ranks use CUDA device 0.
+    ``moe_ref``: the one-rank MoE layer's output (``moe_one_rank``)."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -3851,6 +4086,9 @@ def _mesh_rank(rank, world_size, device_type):
     out = {"backend": dist.get_backend()}
     seq = M.device_mesh(M.make_mesh((1, 2), ("data", "model")), dev.type)
     out["flash"] = _flash_2rank(np, torch, dev, seq)
+    out["moe"] = _moe_2rank(np, torch, dev, seq, Path(moe_ref))
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
     out["allreduce"] = _allreduce_2rank(np, torch, dev, rank)
     data = M.device_mesh(M.make_mesh((2, 1), ("data", "model")), dev.type)
     out["stager"] = _stager_2rank(np, torch, dev, data)
@@ -3861,10 +4099,11 @@ def mesh_2rank_phase(np, torch, smi, tmp: Path, device_type: str = "cuda", rank_
     """[mesh 2 ranks]: first two NCCL ranks on the one card, once (NCCL
     normally refuses two ranks on one device; what it says is logged), then
     two gloo ranks, the backend passed explicitly (gloo carries CUDA
-    tensors for all_reduce, which flash decode and the compressed
-    all-reduce use; the split stager gathers its results on the host):
-    ``_flash_2rank``, ``_allreduce_2rank`` and ``_stager_2rank`` on each
-    rank. Returns the numbers and each rank's launches."""
+    tensors for all_reduce, which flash decode, the MoE at 1x2 and the
+    compressed all-reduce use; the split stager gathers its results on the
+    host): ``_flash_2rank``, ``_moe_2rank`` (against ``moe_one_rank``, run
+    here first), ``_allreduce_2rank`` and ``_stager_2rank`` on each rank.
+    Returns the numbers and each rank's launches."""
     from repro_torch.launch import mesh as M
 
     t0 = time.perf_counter()
@@ -3876,17 +4115,24 @@ def mesh_2rank_phase(np, torch, smi, tmp: Path, device_type: str = "cuda", rank_
         keys = ("Error", "error", "NCCL", "Duplicate", "duplicate")
         nccl = "refused: " + " | ".join(ln for ln in lines if any(k in ln for k in keys))[-900:]
     log(f"[mesh 2 ranks] two NCCL ranks on one card ({time.perf_counter() - t0} s): {nccl}")
+    dev = torch.device(device_type, 0) if device_type == "cuda" else torch.device(device_type)
+    moe_ref = tmp / "moe_one_rank.npy"
+    one_rank = moe_one_rank(np, torch, dev, moe_ref)
+    note = xmodel_note(moe_layer_cfg(torch), MESH_MOE_ARCH)
+    log(f"[mesh 2 ranks] the one-rank MoE layer: {MESH_MOE_ARCH} at full width ({note}), bf16 "
+        f"parameters, float32 compute, {MESH_MOE_BATCH} x {LM_PROMPT} tokens: {json.dumps(one_rank)}")
     t1 = time.perf_counter()
-    ranks = M.run_world(rank_fn, 2, "gloo", tmp / "gloo", args=(device_type,), timeout=MESH_TIMEOUT)
+    ranks = M.run_world(rank_fn, 2, "gloo", tmp / "gloo", args=(device_type, str(moe_ref)),
+                        timeout=MESH_TIMEOUT)
     wall = time.perf_counter() - t1
     for r, out in enumerate(ranks):
         check(out["backend"] == "gloo", f"[mesh 2 ranks] rank {r} ran on {out['backend']}")
         log(f"[mesh 2 ranks] rank {r} (backend {out['backend']}, passed explicitly): flash decode "
-            f"{json.dumps(out['flash'])}; compressed all-reduce {json.dumps(out['allreduce'])}; split "
-            f"stager {json.dumps(out['stager'])}")
-    nums = dict(nccl_two_ranks=nccl, backend="gloo", wall_s=wall, ranks=ranks)
-    log(f"[summary mesh 2 ranks] {smi}: two gloo ranks on one card in {wall} s; flash decode, the "
-        f"compressed all-reduce and the split stager held on both")
+            f"{json.dumps(out['flash'])}; MoE at 1x2 {json.dumps(out['moe'])}; compressed all-reduce "
+            f"{json.dumps(out['allreduce'])}; split stager {json.dumps(out['stager'])}")
+    nums = dict(nccl_two_ranks=nccl, backend="gloo", wall_s=wall, moe_one_rank=one_rank, ranks=ranks)
+    log(f"[summary mesh 2 ranks] {smi}: two gloo ranks on one card in {wall} s; flash decode, the MoE "
+        f"layer at 1x2, the compressed all-reduce and the split stager held on both")
     return nums
 
 
@@ -3922,6 +4168,8 @@ def dryrun_mesh_phase(smi, tmp: Path) -> dict:
                           collective_traffic_per_device=rec["collective_traffic_per_device"],
                           terms_seconds=rec["terms_seconds"], flops_per_device=rec["flops_per_device"],
                           bytes_per_device=rec["bytes_per_device"])
+        if "moe_dispatch" in rec:
+            out[label]["moe_dispatch"] = rec["moe_dispatch"]
         log(f"[dryrun mesh] {label}: {json.dumps(out[label])}")
 
     from repro_torch.configs import registry

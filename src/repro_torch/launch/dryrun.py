@@ -37,9 +37,13 @@ from 2 and 4 repeats because XLA counts a ``while`` body once).
 The MoE dispatch's ``nonzero`` has no data-independent shape: the meter
 takes every choice as kept (``torch.fx.experimental._config.
 meta_nonzero_assume_all_nonzero``'s assumption), an upper bound on the
-index traffic; the (E, C, d) expert products do not depend on it. The
-record says so (``moe_dispatch``); grouping's dedup (``unique``) is
-taken the same way, every row distinct.
+index traffic; on one card the (E, C, d) expert products do not depend
+on it. On a mesh a rank's expert buffer has as many rows as the largest
+kept count among its slab's experts from its own tokens, which a meta
+tensor cannot read: it takes min(C, T_local k), every choice kept, an
+upper bound (``layers._experts``). The record says so
+(``moe_dispatch``); grouping's dedup (``unique``) is taken the same way,
+every row distinct.
 
 **Meshes above 1x1.** The step is the sharded step of a world of
 ``mesh.size`` ranks, counted in this process as rank 0 of a fake world
@@ -87,7 +91,8 @@ from repro_torch.launch.mesh import Mesh, make_mesh, parse_mesh
 from repro_torch.models import sharding as sh
 
 ONE_CARD = make_mesh((1, 1), ("data", "model"))
-MOE_DISPATCH = "every choice kept (nonzero on meta assumed all nonzero): an upper bound"
+MOE_DISPATCH = ("every choice kept (nonzero on meta assumed all nonzero; on a mesh a rank's expert "
+                "buffer min(C, T_local k) rows): an upper bound")
 
 # -- the counting mode ----------------------------------------------------------
 

@@ -130,13 +130,13 @@ def _attn_scores_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
 
 
 def _kv(p: Attention, xkv: torch.Tensor, cdt):
-    return (torch.einsum("btd,dhk->bthk", xkv, p.wk.to(cdt)),
-            torch.einsum("btd,dhk->bthk", xkv, p.wv.to(cdt)))
+    return (torch.einsum("btd,dhk->bthk", xkv, sh.fsdp_whole(p.wk).to(cdt)),
+            torch.einsum("btd,dhk->bthk", xkv, sh.fsdp_whole(p.wv).to(cdt)))
 
 
 def _qkv(p: Attention, x: torch.Tensor, cdt, kv_x: torch.Tensor | None = None):
     xq = x.to(cdt)
-    q = torch.einsum("bsd,dhk->bshk", xq, p.wq.to(cdt))
+    q = torch.einsum("bsd,dhk->bshk", xq, sh.fsdp_whole(p.wq).to(cdt))
     if kv_x is None:
         k, v = _kv(p, xq, cdt)
     else:
@@ -414,72 +414,123 @@ def router_probs(p: MoE, xt: torch.Tensor) -> torch.Tensor:
     return torch.softmax(xt.float() @ p.router, dim=-1)
 
 
-def moe_route(p: MoE, xt: torch.Tensor, cfg):
-    """Router, top-k and each choice's slot. xt (T, d) -> gates (T, k)
-    float32 (renormalised over the k choices), experts (T, k) int64 in
-    descending probability, and pos (T k,): the choice's position in its
-    expert's buffer, counting the earlier choices of that expert in
-    token-major order (token t's choice j is entry t k + j)."""
+def _route(p: MoE, xt: torch.Tensor, cfg, slab=None):
+    """``moe_route`` on a rank's rows, plus ``slot``: each choice's position
+    among the rank's own choices of its expert. Without a slab (every row
+    here) ``pos`` is ``slot``; with one, ``pos`` adds the expert's choices
+    on every earlier batch shard (``sharding.Slab.earlier``)."""
     e, k = cfg.num_experts, cfg.moe_top_k
     probs = router_probs(p, xt)  # (T, E)
     gates, experts = torch.topk(probs, k, dim=-1, sorted=True)
     gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
     flat = experts.reshape(-1)
     onehot = F.one_hot(flat, e)  # (T k, E)
-    pos = (torch.cumsum(onehot, dim=0) - onehot).gather(1, flat[:, None])[:, 0]
+    slot = (torch.cumsum(onehot, dim=0) - onehot).gather(1, flat[:, None])[:, 0]
+    pos = slot if slab is None else slot + slab.earlier(onehot.sum(0))[flat]
+    return gates, experts, slot, pos
+
+
+def moe_route(p: MoE, xt: torch.Tensor, cfg):
+    """Router, top-k and each choice's slot. xt (T, d) -> gates (T, k)
+    float32 (renormalised over the k choices), experts (T, k) int64 in
+    descending probability, and pos (T k,): the choice's position in its
+    expert's buffer, counting the earlier choices of that expert in
+    token-major order (token t's choice j is entry t k + j). On DTensors
+    the rows stay split and the positions count over the whole batch, as
+    the reference's jitted ``moe`` counts them (``_route`` on each rank's
+    rows, ``sharding.local_experts``)."""
+    gates, experts, _, pos = sh.local_experts(_route, p, xt, cfg, shared=("router",))
     return gates, experts, pos
 
 
-def _no_dtensor_dispatch(x) -> None:
-    if sh.is_dtensor(x):
-        raise NotImplementedError(
-            "the MoE's capacity dispatch on DTensors: DTensor has no sharding rule for its "
-            "nonzero, and expert parallelism needs an all-to-all the port does not have")
+_STACKS = ("w_gate", "w_in", "w_out")
+
+
+def _experts(p: MoE, x: torch.Tensor, cfg, cap: int, slab=None) -> torch.Tensor:
+    """The routed experts' sum for a rank's rows x (B, S, d) -> (B, S, d):
+    its choices kept by the global capacity ``cap`` whose expert lies in
+    its slab (``p``'s stacks: every expert without a slab). The kept
+    choices are written into a (E_slab, R, d) buffer by index assignment
+    (their (expert, slot) pairs are unique, so it holds what the
+    reference's scatter-add into zeros holds, with no atomics); the three
+    expert products are batched GEMMs over the slab; each kept choice reads
+    its row back, scaled by its gate, and a token's k rows are summed (a
+    choice not kept here adds zero). R is ``cap`` without a slab, the
+    reference's buffer; with one the largest kept count among the slab's
+    experts from these rows (data-dependent, as ``nonzero`` is; on meta the
+    bound min(cap, T k), every choice kept)."""
+    cdt = cfg.compute_dtype
+    b, s, d = x.shape
+    t, k = b * s, cfg.moe_top_k
+    xt = x.reshape(t, d).to(cdt)
+    gates, experts, slot, pos = _route(p, xt, cfg, slab)
+    flat = experts.reshape(-1)
+    mine = pos < cap
+    if slab is None:  # every row and every expert here: the reference's (E, C, d) buffer
+        first, n, rows = 0, cfg.num_experts, cap
+    else:
+        first, n = slab.first, p.w_gate.shape[0]
+        mine &= (flat >= first) & (flat < first + n)
+        if xt.is_meta:
+            rows = min(cap, t * k)
+        else:
+            rows = int(torch.where(mine, slot + 1, 0).max()) if t else 0
+    kept = mine.nonzero()[:, 0]
+    where = (flat[kept] - first, slot[kept])
+
+    buf = torch.zeros((n, rows, d), dtype=cdt, device=x.device)
+    buf[where] = xt[kept // k]
+    g = F.silu(torch.bmm(buf, p.w_gate.to(cdt)))
+    u = torch.bmm(buf, p.w_in.to(cdt))
+    del buf
+    out_buf = torch.bmm(g * u, p.w_out.to(cdt))  # (E_slab, R, d)
+    del g, u
+
+    gathered = torch.zeros((t * k, d), dtype=cdt, device=x.device)
+    gathered[kept] = out_buf[where]
+    y = (gathered.reshape(t, k, d) * (gates * mine.reshape(t, k))[..., None].to(cdt)).sum(dim=1)
+    return y.reshape(b, s, d)
 
 
 def moe(p: MoE, x: torch.Tensor, cfg, capacity_factor: float | None = None) -> torch.Tensor:
     """Top-k MoE with capacity-based dispatch, as the reference's ``moe``:
-    a choice past its expert's capacity (``moe_capacity``) is dropped and
-    adds nothing. x (B, S, d) -> (B, S, d).
+    a choice past its expert's capacity (``moe_capacity`` of all B S
+    tokens) is dropped and adds nothing. x (B, S, d) -> (B, S, d); the
+    experts by ``_experts``, then ``shared``'s MLP of x where the config
+    has one.
 
-    Kept choices are written into the (E, C, d) buffer by index assignment:
-    their (expert, slot) pairs are unique, so the buffer holds what the
-    reference's scatter-add into zeros holds, with no atomics (two prefills
-    give the same bits). The three expert products are batched GEMMs over
-    E; each choice then reads its row (a dropped one row C - 1, weighted
-    0), scaled by its gate, and the k rows of a token are summed."""
-    _no_dtensor_dispatch(x)
-    cdt = cfg.compute_dtype
-    b, s, d = x.shape
-    t, k = b * s, cfg.moe_top_k
-    cap = moe_capacity(t, cfg.num_experts, k, capacity_factor)
-    xt = x.reshape(t, d).to(cdt)
-    gates, experts, pos = moe_route(p, xt, cfg)
-    flat = experts.reshape(-1)
-    keep = pos < cap
-    kept = keep.nonzero()[:, 0]
-
-    buf = torch.zeros((cfg.num_experts, cap, d), dtype=cdt, device=x.device)
-    buf[flat[kept], pos[kept]] = xt[kept // k]
-    g = F.silu(torch.bmm(buf, p.w_gate.to(cdt)))
-    u = torch.bmm(buf, p.w_in.to(cdt))
-    del buf
-    out_buf = torch.bmm(g * u, p.w_out.to(cdt))  # (E, C, d)
-    del g, u
-
-    gathered = out_buf[flat, torch.where(keep, pos, cap - 1)].reshape(t, k, d)
-    y = (gathered * (gates * keep.reshape(t, k))[..., None].to(cdt)).sum(dim=1)
+    On DTensors each rank runs ``_experts`` on its own rows and its own
+    slab of experts (``sharding.local_experts``: the stacks split over
+    ``model``, gathered over ``data`` under FSDP), with the capacity and
+    the positions of the whole batch; no rank computes another batch
+    shard's tokens. The slabs' partial sums are reduced over ``model``
+    (one all-reduce). On a 1x1 mesh the computation is the one-device
+    one."""
+    b, s, _ = x.shape
+    cap = moe_capacity(b * s, cfg.num_experts, cfg.moe_top_k, capacity_factor)
+    y = sh.as_rows(sh.local_experts(_experts, p, x, cfg, cap, stacks=_STACKS, shared=("router",)))
     if hasattr(p, "shared"):
-        y = y + mlp(p.shared, xt, cfg)
-    return y.reshape(b, s, d)
+        y = y + mlp(p.shared, x, cfg)
+    return y
+
+
+def _aux_sums(p: MoE, x: torch.Tensor, cfg, slab=None) -> torch.Tensor:
+    """(1, 2, E): the rows' count of top-k choices of each expert and their
+    summed router probabilities."""
+    probs = router_probs(p, x.reshape(-1, x.shape[-1]))
+    _, idx = torch.topk(probs, cfg.moe_top_k, dim=-1, sorted=True)
+    chosen = F.one_hot(idx, cfg.num_experts).float().sum(dim=(0, 1))
+    return torch.stack([chosen, probs.sum(dim=0)])[None]
 
 
 def moe_aux_loss(p: MoE, x: torch.Tensor, cfg) -> torch.Tensor:
     """Load-balancing auxiliary loss (Switch-style): E * sum_e f_e * p_e,
     f_e the share of the top-k choices that pick expert e (``topk`` ordered
     as ``lax.top_k``, as ``moe_route`` takes it) and p_e its mean router
-    probability. x (B, S, d) -> float32 scalar."""
-    probs = router_probs(p, x.reshape(-1, x.shape[-1]))
-    _, idx = torch.topk(probs, cfg.moe_top_k, dim=-1, sorted=True)
-    frac = F.one_hot(idx, cfg.num_experts).float().mean(dim=(0, 1))
-    return cfg.num_experts * torch.sum(frac * probs.mean(dim=0))
+    probability over all B S tokens. x (B, S, d) -> float32 scalar. On
+    DTensors each rank sums its own rows and one all-reduce over the
+    batch's mesh dimensions adds the sums."""
+    t = x.shape[0] * x.shape[1]
+    sums = sh.replicate_dim(sh.local_experts(_aux_sums, p, x, cfg, shared=("router",)).sum(0), 0)
+    frac = sums[0] / (t * cfg.moe_top_k)
+    return cfg.num_experts * torch.sum(frac * (sums[1] / t))

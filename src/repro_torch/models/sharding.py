@@ -30,8 +30,10 @@ tensor made inside the model, a position or a mask, counts as
 replicated). Where the model needs a layout of its own it asks here:
 ``replicate_dim`` (the loss's vocabulary, a decode query's heads),
 ``expand_kv`` (KV heads that do not split as the query heads do),
-``local_heads`` (K5 on each rank's heads, through ``local_map``) and
-``local_rows`` (the SSD and the cross K/V projection on each rank's rows).
+``local_heads`` (K5 on each rank's heads, through ``local_map``),
+``local_rows`` (the SSD and the cross K/V projection on each rank's rows)
+and ``local_experts`` (the MoE's dispatch on each rank's rows and expert
+slab).
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.launch.mesh import Mesh
+from repro_torch.launch.mesh import Mesh, flat_index
 
 MODEL_AXIS = "model"
 DATA_AXIS = "data"
@@ -317,6 +319,24 @@ def as_rows(t):
     return t if rows == tuple(t.placements) else t.redistribute(t.device_mesh, rows)
 
 
+def fsdp_whole(w):
+    """A parameter with its FSDP split gathered: every ``Shard`` on a mesh
+    dimension other than ``model`` made ``Replicate`` (the all-gather FSDP
+    makes before a layer uses its weights; in the backward the gradient's
+    partial sums are reduce-scattered back to the split). The batch splits
+    over those dimensions, and DTensor cannot always place a product whose
+    rows and contraction split over one of them (it fails to unflatten the
+    batch-by-sequence product at 16x16). A plain or unsplit tensor as it
+    is."""
+    if not is_dtensor(w):
+        return w
+    _, Replicate, Shard = _dtensor_types()
+    names = w.device_mesh.mesh_dim_names
+    pls = tuple(Replicate() if isinstance(p, Shard) and names[i] != MODEL_AXIS else p
+                for i, p in enumerate(w.placements))
+    return w if pls == tuple(w.placements) else w.redistribute(w.device_mesh, pls)
+
+
 def replicate_dim(t, dim: int):
     """``t`` with dimension ``dim`` whole on every rank (a DTensor sharded
     or partial there is gathered or reduced over those mesh dimensions);
@@ -361,8 +381,8 @@ class _Bound(torch.nn.Module):
         super().__init__()
         self.m, self.fn = module, fn
 
-    def forward(self, *args):
-        return self.fn(self.m, *args)
+    def forward(self, *args, **kwargs):
+        return self.fn(self.m, *args, **kwargs)
 
 
 def local_rows(fn, module: torch.nn.Module, x, *rest, params: tuple[str, ...] | None = None):
@@ -375,23 +395,104 @@ def local_rows(fn, module: torch.nn.Module, x, *rest, params: tuple[str, ...] | 
     parameters ``fn`` reads (default: every one), the only ones gathered.
     For a computation DTensor has no rule for end to end (the SSD's
     chunked scan: its packed projection, its depthwise convolution, its
-    reshapes of split dimensions)."""
+    reshapes of split dimensions). ``local_experts`` with no expert stack."""
+    names = tuple(n for n, _ in module.named_parameters() if params is None or n in params)
+    return local_experts(lambda m, *args, slab: fn(m, *args), module, x, *rest, shared=names)
+
+
+class Slab(NamedTuple):
+    """What a rank's MoE dispatch needs to know of the mesh
+    (``local_experts``): ``first``, the first expert of its slab, and
+    ``earlier``, which maps its rows' (E,) per-expert choice counts to the
+    same experts' counts on every earlier batch shard (token-major order
+    over the whole batch). Every rank of the mesh calls ``earlier``
+    together: it is one all-reduce of a (shards, E) table over each mesh
+    dimension that splits the batch."""
+
+    first: int
+    earlier: object
+
+
+def _count_exchange(mesh, row_dims: tuple[int, ...]):
+    """``Slab.earlier`` for rows split over ``row_dims`` of ``mesh`` (row-major
+    in mesh order, as DTensor nests the shards of one dimension)."""
+    if not row_dims:
+        return lambda counts: torch.zeros_like(counts)
+    index, shards = flat_index(mesh, tuple(mesh.mesh_dim_names[i] for i in row_dims))
+
+    def earlier(counts: torch.Tensor) -> torch.Tensor:
+        import torch.distributed as dist
+
+        table = counts.new_zeros((shards, counts.numel()))
+        table[index] = counts
+        for i in row_dims:
+            dist.all_reduce(table, group=mesh.get_group(i))
+        return table[:index].sum(0)
+
+    return earlier
+
+
+def local_experts(fn, module: torch.nn.Module, x, *rest, stacks: tuple[str, ...] = (),
+                  shared: tuple[str, ...] = ()):
+    """``fn(module, x, *rest, slab=...)`` run by each rank on plain tensors, for
+    the MoE: its own rows of x (dimension 0 split as x has it, the rest
+    whole), its own slab of each expert stack named in ``stacks``
+    (dimension 0 split over ``model`` as the stacks are placed, the rest
+    gathered: under FSDP their ``d`` is split over ``data``) and the
+    parameters named in ``shared`` whole. ``slab`` is a ``Slab``, or None
+    when the rank holds every row and every expert (a 1x1 mesh: ``fn``
+    then runs as on one device). Each tensor of the result is placed back
+    as those rows and, where the experts are split, as a partial sum over
+    the mesh dimensions that split them (a rank's experts add their share).
+    Under autograd a stack's gradient is its slab's, a partial sum over the
+    mesh dimensions that split the rows; a shared parameter's and x's a
+    partial sum over the dimensions whose ranks each add a share.
+    A plain call (``slab=None``) when x is a plain tensor. The rows and
+    the experts may not be split over one mesh dimension (that needs an
+    all-to-all, which the reference's placements never ask for)."""
     if not is_dtensor(x):
-        return fn(module, x, *rest)
+        return fn(module, x, *rest, slab=None)
     from torch.distributed.tensor import DTensor, Partial
     from torch.func import functional_call
     from torch.utils._pytree import tree_map
 
     _, Replicate, Shard = _dtensor_types()
+    x = as_rows(x)
     mesh = x.device_mesh
-    rows = _rows(x.placements)
-    whole = (Replicate(),) * mesh.ndim
-    grads = tuple(Partial() if isinstance(p, Shard) else Replicate() for p in rows)
-    local = {f"m.{n}": p.redistribute(mesh, whole).to_local(grad_placements=grads)
-             if is_dtensor(p) else p for n, p in module.named_parameters()
-             if params is None or n in params}
-    out = functional_call(_Bound(module, fn), local, (as_rows(x).to_local(), *rest), strict=False)
-    return tree_map(lambda t: DTensor.from_local(t, mesh, rows, run_check=False)
+    dims = range(mesh.ndim)
+    row_dims = tuple(i for i, p in enumerate(x.placements) if isinstance(p, Shard))
+    expert_dims = ()
+    if stacks:
+        lead = module.get_parameter(stacks[0])
+        if is_dtensor(lead):
+            expert_dims = tuple(i for i, p in enumerate(lead.placements)
+                                if isinstance(p, Shard) and p.dim == 0)
+    if set(row_dims) & set(expert_dims):
+        raise ValueError(f"local_experts: rows and experts split over one mesh dimension "
+                         f"({x.placements} vs {module.get_parameter(stacks[0]).placements})")
+
+    def placed(row, expert, other):
+        return tuple(row if i in row_dims else expert if i in expert_dims else other for i in dims)
+
+    slab_pl = placed(Replicate(), Shard(0), Replicate())
+    local = {}
+    for name in stacks:
+        w = module.get_parameter(name)
+        local[f"m.{name}"] = w.redistribute(mesh, slab_pl).to_local(
+            grad_placements=placed(Partial(), Shard(0), Replicate())) if is_dtensor(w) else w
+    for name in shared:
+        w = module.get_parameter(name)
+        local[f"m.{name}"] = w.redistribute(mesh, (Replicate(),) * mesh.ndim).to_local(
+            grad_placements=placed(Partial(), Partial(), Replicate())) if is_dtensor(w) else w
+    first = 0
+    if expert_dims:
+        index, _ = flat_index(mesh, tuple(mesh.mesh_dim_names[i] for i in expert_dims))
+        first = index * local[f"m.{stacks[0]}"].shape[0]
+    slab = Slab(first, _count_exchange(mesh, row_dims)) if row_dims or expert_dims else None
+    x_local = x.to_local(grad_placements=placed(Shard(0), Partial(), Replicate()))
+    out = functional_call(_Bound(module, fn), local, (x_local, *rest), {"slab": slab}, strict=False)
+    out_pl = placed(Shard(0), Partial(), Replicate())
+    return tree_map(lambda t: DTensor.from_local(t, mesh, out_pl, run_check=False)
                     if isinstance(t, torch.Tensor) else t, out)
 
 

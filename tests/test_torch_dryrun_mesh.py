@@ -8,7 +8,11 @@ shards' bytes; the counts scale with the shards; the collectives the meter
 prices are those ``CommDebugMode`` sees; and one tensor-parallel block of
 the same cell communicates what a hand count says. Which operators the
 two partitioners choose (DTensor's here, XLA's SPMD in the reference) is
-compared in PERF.md, not asserted: they choose differently."""
+compared in PERF.md, not asserted: they choose differently. The reduced
+MoE configs' cells count on 2x2 with the dispatch's bound stated, and a
+rank's expert products split with the experts over ``model``."""
+
+import contextlib
 
 import pytest
 import torch
@@ -156,3 +160,72 @@ def test_pdf_mesh_variant_on_a_small_mesh():
     assert rec["collective_traffic_per_device"] == points * 2 * 8 * 3 / 4
     one = dryrun_pdf.run_pdf_cell("faithful", "window_small", verbose=False)
     assert rec["kernels"]["hist_counts"]["bytes"] * 4 == one["kernels"]["hist_counts"]["bytes"]
+
+
+# -- the MoE on a mesh -----------------------------------------------------------------
+
+MOE_ARCHS = ["arctic-480b", "kimi-k2-1t-a32b"]
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_cells_count_on_a_small_mesh(arch, kind):
+    """The reduced MoE configs' cells on 2x2: ok, the dispatch's bound
+    stated, each collective the meter priced one CommDebugMode saw, fewer
+    FLOPs a device than on one card."""
+    c = registry.get(arch).reduced()
+    shape = ShapeDef("t", kind, S, B)
+    rec = dryrun.run_cell(c, shape, M.make_mesh((2, 2), ("data", "model")), verbose=False)
+    assert rec["ok"] and rec["chips"] == 4
+    assert rec["moe_dispatch"] == dryrun.MOE_DISPATCH
+    assert sum(rec["collective_ops"].values()) == sum(rec["comm_debug_counts"].values()) > 0
+    assert rec["flops_per_device"] < dryrun.run_cell(c, shape, verbose=False)["flops_per_device"]
+
+
+class ExpertMeter(dryrun.LocalMeter):
+    """``LocalMeter`` that also keeps the ``bmm`` FLOPs apart."""
+
+    def __init__(self):
+        super().__init__()
+        self.bmm_flops = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        before = self.flops
+        out = super().__torch_dispatch__(func, types, args, kwargs)
+        if func is torch.ops.aten.bmm.default:
+            self.bmm_flops += self.flops - before
+        return out
+
+
+def expert_bmm_flops(shape, b, s) -> int:
+    """A rank's expert ``bmm`` FLOPs in reduced arctic's first MoE layer on
+    meta, x (b, s, d) split as a batch: one card without a world, else rank
+    0 of a fake world of the mesh."""
+    c = registry.get("arctic-480b").reduced()
+    n = shape[0] * shape[1]
+    with M.fake_world(n) if n > 1 else contextlib.nullcontext():
+        model = dryrun.meta_model(c)
+        x = torch.empty((b, s, c.d_model), device="meta")
+        if n > 1:
+            dm = M.device_mesh(M.make_mesh(shape, ("data", "model")), "cpu")
+            sh.distribute_params(c, dm, model)
+            x = sh.place(x, sh.batch_sharding(dm, 3))
+        with sh.implicit_replication(), torch.no_grad(), ExpertMeter() as meter:
+            L.moe(model.layers[0].moe, x, c)
+    return meter.bmm_flops
+
+
+def test_expert_products_split_over_the_model_axis():
+    """The all-kept bound by hand: one card runs the three products over
+    the (E, C, d) buffer, 3 x 2 E C d f FLOPs; at 1x4 a rank holds E / 4
+    experts and every token (min(C, T k) = C rows), a quarter; at 2x2 it
+    holds E / 2 experts and min(C, T k / 2) = C rows, a half (the bound
+    cannot see that a data shard keeps about C / 2 of an expert's choices:
+    PERF.md section 7)."""
+    c = registry.get("arctic-480b").reduced()
+    b, s = 2, 160  # T = 320 > 256: C = int(k T / E x 1.25) = 100
+    cap = L.moe_capacity(b * s, c.num_experts, c.moe_top_k)
+    one = expert_bmm_flops((1, 1), b, s)
+    assert one == 3 * 2 * c.num_experts * cap * c.d_model * c.d_ff
+    assert expert_bmm_flops((1, 4), b, s) * 4 == one
+    assert expert_bmm_flops((2, 2), b, s) * 2 == one
