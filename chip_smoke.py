@@ -404,7 +404,8 @@ EXAMPLE_ARCH, EXAMPLE_STEPS = "granite-3-8b", 60
 # one-rank NCCL world, bitwise the one-device step; then gemma3-12b's
 # [lm] cut with flash_decode on the 1x1 mesh. [mesh 2 ranks] spawns two
 # processes on the one card with gloo; flash decode at gemma3's attention
-# width at a position in each half of the cache.
+# width at a position in each half of the cache, and the plain decode on
+# split full and ring caches.
 MESH_HYMBA_LAYERS = 4
 MESH_TRAIN_STEPS = 2
 MESH_K5_PER_STEP = 2 * (MESH_HYMBA_LAYERS - 1)
@@ -424,7 +425,8 @@ MESH_MOE_SEED = 7
 # the production meshes (fake worlds of 256 and 512 ranks): (arch or
 # variant, shape, multi_pod, through the command line or in this process).
 DRYRUN_MESH_CELLS = (("granite-3-8b", "decode_32k", False, True), ("arctic-480b", "decode_32k", False, False),
-                     ("hymba-1.5b", "long_500k", True, False))
+                     ("hymba-1.5b", "long_500k", True, False), ("mamba2-780m", "decode_32k", False, False),
+                     ("granite-3-8b", "train_4k", False, False))
 DRYRUN_PDF_MESH_CELLS = (("grouping_global", "window_small", False, True),
                          ("fused_scatter_shmap", "window_prod", True, False))
 
@@ -3873,6 +3875,67 @@ def _flash_2rank(np, torch, dev, dmesh) -> dict:
     return out
 
 
+def _decode_2rank(np, torch, dev, dmesh) -> dict:
+    """Plain decode on caches split over the two ranks' ``model`` axis
+    (placed as ``cache_pspecs`` says), each rank on its own block:
+    gemma3-12b's attention at full width in float32 (d 3840, 16 heads, 8
+    KV heads, hd 256, qk-norm), batch LM_BATCH, against a full cache of
+    LM_PROMPT + LM_TOKENS positions at the two positions beside the shard
+    boundary and a ring of its window at two positions past the wrap
+    beside the boundary: the output against the one-rank decode on the
+    whole cache within MESH_FLASH_TOL, this rank's block of the written
+    cache equal to the whole cache's. The parameters are whole on each
+    rank, so only all-reduces run: gloo carries those on the card's
+    tensors. Its ``all_gather_into_tensor`` of a CUDA tensor kills the
+    process, so the decode with DTensor parameters (the query's heads
+    gathered over ``model``) and mamba2-780m's SSD decode (its
+    convolution's output gathered over ``model``) are held on the CPU
+    (``tests/test_torch_decode_mesh.py``); ``mesh_2rank_phase`` logs so."""
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import layers as L
+    from repro_torch.models import sharding as sh
+
+    def placed(whole: dict) -> dict:
+        specs = sh.cache_pspecs(M.describe(dmesh), whole, LM_BATCH)
+        return {k: sh.place(t.clone(), sh.Sharding(dmesh, sh.to_placements(specs[k], dmesh)))
+                for k, t in whole.items()}
+
+    def block(t, split, dim):
+        idx, n = dmesh.get_local_rank("model"), t.shape[dim] // 2
+        return t.narrow(dim, idx * n, n) if split else t
+
+    cfg = lm_config().replace(compute_dtype=torch.float32)
+    window = next(bd.window for bd in cfg.layer_defs() if bd.window)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p = L.Attention(cfg, dev)
+    p.reset_parameters(gen)
+    x = torch.randn((LM_BATCH, 1, cfg.d_model), generator=gen, device=dev)
+    s = LM_PROMPT + LM_TOKENS
+    layers = {"full": (None, s, (s // 2 - 1, s // 2)),
+              "ring": (window, window, (window + window // 2 - 1, window + window // 2))}
+    out = {}
+    for layer, (w, length, positions) in layers.items():
+        shape = (LM_BATCH, length, cfg.kv_heads, cfg.head_dim)
+        ck = torch.randn(shape, generator=gen, device=dev)
+        cv = torch.randn(shape, generator=gen, device=dev)
+        for pos in positions:
+            cache, whole = placed({"k": ck, "v": cv}), {"k": ck.clone(), "v": cv.clone()}
+            with torch.no_grad(), sh.implicit_replication():
+                y, c = L.decode_attention(p, x, cache, pos, cfg=cfg, window=w)
+                want, whole = L.decode_attention(p, x, whole, pos, cfg=cfg, window=w)
+                y = y.full_tensor() if sh.is_dtensor(y) else y
+            err = float((y - want).abs().max())
+            what = f"[mesh 2 ranks] plain decode ({layer} cache) at pos {pos}"
+            check(bool(torch.allclose(y, want, **MESH_FLASH_TOL)), f"{what}: max abs {err} from the "
+                                                                  f"one-rank decode")
+            check(c["k"].placements[1].is_shard(1), f"{what}: cache placed {c['k'].placements}")
+            check(torch.equal(c["k"].to_local(), block(whole["k"], True, 1))
+                  and torch.equal(c["v"].to_local(), block(whole["v"], True, 1)),
+                  f"{what}: this rank's cache block differs from the whole cache's")
+            out[f"{layer} pos {pos}"] = err
+    return out
+
+
 def _allreduce_2rank(np, torch, dev, rank) -> dict:
     """``pod_allreduce_compressed`` of a tensor of hymba-1.5b's largest
     gradient (its embedding's), a standard normal from seed ``rank`` on
@@ -4086,6 +4149,7 @@ def _mesh_rank(rank, world_size, device_type, moe_ref):
     out = {"backend": dist.get_backend()}
     seq = M.device_mesh(M.make_mesh((1, 2), ("data", "model")), dev.type)
     out["flash"] = _flash_2rank(np, torch, dev, seq)
+    out["decode"] = _decode_2rank(np, torch, dev, seq)
     out["moe"] = _moe_2rank(np, torch, dev, seq, Path(moe_ref))
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -4099,11 +4163,14 @@ def mesh_2rank_phase(np, torch, smi, tmp: Path, device_type: str = "cuda", rank_
     """[mesh 2 ranks]: first two NCCL ranks on the one card, once (NCCL
     normally refuses two ranks on one device; what it says is logged), then
     two gloo ranks, the backend passed explicitly (gloo carries CUDA
-    tensors for all_reduce, which flash decode, the MoE at 1x2 and the
-    compressed all-reduce use; the split stager gathers its results on the
-    host): ``_flash_2rank``, ``_moe_2rank`` (against ``moe_one_rank``, run
-    here first), ``_allreduce_2rank`` and ``_stager_2rank`` on each rank.
-    Returns the numbers and each rank's launches."""
+    tensors for all_reduce, which flash decode, the plain decode with
+    whole parameters, the MoE at 1x2 and the compressed all-reduce use;
+    the split stager gathers its results on the host; its all-gather of a
+    CUDA tensor kills the process, so the paths that need one are held on
+    the CPU and logged so): ``_flash_2rank``, ``_decode_2rank``, ``_moe_2rank`` (against
+    ``moe_one_rank``, run here first), ``_allreduce_2rank`` and
+    ``_stager_2rank`` on each rank. Returns the numbers and each rank's
+    launches."""
     from repro_torch.launch import mesh as M
 
     t0 = time.perf_counter()
@@ -4115,6 +4182,10 @@ def mesh_2rank_phase(np, torch, smi, tmp: Path, device_type: str = "cuda", rank_
         keys = ("Error", "error", "NCCL", "Duplicate", "duplicate")
         nccl = "refused: " + " | ".join(ln for ln in lines if any(k in ln for k in keys))[-900:]
     log(f"[mesh 2 ranks] two NCCL ranks on one card ({time.perf_counter() - t0} s): {nccl}")
+    log("[mesh 2 ranks] the decode with DTensor parameters (the query's heads gathered over model) "
+        "and mamba2-780m's SSD decode (its convolution's output gathered over model) need "
+        "all_gather_into_tensor, which kills a gloo rank on a CUDA tensor (signal 11): they are held "
+        "on the CPU in tests/test_torch_decode_mesh.py, not here")
     dev = torch.device(device_type, 0) if device_type == "cuda" else torch.device(device_type)
     moe_ref = tmp / "moe_one_rank.npy"
     one_rank = moe_one_rank(np, torch, dev, moe_ref)
@@ -4128,11 +4199,14 @@ def mesh_2rank_phase(np, torch, smi, tmp: Path, device_type: str = "cuda", rank_
     for r, out in enumerate(ranks):
         check(out["backend"] == "gloo", f"[mesh 2 ranks] rank {r} ran on {out['backend']}")
         log(f"[mesh 2 ranks] rank {r} (backend {out['backend']}, passed explicitly): flash decode "
-            f"{json.dumps(out['flash'])}; MoE at 1x2 {json.dumps(out['moe'])}; compressed all-reduce "
+            f"{json.dumps(out['flash'])}; plain decode on split caches {json.dumps(out['decode'])}; "
+            f"MoE at 1x2 {json.dumps(out['moe'])}; compressed all-reduce "
             f"{json.dumps(out['allreduce'])}; split stager {json.dumps(out['stager'])}")
-    nums = dict(nccl_two_ranks=nccl, backend="gloo", wall_s=wall, moe_one_rank=one_rank, ranks=ranks)
-    log(f"[summary mesh 2 ranks] {smi}: two gloo ranks on one card in {wall} s; flash decode, the MoE "
-        f"layer at 1x2, the compressed all-reduce and the split stager held on both")
+    nums = dict(nccl_two_ranks=nccl, gloo_all_gather="held on the CPU", backend="gloo", wall_s=wall,
+                moe_one_rank=one_rank, ranks=ranks)
+    log(f"[summary mesh 2 ranks] {smi}: two gloo ranks on one card in {wall} s; flash decode, plain "
+        f"decode on split caches, the MoE layer at 1x2, the compressed all-reduce and the split stager "
+        f"held on both")
     return nums
 
 

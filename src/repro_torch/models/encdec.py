@@ -149,7 +149,7 @@ def _forward(params: EncDec, frames: torch.Tensor, tokens: torch.Tensor, cfg: Ar
     memory = _encode(params, frames, cfg, wrap)
     b, s = tokens.shape
     positions = _positions(b, s, tokens.device)
-    h = sh.as_rows(params.embed[tokens].to(cfg.compute_dtype))
+    h = sh.as_rows(sh.lookup(params, tokens).to(cfg.compute_dtype))
     for p in params.decoder:
         h = wrap(lambda h, p=p: _dec_block(p, h, memory, cfg, positions)[0])(h)
     h = L.rmsnorm(params.final_norm, h, cfg.norm_eps)
@@ -194,7 +194,7 @@ def prefill(params: EncDec, frames: torch.Tensor, tokens: torch.Tensor, cfg: Arc
     b, s = tokens.shape
     pad = (0, 0, 0, 0, 0, (max_len or s) - s)
     positions = _positions(b, s, tokens.device)
-    h = sh.as_rows(params.embed[tokens].to(cfg.compute_dtype))
+    h = sh.as_rows(sh.lookup(params, tokens).to(cfg.compute_dtype))
     kv = {"sk": [], "sv": [], "ck": [], "cv": []}
     for p in params.decoder:
         h, sk, sv, ck, cv = _dec_block(p, h, memory, cfg, positions)
@@ -213,7 +213,7 @@ def decode_step(params: EncDec, token: torch.Tensor, caches: dict, pos: int,
                 cfg: ArchConfig) -> tuple[torch.Tensor, dict]:
     """token (B,) int, pos int -> (logits (B, V) f32, caches): the self K/V
     written at ``pos`` in place, the cross K/V read as they are."""
-    h = sh.as_rows(params.embed[token[:, None]].to(cfg.compute_dtype))  # (B, 1, d)
+    h = sh.as_rows(sh.lookup(params, token[:, None]).to(cfg.compute_dtype))  # (B, 1, d)
     self_c, cross_c = caches["self"], caches["cross"]
     for i, p in enumerate(params.decoder):
         x = L.rmsnorm(p.ln1, h, cfg.norm_eps)

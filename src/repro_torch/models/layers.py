@@ -65,11 +65,26 @@ class RMSNorm(nn.Module):
 
 
 def rmsnorm(p: RMSNorm, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    return scaled_rmsnorm(x, p.scale, eps)
+
+
+def scaled_rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6, group=None,
+                   width: int = 0) -> torch.Tensor:
+    """RMS norm of x (..., w) with ``1 + scale``. With ``group``, x is a
+    block of ``width`` columns split over that process group: the sum of
+    squares is all-reduced over it and ``scale`` is the block's."""
     dt = x.dtype
     x = x.float()
-    var = torch.mean(x * x, dim=-1, keepdim=True)
+    if group is None:
+        var = torch.mean(x * x, dim=-1, keepdim=True)
+    else:
+        import torch.distributed as dist
+
+        var = torch.sum(x * x, dim=-1, keepdim=True)
+        dist.all_reduce(var, group=group)
+        var = var / width
     x = x * torch.rsqrt(var + eps)
-    return (x * (1.0 + p.scale.float())).to(dt)
+    return (x * (1.0 + scale.float())).to(dt)
 
 
 # -- rotary embeddings ---------------------------------------------------------
@@ -150,6 +165,28 @@ def _qkv(p: Attention, x: torch.Tensor, cdt, kv_x: torch.Tensor | None = None):
     return q, k, v
 
 
+def _masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positions, causal: bool,
+                      window: int | None, cdt) -> torch.Tensor:
+    """The plain attention core: q (B, S, H, hd) against k, v (B, T, KV,
+    hd) -> (B, S, H, hd), scores in float32 with the additive mask of
+    ``positions`` (B, S) (none for cross-attention, ``positions=None``)."""
+    b, s, h, hd = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    scores = torch.einsum("bskgd,btkd->bkgst", q.reshape(b, s, kvh, g, hd), k).float()
+    if scores.dtype == cdt and torch.is_grad_enabled():
+        # float32 compute: .float() returned the product itself, which
+        # remat="dots" keeps for the backward, so no write into it.
+        scores = scores * hd**-0.5
+    else:
+        scores *= hd**-0.5
+    if positions is not None:
+        scores += _attn_scores_mask(positions, positions, causal, window)[:, None, None, :, :]
+    w = torch.softmax(scores, dim=-1).to(cdt)
+    del scores
+    return torch.einsum("bkgst,btkd->bskgd", w, v).reshape(b, s, h, hd)
+
+
 def attention(p: Attention, x: torch.Tensor, *, cfg, positions: torch.Tensor,
               kv_x: torch.Tensor | None = None, causal: bool = True, window: int | None = None,
               use_rope: bool = True, return_kv: bool = False):
@@ -163,7 +200,14 @@ def attention(p: Attention, x: torch.Tensor, *, cfg, positions: torch.Tensor,
     for cross-attention). A windowed self-attention layer with
     ``cfg.block_local_attn`` and S > window goes through
     ``banded_attention`` (K5 on the card); the other layers take the plain
-    masked path."""
+    masked path (``_masked_attention``). On DTensors either runs on each
+    rank's rows and heads (``sharding.local_heads``), so its backward
+    does too."""
+    if kv_x is None and sh.split_over_model(x := sh.rows_over_model(x, p.wq)):
+        # Heads whole over model: each model rank runs the whole block on its
+        # own rows, the weights whole (their gradients partial sums).
+        return sh.local_rows(_attention_rows, p, x, sh.rows_like(positions, x).to_local(), cfg, causal,
+                             window, use_rope, return_kv)
     cdt = cfg.compute_dtype
     q, k, v = _qkv(p, x, cdt, kv_x)
     if use_rope:
@@ -171,27 +215,18 @@ def attention(p: Attention, x: torch.Tensor, *, cfg, positions: torch.Tensor,
         if kv_x is None:
             k = rope(k, positions, cfg.rope_theta)
 
-    b, s, h, hd = q.shape
-    if kv_x is None and window is not None and cfg.block_local_attn and s > window:
+    if kv_x is None and window is not None and cfg.block_local_attn and q.shape[1] > window:
         out = sh.local_heads(banded_attention, q, k, v, window)
     else:
-        q, ka, va = sh.expand_kv(q, k, v)  # q, k, v themselves on one device
-        kvh = ka.shape[2]
-        g = h // kvh
-        scores = torch.einsum("bskgd,btkd->bkgst", q.reshape(b, s, kvh, g, hd), ka).float()
-        if scores.dtype == cdt and torch.is_grad_enabled():
-            # float32 compute: .float() returned the product itself, which
-            # remat="dots" keeps for the backward, so no write into it.
-            scores = scores * hd**-0.5
-        else:
-            scores *= hd**-0.5
-        if kv_x is None:
-            scores += _attn_scores_mask(positions, positions, causal, window)[:, None, None, :, :]
-        w = torch.softmax(scores, dim=-1).to(cdt)
-        del scores
-        out = torch.einsum("bkgst,btkd->bskgd", w, va).reshape(b, s, h, hd)
+        rows = None if kv_x is not None else sh.rows_like(positions, q)
+        out = sh.local_heads(_masked_attention, q, k, v, rows, causal, window, cdt)
     y = torch.einsum("bshk,hkd->bsd", out, p.wo.to(cdt))
     return (y, k, v) if return_kv else y
+
+
+def _attention_rows(p: Attention, x, positions, cfg, causal, window, use_rope, return_kv):
+    return attention(p, x, cfg=cfg, positions=positions, causal=causal, window=window,
+                     use_rope=use_rope, return_kv=return_kv)
 
 
 def init_attn_cache(cfg, batch: int, max_len: int, window: int | None, dtype,
@@ -202,34 +237,39 @@ def init_attn_cache(cfg, batch: int, max_len: int, window: int | None, dtype,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def decode_attention(p: Attention, x: torch.Tensor, cache: dict[str, torch.Tensor], pos: int, *,
-                     cfg, window: int | None = None) -> tuple[torch.Tensor, dict]:
-    """One-token decode. x (B, 1, d), pos int -> (B, 1, d), cache.
+def _decode_core(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor, ck: torch.Tensor,
+                 cv: torch.Tensor, pos: int, window: int | None, cdt, group=None, idx: int = 0,
+                 shards: int = 1) -> torch.Tensor:
+    """One token against a KV cache, on plain tensors: q (b, 1, H, hd) and
+    the new k, v (b, 1, KV, hd) -> (b, 1, H, hd) in the compute type.
 
-    Full layers write at ``pos``; sliding layers write at ``pos mod W``
-    (ring) and mask out slots older than the window. The cache is updated
-    in place and returned."""
-    cdt = cfg.compute_dtype
-    q, k, v = _qkv(p, x, cdt)
-    posv = torch.full((x.shape[0], 1), pos, dtype=torch.int32, device=x.device)
-    q = rope(q, posv, cfg.rope_theta)
-    k = rope(k, posv, cfg.rope_theta)
-
-    ck, cv = cache["k"], cache["v"]
-    buf_len = ck.shape[1]
+    ``ck``/``cv`` (b, T, KV, hd) are block ``idx`` of ``shards`` equal
+    blocks of the cache's sequence (the whole cache: idx 0 of 1). A full
+    layer's slot is ``pos``, a sliding layer's ``pos mod W`` of its ring
+    of W = T x shards slots; the block that owns the slot writes the new
+    K/V there, in place. Validity is judged on global slot indices: a
+    full layer's slots up to ``pos``, a ring slot whose age (slots behind
+    the newest) is at most ``pos`` and under W. With ``group`` (the
+    sequence's process group) each block's partial max, exp-sum and
+    weighted V are combined by an ``all_reduce(MAX)`` and two
+    ``all_reduce(SUM)`` into the exact softmax; without one the block is
+    the whole cache and the softmax is the plain one. A full layer's
+    ``pos`` past its last slot raises ``IndexError`` on every block."""
+    shard_len = ck.shape[1]
+    buf_len = shard_len * shards
+    if not window and pos >= buf_len:
+        raise IndexError(f"decode position {pos} is past the cache's {buf_len} slots")
     slot = pos % buf_len if window else pos
-    ck[:, slot] = k[:, 0].to(ck.dtype)
-    cv[:, slot] = v[:, 0].to(cv.dtype)
-    q = sh.replicate_dim(q, 2)  # DTensor: every head of the token, as the cache groups them
+    if slot // shard_len == idx:
+        ck[:, slot % shard_len] = k_new[:, 0].to(ck.dtype)
+        cv[:, slot % shard_len] = v_new[:, 0].to(cv.dtype)
 
     b, _, h, hd = q.shape
     kvh = ck.shape[2]
-    g = h // kvh
-    qr = q.reshape(b, 1, kvh, g, hd)
+    qr = q.reshape(b, 1, kvh, h // kvh, hd)
     scores = torch.einsum("bskgd,btkd->bkgst", qr, ck.to(cdt)).float()
     scores *= hd**-0.5
-
-    slots = torch.arange(buf_len, device=x.device)
+    slots = idx * shard_len + torch.arange(shard_len, device=q.device)
     if window:
         # Ring buffer: valid iff the slot holds a position in (pos-W, pos].
         age = torch.remainder(slot - slots, buf_len)  # 0 = current token
@@ -237,10 +277,73 @@ def decode_attention(p: Attention, x: torch.Tensor, cache: dict[str, torch.Tenso
     else:
         valid = slots <= pos
     scores = torch.where(valid, scores, torch.full_like(scores, -1e30))
-    w = torch.softmax(scores, dim=-1).to(cdt)
-    out = torch.einsum("bkgst,btkd->bskgd", w, cv.to(cdt)).reshape(b, 1, h, hd)
+    if group is None:
+        w = torch.softmax(scores, dim=-1).to(cdt)
+        return torch.einsum("bkgst,btkd->bskgd", w, cv.to(cdt)).reshape(b, 1, h, hd)
+    import torch.distributed as dist
+
+    m = torch.amax(scores, dim=-1, keepdim=True)  # (b, kv, g, 1, 1)
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+    w = torch.exp(scores - m)
+    den = torch.sum(w, dim=-1)  # (b, kv, g, 1)
+    dist.all_reduce(den, op=dist.ReduceOp.SUM, group=group)
+    num = torch.einsum("bkgst,btkd->bskgd", w.to(cdt), cv.to(cdt))  # (b, 1, kv, g, hd)
+    dist.all_reduce(num, op=dist.ReduceOp.SUM, group=group)
+    den_r = den.permute(0, 3, 1, 2)[..., None]  # (b, 1, kv, g, 1)
+    return (num / torch.clamp(den_r, min=1e-30)).reshape(b, 1, h, hd).to(cdt)
+
+
+def _decode_on_shards(q, k_new, v_new, cache: dict, pos: int, window: int | None, cdt, rows,
+                      seq_axis: str):
+    """``_decode_core`` on each rank's block of a DTensor cache placed on its
+    ``DeviceMesh`` with the batch over ``rows``' ``Shard(0)`` mesh
+    dimensions and the sequence over ``seq_axis`` (or whole on each rank):
+    q and the new K/V (DTensors, or plain tensors whole on every rank)
+    brought to the rank's rows with every head, nothing of the cache
+    moved. Returns the (B, 1, H, hd) output as a DTensor placed as
+    ``rows``."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    ck, cv = cache["k"], cache["v"]
+    mesh = ck.device_mesh
+    seq_dim = mesh.mesh_dim_names.index(seq_axis)
+    split = ck.placements[seq_dim] == Shard(1)
+    out = _decode_core(*(sh.local_as(t, mesh, rows) for t in (q, k_new, v_new)), ck.to_local(),
+                       cv.to_local(), pos, window, cdt,
+                       group=mesh.get_group(seq_axis) if split else None,
+                       idx=mesh.get_local_rank(seq_axis) if split else 0,
+                       shards=mesh.size(seq_dim) if split else 1)
+    return DTensor.from_local(out, mesh, rows, run_check=False)
+
+
+def decode_attention(p: Attention, x: torch.Tensor, cache: dict[str, torch.Tensor], pos: int, *,
+                     cfg, window: int | None = None) -> tuple[torch.Tensor, dict]:
+    """One-token decode. x (B, 1, d), pos int -> (B, 1, d), cache.
+
+    Full layers write at ``pos``; sliding layers write at ``pos mod W``
+    (ring) and mask out slots older than the window. The cache is updated
+    in place and returned.
+
+    On a DTensor cache (placed as ``sharding.cache_pspecs`` says: batch
+    over the data axes, sequence over ``model``) each rank decodes its
+    rows against its block of the sequence, as ``flash_decode_attention``
+    does, full and ring layers alike: the cache never moves, only the
+    token's q, k and v (every head of the rank's rows), and the softmax is
+    combined by all-reduces over ``model`` (``_decode_core``). A cache
+    placed otherwise raises (``sharding.cache_rows``)."""
+    cdt = cfg.compute_dtype
+    q, k, v = _qkv(p, x, cdt)
+    posv = torch.full((x.shape[0], 1), pos, dtype=torch.int32, device=x.device)
+    q = rope(q, posv, cfg.rope_theta)
+    k = rope(k, posv, cfg.rope_theta)
+    if sh.is_dtensor(cache["k"]):
+        out = _decode_on_shards(q, k, v, cache, pos, window, cdt, sh.cache_rows(cache["k"]),
+                                sh.MODEL_AXIS)
+        out = sh.heads_like(out, p.wo)
+    else:
+        out = _decode_core(q, k, v, cache["k"], cache["v"], pos, window, cdt)
     y = torch.einsum("bshk,hkd->bsd", out, p.wo.to(cdt))
-    return y, {"k": ck, "v": cv}
+    return y, cache
 
 
 def flash_decode_attention(p: Attention, x: torch.Tensor, cache: dict, pos: int, *, cfg, mesh,
@@ -255,13 +358,13 @@ def flash_decode_attention(p: Attention, x: torch.Tensor, cache: dict, pos: int,
     takes its rows of the batch (every head), computes partial (max,
     exp-sum, weighted V) statistics over its slice of the cache, and an
     ``all_reduce(MAX)`` and two ``all_reduce(SUM)`` over the sequence
-    axis's group combine them into the exact softmax. The new K/V lands
-    in the one shard that owns ``pos``, at ``pos % shard_len``, in place.
-    ``x`` and the parameters may be plain tensors (whole on every rank;
-    the output is gathered whole again) or DTensors. Every rank of the
-    mesh must call it. No sliding window: ring caches stay on the plain
-    path, as in the reference."""
-    import torch.distributed as dist
+    axis's group combine them into the exact softmax (``_decode_core``,
+    which ``decode_attention`` runs on a DTensor cache too). The new K/V
+    lands in the one shard that owns ``pos``, at ``pos % shard_len``, in
+    place. ``x`` and the parameters may be plain tensors (whole on every
+    rank; the output is gathered whole again) or DTensors. Every rank of
+    the mesh must call it. No sliding window: ring caches stay on the
+    plain path, as in the reference."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
     cdt = cfg.compute_dtype
@@ -270,7 +373,7 @@ def flash_decode_attention(p: Attention, x: torch.Tensor, cache: dict, pos: int,
     q = rope(q, posv, cfg.rope_theta)
     k_new = rope(k_new, posv, cfg.rope_theta)
 
-    ck, cv = cache["k"], cache["v"]
+    ck = cache["k"]
     names = mesh.mesh_dim_names
     seq_dim = names.index(seq_axis)
     if mesh.size(seq_dim) > 1 and ck.placements[seq_dim] != Shard(1):
@@ -279,41 +382,11 @@ def flash_decode_attention(p: Attention, x: torch.Tensor, cache: dict, pos: int,
     # This rank's rows of the batch, every head, as the cache holds them.
     rows = tuple(Shard(0) if names[i] in batch_axes and pl == Shard(0) else Replicate()
                  for i, pl in enumerate(ck.placements))
-
-    def local(t):
-        if not isinstance(t, DTensor):
-            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
-        return t.redistribute(mesh, rows).to_local()
-
-    q_l, kn_l, vn_l = (local(t) for t in (q, k_new, v_new))
-    ck_l, cv_l = ck.to_local(), cv.to_local()
-    idx = mesh.get_local_rank(seq_axis)
-    shard_len = ck_l.shape[1]
-    if idx == pos // shard_len:
-        ck_l[:, pos % shard_len] = kn_l[:, 0].to(ck_l.dtype)
-        cv_l[:, pos % shard_len] = vn_l[:, 0].to(cv_l.dtype)
-
-    group = mesh.get_group(seq_axis)
-    bl, _, h, hd = q_l.shape
-    kvh = ck_l.shape[2]
-    qr = q_l.reshape(bl, 1, kvh, h // kvh, hd)
-    sc = torch.einsum("bskgd,btkd->bkgst", qr, ck_l.to(cdt)).float() * hd**-0.5
-    kpos = idx * shard_len + torch.arange(shard_len, device=sc.device)
-    sc = torch.where(kpos <= pos, sc, torch.full_like(sc, -1e30))
-    m = torch.amax(sc, dim=-1, keepdim=True)  # (b, kv, g, 1, 1)
-    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
-    w = torch.exp(sc - m)
-    den = torch.sum(w, dim=-1)  # (b, kv, g, 1)
-    dist.all_reduce(den, op=dist.ReduceOp.SUM, group=group)
-    num = torch.einsum("bkgst,btkd->bskgd", w.to(cdt), cv_l.to(cdt))  # (b, 1, kv, g, hd)
-    dist.all_reduce(num, op=dist.ReduceOp.SUM, group=group)
-    den_r = den.permute(0, 3, 1, 2)[..., None]  # (b, 1, kv, g, 1)
-    out = (num / torch.clamp(den_r, min=1e-30)).reshape(bl, 1, h, hd).to(cdt)
-    out = DTensor.from_local(out, mesh, rows, run_check=False)
+    out = _decode_on_shards(q, k_new, v_new, cache, pos, None, cdt, rows, seq_axis)
     if not isinstance(x, DTensor):
         out = out.full_tensor() if any(isinstance(r, Shard) for r in rows) else out.to_local()
     y = torch.einsum("bshk,hkd->bsd", out, p.wo.to(cdt))
-    return y, {"k": ck, "v": cv}
+    return y, cache
 
 
 def cross_decode_attention(p: Attention, x: torch.Tensor, cache: dict[str, torch.Tensor], *,
@@ -446,6 +519,60 @@ def moe_route(p: MoE, xt: torch.Tensor, cfg):
 _STACKS = ("w_gate", "w_in", "w_out")
 
 
+def _moves_rows(split, t: int, k: int, n: int, d: int, f: int, cdt, pdt) -> bool:
+    """Whether a rank of an FSDP slab moves its rows' activations
+    (``_exchange_rows``) rather than gathering its stacks' blocks of ``d``
+    whole: true when, counted from the shapes every rank of the split
+    shares, the activations are fewer bytes (the tokens, the gate and
+    input products, the activation and the output's blocks, a rank's
+    ``t`` tokens and ``t k`` choices) than the three stacks' blocks of its
+    ``n`` experts. A decode step's few tokens move; a training or prefill
+    batch's many tokens gather the weights, as FSDP does."""
+    blk = d // split.count
+    rows = t * (d + 3 * k * f + k * blk) * cdt.itemsize
+    return rows <= 3 * n * f * blk * pdt.itemsize
+
+
+def _exchange_rows(p: MoE, xt: torch.Tensor, kept: torch.Tensor, where, rows: int, k: int,
+                   t_max: int, cdt, split) -> torch.Tensor:
+    """The three expert products for a rank's kept choices when the slab's
+    ``d`` is split over ``split`` (block ``index`` of ``count``) and the
+    weights stay where they are: every rank's tokens (padded to ``t_max``)
+    and kept choices are all-gathered, each rank contracts its block of
+    ``d`` for all of them in one (E_slab, count R, d / count) buffer, a
+    reduce-scatter gives each rank its own choices' gate and input
+    products, their activation is all-gathered back, each rank forms its
+    block of ``d`` of ``w_out``'s product for every choice, and an
+    all-to-all returns each rank its own choices' blocks. Returns (t k, d)
+    rows, a kept choice's output at its index (zero elsewhere). A rank's
+    products have as many FLOPs as over its own R rows with ``d`` whole;
+    what moves is t_max (d + 3 k f + k d / count) elements a rank."""
+    t, d = xt.shape
+    n, blk, f = p.w_gate.shape
+    ranks, lo = split.count, split.index * blk
+    code = torch.full((t_max * k,), -1, dtype=torch.int64, device=xt.device)
+    code[kept] = where[0] * rows + where[1]
+    codes = split.all_gather(code)  # (D, t_max k): expert-local row of each kept choice
+    xs = split.all_gather(F.pad(xt, (0, 0, 0, t_max - t)))[..., lo:lo + blk]  # (D, t_max, blk)
+    jj, cc = (codes >= 0).nonzero(as_tuple=True)
+    e, r = codes[jj, cc] // rows, jj * rows + codes[jj, cc] % rows
+
+    buf = xs.new_zeros((n, ranks * rows, blk))
+    buf[e, r] = xs[jj, cc // k]
+    gu = torch.cat([torch.bmm(buf, p.w_gate.to(cdt)), torch.bmm(buf, p.w_in.to(cdt))], dim=-1)
+    part = gu.new_zeros((ranks, t_max * k, 2 * f))
+    part[jj, cc] = gu[e, r]
+    g, u = split.reduce_scatter(part).chunk(2, dim=-1)  # (t_max k, f) each: own choices, summed
+    acts = split.all_gather(F.silu(g) * u)  # (D, t_max k, f)
+    abuf = acts.new_zeros((n, ranks * rows, f))
+    abuf[e, r] = acts[jj, cc]
+    out = torch.bmm(abuf, p.w_out.to(cdt))  # (E_slab, D R, blk)
+    back = out.new_zeros((ranks, t_max * k, blk))
+    back[jj, cc] = out[e, r]
+    own = split.all_to_all(back)  # (D, t_max k, blk): block j of own choices from rank j
+    return own.permute(1, 0, 2).reshape(t_max * k, d)[:t * k]
+
+
 def _experts(p: MoE, x: torch.Tensor, cfg, cap: int, slab=None) -> torch.Tensor:
     """The routed experts' sum for a rank's rows x (B, S, d) -> (B, S, d):
     its choices kept by the global capacity ``cap`` whose expert lies in
@@ -458,7 +585,10 @@ def _experts(p: MoE, x: torch.Tensor, cfg, cap: int, slab=None) -> torch.Tensor:
     choice not kept here adds zero). R is ``cap`` without a slab, the
     reference's buffer; with one the largest kept count among the slab's
     experts from these rows (data-dependent, as ``nonzero`` is; on meta the
-    bound min(cap, T k), every choice kept)."""
+    bound min(cap, T k), every choice kept). When the slab's ``d`` is split
+    over data (``slab.split``, FSDP) the rank either moves its rows
+    (``_exchange_rows``, R the largest over the split's ranks) or gathers
+    the stacks' blocks, as ``_moves_rows`` picks."""
     cdt = cfg.compute_dtype
     b, s, d = x.shape
     t, k = b * s, cfg.moe_top_k
@@ -478,12 +608,22 @@ def _experts(p: MoE, x: torch.Tensor, cfg, cap: int, slab=None) -> torch.Tensor:
     kept = mine.nonzero()[:, 0]
     where = (flat[kept] - first, slot[kept])
 
+    split = None if slab is None else slab.split
+    w_gate, w_in, w_out = p.w_gate, p.w_in, p.w_out
+    if split is not None:
+        rows_max, t_max = (rows, t) if xt.is_meta else split.max_of(rows, t, device=x.device)
+        if _moves_rows(split, t_max, k, n, d, p.w_gate.shape[2], cdt, p.w_gate.dtype):
+            gathered = _exchange_rows(p, xt, kept, where, rows_max, k, t_max, cdt, split)
+            y = (gathered.reshape(t, k, d) * (gates * mine.reshape(t, k))[..., None].to(cdt)).sum(dim=1)
+            return y.reshape(b, s, d)
+        w_gate, w_in, w_out = split.whole(w_gate, 1), split.whole(w_in, 1), split.whole(w_out, 2)
+
     buf = torch.zeros((n, rows, d), dtype=cdt, device=x.device)
     buf[where] = xt[kept // k]
-    g = F.silu(torch.bmm(buf, p.w_gate.to(cdt)))
-    u = torch.bmm(buf, p.w_in.to(cdt))
+    g = F.silu(torch.bmm(buf, w_gate.to(cdt)))
+    u = torch.bmm(buf, w_in.to(cdt))
     del buf
-    out_buf = torch.bmm(g * u, p.w_out.to(cdt))  # (E_slab, R, d)
+    out_buf = torch.bmm(g * u, w_out.to(cdt))  # (E_slab, R, d)
     del g, u
 
     gathered = torch.zeros((t * k, d), dtype=cdt, device=x.device)
@@ -501,11 +641,12 @@ def moe(p: MoE, x: torch.Tensor, cfg, capacity_factor: float | None = None) -> t
 
     On DTensors each rank runs ``_experts`` on its own rows and its own
     slab of experts (``sharding.local_experts``: the stacks split over
-    ``model``, gathered over ``data`` under FSDP), with the capacity and
-    the positions of the whole batch; no rank computes another batch
-    shard's tokens. The slabs' partial sums are reduced over ``model``
-    (one all-reduce). On a 1x1 mesh the computation is the one-device
-    one."""
+    ``model``; under FSDP their ``d`` split over ``data``, the data ranks
+    exchanging their rows' activations at decode sizes, ``_experts``), with
+    the capacity and the positions of the whole batch; no rank routes
+    another batch shard's tokens. The slabs' partial sums are reduced over
+    ``model`` (one all-reduce). On a 1x1 mesh the computation is the
+    one-device one."""
     b, s, _ = x.shape
     cap = moe_capacity(b * s, cfg.num_experts, cfg.moe_top_k, capacity_factor)
     y = sh.as_rows(sh.local_experts(_experts, p, x, cfg, cap, stacks=_STACKS, shared=("router",)))

@@ -28,12 +28,16 @@ each parameter its ``Sharding`` (the reference's ``NamedSharding``),
 the model's code on DTensors under ``implicit_replication`` (a plain
 tensor made inside the model, a position or a mask, counts as
 replicated). Where the model needs a layout of its own it asks here:
-``replicate_dim`` (the loss's vocabulary, a decode query's heads),
-``expand_kv`` (KV heads that do not split as the query heads do),
-``local_heads`` (K5 on each rank's heads, through ``local_map``),
-``local_rows`` (the SSD and the cross K/V projection on each rank's rows)
-and ``local_experts`` (the MoE's dispatch on each rank's rows and expert
-slab).
+``as_rows`` (the residual stream between layers, its gradient reduced as
+Megatron's), ``lookup`` (the embedding on a split vocabulary),
+``rows_over_model`` (the LM head's tokens when its vocabulary is whole),
+``replicate_dim`` (the loss's vocabulary), ``expand_kv`` (KV heads that
+do not split as the query heads do), ``local_heads`` (the attention core
+and K5 on each rank's heads, through ``local_map``), ``local_rows`` (the
+SSD and the cross K/V projection on each rank's rows), ``local_experts``
+(the MoE's dispatch on each rank's rows and expert slab), and for decode
+``place_caches``, ``cache_rows`` and ``ssm_cache_rows`` (the caches
+placed as ``cache_pspecs`` says, each rank stepping its own block).
 """
 
 from __future__ import annotations
@@ -308,15 +312,81 @@ def _rows(placements) -> tuple:
 
 
 def as_rows(t):
-    """``t`` with its batch split as it is and every other dimension whole
-    on every rank: the residual stream's layout between layers (Megatron's;
+    """``t`` with its batch split as it is over the data axes and every
+    other dimension whole on every rank (a batch DTensor split over
+    ``model`` too, as it may split a product whose heads do not divide the
+    axis, is gathered there): the residual stream's layout between layers
+    (Megatron's;
     the row-parallel products' partial sums reduced, so the next layer's
     column-parallel products split their heads and FFN, not the hidden
-    dimension). A plain tensor as it is."""
+    dimension). Under autograd its gradient is brought to the same layout
+    (a partial sum over ``model`` reduced: Megatron's all-reduce of the
+    column-parallel products' dx), so the backward of the layer that
+    produced ``t`` runs on its own heads and FFN columns as the forward
+    does; DTensor would otherwise carry the partial sum on and gather the
+    weights to multiply it. A plain tensor as it is."""
     if not is_dtensor(t):
         return t
-    rows = _rows(t.placements)
-    return t if rows == tuple(t.placements) else t.redistribute(t.device_mesh, rows)
+    names = t.device_mesh.mesh_dim_names
+    _, Replicate, _ = _dtensor_types()
+    rows = tuple(Replicate() if names[i] == MODEL_AXIS else p for i, p in enumerate(_rows(t.placements)))
+    if rows != tuple(t.placements):
+        t = t.redistribute(t.device_mesh, rows)
+    if not (t.requires_grad and torch.is_grad_enabled()):
+        return t
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(t.to_local(), t.device_mesh, rows, run_check=False, shape=t.shape,
+                              stride=t.stride())
+
+
+def lookup(module: torch.nn.Module, tokens):
+    """``module.embed[tokens]`` (the embedding's rows for each token). On a
+    table split over the mesh (the vocabulary over ``model``) through
+    ``F.embedding``, DTensor's rule for it: each rank looks up the tokens
+    its rows hold and zeroes the rest, a partial sum the residual stream
+    reduces, and the table never moves (indexing would gather it whole).
+    On a whole table each rank indexes its own rows of tokens
+    (``local_rows``; DTensor's rule for the indexing's backward fails on
+    torch 2.11). Plain indexing otherwise, the one-device path's bits."""
+    table = module.embed
+    if not is_dtensor(table):
+        return table[tokens]
+    if any(p.is_shard() for p in table.placements):
+        return torch.nn.functional.embedding(tokens, table)
+    return local_rows(_embed_rows, module, tokens, params=("embed",))
+
+
+def _embed_rows(module, tokens):
+    return module.embed[tokens]
+
+
+def split_over_model(t) -> bool:
+    """Whether a DTensor's rows (dimension 0) are split over ``model``."""
+    if not is_dtensor(t):
+        return False
+    _, _, Shard = _dtensor_types()
+    return t.placements[t.device_mesh.mesh_dim_names.index(MODEL_AXIS)] == Shard(0)
+
+
+def rows_over_model(t, weight):
+    """``t`` (batch first) with its rows split over ``model`` too, each rank
+    keeping its block (nothing moves), when ``weight`` (a DTensor the rows
+    multiply: the LM head (d, V), an attention's ``wq`` (d, H, hd)) is
+    whole over ``model`` (a vocabulary or head count that does not divide
+    the axis) and each rank's rows divide evenly over it: each model rank
+    then computes its own rows' products with the whole weight, not every
+    row of its data shard; under autograd the gradient comes back to
+    ``t``'s layout (one all-gather). ``t`` as it is otherwise."""
+    if not (is_dtensor(t) and is_dtensor(weight)):
+        return t
+    i = t.device_mesh.mesh_dim_names.index(MODEL_AXIS)
+    m = t.device_mesh.size(i)
+    _, Replicate, Shard = _dtensor_types()
+    if (m == 1 or weight.placements[i] != Replicate() or t.placements[i] != Replicate()
+            or t.to_local().shape[0] % m):
+        return t
+    return t.redistribute(t.device_mesh, t.placements[:i] + (Shard(0),) + t.placements[i + 1:])
 
 
 def fsdp_whole(w):
@@ -349,6 +419,106 @@ def replicate_dim(t, dim: int):
     pls = tuple(Replicate() if (isinstance(p, Shard) and p.dim == dim) or p.is_partial() else p
                 for p in t.placements)
     return t if pls == tuple(t.placements) else t.redistribute(t.device_mesh, pls)
+
+
+def cache_rows(t) -> tuple:
+    """The rows placements of a DTensor cache tensor (B, S, ...) placed as
+    ``cache_pspecs`` places it: ``Shard(0)`` on the mesh dimensions that
+    split its batch, ``Replicate`` elsewhere (its sequence split over
+    ``model`` or whole). Any other placement raises: the decode paths
+    work on each rank's own block and never gather a cache."""
+    _, Replicate, Shard = _dtensor_types()
+    names, out = t.device_mesh.mesh_dim_names, []
+    for name, p in zip(names, t.placements):
+        if isinstance(p, Shard) and p.dim == (1 if name == MODEL_AXIS else 0):
+            out.append(p if p.dim == 0 else Replicate())
+        elif isinstance(p, Replicate):
+            out.append(p)
+        else:
+            raise ValueError(f"a decode cache placed as {tuple(t.placements)} on {names}: expected "
+                             "its batch over the data axes and its sequence over model "
+                             "(cache_pspecs)")
+    return tuple(out)
+
+
+def ssm_cache_rows(state, conv) -> tuple:
+    """The rows placements of an SSD decode cache placed as
+    ``cache_pspecs`` places it (state (B, H, N, P): batch over the data
+    axes, heads over ``model``; conv (B, K - 1, C): channels over
+    ``model``; either whole over ``model`` where it does not divide):
+    ``Shard(0)`` on the mesh dimensions that split the batch, ``Replicate``
+    elsewhere. Any other placement raises."""
+    _, Replicate, Shard = _dtensor_types()
+    names, out = state.device_mesh.mesh_dim_names, []
+    for name, ps, pc in zip(names, state.placements, conv.placements):
+        if name == MODEL_AXIS and ps in (Shard(1), Replicate()) and pc in (Shard(2), Replicate()):
+            out.append(Replicate())
+        elif name != MODEL_AXIS and ps == pc and ps in (Shard(0), Replicate()):
+            out.append(ps)
+        else:
+            raise ValueError(f"an SSD decode cache placed as {tuple(state.placements)} / "
+                             f"{tuple(conv.placements)} on {names}: expected cache_pspecs' layout")
+    return tuple(out)
+
+
+def local_as(t, mesh, placements: tuple | None = None) -> torch.Tensor:
+    """This rank's block of ``t`` laid out as ``placements`` on ``mesh``
+    (default: whole on every rank; a DTensor redistributed there first; a
+    plain tensor counts as whole on every rank, as under
+    ``implicit_replication``)."""
+    from torch.distributed.tensor import DTensor
+
+    _, Replicate, _ = _dtensor_types()
+    whole = (Replicate(),) * mesh.ndim
+    if not is_dtensor(t):
+        t = DTensor.from_local(t, mesh, whole, run_check=False)
+    return t.redistribute(mesh, tuple(placements or whole)).to_local()
+
+
+def split_over(rows: tuple, mesh, dim: int) -> tuple:
+    """``rows`` with tensor dimension ``dim`` split over ``model`` too: the
+    placements of a rank's rows whose ``dim`` holds only its own block."""
+    _, _, Shard = _dtensor_types()
+    i = mesh.mesh_dim_names.index(MODEL_AXIS)
+    return rows[:i] + (Shard(dim),) + rows[i + 1:]
+
+
+def heads_like(out, wo):
+    """A DTensor (B, S, H, hd) with its heads whole, split over each mesh
+    dimension that splits ``wo``'s heads (dimension 0): each rank keeps
+    its own heads' block (nothing moves), so the output projection is
+    Megatron's row-parallel product, a partial sum."""
+    if not is_dtensor(wo):
+        return out
+    _, _, Shard = _dtensor_types()
+    pls = tuple(Shard(2) if isinstance(w, Shard) and w.dim == 0 else p
+                for p, w in zip(out.placements, wo.placements))
+    return out if pls == tuple(out.placements) else out.redistribute(out.device_mesh, pls)
+
+
+def place_caches(caches: list[dict]) -> list[dict]:
+    """A decoder's per-layer caches (``transformer.init_cache``'s layout)
+    with every attention K/V and SSD state and conv tail that is a DTensor
+    redistributed, in the list, to the placement ``cache_pspecs`` gives it
+    on its mesh: a prefill leaves K/V split as the heads are and the SSD's
+    cache as the rows, and the decode paths take them as the reference's
+    caches are placed (the sequence and the SSD's heads and channels over
+    ``model``; where the KV heads do not divide the model axis, or the
+    cache is whole over it, each rank keeps its block and nothing moves).
+    Plain tensors as they are."""
+    from repro_torch.launch.mesh import describe
+
+    for c in caches:
+        for kind in ("attn", "ssm"):
+            part = c.get(kind)
+            if part is None or not all(is_dtensor(t) for t in part.values()):
+                continue
+            dmesh = next(iter(part.values())).device_mesh
+            batch = next(iter(part.values())).shape[0]
+            specs = cache_pspecs(describe(dmesh), part, batch)
+            c[kind] = {name: t.redistribute(dmesh, to_placements(specs[name], dmesh))
+                       for name, t in part.items()}
+    return caches
 
 
 def expand_kv(q, k, v):
@@ -407,10 +577,66 @@ class Slab(NamedTuple):
     same experts' counts on every earlier batch shard (token-major order
     over the whole batch). Every rank of the mesh calls ``earlier``
     together: it is one all-reduce of a (shards, E) table over each mesh
-    dimension that splits the batch."""
+    dimension that splits the batch. ``split`` is a ``DataSplit`` when the
+    slab's ``d`` is split over a mesh dimension (FSDP), else None."""
 
     first: int
     earlier: object
+    split: "DataSplit | None" = None
+
+
+def _collective(name: str):
+    """The differentiable functional collective ``name`` (``all_gather`` or
+    ``reduce_scatter``): ``<name>_single_autograd`` where this torch has it,
+    else its older name ``<name>_tensor_autograd`` (the same operator)."""
+    import torch.distributed._functional_collectives as fc
+
+    return getattr(fc, f"{name}_single_autograd", None) or getattr(fc, f"{name}_tensor_autograd")
+
+
+class DataSplit(NamedTuple):
+    """The mesh dimension that splits an expert slab's ``d`` under FSDP
+    (``data``; it splits the batch's rows too): this rank's ``index``
+    among its ``count`` ranks, whose block of ``d`` it holds, and the
+    differentiable collectives over them (``layers._experts``). Every
+    rank of the dimension calls each one together."""
+
+    mesh: object
+    dim: int
+    index: int
+    count: int
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """(…) -> (count, …): every rank's ``t`` in rank order (the
+        backward reduce-scatters the gradient)."""
+        return _collective("all_gather")(t.contiguous()[None], 0, (self.mesh, self.dim))
+
+    def reduce_scatter(self, t: torch.Tensor) -> torch.Tensor:
+        """(count, …) -> (…): entry ``index`` summed over the ranks (the
+        backward all-gathers the gradient)."""
+        return _collective("reduce_scatter")(t.contiguous(), "sum", 0, (self.mesh, self.dim))[0]
+
+    def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
+        """(count, …) -> (count, …): entry j of the result is entry
+        ``index`` of rank j's ``t`` (the backward is the same exchange)."""
+        from torch.distributed._functional_collectives import all_to_all_single_autograd
+
+        return all_to_all_single_autograd(t.contiguous(), None, None, (self.mesh, self.dim))
+
+    def whole(self, w: torch.Tensor, dim: int) -> torch.Tensor:
+        """A stack's block (split along ``dim``) gathered whole: FSDP's
+        all-gather of a weight (the backward reduce-scatters its gradient
+        back to the block)."""
+        parts = self.all_gather(w)  # (count, …)
+        return torch.cat(parts.unbind(0), dim=dim)
+
+    def max_of(self, *values: int, device=None) -> tuple[int, ...]:
+        """The largest of the ranks' values, each (one all-reduce)."""
+        import torch.distributed as dist
+
+        t = torch.tensor(values, dtype=torch.int64, device=device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.mesh.get_group(self.dim))
+        return tuple(int(v) for v in t)
 
 
 def _count_exchange(mesh, row_dims: tuple[int, ...]):
@@ -436,20 +662,27 @@ def local_experts(fn, module: torch.nn.Module, x, *rest, stacks: tuple[str, ...]
                   shared: tuple[str, ...] = ()):
     """``fn(module, x, *rest, slab=...)`` run by each rank on plain tensors, for
     the MoE: its own rows of x (dimension 0 split as x has it, the rest
-    whole), its own slab of each expert stack named in ``stacks``
-    (dimension 0 split over ``model`` as the stacks are placed, the rest
-    gathered: under FSDP their ``d`` is split over ``data``) and the
-    parameters named in ``shared`` whole. ``slab`` is a ``Slab``, or None
-    when the rank holds every row and every expert (a 1x1 mesh: ``fn``
-    then runs as on one device). Each tensor of the result is placed back
-    as those rows and, where the experts are split, as a partial sum over
-    the mesh dimensions that split them (a rank's experts add their share).
-    Under autograd a stack's gradient is its slab's, a partial sum over the
-    mesh dimensions that split the rows; a shared parameter's and x's a
-    partial sum over the dimensions whose ranks each add a share.
-    A plain call (``slab=None``) when x is a plain tensor. The rows and
-    the experts may not be split over one mesh dimension (that needs an
-    all-to-all, which the reference's placements never ask for)."""
+    whole; with ``stacks``, x first laid out as the residual stream,
+    ``as_rows``), its own block of each expert stack named in ``stacks`` (as the
+    stack is placed: dimension 0 split over ``model``, and under FSDP its
+    ``d`` split over ``data``, never gathered) and the parameters named in
+    ``shared`` whole. ``slab`` is a ``Slab``, or None when the rank holds
+    every row and every expert (a 1x1 mesh: ``fn`` then runs as on one
+    device); its ``split`` says which block of ``d`` the rank holds (``fn``
+    either moves the rows' activations over that dimension or gathers the
+    blocks, whichever moves fewer bytes: ``layers._experts``). Each tensor
+    of the result is placed back as those rows and, where the experts are
+    split, as a partial sum over the mesh dimensions that split them (a
+    rank's experts add their share).
+    Under autograd a stack's gradient is its block's: whole over the
+    dimension that splits ``d`` (the rank's products see every row of it),
+    a partial sum over the other mesh dimensions that split the rows; a
+    shared parameter's and x's a partial sum over the dimensions whose
+    ranks each add a share. A plain call (``slab=None``) when x is a plain
+    tensor. The rows and the experts may not be split over one mesh
+    dimension (that needs an all-to-all, which the reference's placements
+    never ask for), and a stack's ``d`` is split only over a dimension
+    that splits the rows (at most one)."""
     if not is_dtensor(x):
         return fn(module, x, *rest, slab=None)
     from torch.distributed.tensor import DTensor, Partial
@@ -457,29 +690,35 @@ def local_experts(fn, module: torch.nn.Module, x, *rest, stacks: tuple[str, ...]
     from torch.utils._pytree import tree_map
 
     _, Replicate, Shard = _dtensor_types()
-    x = as_rows(x)
+    if stacks or any(not (isinstance(p, Replicate) or p == Shard(0)) for p in x.placements):
+        x = as_rows(x)  # the experts' rows may not split over model; rows split there stay for the rest
     mesh = x.device_mesh
     dims = range(mesh.ndim)
     row_dims = tuple(i for i, p in enumerate(x.placements) if isinstance(p, Shard))
-    expert_dims = ()
+    expert_dims = split_dims = ()
     if stacks:
         lead = module.get_parameter(stacks[0])
         if is_dtensor(lead):
             expert_dims = tuple(i for i, p in enumerate(lead.placements)
                                 if isinstance(p, Shard) and p.dim == 0)
+            split_dims = tuple(i for i, p in enumerate(lead.placements)
+                               if isinstance(p, Shard) and p.dim != 0)
     if set(row_dims) & set(expert_dims):
         raise ValueError(f"local_experts: rows and experts split over one mesh dimension "
                          f"({x.placements} vs {module.get_parameter(stacks[0]).placements})")
+    if len(split_dims) > 1 or not set(split_dims) <= set(row_dims):
+        raise ValueError(f"local_experts: an expert stack's d split over mesh dimensions "
+                         f"{split_dims} that are not one dimension of the rows' {row_dims}")
 
     def placed(row, expert, other):
         return tuple(row if i in row_dims else expert if i in expert_dims else other for i in dims)
 
-    slab_pl = placed(Replicate(), Shard(0), Replicate())
     local = {}
     for name in stacks:
         w = module.get_parameter(name)
-        local[f"m.{name}"] = w.redistribute(mesh, slab_pl).to_local(
-            grad_placements=placed(Partial(), Shard(0), Replicate())) if is_dtensor(w) else w
+        local[f"m.{name}"] = w.to_local(grad_placements=tuple(
+            Partial() if i in row_dims and isinstance(p, Replicate) else p
+            for i, p in enumerate(w.placements))) if is_dtensor(w) else w
     for name in shared:
         w = module.get_parameter(name)
         local[f"m.{name}"] = w.redistribute(mesh, (Replicate(),) * mesh.ndim).to_local(
@@ -488,7 +727,11 @@ def local_experts(fn, module: torch.nn.Module, x, *rest, stacks: tuple[str, ...]
     if expert_dims:
         index, _ = flat_index(mesh, tuple(mesh.mesh_dim_names[i] for i in expert_dims))
         first = index * local[f"m.{stacks[0]}"].shape[0]
-    slab = Slab(first, _count_exchange(mesh, row_dims)) if row_dims or expert_dims else None
+    split = None
+    if split_dims:
+        (dim,) = split_dims
+        split = DataSplit(mesh, dim, mesh.get_local_rank(dim), mesh.size(dim))
+    slab = Slab(first, _count_exchange(mesh, row_dims), split) if row_dims or expert_dims else None
     x_local = x.to_local(grad_placements=placed(Shard(0), Partial(), Replicate()))
     out = functional_call(_Bound(module, fn), local, (x_local, *rest), {"slab": slab}, strict=False)
     out_pl = placed(Shard(0), Partial(), Replicate())
@@ -496,15 +739,27 @@ def local_experts(fn, module: torch.nn.Module, x, *rest, stacks: tuple[str, ...]
                     if isinstance(t, torch.Tensor) else t, out)
 
 
+def rows_like(t, like):
+    """A plain tensor ``t`` (the same on every rank, batch first) placed as
+    ``like``'s rows when ``like`` is a DTensor: dimension 0 split as
+    ``like`` splits it, the rest whole (each rank keeps its block, nothing
+    moves). ``t`` itself otherwise."""
+    if not is_dtensor(like) or t is None:
+        return t
+    return place(t, Sharding(like.device_mesh, _rows(like.placements)))
+
+
 def local_heads(fn, q, k, v, *rest):
     """``fn(q, k, v, *rest)`` for (B, S, heads, hd) tensors that may be
     DTensors: each rank runs ``fn`` on its own block of batch and heads
-    (``local_map``), never on a gathered tensor. Only the head dimension
-    (2) and the batch dimension (0) may be sharded. When k and v are not
-    split over heads as q is (KV heads that do not divide the model
-    axis), each KV head is repeated for its group of query heads first, a
-    local copy, so every rank holds its heads' keys. A plain call on plain
-    tensors."""
+    (``local_map``), never on a gathered tensor, in the forward and in the
+    backward. Only the head dimension (2) and the batch dimension (0) may
+    be sharded. When k and v are not split over heads as q is (KV heads
+    that do not divide the model axis), each KV head is repeated for its
+    group of query heads first, a local copy, so every rank holds its
+    heads' keys. A DTensor among ``rest`` reaches ``fn`` as its local
+    block (``rows_like`` places the mask's positions so); anything else as
+    it is. A plain call on plain tensors."""
     if not is_dtensor(q):
         return fn(q, k, v, *rest)
     from torch.distributed.tensor.experimental import local_map
@@ -516,7 +771,8 @@ def local_heads(fn, q, k, v, *rest):
             raise ValueError(f"local_heads: q placed as {q.placements}")
     pls = tuple(q.placements)
     # One output: its placements a list (local_map reads a tuple as one per output).
-    mapped = local_map(fn, out_placements=list(pls), in_placements=(pls, pls, pls) + (None,) * len(rest),
+    rest_pls = tuple(tuple(r.placements) if is_dtensor(r) else None for r in rest)
+    mapped = local_map(fn, out_placements=list(pls), in_placements=(pls, pls, pls) + rest_pls,
                        device_mesh=q.device_mesh)
     return mapped(q, k, v, *rest)
 

@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.layers import RMSNorm, dense_init_, empty_param, rmsnorm
+from repro_torch.models.layers import RMSNorm, dense_init_, empty_param, rmsnorm, scaled_rmsnorm
 from repro_torch.models import sharding as sh
 
 
@@ -215,32 +215,104 @@ def ssd_decode(p: SSD, x_in: torch.Tensor, cache: dict[str, torch.Tensor], cfg):
     """One-token SSD step. x_in (B, 1, d) -> (B, 1, d), cache (updated in
     place and returned).
 
-    State update: h <- exp(dt A) h + B (dt x)^T; y = C . h + D x."""
+    State update: h <- exp(dt A) h + B (dt x)^T; y = C . h + D x. On a
+    DTensor cache each rank steps its own heads (``_ssd_decode_on_shards``)."""
+    if sh.is_dtensor(cache["state"]):
+        return _ssd_decode_on_shards(p, x_in, cache, cfg), cache
     cdt = cfg.compute_dtype
-    b = x_in.shape[0]
+    d_inner, h = ssm_dims(cfg)
+    z, xbc_raw, dt_raw = _split_proj(p, x_in.to(cdt), cfg)
+    y = _ssd_decode_core(z, xbc_raw, dt_raw, cache["state"], cache["conv"], p.conv_w, p.conv_b,
+                         p.dt_bias, p.a_log, p.d_skip, p.norm.scale, cfg, slice(0, h),
+                         slice(0, _conv_dim(cfg)))
+    return y @ p.out_proj.to(cdt), cache
+
+
+def _ssd_decode_core(z, xbc_raw, dt_raw, state, conv, conv_w, conv_b, dt_bias, a_log, d_skip,
+                     norm_scale, cfg, heads: slice, chans: slice, gather=None, group=None):
+    """One token on plain tensors, for the heads ``heads`` of H and the
+    conv channels ``chans`` that ``state`` (B, H_rank, N, P) and ``conv``
+    (B, K - 1, C_rank) hold; the whole cache is heads (0, H) and channels
+    (0, C). z (B, 1, d_inner), xbc_raw (B, 1, C) and dt_raw (B, 1, H) are
+    the token's whole projection, and the weights are whole. ``gather``
+    brings the rank's channels of the convolution's output (B, C_rank) to
+    all C; ``group`` is the process group the heads are split over (the
+    gated norm's sum of squares is all-reduced over it). Updates ``state``
+    and ``conv`` in place and returns the gated norm's output
+    (B, 1, H_rank P), before ``out_proj``."""
+    cdt = cfg.compute_dtype
     g, n, k = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_conv
     d_inner, h = ssm_dims(cfg)
     pdim, hpg = cfg.ssm_head_dim, h // g
 
-    z, xbc_raw, dt_raw = _split_proj(p, x_in.to(cdt), cfg)
     # The conv over the ring of the last K - 1 raw inputs and this one.
-    hist = torch.cat([cache["conv"].to(cdt), xbc_raw], dim=1)  # (B, K, conv_dim)
-    conv_out = sum(hist[:, i] * p.conv_w[i].to(cdt) for i in range(k))
-    xbc = F.silu(conv_out + p.conv_b.to(cdt))  # (B, conv_dim)
+    hist = torch.cat([conv.to(cdt), xbc_raw[..., chans]], dim=1)  # (B, K, C_rank)
+    conv_w, conv_b = conv_w[:, chans], conv_b[chans]
+    conv_out = sum(hist[:, i] * conv_w[i].to(cdt) for i in range(k))
+    xbc = F.silu(conv_out + conv_b.to(cdt))  # (B, C_rank)
+    conv.copy_(hist[:, 1:])
+    if gather is not None:
+        xbc = gather(xbc)
     x, bmat, cmat = torch.split(xbc, [d_inner, g * n, g * n], dim=-1)
 
-    dt = F.softplus(dt_raw[:, 0].float() + p.dt_bias)  # (B, H)
-    decay = torch.exp(dt * -torch.exp(p.a_log))  # (B, H)
-    xh = x.reshape(b, h, pdim)
-    bmg = bmat.reshape(b, g, n).repeat_interleave(hpg, dim=1)  # (B, H, N)
-    cmg = cmat.reshape(b, g, n).repeat_interleave(hpg, dim=1)
+    b = x.shape[0]
+    dt = F.softplus(dt_raw[:, 0].float() + dt_bias)[:, heads]  # (B, H_rank)
+    decay = torch.exp(dt * -torch.exp(a_log[heads]))
+    xh = x.reshape(b, h, pdim)[:, heads]
+    bmg = bmat.reshape(b, g, n).repeat_interleave(hpg, dim=1)[:, heads]  # (B, H_rank, N)
+    cmg = cmat.reshape(b, g, n).repeat_interleave(hpg, dim=1)[:, heads]
 
     xdt = xh * dt[..., None].to(cdt)
-    new_state = (cache["state"].to(cdt) * decay[..., None, None].to(cdt)
-                 + bmg[..., :, None] * xdt[..., None, :])  # (B, H, N, P)
-    y = torch.einsum("bhn,bhnp->bhp", cmg, new_state) + xh * p.d_skip.to(cdt)[:, None]
-    y = rmsnorm(p.norm, y.reshape(b, 1, d_inner) * F.silu(z))
-    out = y @ p.out_proj.to(cdt)
-    cache["state"].copy_(new_state)
-    cache["conv"].copy_(hist[:, 1:])
-    return out, cache
+    new_state = (state.to(cdt) * decay[..., None, None].to(cdt)
+                 + bmg[..., :, None] * xdt[..., None, :])  # (B, H_rank, N, P)
+    y = torch.einsum("bhn,bhnp->bhp", cmg, new_state) + xh * d_skip[heads].to(cdt)[:, None]
+    cols = slice(heads.start * pdim, heads.stop * pdim)
+    y = scaled_rmsnorm(y.reshape(b, 1, xh.shape[1] * pdim) * F.silu(z[..., cols]),
+                       norm_scale[cols], group=group, width=d_inner)
+    state.copy_(new_state)
+    return y
+
+
+def _ssd_decode_on_shards(p: SSD, x_in, cache: dict, cfg):
+    """``ssd_decode`` against a DTensor cache placed as
+    ``sharding.cache_pspecs`` says (the state's heads and the conv ring's
+    channels over ``model``, the batch over the data axes): each rank
+    steps its own heads' state and its own channels' conv ring in place
+    (``_ssd_decode_core``), and neither moves. Only the token's
+    activations do: the packed projection (B_rows, 1, packed) is gathered
+    whole over ``model``, the rank's channels of the convolution's output
+    (B_rows, C) too, and each rank keeps the columns of its heads. The
+    gated norm's sum of squares is one all-reduce over ``model``;
+    ``out_proj`` on the rank's rows of d_inner (its heads) leaves a
+    partial sum over ``model`` that the residual stream reduces. Returns
+    (B, 1, d), a DTensor."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    cdt = cfg.compute_dtype
+    d_inner, h = ssm_dims(cfg)
+    state, conv = cache["state"], cache["conv"]
+    mesh = state.device_mesh
+    rows = sh.ssm_cache_rows(state, conv)
+    mi = mesh.mesh_dim_names.index(sh.MODEL_AXIS)
+    r = mesh.get_local_rank(sh.MODEL_AXIS)
+    heads_split, chans_split = state.placements[mi] == Shard(1), conv.placements[mi] == Shard(2)
+
+    proj = x_in.to(cdt) @ sh.fsdp_whole(p.in_proj).to(cdt)
+    z, xbc_raw, dt_raw = torch.split(sh.local_as(proj, mesh, rows), [d_inner, _conv_dim(cfg), h], dim=-1)
+    conv_l, state_l = conv.to_local(), state.to_local()
+    c_n, h_n = conv_l.shape[-1], state_l.shape[1]
+    chans = slice(r * c_n, (r + 1) * c_n) if chans_split else slice(0, c_n)
+    heads = slice(r * h_n, (r + 1) * h_n) if heads_split else slice(0, h)
+
+    def gather(xbc):
+        return sh.local_as(DTensor.from_local(xbc, mesh, sh.split_over(rows, mesh, 1), run_check=False),
+                           mesh, rows)
+
+    y = _ssd_decode_core(z, xbc_raw, dt_raw, state_l, conv_l,
+                         *(sh.local_as(t, mesh) for t in (p.conv_w, p.conv_b, p.dt_bias, p.a_log,
+                                                          p.d_skip, p.norm.scale)),
+                         cfg, heads, chans, gather if chans_split else None,
+                         mesh.get_group(sh.MODEL_AXIS) if heads_split else None)
+    y = DTensor.from_local(y, mesh, sh.split_over(rows, mesh, 2) if heads_split else rows,
+                           run_check=False)
+    return y @ sh.fsdp_whole(p.out_proj).to(cdt)

@@ -209,7 +209,7 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig, extras=N
     ``extras["memory"]`` (B, T, d) is what cross-attention layers attend."""
     b, s = tokens.shape
     positions = _positions(b, s, tokens.device)
-    h = sh.as_rows(params.embed[tokens].to(cfg.compute_dtype))
+    h = sh.as_rows(sh.lookup(params, tokens).to(cfg.compute_dtype))
     for bd, p in zip(cfg.layer_defs(), params.layers):
         h = apply_block(bd, p, h, cfg, positions, extras)
     h = L.rmsnorm(params.final_norm, h, cfg.norm_eps)
@@ -264,12 +264,19 @@ def _train_block(bd: BlockDef, p: Block, h: torch.Tensor, cfg: ArchConfig, posit
     return _with_ffn(bd, p, h, cfg), _aux(bd, p, h, cfg)
 
 
+def _ce_terms(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Each token's logsumexp minus its target's logit. The vocabulary's
+    dimension is named by its positive index: DTensor (torch 2.11) keeps a
+    negative one unnormalised in a placement it builds."""
+    v = logits.ndim - 1
+    logits = sh.replicate_dim(logits, v)
+    logz = torch.logsumexp(logits, dim=v)
+    return logz - logits.gather(v, targets.unsqueeze(v).long()).squeeze(v)
+
+
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """Mean of logsumexp minus the target's logit (the reference's CE)."""
-    logits = sh.replicate_dim(logits, -1)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, targets[..., None].long())[..., 0]
-    return torch.mean(logz - gold)
+    """The mean of ``_ce_terms`` (the reference's CE)."""
+    return torch.mean(_ce_terms(logits, targets))
 
 
 def loss_fn(params: Transformer, tokens: torch.Tensor, targets: torch.Tensor, cfg: ArchConfig,
@@ -281,7 +288,7 @@ def loss_fn(params: Transformer, tokens: torch.Tensor, targets: torch.Tensor, cf
     prefix)."""
     b, s = tokens.shape
     positions = _positions(b, s, tokens.device)
-    h = sh.as_rows(params.embed[tokens].to(cfg.compute_dtype))
+    h = sh.as_rows(sh.lookup(params, tokens).to(cfg.compute_dtype))
     aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
     n_pre = len(cfg.prefix)
     for i, (bd, p) in enumerate(zip(cfg.layer_defs(), params.layers)):
@@ -289,8 +296,20 @@ def loss_fn(params: Transformer, tokens: torch.Tensor, targets: torch.Tensor, cf
         h, aux = (fn if i < n_pre else _remat(fn, cfg))(h)
         aux_total = aux_total + aux
     h = L.rmsnorm(params.final_norm, h, cfg.norm_eps)
-    ce = cross_entropy(_logits(params, h, cfg), targets)
+    h_rows = sh.rows_over_model(h, params.lm_head)
+    if sh.split_over_model(h_rows):
+        # A head whole over model: each model rank takes the CE of its own
+        # rows with the whole head (its gradient a partial sum).
+        tgt = sh.rows_over_model(targets, params.lm_head).to_local()
+        ce = sh.local_rows(_ce_sum, params, h_rows, tgt, cfg, params=("lm_head",)).sum() / (b * s)
+    else:
+        ce = cross_entropy(_logits(params, h, cfg), targets)
     return ce + aux_weight * aux_total / max(cfg.num_layers, 1)
+
+
+def _ce_sum(params: Transformer, h: torch.Tensor, targets: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """(1,): the summed CE of rows h (B, S, d) on plain tensors."""
+    return torch.sum(_ce_terms(_logits(params, h, cfg), targets))[None]
 
 
 # -- serving: prefill + decode --------------------------------------------------------
@@ -359,16 +378,18 @@ def prefill(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig, extras=N
             max_len: int | None = None) -> tuple[torch.Tensor, list[dict]]:
     """Full-sequence pass building the decode cache; returns (logits at the
     last position (B, V) f32, caches). ``max_len`` sizes full-attention
-    caches for later ``decode_step`` writes (default: the prompt length)."""
+    caches for later ``decode_step`` writes (default: the prompt length).
+    On DTensors the attention and SSD caches leave placed as the decode
+    steps take them (``sharding.place_caches``)."""
     b, s = tokens.shape
     positions = _positions(b, s, tokens.device)
-    h = sh.as_rows(params.embed[tokens].to(cfg.compute_dtype))
+    h = sh.as_rows(sh.lookup(params, tokens).to(cfg.compute_dtype))
     caches = []
     for bd, p in zip(cfg.layer_defs(), params.layers):
         h, c = _block_with_cache(bd, p, h, cfg, positions, max_len, extras)
         caches.append(c)
     h = L.rmsnorm(params.final_norm, h, cfg.norm_eps)
-    return _logits(params, h[:, -1], cfg), caches
+    return _logits(params, h[:, -1], cfg), sh.place_caches(caches)
 
 
 def _flash(bd: BlockDef, cfg: ArchConfig, extras) -> bool:
@@ -407,7 +428,7 @@ def decode_step(params: Transformer, token: torch.Tensor, caches: list[dict], po
     is split over), attention layers without a window decode by
     ``flash_decode_attention`` against caches that ``shard_decode_caches``
     placed; without a mesh they take the plain path, as the reference's."""
-    h = sh.as_rows(params.embed[token[:, None]].to(cfg.compute_dtype))  # (B, 1, d)
+    h = sh.as_rows(sh.lookup(params, token[:, None]).to(cfg.compute_dtype))  # (B, 1, d)
     for bd, p, c in zip(cfg.layer_defs(), params.layers, caches):
         x = L.rmsnorm(p.ln1, h, cfg.norm_eps)
         a = m = None

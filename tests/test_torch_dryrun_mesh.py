@@ -71,7 +71,8 @@ def test_argument_bytes_are_the_local_shards(records, kind, shape):
 def test_counts_split_with_the_shards(records, kind):
     """Data parallel halves the products (the batch splits), tensor
     parallel too (heads and the FFN split, the residual stream whole
-    between layers); the collective term prices the
+    between layers), in the forward and the backward alike; the collective
+    term prices the
     traffic a device at the link rate, and the meter saw every collective
     CommDebugMode saw."""
     one = records[(kind, (1, 1))]
@@ -84,11 +85,38 @@ def test_counts_split_with_the_shards(records, kind):
             sum(rec["collective_traffic_by_op"].values()))
         assert rec["terms_seconds"]["collective"] == pytest.approx(
             rec["collective_traffic_per_device"] / rl.LINK_BW)
-    quarter = records[(kind, (2, 2))]["flops_per_device"] * 4
-    if kind == "prefill":  # the batch over data, heads and FFN over model: exactly a quarter
-        assert quarter == one["flops_per_device"]
-    if kind == "train":  # DTensor's backward leaves some products whole across model
-        assert one["flops_per_device"] <= quarter <= 4 / 3 * one["flops_per_device"]
+    # The batch over data, heads and FFN over model, the backward's
+    # products as the forward's (the residual stream's gradient reduced
+    # between layers, the attention core on each rank's heads): exactly a
+    # quarter at 2x2. At 1x4 the cell's 2 KV heads do not divide the model
+    # axis, so each rank runs the K and V projections whole, the
+    # reference's placement: a quarter plus 3/4 of their products, in the
+    # forward and, for train, the backward's dx and dW.
+    quarter = one["flops_per_device"] / 4
+    assert records[(kind, (2, 2))]["flops_per_device"] == quarter
+    c = cfg()
+    tokens = B * (1 if kind == "decode" else S)
+    kv_products = c.num_layers * 2 * 2 * tokens * c.d_model * c.kv_heads * c.head_dim
+    kv_term = kv_products * (3 if kind == "train" else 1) * 3 // 4
+    assert records[(kind, (1, 4))]["flops_per_device"] == quarter + kv_term
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill"])
+def test_whole_heads_and_vocabulary_split_rows_over_model(kind):
+    """A reduced granite with 6 query heads and a vocabulary of 510 at 1x4:
+    neither divides the model axis, so the attention's weights and the LM
+    head are whole there (the reference's placements); each model rank
+    takes its own rows of the attention block and of the training loss's
+    head (``sharding.rows_over_model``), and the cell's FLOPs a device are
+    exactly a quarter of one card's, the K and V projections' included; a
+    prefill's last-position logits (B rows) stay whole on each rank, 3/4
+    of their head product over the quarter."""
+    c = cfg().replace(q_heads=6, kv_heads=2, vocab=510)
+    shape = ShapeDef("t", kind, S, B)
+    one = dryrun.run_cell(c, shape, verbose=False)
+    rec = dryrun.run_cell(c, shape, M.make_mesh((1, 4), ("data", "model")), verbose=False)
+    head = 0 if kind == "train" else 2 * B * c.d_model * c.vocab * 3 // 4
+    assert rec["flops_per_device"] * 4 == one["flops_per_device"] + 4 * head
 
 
 def tp_block_counts(shape, block):

@@ -37,6 +37,7 @@ from test_torch_sharded_train import LOSS_TOL, STEP_TOL
 TIMEOUT = 300
 WORLDS = {1: [(1, 1)], 4: [(2, 2), (1, 4)]}
 LAYER_CASES = dict(CASES, hot=(2, 160, None))
+STACKS = ("w_gate", "w_in", "w_out")
 HOT_EXPERT, HOT_ROW0 = 3, 60  # row 0: its first 60 tokens pick the hot expert; row 1: all 160
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_VOCAB_USED = 4, 80, 6  # T = 320 > 256, few distinct tokens: drops
 DECODE_BATCH, DECODE_PROMPT, DECODE_STEPS = 2, 160, 3
@@ -70,6 +71,24 @@ def shard_kept(idx: np.ndarray, cap_of, shards: int) -> np.ndarray:
     return keep
 
 
+def reference_grads(jp, x, jcfg, factor, seed) -> list:
+    """``layer_grads`` of the reference's ``moe``: the gradients of <y, c>
+    with respect to x and the expert stacks, as numpy."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.models import layers as JL
+
+    c = jnp.asarray(np.random.default_rng(seed).normal(size=x.shape).astype(np.float32))
+
+    def inner(xx, *stacks):
+        q = {**jp, **dict(zip(STACKS, stacks))}
+        return jnp.sum(JL.moe(q, xx, jcfg, capacity_factor=factor) * c)
+
+    grads = jax.grad(inner, argnums=(0, 1, 2, 3))(jnp.asarray(x), *(jp[n] for n in STACKS))
+    return [np.asarray(g) for g in grads]
+
+
 @pytest.fixture(scope="module")
 def reference():
     """Per arch: the reference's weights (numpy), the port's config, each
@@ -93,9 +112,10 @@ def reference():
             x = _hot_x(jp["router"], jcfg.d_model) if name == "hot" else _x((b, s, jcfg.d_model), seed=s)
             cap = L.moe_capacity(b * s, jcfg.num_experts, jcfg.moe_top_k, factor)
             idx, keep = reference_kept(jp, x, jcfg, cap)
-            y = np.asarray(JL.moe(jax.tree.map(jnp.asarray, jp), jnp.asarray(x), jcfg,
-                                  capacity_factor=factor))
-            cases[name] = dict(x=x, factor=factor, cap=cap, idx=idx, keep=keep, y=y)
+            jpj = jax.tree.map(jnp.asarray, jp)
+            y = np.asarray(JL.moe(jpj, jnp.asarray(x), jcfg, capacity_factor=factor))
+            cases[name] = dict(x=x, factor=factor, cap=cap, idx=idx, keep=keep, y=y,
+                               grads=reference_grads(jpj, x, jcfg, factor, len(name)))
         out[arch] = dict(tree=tree, cfg=port_cfg(jcfg), cases=cases)
     return out
 
@@ -105,11 +125,13 @@ def reference():
 
 class BmmShapes(TorchDispatchMode):
     """Records the first operand's shape of every ``bmm`` a rank runs on its
-    plain tensors (DTensor operators are handed on to DTensor)."""
+    plain tensors (DTensor operators are handed on to DTensor), and each
+    collective's name and first tensor operand's shape."""
 
     def __init__(self):
         super().__init__()
         self.shapes = []
+        self.collectives = []
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
@@ -118,6 +140,10 @@ class BmmShapes(TorchDispatchMode):
             return NotImplemented
         if func is torch.ops.aten.bmm.default:
             self.shapes.append(tuple(args[0].shape))
+        if func.namespace in ("_c10d_functional", "c10d") and not func.__name__.startswith(("_", "wait")):
+            first = next((a for a in args if isinstance(a, torch.Tensor)), None)
+            if first is not None:
+                self.collectives.append((func.__name__, tuple(first.shape)))
         return func(*args, **(kwargs or {}))
 
 
@@ -127,11 +153,30 @@ def _whole(t):
     return (t.full_tensor() if sh.is_dtensor(t) else t).detach().clone()
 
 
+def layer_grads(p, x, cfg, factor, seed):
+    """The gradients of <y, c> (c a fixed normal cotangent) with respect to
+    x and the expert stacks, whole."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import sharding as sh
+
+    c = torch.from_numpy(np.random.default_rng(seed).normal(size=tuple(x.shape)).astype(np.float32))
+    if sh.is_dtensor(x):
+        c = sh.place(c, sh.batch_sharding(x.device_mesh, 3))
+    x = x.detach().requires_grad_(True)
+    stacks = [getattr(p, n) for n in ("w_gate", "w_in", "w_out")]
+    for w in stacks:
+        w.requires_grad_(True)
+    grads = torch.autograd.grad((L.moe(p, x, cfg, factor) * c).sum(), [x] + stacks)
+    for w in stacks:
+        w.requires_grad_(False)
+    return [_whole(g) for g in grads]
+
+
 def layer_cases(tree, cfg, cases, dmesh):
     """Every layer case on the first MoE layer: the one-device port's
-    output and positions, then the sharded layer's (params placed on
-    ``dmesh``, x split by ``batch_sharding``) with the rows of this rank's
-    expert buffer."""
+    output, positions and gradients, then the sharded layer's (params
+    placed on ``dmesh``, x split by ``batch_sharding``) with the rows of
+    this rank's expert buffer and the collectives of its forward."""
     from repro_torch.interop import lm_params_from_numpy
     from repro_torch.models import layers as L
     from repro_torch.models import sharding as sh
@@ -139,22 +184,25 @@ def layer_cases(tree, cfg, cases, dmesh):
     model = lm_params_from_numpy(tree, cfg, "cpu")
     p = model.layers[len(cfg.prefix)].moe
     out = {}
-    with torch.no_grad():
+    for name, c in cases.items():
+        x = torch.from_numpy(c["x"])
+        t = x.shape[0] * x.shape[1]
+        with torch.no_grad():
+            out[name] = dict(y1=L.moe(p, x, cfg, c["factor"]),
+                             pos1=L.moe_route(p, x.reshape(t, -1), cfg)[2])
+        out[name]["grads1"] = layer_grads(p, x, cfg, c["factor"], len(name))
+    sh.distribute_params(cfg, dmesh, model)
+    with sh.implicit_replication():
         for name, c in cases.items():
             x = torch.from_numpy(c["x"])
             t = x.shape[0] * x.shape[1]
-            out[name] = dict(y1=L.moe(p, x, cfg, c["factor"]),
-                             pos1=L.moe_route(p, x.reshape(t, -1), cfg)[2])
-        sh.distribute_params(cfg, dmesh, model)
-        with sh.implicit_replication():
-            for name, c in cases.items():
-                x = torch.from_numpy(c["x"])
-                t = x.shape[0] * x.shape[1]
-                xd = sh.place(x, sh.batch_sharding(dmesh, 3))
+            xd = sh.place(x, sh.batch_sharding(dmesh, 3))
+            with torch.no_grad():
                 with BmmShapes() as rec:
                     y = L.moe(p, xd, cfg, c["factor"])
                 pos = L.moe_route(p, sh.place(x.reshape(t, -1), sh.batch_sharding(dmesh, 2)), cfg)[2]
-                out[name].update(y=_whole(y), pos=_whole(pos), bmm=rec.shapes)
+            out[name].update(y=_whole(y), pos=_whole(pos), bmm=rec.shapes, collectives=rec.collectives,
+                             grads=layer_grads(p, xd, cfg, c["factor"], len(name)))
     return out
 
 
@@ -321,21 +369,92 @@ def test_buffer_rows_are_the_rank_own_kept_choices(worlds, reference, n, shape, 
     """Each rank runs three ``bmm`` over its slab of E / model experts, on a
     buffer of as many rows as the largest kept count among those experts
     from its own batch shard's tokens (the capacity itself at 1x1, the
-    reference's buffer)."""
+    reference's buffer). Under FSDP at 2x2 (both configs) the slab's d is
+    split over data: where the rank moves its rows (``moves_rows``) its
+    products run over every data rank's kept choices, each rank's padded
+    to the largest of their counts, on its block of d (the gate and input
+    products) and of the output's d (``w_out``'s), as many FLOPs as its
+    own rows with d whole; where it gathers the blocks, over its own rows
+    as without FSDP."""
     ref, cfg = reference[arch]["cases"][case], reference[arch]["cfg"]
     d_size, m_size = shape
     e_slab = cfg.num_experts // m_size
     t, k = ref["idx"].shape
+
+    def kept_rows(di, mi):
+        rows = slice(di * t // d_size, (di + 1) * t // d_size)
+        idx, keep = ref["idx"][rows], ref["keep"][rows]
+        return max(int(((idx == e) & keep).sum()) for e in range(mi * e_slab, (mi + 1) * e_slab))
+
     for rank_out in worlds[n]:
         di, mi = rank_out[(arch, "coords", shape)]
         bmm = rank_out[(arch, "layer", shape)][case]["bmm"]
-        rows = slice(di * t // d_size, (di + 1) * t // d_size)
-        idx, keep = ref["idx"][rows], ref["keep"][rows]
-        want = ref["cap"] if shape == (1, 1) else max(
-            int(((idx == e) & keep).sum()) for e in range(mi * e_slab, (mi + 1) * e_slab))
-        assert len(bmm) == 3 and all(s[:2] == (e_slab, want) for s in bmm), (bmm, want)
+        want = ref["cap"] if shape == (1, 1) else kept_rows(di, mi)
+        if d_size > 1 and cfg.fsdp and moves_rows(cfg, t // d_size, shape):
+            rows = d_size * max(kept_rows(dj, mi) for dj in range(d_size))
+            blk = cfg.d_model // d_size
+            assert bmm == [(e_slab, rows, blk)] * 2 + [(e_slab, rows, cfg.d_ff)], (bmm, rows)
+        else:
+            assert len(bmm) == 3 and all(s[:2] == (e_slab, want) for s in bmm), (bmm, want)
         if shape == (2, 2) and case == "drop_free":  # 40 tokens a rank: under the capacity of 80
             assert want <= t // d_size < ref["cap"]
+
+
+def moves_rows(cfg, tokens: int, shape) -> bool:
+    """The byte rule by hand: a rank of ``tokens`` tokens (k choices each)
+    moves its activations, the tokens (d), the gate and input products and
+    the activation (3 k d_ff) and the output's blocks (k d / D), when they
+    are at most the three stacks' blocks of its E / M experts (3 E / M
+    d_ff d / D); all float32."""
+    d_size, m_size = shape
+    k, d, f = cfg.moe_top_k, cfg.d_model, cfg.d_ff
+    return tokens * (d + 3 * k * f + k * d // d_size) <= 3 * cfg.num_experts // m_size * f * d // d_size
+
+
+@pytest.mark.parametrize("case", list(LAYER_CASES))
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_fsdp_layer_moves_rows_or_blocks_by_bytes(worlds, reference, arch, case):
+    """At 2x2 under FSDP the sharded layer either exchanges its rows'
+    activations over data (all-gathers of the tokens and of the
+    activation, a reduce-scatter of the gate and input products, an
+    all-to-all of the output's blocks) and moves no expert stack, no
+    collective's operand ending in a stack block's (d / 2, d_ff) or
+    (d_ff, d / 2); or it all-gathers the three stacks' blocks, whichever
+    moves fewer bytes (40 tokens a rank move, 160 gather)."""
+    cfg = reference[arch]["cfg"]
+    assert cfg.fsdp
+    t = LAYER_CASES[case][0] * LAYER_CASES[case][1] // 2
+    assert moves_rows(cfg, t, (2, 2)) == (t == 40)
+    blocks = {(cfg.d_model // 2, cfg.d_ff), (cfg.d_ff, cfg.d_model // 2)}
+    for rank_out in worlds[4]:
+        moved = rank_out[(arch, "layer", (2, 2))][case]["collectives"]
+        names = [name.split(".")[0] for name, _ in moved]
+        slabs = [shape for _, shape in moved if shape[-2:] in blocks]
+        if moves_rows(cfg, t, (2, 2)):
+            assert {"all_gather_into_tensor", "reduce_scatter_tensor", "all_to_all_single"} <= set(names)
+            assert not slabs, moved
+        else:
+            assert len(slabs) == 3 and "all_to_all_single" not in names, moved
+
+
+@pytest.mark.parametrize("case", list(LAYER_CASES))
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+@pytest.mark.parametrize("n,shape", MESHES, ids=MESH_IDS)
+def test_sharded_layer_gradients(worlds, reference, n, shape, arch, case):
+    """The gradients of the sharded layer's output against a fixed
+    cotangent, with respect to x and the expert stacks (each stack's
+    gradient placed as the stack, its FSDP block whole over data), within
+    PREFILL_TOL of the reference's ``moe`` gradients on the same inputs
+    and of the one-device layer's, bitwise at 1x1."""
+    want = reference[arch]["cases"][case]["grads"]
+    for rank_out in worlds[n]:
+        got = rank_out[(arch, "layer", shape)][case]
+        for g, g1, w, what in zip(got["grads"], got["grads1"], want, ("x", *STACKS), strict=True):
+            np.testing.assert_allclose(g.numpy(), w, **PREFILL_TOL, err_msg=what)
+            if shape == (1, 1):
+                assert torch.equal(g, g1), what
+            else:
+                torch.testing.assert_close(g, g1, **PREFILL_TOL, msg=what)
 
 
 # -- training and serving ------------------------------------------------------------
