@@ -42,7 +42,7 @@ and every kernel's launch count set to 0 just before it:
   two types are apart;
 * ``[cluster]``: ``run_pdf`` over simulated Set1 slices 200-203 (baseline,
   L = 20) serially with a fresh ``--compile-cache-dir`` (it must build),
-  then as 1, 2 and 4 workers through ``src/repro_torch/launch/cluster.sh``
+  then as 2 and 4 workers through ``src/repro_torch/launch/cluster.sh``
   (gloo, one shared ``out_dir``, the warm cache: ``new_compilations=0`` in
   every worker), each bitwise the serial run's, K1 = K2 = 84 over the
   workers; each worker's wall and launches logged;
@@ -71,7 +71,8 @@ and every kernel's launch count set to 0 just before it:
   a window with cache misses), ``ml`` on the kernels backend (K3 and K4
   once a window), ``sampling`` with the random sampler (K1 on the sampled
   rows only, no K2; K1 also held against its plain version on those
-  subsets) and with k-means, and the paper's Set1 configuration
+  subsets) and with k-means (a 0.02 sample: 125 clusters a window), and
+  the paper's Set1 configuration
   (``grouping_ml``, 4 types, L = 20). Bitwise: host and device Select,
   prefetch on and off. Against the same method on the plain backend, the
   tree-margin rule (``tree_margin``);
@@ -93,14 +94,22 @@ and every kernel's launch count set to 0 just before it:
   ``python -m repro_torch.launch.run_pdf --spec`` in a subprocess,
   which must exit 0 and print the session's hash;
 * ``[serve]``: ``PDFServer`` over the Set1 spec with baseline, then
-  grouping (host Select), on slices 200-201: 8 client threads of 6 point,
+  grouping (host Select), on slices 200-201: 4 client threads of 6 point,
   2 window and 1 region query each (``numpy.random.default_rng(0)``),
   coalesced (storing the completed slices in a ``cache_dir``), naive
   (``serve.coalesce`` off, no hot-window LRU) and a second server over
   the warm cache: every answer bitwise equal across the three and to the
   session's slices; coalesced K2 at most the distinct windows requested,
   naive at least as many, warm none; request and launch p50/p99,
-  ``coalesce_ratio``, ``batch_occupancy`` and hit rates logged.
+  ``coalesce_ratio``, ``batch_occupancy`` and hit rates logged;
+* ``[cli]``: the port's CI sequences (``.github/workflows/ci_torch.yml``)
+  as commands on tiny cubes under ``build/``, with no ``--device`` (each
+  launcher's own default, cuda): ``run_pdf --cache-dir`` cold then warm,
+  ``run_pdf --fault-plan`` (transient read errors, bitwise the clean run),
+  ``serve_pdf --clients 4``, and a streaming cube's cold run with
+  sidecars, an append and the incremental rerun, then ``run_pdf --watch``
+  applying an append made once it polls; three chains side by side, each
+  command's wall logged.
 
 Then the baseline slice, the two grouping slices and the Set1
 configuration run once more under
@@ -132,15 +141,15 @@ Last comes the LM serving path (``band_attn``, K5):
   logits), the decode steps alone (no K5 launch, the same tokens), and the
   prefill's logits and first token held against the plain masked path and
   float32 compute;
-* ``[lm ssm]``: mamba2-780m at full width and depth (48 SSD layers), the
+* ``[lm ssm]``: mamba2-780m at full width cut to 12 of 48 SSD layers, the
   same way with no kernel launched at all; its bf16 logits against float32
   compute, the decode oracle in float32 compute (4 greedy steps, each
   step's logits against ``forward`` over the extended sequence within the
   reference's rtol = atol = 1e-3) and the decode cache's bytes equal after
   prompts of 1,024 and 4,096 tokens;
-* ``[lm hybrid]``: hymba-1.5b at full width and depth (1 global and 31
-  windowed hybrid layers) with the banded path on: 31 K5 launches a
-  prefill, none a decode step (past the 1,024 ring), bitwise repeat, and
+* ``[lm hybrid]``: hymba-1.5b at full width cut to 8 of 32 layers (1
+  global and 7 windowed hybrid layers) with the banded path on: 7 K5
+  launches a prefill, none a decode step (past the 1,024 ring), bitwise repeat, and
   the gemma3 gate against the plain masked path and float32 compute;
 * ``[lm encdec]``, ``[lm vlm]``, ``[lm moe]``, ``[lm moe kimi]``
   (``XMODEL_PHASES``): seamless-m4t-medium at full depth (its frames 4 x
@@ -154,11 +163,11 @@ Last comes the LM serving path (``band_attn``, K5):
   layer's capacity and dropped choices in a prefill and a decode step
   (which must drop none);
 * ``[train hymba]``: the training path (``repro_torch.launch.train``'s
-  ``build_step``) on hymba-1.5b at full width and depth with the banded
+  ``build_step``) on hymba-1.5b as ``[lm hybrid]`` has it (8 layers) with the banded
   path on and remat "full", AdamW (lr 3e-4, cosine over 6 steps),
   ``TokenPipeline(32,001, 4,096, 4, seed 0)`` (batch 2 if 4 does not fit,
   the refusal logged): 6 steps, each with a finite loss and gnorm (so
-  every gradient finite) and exactly 62 K5 launches (31 forward, 31 in
+  every gradient finite) and exactly 14 K5 launches (7 forward, 7 in
   the remat recompute, none in the backward); step time (median of steps
   2-6), tokens/s, peak memory; the banded backward's device time by CUDA
   events around its calls; one step under ``torch.profiler``; a step
@@ -194,13 +203,25 @@ The accounting layer (``repro_torch.launch.roofline``, ``dryrun``,
   hymba-1.5b's, hymba-1.5b's training step): each bound beside the
   measured seconds, the share at most MAX_SHARE, the argument bytes equal
   to the live model's and optimizer's;
-* ``[dryrun]``: ``python -m repro_torch.launch.dryrun --all --mesh 1x1``,
-  ``dryrun_pdf --all`` and ``report`` as subprocesses, their walls and
-  cells; a failed cell fails the run.
+* ``[dryrun mesh]``: the dry run's sharded step for granite-3-8b
+  ``decode_32k`` on 16x16 (``python -m repro_torch.launch.dryrun``),
+  arctic-480b and mamba2-780m ``decode_32k`` and granite-3-8b
+  ``train_4k`` on 16x16 and hymba-1.5b ``long_500k`` on 2x16x16
+  (``run_cell``), ``dryrun_pdf``'s ``grouping_global`` on 16x16 (its
+  command line) and ``fused_scatter_shmap`` on 2x16x16: each cell's wall,
+  collectives and collective term; a failed cell fails the run;
+* ``[dryrun]``: ``python -m repro_torch.launch.dryrun --arch gemma3-12b
+  --mesh 1x1`` (3 cells and one skipped by design; the CPU tests run
+  ``--all``), ``dryrun_pdf --all`` and ``report`` as subprocesses, their
+  walls and cells; a failed cell fails the run.
+
+The command lines of ``[dryrun]`` and ``[dryrun mesh]`` (host work on meta
+tensors, nothing on the card) start together and run beside the meta
+passes of ``[roofline lm]`` and ``[dryrun mesh]``'s other cells.
 
 The multi-device half (``launch/mesh.py``, ``models/sharding.py``, the
 sharded train step, flash decode, the compressed all-reduce, the split
-stager, the dry run above 1x1) runs last, on the one card:
+stager) runs last, on the one card:
 
 * ``[mesh 1x1]``: a one-rank NCCL world in this process and its 1x1
   ``DeviceMesh``: hymba-1.5b at full width cut to 4 layers (the global
@@ -219,9 +240,9 @@ stager, the dry run above 1x1) runs last, on the one card:
   parameters placed on the mesh and the prefill again through the
   sharded MoE (``sharding.local_experts``): logits bitwise, the same kept
   set and drops in each layer;
-* ``[mesh 2 ranks]``: two NCCL ranks on the card once (NCCL refuses two
-  ranks on one device; its message is logged), then two processes with
-  ``backend="gloo"`` passed explicitly and logged: flash decode at
+* ``[mesh 2 ranks]``: two processes on the one card with
+  ``backend="gloo"`` passed explicitly and logged (NCCL refuses two ranks
+  on one device): flash decode at
   gemma3's attention width (float32, a 4 x 4,112 cache split over the
   ranks) within 2e-5 of the one-rank plain decode, each rank's block of
   the cache equal to it and written only by the owner of the position;
@@ -234,14 +255,7 @@ stager, the dry run above 1x1) runs last, on the one card:
   direction, so the capacity drops): the kept set of the one-rank layer
   (computed in this process first), the output within the float32
   oracle's 1e-4 of it, each rank's expert buffer as many rows as its
-  slab's largest kept count (only all-reduces cross the ranks);
-* ``[dryrun mesh]``: the dry run's sharded step for granite-3-8b
-  ``decode_32k`` on 16x16 (``python -m repro_torch.launch.dryrun``),
-  arctic-480b ``decode_32k`` on 16x16 and hymba-1.5b ``long_500k`` on
-  2x16x16 (``run_cell``), ``dryrun_pdf``'s
-  ``grouping_global`` on 16x16 (its command line) and
-  ``fused_scatter_shmap`` on 2x16x16: each cell's wall, collectives and
-  collective term; a failed cell fails the run.
+  slab's largest kept count (only all-reduces cross the ranks).
 
 The K1-K4 rows of the kernels line carry ``launches_api_serve``, the
 ``[api]`` and ``[serve]`` launches, and ``launches_stream_cluster``, those
@@ -252,8 +266,9 @@ shape), ``launches_train`` (a ``[train hymba]`` step's, the grad phase's
 K5 way's, ``[train reduced]``'s) and ``train_hymba`` (the step's time,
 K5's device time in the profiled step, the banded backward's); K1 and K2
 carry ``launches_mesh`` (each rank's in the split stager), K5 a sharded
-step's in ``[mesh 1x1]``. Any failed check raises, so the exit
-code is non-zero. The line before the last is a JSON object of
+step's in ``[mesh 1x1]``. Every phase logs its wall as ``[phase] <label>
+<s>``, and a ``[phases]`` line sums them. Any failed check raises, so the
+exit code is non-zero. The line before the last is a JSON object of
 per-kernel numbers; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout of the repository, it exits with code 2 and prints no result.
@@ -308,6 +323,9 @@ MAX_SHARE = 1.05
 
 SET1_SLICE = 201  # configs/pdf_seismic.py: slice_index
 SET1_WINDOWS = 21  # ceil(501 lines / 25 lines per window)
+# k-means sampling's fraction: 125 clusters a window of 6,275 points (the
+# random sampler keeps the reference's 0.1); host Lloyd's time grows with it.
+KMEANS_FRAC = 0.02
 KERNEL_SOURCES = ("fitpdf", "moments", "hist", "band_attn")  # src/repro_torch/csrc/<name>.cu
 
 # The LM serving path: gemma3-12b at full width (configs/gemma3_12b.py) with
@@ -335,13 +353,17 @@ K5_TOL = 2.0
 K5_CASES = ((4, 4096, 16, 8, 256, 1024), (4, 4000, 16, 8, 256, 1024), (4, 700, 16, 8, 256, 1024),
             (4, 4096, 25, 5, 64, 1024))
 K5_GEMMA, K5_HYMBA = (4, 16, 8, 256), (4, 25, 5, 64)  # (B, H, KV, hd) of each model's launches
-# The SSM and hybrid serving paths at full width and full depth
-# (configs/mamba2_780m.py, configs/hymba_1_5b.py: 48 and 32 layers), random
-# weights from a seeded generator, float32 parameters, bf16 compute, the
-# same batch, prompt and tokens as [lm]. hymba's 31 windowed layers run K5.
+# The SSM and hybrid serving paths at full width (configs/mamba2_780m.py,
+# configs/hymba_1_5b.py), cut to SSM_LAYERS of 48 and HYBRID_LAYERS of 32
+# layers (hymba: its global layer and 7 windowed ones, which run K5; the
+# same depth trains in [train hymba]), random weights from a seeded
+# generator, float32 parameters, bf16 compute, the same batch, prompt and
+# tokens as [lm].
 SSM_ARCH = "mamba2-780m"
 HYBRID_ARCH = "hymba-1.5b"
-HYBRID_LOCAL_LAYERS = 31
+SSM_LAYERS = 12
+HYBRID_LAYERS = 8
+HYBRID_LOCAL_LAYERS = HYBRID_LAYERS - 1
 # The reference's decode oracle: decode logits against forward over the
 # extended sequence, rtol = atol = 1e-3 (tests/test_models.py:40-42), here
 # in float32 compute with TF32 off, after each of ORACLE_STEPS greedy steps.
@@ -369,14 +391,14 @@ XMODEL_PHASES = (("lm encdec", "seamless-m4t-medium", None, False, LM_BATCH),
 # LM_PREFILL_TOL, then ORACLE_DECODE greedy steps within LM_DECODE_TOL.
 ORACLE_BATCH, ORACLE_PROMPT, ORACLE_DECODE = 2, 16, 3
 LM_PREFILL_TOL = dict(rtol=1e-4, atol=1e-4)
-# The training path (launch/train.py): hymba-1.5b at full width and depth
-# with the banded path on and its registry remat ("full": each layer after
-# the global prefix keeps only its input and is recomputed in the
-# backward), f32 parameters, bf16 compute, AdamW (lr 3e-4, cosine over the
+# The training path (launch/train.py): hymba-1.5b at full width cut to
+# HYBRID_LAYERS layers with the banded path on and its registry remat
+# ("full": each layer after the global prefix keeps only its input and is
+# recomputed in the backward), f32 parameters, bf16 compute, AdamW (lr 3e-4, cosine over the
 # phase's TRAIN_STEPS), TokenPipeline(32,001, LM_PROMPT, batch, seed 0).
 # Batch TRAIN_BATCH (serving's) if it fits, else half. K5 runs in each
 # windowed layer's forward and again in its recompute, never in the
-# backward (the blocked plain form's gradient): 62 launches a step.
+# backward (the blocked plain form's gradient): 14 launches a step.
 TRAIN_STEPS = 6
 TRAIN_BATCH = LM_BATCH
 TRAIN_LR = 3e-4
@@ -411,7 +433,6 @@ MESH_TRAIN_STEPS = 2
 MESH_K5_PER_STEP = 2 * (MESH_HYMBA_LAYERS - 1)
 MESH_FLASH_TOL = dict(rtol=0.0, atol=2e-5)  # the reference's (tests/test_mesh_multidevice.py:190)
 MESH_TIMEOUT = 300
-MESH_PROBE_TIMEOUT = 60
 # The MoE on a mesh: arctic-480b as [lm moe] has it (XMODEL_PHASES) in
 # [mesh 1x1]; one of its MoE layers at 1x2 in [mesh 2 ranks], float32
 # compute from bf16 parameters (each expert drawn from its own seed, so a
@@ -429,6 +450,10 @@ DRYRUN_MESH_CELLS = (("granite-3-8b", "decode_32k", False, True), ("arctic-480b"
                      ("granite-3-8b", "train_4k", False, False))
 DRYRUN_PDF_MESH_CELLS = (("grouping_global", "window_small", False, True),
                          ("fused_scatter_shmap", "window_prod", True, False))
+# [dryrun]'s command line: one config's cells on 1x1 (train_4k, prefill_32k,
+# decode_32k; long_500k skipped by design for full attention). The CPU tests
+# run all 40 (tests/test_torch_dryrun.py).
+DRYRUN_ARCH = "gemma3-12b"
 
 
 class SmokeFailure(AssertionError):
@@ -1116,14 +1141,14 @@ def ml_phases(np, torch, sim, slice_i, dev, tree):
     ppl = g.points_per_line
     baseline = run(PDFConfig(), "baseline fused (for slice features)", fused_k)
     base_f = baseline.features(dists.TYPES_4)
-    for sampler in ("random", "kmeans"):
-        cfg = PDFConfig(method="sampling", sampler=sampler, sample_frac=0.1)
+    for sampler, frac in (("random", 0.1), ("kmeans", KMEANS_FRAC)):
+        cfg = PDFConfig(method="sampling", sampler=sampler, sample_frac=frac)
         label = f"sampling {sampler}"
         res = run(cfg, label, {"moments_edges_stats": W})
         off = res.type_idx < 0
         check(bool((res.type_idx[off] == -1).all()) and not res.params[off].any()
               and not res.error.any(), f"[{label}] unsampled points carry a type, params or error")
-        want = [max(1, round(0.1 * (w.window.line_end - w.window.line_start) * ppl))
+        want = [max(1, round(frac * (w.window.line_end - w.window.line_start) * ppl))
                 for w in res.stats]
         got_n = [w.num_fitted for w in res.stats]
         if sampler == "random":
@@ -1697,7 +1722,10 @@ def api_phase(np, torch, spec, sim, dev, tree, tmp):
     return launches, nums
 
 
-def serve_queries(np, geom, slices, clients=8, seed=0):
+SERVE_CLIENTS = 4  # client threads of [serve]
+
+
+def serve_queries(np, geom, slices, clients=SERVE_CLIENTS, seed=0):
     """Each client's queries, drawn from ``numpy.random.default_rng(seed)``:
     6 points, 2 spans of lines and 1 whole slice, over ``slices``."""
     from repro_torch.serve import PointQuery, RegionQuery, WindowQuery
@@ -1728,10 +1756,10 @@ def answer_span(q, ppl, points_per_slice):
     return 0, points_per_slice
 
 
-def pdf_serve_phase(np, torch, spec, dev, tmp, slices, clients=8):
+def pdf_serve_phase(np, torch, spec, dev, tmp, slices, clients=SERVE_CLIENTS):
     """``PDFServer`` over ``spec`` (``to_spec(SET1)`` on the card) with the
-    method set to baseline, then grouping (host Select), on ``slices``: 8
-    client threads, each sending 6 point, 2 window and 1 region query
+    method set to baseline, then grouping (host Select), on ``slices``:
+    ``clients`` client threads, each sending 6 point, 2 window and 1 region query
     (``serve_queries``). Coalesced (with a ``cache_dir``: the completed
     slices are stored) and naive (``serve.coalesce`` off, no hot-window
     LRU, no tick: one launch a window of each query), then a second
@@ -2057,6 +2085,7 @@ def stream_phase(np, torch, path, dev, clean, tmp, file_wall):
 
 
 CLUSTER_SLICES = (200, 201, 202, 203)
+CLUSTER_WORKERS = (2, 4)  # one worker is the serial run's path; the CPU tests hold 1, 2 and 4
 
 
 def worker_lines(text: str) -> dict:
@@ -2137,7 +2166,7 @@ def cluster_phase(np, torch, dev, tmp):
         f"(new_compilations={serial['new_compilations']}); launches "
         f"{json.dumps(serial['launches'])}")
 
-    for n in (1, 2, 4):
+    for n in CLUSTER_WORKERS:
         label = f"cluster {n}"
         out = tmp / f"cluster_out{n}"
         with socket.socket() as s:
@@ -2178,6 +2207,168 @@ def cluster_phase(np, torch, dev, tmp):
                 for i, w in sorted(workers.items())))
     log(f"[summary cluster] {json.dumps(nums)}")
     return launches, nums
+
+
+# The launchers as commands on a tiny cube, the sequences of the port's CI
+# (.github/workflows/ci_torch.yml): 4 slices of 6 x 10 points, 80
+# observations, grouping, slices 0-1; the streaming cube 3 slices of 4 x 6
+# points, 48 observations, exported in chunks of 2 lines.
+CLI_TIMEOUT = 300
+
+
+def _append_midpoints(np, cube, slice_i: int, n: int = 5) -> None:
+    """Append n realizations at each point's mid-range to one slice."""
+    from repro_torch.core.regions import Window
+    from repro_torch.data.file_source import FileCubeSource
+    from repro_torch.streaming import append_realizations
+
+    src = FileCubeSource(cube)
+    g = src.geometry
+    vals = src.load_window(Window(slice_i, 0, g.lines_per_slice))
+    mid = (vals.min(axis=1) + vals.max(axis=1)) / 2.0
+    block = np.repeat(mid[:, None], n, axis=1).astype(np.float32)
+    append_realizations(cube, {slice_i: block.reshape(g.lines_per_slice, g.points_per_line, n)})
+
+
+def cli_phase(np, tmp: Path, device: str | None = None) -> dict:
+    """``run_pdf --cache-dir`` cold then warm, ``run_pdf --fault-plan``
+    (transient read errors, bitwise the clean run), ``serve_pdf --clients
+    4``, and the streaming sequence (a cold run with sidecars, an append and
+    the incremental rerun, then ``run_pdf --watch`` with an append that
+    lands once it polls), each a process of its own on ``device`` (none
+    given: each launcher's own default, cuda). The three chains run side by
+    side; each command's wall is logged. Returns {command: wall s}."""
+    import os
+    import re
+    import threading
+
+    from repro_torch.api import (ComputeSpec, ExecSpec, MethodSpec, PipelineSpec, SourceSpec,
+                                 StreamSpec)
+    from repro_torch.data.file_source import export_cube
+    from repro_torch.runtime.faults import FaultPlan, FaultRule
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "PYTHONUNBUFFERED": "1"}
+    dev_flags = ["--device", device] if device else []
+    walls, outs = {}, {}
+
+    def run(label, module, *args, on_line=None):
+        argv = [sys.executable, "-m", f"repro_torch.launch.{module}", *map(str, args), *dev_flags]
+        t0 = time.perf_counter()
+        p = subprocess.Popen(argv, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True, stdin=subprocess.DEVNULL)
+        lines = []
+        timer = threading.Timer(CLI_TIMEOUT, p.kill)
+        timer.start()
+        try:
+            for line in p.stdout:
+                lines.append(line)
+                if on_line is not None:
+                    on_line(line)
+            rc = p.wait()
+        finally:
+            timer.cancel()
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        walls[label] = time.perf_counter() - t0
+        outs[label] = "".join(lines)
+        check(rc == 0, f"[cli {label}] exit {rc}: {outs[label][-3000:]}")
+        return outs[label]
+
+    spec = PipelineSpec(
+        source=SourceSpec(num_slices=4, lines_per_slice=6, points_per_line=10, observations=80),
+        method=MethodSpec(name="grouping"),
+        compute=ComputeSpec(window_lines=3, num_bins=20),
+        execution=ExecSpec(slices=(0, 1), retry_backoff_s=0.001))
+    spec_file = tmp / "cli_spec.json"
+    spec_file.write_text(spec.to_json())
+    h = spec.content_hash()
+    plan = tmp / "transient.json"
+    plan.write_text(FaultPlan(rules=(FaultRule("read_error", times=1),)).to_json())
+    want_dev = device or "cuda"
+
+    def cache_and_faults():
+        cold = run("run_pdf --cache-dir cold", "run_pdf", "--spec", spec_file, "--cache-dir",
+                   tmp / "result_cache", "--out-dir", tmp / "clean")
+        check(f"hash={h} " in cold and f"device={want_dev}" in cold
+              and "[cache] hits=0 misses=2" in cold, f"[cli cache cold] {cold}")
+        launches = worker_numbers(cold.splitlines())["launches"]
+        if want_dev == "cuda":  # 2 slices of 2 windows; the CPU's plain versions count nothing
+            check(launches["moments_edges_stats"] == 4 and launches["fit_error_counts"] == 4,
+                  f"[cli cache cold] launches {launches}")
+        warm = run("run_pdf --cache-dir warm", "run_pdf", "--spec", spec_file, "--cache-dir",
+                   tmp / "result_cache")
+        check("[cache] hits=2 misses=0" in warm and "served from result cache" in warm,
+              f"[cli cache warm] {warm}")
+        chaos = run("run_pdf --fault-plan", "run_pdf", "--spec", spec_file, "--out-dir",
+                    tmp / "chaos", "--fault-plan", plan)
+        check("[faults] retries=" in chaos and "[degraded]" not in chaos, f"[cli faults] {chaos}")
+        want = sorted((tmp / "clean").glob("slice*_window_*.npz"))
+        got = sorted((tmp / "chaos").glob("slice*_window_*.npz"))
+        check(want and [f.name for f in want] == [f.name for f in got],
+              f"[cli faults] windows {[f.name for f in got]}")
+        for a, b in zip(want, got):
+            za, zb = np.load(a), np.load(b)
+            check(za.files == zb.files and all(np.array_equal(za[k], zb[k]) for k in za.files),
+                  f"[cli faults] {a.name} is not bitwise the clean run's")
+        return len(want)
+
+    def serve():
+        out = run("serve_pdf --clients 4", "serve_pdf", "--spec", spec_file, "--clients", 4)
+        check(f"hash={h} " in out and f"device={want_dev}" in out and "[latency]" in out,
+              f"[cli serve_pdf] {out}")
+
+    def stream():
+        sim = SourceSpec(num_slices=3, lines_per_slice=4, points_per_line=6, observations=48)
+        sspec = PipelineSpec(
+            source=export_cube(sim, tmp / "cube", lines_per_chunk=2),
+            compute=ComputeSpec(window_lines=2, num_bins=16),
+            execution=ExecSpec(cache_dir=str(tmp / "stream_cache"), out_dir=str(tmp / "stream_out")),
+            stream=StreamSpec(persist_stats=True, poll_interval_s=0.2, max_updates=1))
+        f = tmp / "stream_spec.json"
+        f.write_text(sspec.to_json())
+        cold = run("run_pdf stream cold", "run_pdf", "--spec", f)
+        check("[cache] hits=0 misses=3" in cold
+              and list((tmp / "stream_out").glob("slice1_stats_*.npz")), f"[cli stream cold] {cold}")
+        _append_midpoints(np, tmp / "cube", 1)
+        warm = run("run_pdf stream after append", "run_pdf", "--spec", f)
+        check("[cache] hits=2 misses=1" in warm and "adopted=2 merged=1 mode=merge" in warm,
+              f"[cli stream warm] {warm}")
+
+        def on_line(line):
+            if "polling every" in line:
+                _append_midpoints(np, tmp / "cube", 2)
+
+        out = run("run_pdf --watch", "run_pdf", "--spec", f, "--watch", on_line=on_line)
+        update = out.partition("polling every")[2]
+        check(re.search(r"manifest version .* updating", update) is not None
+              and "adopted=2 merged=1 mode=merge" in update, f"[cli watch] {out}")
+
+    results, errors = {}, []
+
+    def chain(name, fn):
+        try:
+            results[name] = fn()
+        except BaseException as e:  # noqa: BLE001 — raised on the main thread
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=chain, args=(name, fn))
+               for name, fn in (("cache", cache_and_faults), ("serve", serve), ("stream", stream))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    walls["phase"] = time.perf_counter() - t0
+    log(f"[cli] on {want_dev}, three chains side by side: run_pdf --cache-dir cold then warm "
+        f"(hits=0 misses=2, then hits=2 misses=0 served from the cache), run_pdf --fault-plan "
+        f"(transient read errors, {results['cache']} windows bitwise the clean run's), serve_pdf "
+        f"--clients 4 (hash and [latency]), the stream's cold run with sidecars, an append to "
+        f"slice 1 and the rerun (adopted=2 merged=1 mode=merge), run_pdf --watch applying an "
+        f"append to slice 2 made once it polled; wall s {json.dumps(walls)}")
+    return walls
 
 
 # ---------------------------------------------------------------------------
@@ -2627,6 +2818,18 @@ def lm_config():
     return registry.get(LM_ARCH).replace(num_layers=LM_LAYERS, block_local_attn=True)
 
 
+def ssm_config():
+    from repro_torch.configs import registry
+
+    return registry.get(SSM_ARCH).replace(num_layers=SSM_LAYERS)
+
+
+def hybrid_config():
+    from repro_torch.configs import registry
+
+    return registry.get(HYBRID_ARCH).replace(num_layers=HYBRID_LAYERS, block_local_attn=True)
+
+
 def cache_bytes(caches) -> int:
     """Bytes of every tensor in a cache tree (lists and dicts of tensors)."""
     if isinstance(caches, dict):
@@ -2780,7 +2983,7 @@ def serve_phase(np, torch, dev, smi):
 
 
 def ssm_phase(np, torch, dev, smi):
-    """[lm ssm]: mamba2-780m at full width and depth (48 SSD layers, no
+    """[lm ssm]: mamba2-780m at full width, SSM_LAYERS SSD layers (no
     attention: no kernel launches), through ``lm_generate``; then its bf16
     prefill logits against float32 compute (the spread logged, the first
     token equal wherever the float32 top-2 margin exceeds it), the decode
@@ -2788,15 +2991,14 @@ def ssm_phase(np, torch, dev, smi):
     decode logits against ``forward`` over the extended sequence, within
     LM_DECODE_TOL) and the decode cache's bytes after prompts of 1,024 and
     LM_PROMPT tokens (equal: the SSD's state does not grow)."""
-    from repro_torch.configs import registry
     from repro_torch.models import ssm as S
     from repro_torch.models import transformer as T
 
-    cfg = registry.get(SSM_ARCH)
+    cfg = ssm_config()
     d_inner, heads = S.ssm_dims(cfg)
     note = (f"d_model={cfg.d_model} d_inner={d_inner} ssm heads={heads} x {cfg.ssm_head_dim} "
-            f"state={cfg.ssm_state} chunk={cfg.ssm_chunk} conv={cfg.ssm_conv} vocab={cfg.vocab}, all "
-            f"{cfg.num_layers} layers (SSD, no FFN)")
+            f"state={cfg.ssm_state} chunk={cfg.ssm_chunk} conv={cfg.ssm_conv} vocab={cfg.vocab}, "
+            f"{cfg.num_layers} of 48 layers (SSD, no FFN)")
     model, prompt, _, logits, launches, nums = lm_generate(np, torch, dev, smi, cfg, "lm ssm", 0, note)
 
     zero_counts()
@@ -2843,21 +3045,20 @@ def ssm_phase(np, torch, dev, smi):
 
 
 def hybrid_phase(np, torch, dev, smi):
-    """[lm hybrid]: hymba-1.5b at full width and depth (one global hybrid
-    layer, 31 with a 1,024 window) with ``block_local_attn``: 31 K5 launches
-    a prefill at (4, 4096, 25, 5, 64, 1024), none a decode step (the decode
-    runs past the window's ring), through ``lm_generate`` and
-    ``plain_path_gate``."""
-    from repro_torch.configs import registry
+    """[lm hybrid]: hymba-1.5b at full width, HYBRID_LAYERS layers (one
+    global hybrid layer, the rest with a 1,024 window) with
+    ``block_local_attn``: a K5 launch a windowed layer a prefill at (4,
+    4096, 25, 5, 64, 1024), none a decode step (the decode runs past the
+    window's ring), through ``lm_generate`` and ``plain_path_gate``."""
     from repro_torch.models import ssm as S
 
-    cfg = registry.get(HYBRID_ARCH).replace(block_local_attn=True)
+    cfg = hybrid_config()
     windows = [bd.window for bd in cfg.layer_defs() if bd.window]
     check(len(windows) == HYBRID_LOCAL_LAYERS and LM_PROMPT > windows[0], "[lm hybrid] local layers")
     d_inner, heads = S.ssm_dims(cfg)
     note = (f"d_model={cfg.d_model} heads={cfg.q_heads}/{cfg.kv_heads} head_dim={cfg.head_dim} "
             f"d_ff={cfg.d_ff} vocab={cfg.vocab}, ssm heads={heads} x {cfg.ssm_head_dim} "
-            f"state={cfg.ssm_state}, all {cfg.num_layers} layers (hybrid: 1 global, "
+            f"state={cfg.ssm_state}, {cfg.num_layers} of 32 layers (hybrid: 1 global, "
             f"{HYBRID_LOCAL_LAYERS} with window {windows[0]}), block_local_attn")
     model, prompt, _, logits, launches, nums = lm_generate(np, torch, dev, smi, cfg, "lm hybrid",
                                                            HYBRID_LOCAL_LAYERS, note)
@@ -3164,10 +3365,9 @@ def time_band_attn(np, torch, qkv, dev, launches, max_abs_err):
 
 
 def hymba_train_config():
-    """hymba-1.5b as the registry has it (remat "full") with the banded path on."""
-    from repro_torch.configs import registry
-
-    return registry.get(HYBRID_ARCH).replace(block_local_attn=True)
+    """hymba-1.5b as [lm hybrid] has it (HYBRID_LAYERS layers, the
+    registry's remat "full", the banded path on)."""
+    return hybrid_config()
 
 
 def state_bytes(model, opt) -> int:
@@ -3275,7 +3475,7 @@ def _train_hymba(np, torch, dev, smi, cfg, batch_size):
     sync(torch, dev)
     n_params = sum(p.numel() for p in model.parameters())
     n_state = state_bytes(model, opt)
-    log(f"[train hymba] {cfg.name}: all {cfg.num_layers} layers at full width (1 global, "
+    log(f"[train hymba] {cfg.name}: {cfg.num_layers} of 32 layers at full width (1 global, "
         f"{HYBRID_LOCAL_LAYERS} with window {cfg.pattern[0].window}), block_local_attn, remat "
         f"{cfg.remat}; params {n_params} in {cfg.param_dtype}, compute {cfg.compute_dtype}; parameters "
         f"and moments {n_state} B (+ {n_state // 3} B of gradients); AdamW lr {TRAIN_LR}, cosine over "
@@ -3360,8 +3560,8 @@ def _train_hymba(np, torch, dev, smi, cfg, batch_size):
 
 
 def train_hymba_phase(np, torch, dev, smi):
-    """[train hymba]: ``build_step`` on hymba-1.5b at full width and depth
-    (TRAIN_STEPS steps: finite loss, gnorm and parameters, TRAIN_K5_PER_STEP
+    """[train hymba]: ``build_step`` on hymba-1.5b at full width,
+    HYBRID_LAYERS layers (TRAIN_STEPS steps: finite loss, gnorm and parameters, TRAIN_K5_PER_STEP
     K5 launches each), the step time, tokens/s and peak memory, the banded
     backward's share of a step, a profiled step, and a step repeated from a
     saved state bitwise. At TRAIN_BATCH if it fits, else at half of it
@@ -3511,22 +3711,20 @@ def train_reduced_phase(np, torch, dev, smi):
 def roofline_lm_phase(smi, nums_lm, nums_train) -> dict:
     """[roofline lm]: ``launch/dryrun.run_cell`` (on meta, nothing
     allocated) of the runs the LM phases measured: gemma3-12b at LM_LAYERS
-    layers, mamba2-780m and hymba-1.5b at full depth, each the prefill of
+    layers, mamba2-780m and hymba-1.5b at SSM_LAYERS and HYBRID_LAYERS, each the prefill of
     LM_BATCH x LM_PROMPT tokens with caches for LM_TOKENS more, and
     hymba-1.5b's training step at its batch x LM_PROMPT. Each bound beside
     the measured seconds: the share may be at most MAX_SHARE. The dry
     run's parameter bytes must equal the live model's, and for the step its
     optimizer bytes the live optimizer's (with them, ``state_bytes``).
     Returns the numbers a run."""
-    from repro_torch.configs import registry
     from repro_torch.configs.shapes import ShapeDef
     from repro_torch.launch import dryrun
 
     hymba = nums_train["train hymba"]
     runs = (("lm", lm_config(), "prefill", LM_BATCH, nums_lm["lm"]),
-            ("lm ssm", registry.get(SSM_ARCH), "prefill", LM_BATCH, nums_lm["lm ssm"]),
-            ("lm hybrid", registry.get(HYBRID_ARCH).replace(block_local_attn=True), "prefill", LM_BATCH,
-             nums_lm["lm hybrid"]),
+            ("lm ssm", ssm_config(), "prefill", LM_BATCH, nums_lm["lm ssm"]),
+            ("lm hybrid", hybrid_config(), "prefill", LM_BATCH, nums_lm["lm hybrid"]),
             ("train hymba", hymba_train_config(), "train", hymba["batch"], hymba))
     out = {}
     for label, cfg, kind, batch, nums in runs:
@@ -3573,38 +3771,81 @@ def cell_counts(out_dir: Path) -> dict:
     return dict(ok=ok, skipped=skipped, failed=len(recs) - ok - skipped)
 
 
-def dryrun_phase(smi, tmp: Path) -> dict:
-    """[dryrun]: ``python -m repro_torch.launch.dryrun --all --mesh 1x1``
-    (all 40 LM cells, ~2 min of host time), ``python -m
-    repro_torch.launch.dryrun_pdf --all`` and ``python -m
-    repro_torch.launch.report`` over the LM records, each a subprocess on
-    this machine: each one's wall, exit code and its cells ok, skipped by
-    design and failed. A failed cell fails the phase."""
+def start_dryruns(tmp: Path) -> dict:
+    """Start [dryrun]'s and [dryrun mesh]'s command lines, each a
+    subprocess on this machine's host (meta tensors: nothing reaches the
+    card) in a thread of its own, so they run beside each other and beside
+    the meta passes this process makes meanwhile. Returns {label: future of
+    (stdout, wall s)}; a non-zero exit fails the run where it is read."""
     import os
+    from concurrent.futures import ThreadPoolExecutor
 
+    from repro_torch.launch.mesh import make_production_mesh
+
+    cmds = {"dryrun": ["repro_torch.launch.dryrun", "--arch", DRYRUN_ARCH, "--mesh", "1x1"],
+            "dryrun_pdf --all": ["repro_torch.launch.dryrun_pdf", "--all"]}
+    for arch, shape, multi_pod, through_cli in DRYRUN_MESH_CELLS:
+        if through_cli:
+            text = "x".join(map(str, make_production_mesh(multi_pod=multi_pod).shape))
+            cmds[f"{arch} {shape} {text} cli"] = ["repro_torch.launch.dryrun", "--arch", arch,
+                                                  "--shape", shape, "--mesh", text]
+    for variant, shape, multi_pod, through_cli in DRYRUN_PDF_MESH_CELLS:
+        if through_cli:
+            text = "x".join(map(str, make_production_mesh(multi_pod=multi_pod).shape))
+            cmds[f"pdf {variant} {shape} {text} cli"] = (
+                ["repro_torch.launch.dryrun_pdf", "--variant", variant, "--pdf-shape", shape]
+                + (["--multi-pod"] if multi_pod else []))
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
 
     def run(label, argv):
         t0 = time.perf_counter()
-        p = subprocess.run([sys.executable, "-m", *argv], cwd=ROOT, env=env, capture_output=True,
-                           text=True, timeout=600)
-        wall = time.perf_counter() - t0
+        p = subprocess.run([sys.executable, "-m", *argv, "--out", str(dryrun_dir(tmp, label))],
+                           cwd=ROOT, env=env, capture_output=True, text=True, timeout=600,
+                           stdin=subprocess.DEVNULL)
         check(p.returncode == 0, f"[dryrun] {label} exited {p.returncode}: {p.stderr[-2000:]}")
-        return p.stdout, wall
+        return p.stdout, time.perf_counter() - t0
 
-    lm_dir, pdf_dir = tmp / "dryrun", tmp / "dryrun_pdf"
+    pool = ThreadPoolExecutor(len(cmds))
+    runs = {label: pool.submit(run, label, argv) for label, argv in cmds.items()}
+    pool.shutdown(wait=False)
+    return runs
+
+
+def dryrun_dir(tmp: Path, label: str) -> Path:
+    """The records of one of ``start_dryruns``'s command lines."""
+    return tmp / label.replace(" ", "_")
+
+
+def dryrun_phase(smi, tmp: Path, runs: dict) -> dict:
+    """[dryrun]: ``python -m repro_torch.launch.dryrun --arch DRYRUN_ARCH
+    --mesh 1x1`` (its four cells, one skipped by design; the CPU tests run
+    ``--all``), ``python -m repro_torch.launch.dryrun_pdf --all`` (started
+    by ``start_dryruns``) and then ``python -m repro_torch.launch.report`` over
+    the LM records, each a subprocess on this machine: each one's wall,
+    exit code and its cells ok, skipped by design and failed. A failed
+    cell fails the phase."""
+    import os
+
+    lm_dir = dryrun_dir(tmp, "dryrun")
     out = {}
-    _, wall = run("dryrun --all", ["repro_torch.launch.dryrun", "--all", "--mesh", "1x1", "--out",
-                                   str(lm_dir)])
-    out["dryrun"] = dict(wall_s=wall, **cell_counts(lm_dir))
-    _, wall = run("dryrun_pdf --all", ["repro_torch.launch.dryrun_pdf", "--all", "--out", str(pdf_dir)])
-    out["dryrun_pdf"] = dict(wall_s=wall, **cell_counts(pdf_dir))
-    table, wall = run("report", ["repro_torch.launch.report", "--dir", str(lm_dir), "--mesh", "1x1"])
+    for kind in ("dryrun", "dryrun_pdf --all"):
+        out[kind] = dict(wall_s=runs[kind].result()[1], **cell_counts(dryrun_dir(tmp, kind)))
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "repro_torch.launch.report", "--dir", str(lm_dir),
+                        "--mesh", "1x1"], cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                       capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(p.returncode == 0, f"[dryrun] report exited {p.returncode}: {p.stderr[-2000:]}")
+    table = p.stdout
     out["report"] = dict(wall_s=wall)
-    for kind in ("dryrun", "dryrun_pdf"):
-        log(f"[dryrun] python -m repro_torch.launch.{kind} --all: {json.dumps(out[kind])} (wall s, "
-            f"cells ok, skipped by design, failed)")
-        check(out[kind]["failed"] == 0, f"[dryrun] {kind}: {out[kind]['failed']} failed cells")
+    log(f"[dryrun] python -m repro_torch.launch.dryrun --arch {DRYRUN_ARCH} --mesh 1x1: "
+        f"{json.dumps(out['dryrun'])}; python -m repro_torch.launch.dryrun_pdf --all: "
+        f"{json.dumps(out['dryrun_pdf --all'])} (wall s beside the other dry runs, cells ok, skipped "
+        f"by design, failed)")
+    for kind in ("dryrun", "dryrun_pdf --all"):
+        check(out[kind]["failed"] == 0 and out[kind]["ok"] > 0,
+              f"[dryrun] {kind}: {out[kind]['failed']} failed cells of {out[kind]}")
+    check(out["dryrun"]["skipped"] > 0, f"[dryrun] {DRYRUN_ARCH}: no cell skipped by design")
     log(f"[dryrun] python -m repro_torch.launch.report in {wall} s:\n{table}")
     reported = table.strip().splitlines()[-1]
     want = (f"cells: {out['dryrun']['ok']} ok, {out['dryrun']['skipped']} skipped-by-design, "
@@ -3821,15 +4062,6 @@ def mesh_1x1_phase(np, torch, dev, smi, tmp: Path) -> dict:
     nums["wall_s"] = time.perf_counter() - t0
     log(f"[summary mesh 1x1] {smi}: {json.dumps(nums)}")
     return nums
-
-
-def _nccl_probe_rank(rank, world_size):
-    import torch
-    import torch.distributed as dist
-
-    x = torch.ones(4, device="cuda")
-    dist.all_reduce(x)
-    return float(x[0])
 
 
 def _flash_2rank(np, torch, dev, dmesh) -> dict:
@@ -4160,9 +4392,8 @@ def _mesh_rank(rank, world_size, device_type, moe_ref):
 
 
 def mesh_2rank_phase(np, torch, smi, tmp: Path, device_type: str = "cuda", rank_fn=_mesh_rank) -> dict:
-    """[mesh 2 ranks]: first two NCCL ranks on the one card, once (NCCL
-    normally refuses two ranks on one device; what it says is logged), then
-    two gloo ranks, the backend passed explicitly (gloo carries CUDA
+    """[mesh 2 ranks]: two gloo ranks on the one card, the backend passed
+    explicitly (NCCL refuses two ranks on one device; gloo carries CUDA
     tensors for all_reduce, which flash decode, the plain decode with
     whole parameters, the MoE at 1x2 and the compressed all-reduce use;
     the split stager gathers its results on the host; its all-gather of a
@@ -4173,15 +4404,6 @@ def mesh_2rank_phase(np, torch, smi, tmp: Path, device_type: str = "cuda", rank_
     launches."""
     from repro_torch.launch import mesh as M
 
-    t0 = time.perf_counter()
-    try:  # a probe whose refusal is the expected finding, logged either way
-        got = M.run_world(_nccl_probe_rank, 2, "nccl", tmp / "nccl", timeout=MESH_PROBE_TIMEOUT)
-        nccl = f"ran: all_reduce gave {got}"
-    except (RuntimeError, TimeoutError) as e:
-        lines = [ln.strip() for ln in str(e).splitlines() if ln.strip()]
-        keys = ("Error", "error", "NCCL", "Duplicate", "duplicate")
-        nccl = "refused: " + " | ".join(ln for ln in lines if any(k in ln for k in keys))[-900:]
-    log(f"[mesh 2 ranks] two NCCL ranks on one card ({time.perf_counter() - t0} s): {nccl}")
     log("[mesh 2 ranks] the decode with DTensor parameters (the query's heads gathered over model) "
         "and mamba2-780m's SSD decode (its convolution's output gathered over model) need "
         "all_gather_into_tensor, which kills a gloo rank on a CUDA tensor (signal 11): they are held "
@@ -4202,7 +4424,7 @@ def mesh_2rank_phase(np, torch, smi, tmp: Path, device_type: str = "cuda", rank_
             f"{json.dumps(out['flash'])}; plain decode on split caches {json.dumps(out['decode'])}; "
             f"MoE at 1x2 {json.dumps(out['moe'])}; compressed all-reduce "
             f"{json.dumps(out['allreduce'])}; split stager {json.dumps(out['stager'])}")
-    nums = dict(nccl_two_ranks=nccl, gloo_all_gather="held on the CPU", backend="gloo", wall_s=wall,
+    nums = dict(gloo_all_gather="held on the CPU", backend="gloo", wall_s=wall,
                 moe_one_rank=one_rank, ranks=ranks)
     log(f"[summary mesh 2 ranks] {smi}: two gloo ranks on one card in {wall} s; flash decode, plain "
         f"decode on split caches, the MoE layer at 1x2, the compressed all-reduce and the split stager "
@@ -4210,35 +4432,34 @@ def mesh_2rank_phase(np, torch, smi, tmp: Path, device_type: str = "cuda", rank_
     return nums
 
 
-def dryrun_mesh_phase(smi, tmp: Path) -> dict:
+def dryrun_mesh_phase(smi, tmp: Path, runs: dict) -> dict:
     """[dryrun mesh]: the dry run's sharded step on DRYRUN_MESH_CELLS and
     the PDF window step on DRYRUN_PDF_MESH_CELLS, each in a fake world of
     the mesh's size: one of each through its command line (``python -m
-    repro_torch.launch.dryrun`` / ``dryrun_pdf``, a subprocess), the other
-    through ``run_cell`` / ``run_pdf_cell`` here. Each one's wall, its
-    collectives and collective term. A failed cell fails the phase."""
-    import os
-
+    repro_torch.launch.dryrun`` / ``dryrun_pdf``, started by ``start_dryruns``),
+    the other through ``run_cell`` / ``run_pdf_cell`` here meanwhile. Each
+    one's wall, its collectives and collective term. A failed cell fails
+    the phase."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.shapes import SHAPES
     from repro_torch.launch import dryrun, dryrun_pdf
     from repro_torch.launch.mesh import make_production_mesh
 
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     out = {}
 
-    def cli(label, argv):
-        out_dir = tmp / label.replace(" ", "_")
-        p = subprocess.run([sys.executable, "-m", *argv, "--out", str(out_dir)], cwd=ROOT, env=env,
-                           capture_output=True, text=True, timeout=600)
-        check(p.returncode == 0, f"[dryrun mesh] {label} exited {p.returncode}: {p.stderr[-2000:]}")
-        recs = [json.loads(f.read_text()) for f in sorted(out_dir.glob("*.json"))]
+    def cli(label):
+        _, wall = runs[label].result()
+        recs = [json.loads(f.read_text()) for f in sorted(dryrun_dir(tmp, label).glob("*.json"))]
         check(len(recs) == 1 and recs[0].get("ok"), f"[dryrun mesh] {label}: {recs}")
-        return recs[0]
+        return recs[0], wall
 
-    def record(label, run):
+    def in_process(run):
         t0 = time.perf_counter()
         rec = run()
-        out[label] = dict(wall_s=time.perf_counter() - t0, mesh=rec["mesh"],
-                          collective_ops=rec["collective_ops"],
+        return rec, time.perf_counter() - t0
+
+    def record(label, rec, wall):
+        out[label] = dict(wall_s=wall, mesh=rec["mesh"], collective_ops=rec["collective_ops"],
                           collective_traffic_per_device=rec["collective_traffic_per_device"],
                           terms_seconds=rec["terms_seconds"], flops_per_device=rec["flops_per_device"],
                           bytes_per_device=rec["bytes_per_device"])
@@ -4246,26 +4467,44 @@ def dryrun_mesh_phase(smi, tmp: Path) -> dict:
             out[label]["moe_dispatch"] = rec["moe_dispatch"]
         log(f"[dryrun mesh] {label}: {json.dumps(out[label])}")
 
-    from repro_torch.configs import registry
-    from repro_torch.configs.shapes import SHAPES
-
-    for arch, shape, multi_pod, through_cli in DRYRUN_MESH_CELLS:
+    through_cli = []
+    for arch, shape, multi_pod, by_cli in DRYRUN_MESH_CELLS:
         mesh = make_production_mesh(multi_pod=multi_pod)
-        text = "x".join(map(str, mesh.shape))
-        label = f"{arch} {shape} {text} {'cli' if through_cli else 'run_cell'}"
-        record(label, (lambda: cli(label, ["repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
-                                           "--mesh", text])) if through_cli else
-               (lambda: dryrun.run_cell(registry.get(arch), SHAPES[shape], mesh, verbose=False)))
-    for variant, shape, multi_pod, through_cli in DRYRUN_PDF_MESH_CELLS:
+        label = f"{arch} {shape} {'x'.join(map(str, mesh.shape))} {'cli' if by_cli else 'run_cell'}"
+        if by_cli:
+            through_cli.append(label)
+        else:
+            record(label, *in_process(lambda: dryrun.run_cell(registry.get(arch), SHAPES[shape], mesh,
+                                                               verbose=False)))
+    for variant, shape, multi_pod, by_cli in DRYRUN_PDF_MESH_CELLS:
         mesh = make_production_mesh(multi_pod=multi_pod)
-        label = f"pdf {variant} {shape} {'x'.join(map(str, mesh.shape))} " \
-                f"{'cli' if through_cli else 'run_pdf_cell'}"
-        record(label, (lambda: cli(label, ["repro_torch.launch.dryrun_pdf", "--variant", variant,
-                                           "--pdf-shape", shape] + (["--multi-pod"] if multi_pod else [])))
-               if through_cli else
-               (lambda: dryrun_pdf.run_pdf_cell(variant, shape, verbose=False, mesh=mesh)))
+        label = (f"pdf {variant} {shape} {'x'.join(map(str, mesh.shape))} "
+                 f"{'cli' if by_cli else 'run_pdf_cell'}")
+        if by_cli:
+            through_cli.append(label)
+        else:
+            record(label, *in_process(lambda: dryrun_pdf.run_pdf_cell(variant, shape, verbose=False,
+                                                                       mesh=mesh)))
+    for label in through_cli:
+        record(label, *cli(label))
     log(f"[summary dryrun mesh] {smi}: {json.dumps(out)}")
     return out
+
+
+# Every phase's wall, in the order run ([phase] lines, the [phases] summary).
+T_START = time.perf_counter()
+PHASE_WALLS: dict[str, float] = {}
+
+
+def phase(label: str, fn, *args, **kwargs):
+    """Run one phase of ``main`` and log its wall as ``[phase] <label> <s>``
+    (also when it fails)."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        PHASE_WALLS[label] = time.perf_counter() - t0
+        log(f"[phase] {label} {PHASE_WALLS[label]}")
 
 
 def main() -> int:
@@ -4298,31 +4537,35 @@ def main() -> int:
         f"count {torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    _build.build(*KERNEL_SOURCES)
+    phase("build", _build.build, *KERNEL_SOURCES)
     log(f"[build] csrc/{{{','.join(KERNEL_SOURCES)}}}.cu, one nvcc each, all at once, with "
         f"{' '.join(_build.NVCC_FLAGS)} into {_build.BUILD_DIR.relative_to(ROOT)} in "
         f"{time.perf_counter() - t0} s")
 
     sim = SeismicSimulation()  # Set1: CubeGeometry(501, 501, 251), 1,000 observations
-    cases = kernel_cases(np, sim, SET1_SLICE)
-    worst_k1, err_k2 = compare_kernels(np, torch, cases, dev)
-    worst_k3, err_rows = compare_new_kernels(np, torch, cases, dev)
+    cases = phase("kernel cases", kernel_cases, np, sim, SET1_SLICE)
+    worst_k1, err_k2 = phase("compare K1 K2", compare_kernels, np, torch, cases, dev)
+    worst_k3, err_rows = phase("compare K3 K4 rows", compare_new_kernels, np, torch, cases, dev)
 
     # The load stage (pinned staging), then a file cube of the slice, a fault
     # plan over it and the scheduler's shard re-deal, in a temporary
     # directory under build/ deleted at the end.
-    clean, staging_nums = staging_phase(np, torch, sim, SET1_SLICE, dev)
+    clean, staging_nums = phase("staging", staging_phase, np, torch, sim, SET1_SLICE, dev)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp_name:
         tmp = Path(tmp_name)
-        cube_path, file_nums = file_phase(np, torch, sim, SET1_SLICE, dev, clean, tmp)
-        fault_nums, faults_res = faults_phase(np, torch, cube_path, dev, clean, tmp)
-        api_launches = api_faults_phase(np, torch, cube_path, dev, tmp, fault_nums, faults_res)
-        sched_nums = scheduler_phase(np, torch, sim, dev, tmp)
+        cube_path, file_nums = phase("file", file_phase, np, torch, sim, SET1_SLICE, dev, clean,
+                                     tmp)
+        fault_nums, faults_res = phase("faults", faults_phase, np, torch, cube_path, dev, clean,
+                                       tmp)
+        api_launches = phase("api faults", api_faults_phase, np, torch, cube_path, dev, tmp,
+                             fault_nums, faults_res)
+        sched_nums = phase("scheduler", scheduler_phase, np, torch, sim, dev, tmp)
         # Streaming on the cube (it appends to it, so after every other
         # user), then multi-process cluster runs of run_pdf.
-        stream_cluster_launches, stream_nums = stream_phase(
-            np, torch, cube_path, dev, clean, tmp, file_nums["file"]["wall_s"])
-        cluster_launches, cluster_nums = cluster_phase(np, torch, dev, tmp)
+        stream_cluster_launches, stream_nums = phase(
+            "stream", stream_phase, np, torch, cube_path, dev, clean, tmp,
+            file_nums["file"]["wall_s"])
+        cluster_launches, cluster_nums = phase("cluster", cluster_phase, np, torch, dev, tmp)
         stream_cluster_launches.update(cluster_launches)
     del clean, faults_res
     exec_launches = {"faults": fault_nums["launches"], "scheduler": sched_nums["launches"]}
@@ -4330,26 +4573,30 @@ def main() -> int:
         f"file {json.dumps(file_nums)}; faults {json.dumps(fault_nums)}; scheduler "
         f"{json.dumps(sched_nums)}")
 
-    launches4, wall4 = run_slice_phase(np, torch, sim, SET1_SLICE, dists.TYPES_4, 64, dev,
-                                       SET1_WINDOWS)
-    launches10, wall10 = run_slice_phase(np, torch, sim, SET1_SLICE, dists.TYPES_10, 20, dev,
-                                         SET1_WINDOWS)
+    launches4, wall4 = phase("slice 4 types L64", run_slice_phase, np, torch, sim, SET1_SLICE,
+                             dists.TYPES_4, 64, dev, SET1_WINDOWS)
+    launches10, wall10 = phase("slice 10 types L20", run_slice_phase, np, torch, sim, SET1_SLICE,
+                               dists.TYPES_10, 20, dev, SET1_WINDOWS)
 
-    launches_k, launches_rows, walls = grouped_phases(np, torch, sim, SET1_SLICE, dev)
+    launches_k, launches_rows, walls = phase("grouped", grouped_phases, np, torch, sim,
+                                             SET1_SLICE, dev)
 
     # Past the bins one block of K2 or K4 held before the chunked route, then
     # past the bins one K2 block holds.
-    launches1000, wall1000 = run_slice_phase(np, torch, sim, SET1_SLICE, dists.TYPES_4, 1000, dev,
-                                             SET1_WINDOWS)
+    launches1000, wall1000 = phase("slice 4 types L1000", run_slice_phase, np, torch, sim,
+                                   SET1_SLICE, dists.TYPES_4, 1000, dev, SET1_WINDOWS)
     walls["baseline_fused_L1000"] = wall1000
-    launches2000, walls["baseline_fused_L2000"] = run_slice_phase(
-        np, torch, sim, SET1_SLICE, dists.TYPES_4, 2000, dev, SET1_WINDOWS)
-    kernels_window_phase(np, torch, torch.from_numpy(cases[0][1]).to(dev), 2000, dev)
+    launches2000, walls["baseline_fused_L2000"] = phase(
+        "slice 4 types L2000", run_slice_phase, np, torch, sim, SET1_SLICE, dists.TYPES_4, 2000,
+        dev, SET1_WINDOWS)
+    phase("kernels window L2000", kernels_window_phase, np, torch,
+          torch.from_numpy(cases[0][1]).to(dev), 2000, dev)
 
     # The ML and sampling methods, with the tree of TreeSpec's defaults.
-    tree, tree_nums = train_phase(np, torch, sim, dev)
-    ml_launches, ml_walls, ml_nums = ml_phases(np, torch, sim, SET1_SLICE, dev, tree)
-    batch_launches, batch_nums = batch_phase(np, torch, sim, dev, tree)
+    tree, tree_nums = phase("tree", train_phase, np, torch, sim, dev)
+    ml_launches, ml_walls, ml_nums = phase("ml sampling", ml_phases, np, torch, sim, SET1_SLICE,
+                                           dev, tree)
+    batch_launches, batch_nums = phase("batch", batch_phase, np, torch, sim, dev, tree)
     exec_launches.update(batch_launches)
     log(f"[summary batch] {smi}: {json.dumps(batch_nums)}")
 
@@ -4359,15 +4606,19 @@ def main() -> int:
     spec = to_spec(SET1)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp_name:
         tmp = Path(tmp_name)
-        launches_api, api_nums = api_phase(np, torch, spec, sim, dev, tree, tmp)
-        launches_serve, serve_nums = pdf_serve_phase(np, torch, spec, dev, tmp,
-                                                     [SET1_SLICE - 1, SET1_SLICE])
+        launches_api, api_nums = phase("api", api_phase, np, torch, spec, sim, dev, tree, tmp)
+        launches_serve, serve_nums = phase("serve", pdf_serve_phase, np, torch, spec, dev, tmp,
+                                           [SET1_SLICE - 1, SET1_SLICE])
+    # The launchers as commands, the port's CI sequences, each on cuda by
+    # the launcher's own default.
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp_name:
+        phase("cli", cli_phase, np, Path(tmp_name))
     api_launches.update(launches_api)
     api_launches.update(launches_serve)
     log(f"[summary api] {smi}: {json.dumps(api_nums)}")
     log(f"[summary serve] {smi}: {json.dumps(serve_nums)}")
-    profile_slice(torch, PDFConfig(method="grouping_ml", num_bins=20), "set1 grouping_ml L20", sim,
-                  SET1_SLICE, dev, ml_walls["set1 grouping_ml L20"], tree=tree)
+    phase("profile grouping_ml", profile_slice, torch, PDFConfig(method="grouping_ml", num_bins=20),
+          "set1 grouping_ml L20", sim, SET1_SLICE, dev, ml_walls["set1 grouping_ml L20"], tree=tree)
     log(f"[summary ml] {smi}: Set1 slice {SET1_SLICE}; tree {json.dumps(tree_nums)}; wall_s "
         f"{json.dumps(ml_walls)}; launches {json.dumps(ml_launches)}; {json.dumps(ml_nums)}")
 
@@ -4377,12 +4628,13 @@ def main() -> int:
              walls["grouping_kernels"]),
             ("grouping fused device", PDFConfig(method="grouping", select_backend="device"),
              walls["grouping_fused_device"])):
-        profile_slice(torch, cfg, label, sim, SET1_SLICE, dev, wall)
+        phase(f"profile {label}", profile_slice, torch, cfg, label, sim, SET1_SLICE, dev, wall)
 
     x = torch.from_numpy(cases[0][1]).to(dev)  # a Set1 window, (6275, 1000)
-    rows = time_kernels(np, torch, x, dev, launches4, worst_k1, err_k2)
-    rows += time_new_kernels(np, torch, x, dev, launches_k, launches_rows, worst_k3, err_rows)
-    large = time_large_bins(np, torch, x, dev)
+    rows = phase("time K1 K2", time_kernels, np, torch, x, dev, launches4, worst_k1, err_k2)
+    rows += phase("time K3 K4 rows", time_new_kernels, np, torch, x, dev, launches_k, launches_rows,
+                  worst_k3, err_rows)
+    large = phase("time large L", time_large_bins, np, torch, x, dev)
     for r in rows:
         r["launches_ml_sampling"] = {label: n[r["name"]] for label, n in ml_launches.items()
                                      if n[r["name"]]}
@@ -4406,52 +4658,60 @@ def main() -> int:
     # hymba-1.5b (hybrid), seamless-m4t-medium (enc-dec), llama-3.2-vision-90b
     # (VLM), arctic-480b and kimi-k2-1t (MoE), each model freed before the
     # next.
-    draws, err_k5 = compare_band_attn(np, torch, dev)
+    draws, err_k5 = phase("compare K5", compare_band_attn, np, torch, dev)
     launches_lm, nums_lm, profs = {}, {}, {}
-    phases = [(label, lambda phase=phase: phase(np, torch, dev, smi))
-              for label, phase in (("lm", serve_phase), ("lm ssm", ssm_phase),
-                                   ("lm hybrid", hybrid_phase))]
+    phases = [(label, lambda fn=fn: fn(np, torch, dev, smi))
+              for label, fn in (("lm", serve_phase), ("lm ssm", ssm_phase),
+                                ("lm hybrid", hybrid_phase))]
     phases += [(spec[0], lambda spec=spec: xmodel_phase(np, torch, dev, smi, *spec))
                for spec in XMODEL_PHASES]
-    for label, phase in phases:
-        model, cfg, prompt, extras, launches_lm[label], nums_lm[label] = phase()
-        profs[label] = profile_lm(torch, model, cfg, prompt, dev, nums_lm[label]["prefill_s"],
-                                  nums_lm[label]["decode_ms_per_token"], label, extras)
+    for label, run in phases:
+        model, cfg, prompt, extras, launches_lm[label], nums_lm[label] = phase(label, run)
+        profs[label] = phase(f"profile {label}", profile_lm, torch, model, cfg, prompt, dev,
+                             nums_lm[label]["prefill_s"], nums_lm[label]["decode_ms_per_token"],
+                             label, extras)
         del model, prompt, extras
         torch.cuda.empty_cache()
         log(f"[summary {label}] {smi}: {cfg.name}: {json.dumps(nums_lm[label])}; profile "
             f"{json.dumps(profs[label])}")
-    # The training path: hymba-1.5b at full width and depth, its gradients
+    # The training path: hymba-1.5b at full width and 8 layers, its gradients
     # against the plain path, every reduced config on the card.
     launches_train, nums_train = {}, {}
-    launches_train["train hymba"], nums_train["train hymba"] = train_hymba_phase(np, torch, dev, smi)
+    launches_train["train hymba"], nums_train["train hymba"] = phase(
+        "train hymba", train_hymba_phase, np, torch, dev, smi)
     torch.cuda.empty_cache()
-    launches_train["train hymba grad"], nums_train["train hymba grad"] = train_grad_phase(
-        np, torch, dev, smi, nums_train["train hymba"]["batch"])
-    launches_train["train reduced"], nums_train["train reduced"] = train_reduced_phase(np, torch, dev, smi)
+    launches_train["train hymba grad"], nums_train["train hymba grad"] = phase(
+        "train hymba grad", train_grad_phase, np, torch, dev, smi, nums_train["train hymba"]["batch"])
+    launches_train["train reduced"], nums_train["train reduced"] = phase(
+        "train reduced", train_reduced_phase, np, torch, dev, smi)
     for label, n in nums_train.items():
         log(f"[summary {label}] {smi}: {json.dumps(n)}")
-    # The accounting layer: the dry run of the measured LM runs, then its
-    # command-line tools.
-    nums_roofline = roofline_lm_phase(smi, nums_lm, nums_train)
-    log(f"[summary roofline lm] {smi}: {json.dumps(nums_roofline)}")
-    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp_name:
-        dryrun_phase(smi, Path(tmp_name))
-
-    # The multi-device half: a one-rank NCCL world, two gloo ranks on the
-    # card, the dry run on the production meshes.
+    # The accounting layer, on the host only: its command lines started at
+    # once, then, beside them, the dry run of the measured LM runs and the
+    # production meshes' cells that run in this process.
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp_name:
         tmp = Path(tmp_name)
-        nums_mesh = {"mesh 1x1": mesh_1x1_phase(np, torch, dev, smi, tmp),
-                     "mesh 2 ranks": mesh_2rank_phase(np, torch, smi, tmp),
-                     "dryrun mesh": dryrun_mesh_phase(smi, tmp)}
+        runs = start_dryruns(tmp)
+        nums_roofline = phase("roofline lm", roofline_lm_phase, smi, nums_lm, nums_train)
+        log(f"[summary roofline lm] {smi}: {json.dumps(nums_roofline)}")
+        phase("dryrun mesh", dryrun_mesh_phase, smi, tmp, runs)
+        phase("dryrun", dryrun_phase, smi, tmp, runs)
+
+    # The multi-device half: a one-rank NCCL world, two gloo ranks on the
+    # card.
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp_name:
+        tmp = Path(tmp_name)
+        nums_mesh = {"mesh 1x1": phase("mesh 1x1", mesh_1x1_phase, np, torch, dev, smi, tmp),
+                     "mesh 2 ranks": phase("mesh 2 ranks", mesh_2rank_phase, np, torch, smi, tmp)}
     for r in rows:  # K1-K4: each rank's launches in the split stager's windows
         r["launches_mesh"] = {f"mesh 2 ranks stager rank {i}": out["stager"]["launches"][r["name"]]
                               for i, out in enumerate(nums_mesh["mesh 2 ranks"]["ranks"])
                               if out["stager"]["launches"][r["name"]]}
 
-    row = time_band_attn(np, torch, draws[K5_GEMMA], dev, launches_lm["lm"], err_k5[K5_GEMMA])
-    at_hymba = time_band_attn(np, torch, draws[K5_HYMBA], dev, launches_lm["lm hybrid"], err_k5[K5_HYMBA])
+    row = phase("time K5", time_band_attn, np, torch, draws[K5_GEMMA], dev, launches_lm["lm"],
+                err_k5[K5_GEMMA])
+    at_hymba = phase("time K5 hymba", time_band_attn, np, torch, draws[K5_HYMBA], dev,
+                     launches_lm["lm hybrid"], err_k5[K5_HYMBA])
     row["at_hymba_shape"] = {k: v for k, v in at_hymba.items()
                              if k not in ("name", "route", "source", "replaces")}
     row["launches_lm_paths"] = {label: n["banded_attention_kernel"] for label, n in launches_lm.items()}
@@ -4463,6 +4723,9 @@ def main() -> int:
                               banded_backward_ms=hymba_train["banded_backward_ms"])
     rows.append(row)
 
+    log(f"[phases] {smi}: {len(PHASE_WALLS)} phases {sum(PHASE_WALLS.values())} s of "
+        f"{time.perf_counter() - T_START} s since the script started; wall s "
+        f"{json.dumps(PHASE_WALLS)}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

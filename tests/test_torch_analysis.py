@@ -7,6 +7,10 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
+pytest.importorskip("torch")
+
 ROOT = Path(__file__).resolve().parents[1]
 
 

@@ -23,6 +23,7 @@ from pathlib import Path
 import jax.numpy as jnp
 import numpy as np
 import pytest
+pytest.importorskip("torch")
 
 import repro.api as rapi
 from repro.api import cli as rcli

@@ -8,7 +8,7 @@ chip_smoke.py."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.kernels.band_attn import banded_attention as j_banded_attention
 from repro.kernels.band_attn import banded_attention_ref as j_banded_attention_ref

@@ -14,6 +14,7 @@ lines x 30 points, 200 observations, windows of 5 lines) on the CPU."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
+pytest.importorskip("torch")
 
 from repro.core import distributions as rd
 from repro.core import executor as rex

@@ -10,7 +10,7 @@ import time
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro_torch.checkpoint import CheckpointManager, restore_pytree, save_pytree
 from repro_torch.checkpoint import manager as ckpt_manager

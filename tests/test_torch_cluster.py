@@ -24,6 +24,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+pytest.importorskip("torch")
 
 from repro.runtime import cluster as r_cluster
 from repro_torch import api as tapi

@@ -23,7 +23,7 @@ import types
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro_torch.launch import mesh as M
 

@@ -10,7 +10,7 @@ import dataclasses
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 from jax.scipy import special as jsp
 
 from repro.core import distributions as rd

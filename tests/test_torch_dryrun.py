@@ -11,7 +11,7 @@ import json
 from pathlib import Path
 
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.launch import report as jreport
 from repro_torch.configs import registry

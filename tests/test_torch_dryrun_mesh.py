@@ -15,7 +15,7 @@ rank's expert products split with the experts over ``model``."""
 import contextlib
 
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro_torch.configs import registry
 from repro_torch.configs.shapes import ShapeDef, input_specs

@@ -6,6 +6,9 @@ import importlib.util
 from pathlib import Path
 
 import numpy as np
+import pytest
+
+pytest.importorskip("torch")
 
 EXAMPLES = Path(__file__).resolve().parents[1] / "examples"
 

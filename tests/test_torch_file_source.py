@@ -14,6 +14,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+pytest.importorskip("torch")
 
 from repro.core import regions as r_regions
 from repro.data import file_source as r_fs

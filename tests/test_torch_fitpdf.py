@@ -7,7 +7,7 @@ chip_smoke.py."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.core import distributions as rd
 from repro.core import fitting as rfit

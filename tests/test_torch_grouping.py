@@ -9,7 +9,7 @@ against the reference's host Select path (``quantize_keys_host``,
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.core import grouping as rg
 from repro.core import reuse as rr

@@ -8,7 +8,7 @@ test_torch_kernels_cuda.py and chip_smoke.py."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.core import distributions as rd
 from repro.kernels import hist as rh

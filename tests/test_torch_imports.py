@@ -9,6 +9,8 @@ from pathlib import Path
 
 import pytest
 
+pytest.importorskip("torch")
+
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 MODULES = sorted(
@@ -135,3 +137,58 @@ def test_multi_device_modules_are_covered():
     port = {m.removeprefix("repro_torch.") for m in MODULES}
     missing = {m for m in ref - port if not m.startswith("analysis")}
     assert missing == {"kernels.hist.ref", "kernels.moments.ref"}
+
+
+TEST_FILES = sorted((ROOT / "tests").glob("test_torch_*.py"))
+
+
+def _is_port_import(node) -> bool:
+    """A module-level import that needs torch: torch itself, the port, or
+    another port test module."""
+    if isinstance(node, ast.Import):
+        names = [a.name for a in node.names]
+    elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+        names = [node.module]
+    else:
+        return False
+    return any(n.split(".")[0] in ("torch", "repro_torch") or n.startswith("test_torch_")
+               for n in names)
+
+
+def _is_torch_skip(node) -> bool:
+    """``pytest.importorskip("torch")``, bare or assigned."""
+    call = node.value if isinstance(node, (ast.Expr, ast.Assign)) else None
+    return (isinstance(call, ast.Call) and isinstance(call.func, ast.Attribute)
+            and call.func.attr == "importorskip" and isinstance(call.func.value, ast.Name)
+            and call.func.value.id == "pytest" and len(call.args) == 1
+            and isinstance(call.args[0], ast.Constant) and call.args[0].value == "torch")
+
+
+@pytest.mark.parametrize("path", TEST_FILES, ids=lambda p: p.name)
+def test_port_test_skips_before_it_imports_torch(path):
+    """Every port test file calls ``pytest.importorskip("torch")`` at module
+    level before its first import of torch, the port or another port test."""
+    body = ast.parse(path.read_text(), filename=str(path)).body
+    skip = next((i for i, node in enumerate(body) if _is_torch_skip(node)), None)
+    first = next((i for i, node in enumerate(body) if _is_port_import(node)), len(body))
+    assert skip is not None and skip < first, (skip, first)
+
+
+def test_port_tests_collect_as_skipped_without_torch(tmp_path):
+    """With torch made unimportable (a stub package first on the path, as
+    on a machine without the wheel) every port test file is collected as
+    skipped: no collection error, nothing interrupted."""
+    stub = tmp_path / "torch"
+    stub.mkdir()
+    (stub / "__init__.py").write_text(
+        "raise ModuleNotFoundError(\"No module named 'torch'\", name='torch')\n")
+    out = subprocess.run(
+        [sys.executable, "-m", "pytest", "--collect-only", "-q", "-rs", "-p", "no:cacheprovider",
+         "-p", "no:xdist", *(str(p.relative_to(ROOT)) for p in TEST_FILES)],
+        cwd=ROOT, capture_output=True, text=True, timeout=180, stdin=subprocess.DEVNULL,
+        env={**os.environ, "PYTHONPATH": os.pathsep.join([str(tmp_path), str(ROOT / "src")]),
+             "JAX_PLATFORMS": "cpu"})
+    text = out.stdout + out.stderr
+    assert out.returncode in (0, 5), text  # 5: nothing collected, every file skipped
+    assert "Interrupted" not in text and "error" not in text.lower(), text
+    assert text.count("could not import 'torch'") == len(TEST_FILES), text

@@ -9,7 +9,7 @@ JAX, so it also runs where only the port is installed:
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro_torch.core import distributions as td
 from repro_torch.core import pdf_error as tpe

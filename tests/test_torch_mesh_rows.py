@@ -19,7 +19,7 @@ step and prefill."""
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro_torch.launch import mesh as M
 from test_torch_sharded_train import LOSS_TOL, STEP_TOL

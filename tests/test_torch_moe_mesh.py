@@ -27,7 +27,7 @@ from contextlib import nullcontext
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.launch import mesh as M

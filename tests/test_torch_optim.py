@@ -13,7 +13,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.data.tokens import TokenPipeline as JTokenPipeline
 from repro.optim import AdamWConfig as JAdamWConfig

@@ -15,6 +15,7 @@ import warnings
 
 import numpy as np
 import pytest
+pytest.importorskip("torch")
 
 import repro.api as rapi
 from repro.api import ResultCache as RResultCache

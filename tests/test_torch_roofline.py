@@ -7,7 +7,7 @@ import math
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.configs import registry as jregistry
 from repro.launch import roofline as jrl

@@ -10,6 +10,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+pytest.importorskip("torch")
 
 from repro.runtime import elastic as r_el
 from repro.runtime import monitor as r_mon

@@ -12,6 +12,7 @@ prefetch on and off are bitwise equal.
 
 import numpy as np
 import pytest
+pytest.importorskip("torch")
 
 from repro.core import distributions as rd
 from repro.core import executor as rex

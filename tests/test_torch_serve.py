@@ -17,6 +17,7 @@ import time
 import jax.numpy as jnp
 import numpy as np
 import pytest
+pytest.importorskip("torch")
 
 import repro.api as rapi
 import repro.serve as rserve

@@ -13,7 +13,7 @@ from types import SimpleNamespace
 import jax
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 from jax.sharding import PartitionSpec as JP
 
 from repro.configs import registry as jregistry

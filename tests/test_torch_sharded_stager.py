@@ -12,7 +12,7 @@ ranks, split over ``data`` and, on a 2x2 mesh, over both axes."""
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro_torch.launch import mesh as M
 

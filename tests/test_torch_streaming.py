@@ -20,7 +20,7 @@ import shutil
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 import repro.api as rapi
 from repro.core import distributions as rd

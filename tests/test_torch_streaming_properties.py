@@ -9,7 +9,7 @@ import pytest
 pytest.importorskip("hypothesis", reason="property tests need the optional 'test' extra")
 from hypothesis import given, settings, strategies as st  # noqa: E402
 
-import torch  # noqa: E402
+torch = pytest.importorskip("torch")
 
 from repro_torch.streaming import moments as tm  # noqa: E402
 

@@ -7,7 +7,7 @@ import threading
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.core import regions as r_regions
 from repro.data import loader as r_loader
