@@ -209,7 +209,15 @@ The accounting layer (``repro_torch.launch.roofline``, ``dryrun``,
   ``train_4k`` on 16x16 and hymba-1.5b ``long_500k`` on 2x16x16
   (``run_cell``), ``dryrun_pdf``'s ``grouping_global`` on 16x16 (its
   command line) and ``fused_scatter_shmap`` on 2x16x16: each cell's wall,
-  collectives and collective term; a failed cell fails the run;
+  collectives and collective term; a failed cell fails the run. Two
+  counts are held to bounds this script computes from the configs'
+  shapes: arctic-480b ``decode_32k``'s collective bytes a device below
+  what all-gathering each layer's ``wq`` over ``data`` alone would move
+  (its decode moves the tokens' rows instead, ``layers._project_rows``);
+  granite-3-8b ``train_4k``'s FLOPs a device equal to a 256th of its
+  1x1 count (its command line ``--mesh 1x1``) plus the K and V products of the
+  KV heads each model rank's own query heads read beyond its share
+  (``sharding.own_kv_heads``: 8 KV heads do not divide 16);
 * ``[dryrun]``: ``python -m repro_torch.launch.dryrun --arch gemma3-12b
   --mesh 1x1`` (3 cells and one skipped by design; the CPU tests run
   ``--all``), ``dryrun_pdf --all`` and ``report`` as subprocesses, their
@@ -255,7 +263,14 @@ stager) runs last, on the one card:
   direction, so the capacity drops): the kept set of the one-rank layer
   (computed in this process first), the output within the float32
   oracle's 1e-4 of it, each rank's expert buffer as many rows as its
-  slab's largest kept count (only all-reduces cross the ranks).
+  slab's largest kept count (only all-reduces cross the ranks); one
+  windowed attention layer at 1x2 with gemma3-12b's width, heads, head
+  dimension 256 and window but a single KV head (cut from 8, so that it
+  does not divide the model axis as gemma3's 8 do not divide 16), float32,
+  LM_BATCH // 4 x LM_PROMPT tokens: each rank projects the KV head its 8
+  query heads read (``sharding.own_kv_heads``) and K5 runs once on each
+  rank on those heads, the output within the float32 oracle's 1e-4 of
+  the one-rank layer's (one all-reduce crosses the ranks).
 
 The K1-K4 rows of the kernels line carry ``launches_api_serve``, the
 ``[api]`` and ``[serve]`` launches, and ``launches_stream_cluster``, those
@@ -442,6 +457,9 @@ MESH_TIMEOUT = 300
 # on the host while the same parameters go onto the mesh.
 MESH_MOE_ARCH, MESH_MOE_LAYERS, MESH_MOE_BATCH = "arctic-480b", 2, LM_BATCH // 2
 MESH_MOE_SEED = 7
+# [mesh 2 ranks]'s windowed layer: gemma3-12b's attention with one KV head
+# (cut from 8) on LM_BATCH // 4 x LM_PROMPT tokens, float32.
+MESH_BAND_KV_HEADS, MESH_BAND_BATCH = 1, LM_BATCH // 4
 # [dryrun mesh]: the LM dry run and the PDF window step's mesh variants on
 # the production meshes (fake worlds of 256 and 512 ranks): (arch or
 # variant, shape, multi_pod, through the command line or in this process).
@@ -450,6 +468,10 @@ DRYRUN_MESH_CELLS = (("granite-3-8b", "decode_32k", False, True), ("arctic-480b"
                      ("granite-3-8b", "train_4k", False, False))
 DRYRUN_PDF_MESH_CELLS = (("grouping_global", "window_small", False, True),
                          ("fused_scatter_shmap", "window_prod", True, False))
+# [dryrun mesh]'s bound on granite-3-8b train_4k at 16x16 starts from its
+# 1x1 count, a command line of its own beside the others.
+DRYRUN_BOUND_CELL = ("granite-3-8b", "train_4k")
+DRYRUN_BOUND_LABEL = "granite-3-8b train_4k 1x1 cli"
 # [dryrun]'s command line: one config's cells on 1x1 (train_4k, prefill_32k,
 # decode_32k; long_500k skipped by design for full attention). The CPU tests
 # run all 40 (tests/test_torch_dryrun.py).
@@ -3789,6 +3811,8 @@ def start_dryruns(tmp: Path) -> dict:
             text = "x".join(map(str, make_production_mesh(multi_pod=multi_pod).shape))
             cmds[f"{arch} {shape} {text} cli"] = ["repro_torch.launch.dryrun", "--arch", arch,
                                                   "--shape", shape, "--mesh", text]
+    cmds[DRYRUN_BOUND_LABEL] = ["repro_torch.launch.dryrun", "--arch", DRYRUN_BOUND_CELL[0], "--shape",
+                                DRYRUN_BOUND_CELL[1], "--mesh", "1x1"]
     for variant, shape, multi_pod, through_cli in DRYRUN_PDF_MESH_CELLS:
         if through_cli:
             text = "x".join(map(str, make_production_mesh(multi_pod=multi_pod).shape))
@@ -4365,6 +4389,73 @@ def _moe_2rank(np, torch, dev, dmesh, ref: Path) -> dict:
                                for q in (p.w_gate, p.w_in, p.w_out)))
 
 
+def band_layer_cfg(torch):
+    """[mesh 2 ranks]'s windowed attention layer: LM_ARCH's attention at full
+    width with ``block_local_attn`` and MESH_BAND_KV_HEADS KV heads,
+    float32 compute."""
+    return lm_config().replace(kv_heads=MESH_BAND_KV_HEADS, compute_dtype=torch.float32)
+
+
+def _band_2rank(np, torch, dev, dmesh) -> dict:
+    """One windowed attention layer (``band_layer_cfg``) on the same seed-0
+    weights and input on this rank alone and with its parameters placed
+    on the 1x2 mesh: there the query heads split over ``model`` and the
+    one KV head is whole, so each rank projects the KV head its own query
+    heads read (``sharding.own_kv_heads``) and K5 runs once on each rank
+    on its 8 heads with that head's keys and values; the output (one
+    all-reduce of the row-parallel product) within LM_PREFILL_TOL of the
+    one-rank layer's."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import sharding as sh
+
+    cfg = band_layer_cfg(torch)
+    window = next(bd.window for bd in cfg.layer_defs() if bd.window)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p = L.Attention(cfg, dev)
+    p.reset_parameters(gen)
+    x = torch.randn((MESH_BAND_BATCH, LM_PROMPT, cfg.d_model), generator=gen, device=dev)
+    pos = torch.arange(LM_PROMPT, dtype=torch.int32, device=dev).expand(MESH_BAND_BATCH, LM_PROMPT)
+    calls, own, saved = [], [], (L.banded_attention, sh.own_kv_heads)
+
+    def recorded(q, k, v, w):
+        calls.append([list(q.shape), list(k.shape)])
+        return saved[0](q, k, v, w)
+
+    def counted(*args):
+        out = saved[1](*args)
+        own.append(list(out.to_local().shape))
+        return out
+
+    with torch.no_grad():
+        zero_counts()
+        want = L.attention(p, x, cfg=cfg, positions=pos, window=window)
+        one_rank = read_counts()["banded_attention_kernel"]
+        sh.distribute_params(cfg, dmesh, p)
+        xd = sh.place(x, sh.batch_sharding(dmesh, 3))
+        L.banded_attention, sh.own_kv_heads = recorded, counted
+        try:
+            zero_counts()
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            with sh.implicit_replication():
+                y = L.attention(p, xd, cfg=cfg, positions=pos, window=window).full_tensor()
+            sync(torch, dev)
+            secs = time.perf_counter() - t0
+        finally:
+            L.banded_attention, sh.own_kv_heads = saved
+        launches = read_counts()["banded_attention_kernel"]
+    heads = cfg.q_heads // dmesh.size(dmesh.mesh_dim_names.index("model"))
+    local = [MESH_BAND_BATCH, LM_PROMPT, heads, cfg.head_dim]
+    check(one_rank == 1 and launches == 1, f"[mesh 2 ranks] windowed layer: K5 launched {one_rank} times "
+                                           f"on one rank, {launches} on the mesh")
+    check(calls == [[local, local]], f"[mesh 2 ranks] windowed layer: K5 on local q, k {calls}")
+    check(own == [local, local], f"[mesh 2 ranks] windowed layer: own_kv_heads gave {own}")
+    err = close_report(torch, y, want, what="[mesh 2 ranks] windowed layer at 1x2 vs the one-rank layer",
+                       **LM_PREFILL_TOL)
+    return dict(kv_heads=cfg.kv_heads, local_q_k=calls[0], k5_launches=launches, window=window,
+                max_abs_vs_one_rank=err, seconds=secs)
+
+
 def _mesh_rank(rank, world_size, device_type, moe_ref):
     """One rank of [mesh 2 ranks]: on the card both ranks use CUDA device 0.
     ``moe_ref``: the one-rank MoE layer's output (``moe_one_rank``)."""
@@ -4383,6 +4474,7 @@ def _mesh_rank(rank, world_size, device_type, moe_ref):
     out["flash"] = _flash_2rank(np, torch, dev, seq)
     out["decode"] = _decode_2rank(np, torch, dev, seq)
     out["moe"] = _moe_2rank(np, torch, dev, seq, Path(moe_ref))
+    out["band"] = _band_2rank(np, torch, dev, seq)
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     out["allreduce"] = _allreduce_2rank(np, torch, dev, rank)
@@ -4404,10 +4496,12 @@ def mesh_2rank_phase(np, torch, smi, tmp: Path, device_type: str = "cuda", rank_
     launches."""
     from repro_torch.launch import mesh as M
 
-    log("[mesh 2 ranks] the decode with DTensor parameters (the query's heads gathered over model) "
-        "and mamba2-780m's SSD decode (its convolution's output gathered over model) need "
-        "all_gather_into_tensor, which kills a gloo rank on a CUDA tensor (signal 11): they are held "
-        "on the CPU in tests/test_torch_decode_mesh.py, not here")
+    log("[mesh 2 ranks] the decode with DTensor parameters (the query's heads gathered over model), "
+        "mamba2-780m's SSD decode (its convolution's output gathered over model) and the FSDP decode's "
+        "row exchange (all-to-all, reduce-scatter, all-gather over data) need collectives other than "
+        "all_reduce, and all_gather_into_tensor kills a gloo rank on a CUDA tensor (signal 11): they "
+        "are held on the CPU in tests/test_torch_decode_mesh.py and tests/test_torch_fsdp_decode.py, "
+        "not here")
     dev = torch.device(device_type, 0) if device_type == "cuda" else torch.device(device_type)
     moe_ref = tmp / "moe_one_rank.npy"
     one_rank = moe_one_rank(np, torch, dev, moe_ref)
@@ -4422,13 +4516,14 @@ def mesh_2rank_phase(np, torch, smi, tmp: Path, device_type: str = "cuda", rank_
         check(out["backend"] == "gloo", f"[mesh 2 ranks] rank {r} ran on {out['backend']}")
         log(f"[mesh 2 ranks] rank {r} (backend {out['backend']}, passed explicitly): flash decode "
             f"{json.dumps(out['flash'])}; plain decode on split caches {json.dumps(out['decode'])}; "
-            f"MoE at 1x2 {json.dumps(out['moe'])}; compressed all-reduce "
+            f"MoE at 1x2 {json.dumps(out['moe'])}; windowed layer at 1x2 with "
+            f"{MESH_BAND_KV_HEADS} KV head (cut from 8) {json.dumps(out['band'])}; compressed all-reduce "
             f"{json.dumps(out['allreduce'])}; split stager {json.dumps(out['stager'])}")
     nums = dict(gloo_all_gather="held on the CPU", backend="gloo", wall_s=wall,
                 moe_one_rank=one_rank, ranks=ranks)
     log(f"[summary mesh 2 ranks] {smi}: two gloo ranks on one card in {wall} s; flash decode, plain "
-        f"decode on split caches, the MoE layer at 1x2, the compressed all-reduce and the split stager "
-        f"held on both")
+        f"decode on split caches, the MoE layer at 1x2, the windowed layer on own KV heads, the "
+        f"compressed all-reduce and the split stager held on both")
     return nums
 
 
@@ -4487,8 +4582,70 @@ def dryrun_mesh_phase(smi, tmp: Path, runs: dict) -> dict:
                                                                        mesh=mesh)))
     for label in through_cli:
         record(label, *cli(label))
+    one, wall = cli(DRYRUN_BOUND_LABEL)
+    out["bounds"] = dryrun_mesh_bounds(out, one["flops_per_device"], wall)
     log(f"[summary dryrun mesh] {smi}: {json.dumps(out)}")
     return out
+
+
+def wq_gather_bytes(cfg, mesh) -> float:
+    """The collective bytes a device of ``mesh`` would move all-gathering
+    every attention layer's ``wq`` over ``data`` (FSDP's gather), its
+    heads as ``make_pspecs`` places them over ``model`` (whole where they
+    do not divide): the ring model of ``roofline.collective_traffic``."""
+    from repro_torch.launch import roofline as rl
+
+    m = mesh.axis_sizes["model"]
+    heads = cfg.q_heads // m if cfg.q_heads % m == 0 else cfg.q_heads
+    layers = sum(1 for bd in cfg.layer_defs() if bd.mixer in ("attn", "hybrid", "cross_attn"))
+    whole = cfg.d_model * heads * cfg.head_dim * cfg.param_dtype.itemsize
+    return layers * rl.collective_traffic("all-gather", whole, mesh.axis_sizes["data"])
+
+
+def own_kv_flops(cfg, shape, mesh) -> float:
+    """The FLOPs a device of ``mesh`` spends in a training step on K and V
+    products beyond its share of them when the KV heads do not divide
+    ``model``: each model rank projects the KV heads its own query heads
+    read (query head h reads KV head h // (H / KV)), own / KV of its data
+    shard's K and V products against the share 1 / model, in each of the
+    step's passes (the forward, its recompute under remat ``full``, the
+    backward's dx and dW)."""
+    m = mesh.axis_sizes["model"]
+    tokens = shape.global_batch // mesh.axis_sizes["data"] * shape.seq_len
+    own = len({h // (cfg.q_heads // cfg.kv_heads) for h in range(cfg.q_heads // m)})
+    passes = 4 if cfg.remat == "full" else 3
+    layers = sum(1 for bd in cfg.layer_defs() if bd.mixer in ("attn", "hybrid"))
+    products = 2 * 2 * tokens * cfg.d_model * cfg.kv_heads * cfg.head_dim  # K and V, 2 FLOPs a MAC
+    return layers * passes * products * (own / cfg.kv_heads - 1 / m)
+
+
+def dryrun_mesh_bounds(out: dict, one: int, wall: float) -> dict:
+    """[dryrun mesh]'s two counts against bounds from the configs' shapes:
+    arctic-480b ``decode_32k``'s collective bytes a device below
+    ``wq_gather_bytes`` (its decode moves the tokens' rows, not the FSDP
+    blocks), and granite-3-8b ``train_4k``'s FLOPs a device equal to
+    ``one``, its count on one card (DRYRUN_BOUND_LABEL's command line,
+    ``wall`` s), over the mesh's size plus ``own_kv_flops``."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.launch.mesh import make_production_mesh
+
+    mesh = make_production_mesh(multi_pod=False)
+    text = "x".join(map(str, mesh.shape))
+    arctic = out[f"arctic-480b decode_32k {text} run_cell"]["collective_traffic_per_device"]
+    bound = wq_gather_bytes(registry.get("arctic-480b"), mesh)
+    check(arctic < bound, f"[dryrun mesh] arctic-480b decode_32k moves {arctic} B a device, not below "
+                          f"the {bound} B of gathering wq over data")
+    cfg, shape = registry.get(DRYRUN_BOUND_CELL[0]), SHAPES[DRYRUN_BOUND_CELL[1]]
+    want = one / mesh.size + own_kv_flops(cfg, shape, mesh)
+    got = out[f"{cfg.name} {shape.name} {text} run_cell"]["flops_per_device"]
+    check(abs(got - want) <= 1e-9 * want, f"[dryrun mesh] granite-3-8b train_4k: {got} FLOPs a device, "
+                                          f"the share and own KV heads' term give {want}")
+    nums = dict(arctic_decode_bytes=arctic, arctic_wq_gather_bytes=bound, granite_train_flops=got,
+                granite_1x1_flops=one, granite_own_kv_flops=own_kv_flops(cfg, shape, mesh),
+                granite_1x1_wall_s=wall)
+    log(f"[dryrun mesh] bounds from the configs' shapes: {json.dumps(nums)}")
+    return nums
 
 
 # Every phase's wall, in the order run ([phase] lines, the [phases] summary).

@@ -28,6 +28,8 @@ Conventions, as in the reference:
 
 from __future__ import annotations
 
+import types
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -149,20 +151,190 @@ def _kv(p: Attention, xkv: torch.Tensor, cdt):
             torch.einsum("btd,dhk->bthk", xkv, sh.fsdp_whole(p.wv).to(cdt)))
 
 
+def qkv_elems(d: int, count: int, cols: int) -> tuple[int, int]:
+    """``sharding.moves_rows``' counts for the projections' exchange
+    (``_project_rows``) over ``count`` ranks: a token moves its block of
+    ``d`` (the all-to-all) and the partial sums of its q, k and v rows,
+    ``cols`` = heads x hd of the rank's blocks (the reduce-scatter); the
+    blocks are (d / count, cols)."""
+    blk = d // count
+    return blk + cols, blk * cols
+
+
+def out_elems(d: int, count: int, cols: int) -> tuple[int, int]:
+    """``sharding.moves_rows``' counts for the output projection's exchange
+    (``_out_rows``): a token moves the ``cols`` (heads x hd) of its
+    attention output that the rank's block of ``wo`` reads (the
+    all-gather) and its block of ``d`` of the output (the all-to-all); the
+    block is (cols, d / count)."""
+    blk = d // count
+    return cols + blk, cols * blk
+
+
+def experts_elems(d: int, count: int, k: int, n: int, f: int) -> tuple[int, int]:
+    """``sharding.moves_rows``' counts for the MoE's exchange
+    (``_exchange_rows``): a token moves its row (``d``, the all-gather), its
+    ``k`` choices' gate and input products and activation (3 k f) and
+    their blocks of the output (k d / count); the blocks are the three
+    stacks' of ``n`` experts, 3 n f d / count."""
+    blk = d // count
+    return d + 3 * k * f + k * blk, 3 * n * f * blk
+
+
+def _rows_split(x, ws: tuple, d_dim: int):
+    """The ``DataSplit`` over which the ranks move the rows of x (B, S,
+    ...) for the weights ``ws`` (their ``d`` at ``d_dim``: 0 for
+    ``wq``/``wk``/``wv``, 2 for ``wo``) rather than gather their FSDP
+    blocks: every weight's ``d`` split over the one data dimension that
+    splits x's rows (``sharding.fsdp_split``), and the rows the fewer
+    bytes (``sharding.moves_rows`` of ``qkv_elems`` or ``out_elems``, from
+    shapes every rank shares): a decode step's few tokens move, a
+    prefill's many gather the blocks. None: gather the blocks; always
+    under autograd, since the exchanges serve inference (the serving
+    entry points run without it) and FSDP's backward reduce-scatters the
+    gathered weights' gradients."""
+    if torch.is_grad_enabled():
+        return None
+    split = sh.fsdp_split(x, ws[0], d_dim)
+    if split is None or any(sh.fsdp_split(x, w, d_dim) != split for w in ws[1:]):
+        return None
+    if d_dim == 0:
+        elems = qkv_elems(ws[0].shape[0], split.count, sum(w.to_local()[0].numel() for w in ws))
+    else:
+        elems = out_elems(ws[0].shape[2], split.count, _wo_cols(ws[0])[1])
+    tokens = x.to_local().shape[0] * x.shape[1]
+    return split if sh.moves_rows(tokens, *elems, x.dtype, ws[0].dtype) else None
+
+
+def _project_rows(x, ws: tuple, split) -> tuple:
+    """``einsum("bsd,dhk->bshk", x, w)`` for each weight of ``ws`` (d, h,
+    hd) whose ``d`` is split over ``split`` (FSDP), the weights staying
+    where they lie: an all-to-all gives each rank its block of ``d`` of
+    every rank's rows (x's rows, (B, S, d) split over the split's
+    dimension), each rank contracts that block with its own block of
+    each weight, and one reduce-scatter of the partial sums gives each
+    rank its own rows' products. Each result is a DTensor (B, S, h, hd)
+    placed as x's rows, its heads split over ``model`` as the weight's
+    are. The FLOPs are a rank's products over its own rows with ``d``
+    whole; what moves is a token's block of ``d`` and its products
+    (``qkv_elems``). Without autograd (``_rows_split``)."""
+    mesh, rows = x.device_mesh, tuple(x.placements)
+    xl = x.to_local()
+    b, s, d = xl.shape
+    t, n = b * s, split.count
+    xs = split.all_to_all(xl.reshape(t, n, d // n).transpose(0, 1))  # (n, t, d / n)
+    locs = [w.to_local() for w in ws]
+    part = torch.cat([torch.einsum("jtd,dhk->jthk", xs, w.to(xl.dtype)) for w in locs], dim=2)
+    own = split.reduce_scatter(part)  # (t, sum h, hd): the rank's rows, summed over d
+    out, lo = [], 0
+    for w, loc in zip(ws, locs):
+        h = loc.shape[1]
+        blk = own[:, lo:lo + h].reshape(b, s, h, loc.shape[2])
+        lo += h
+        pls = sh.split_over(rows, mesh, 2) if sh.model_split_dim(w) == 1 else rows
+        out.append(sh.from_local(blk, mesh, pls, (x.shape[0], s, w.shape[1], w.shape[2])))
+    return tuple(out)
+
+
+def _wo_cols(wo) -> tuple[int, int]:
+    """(first, count) of the columns of the attention output, its (heads,
+    hd) flattened, that this rank's block of ``wo`` (H, hd, d) contracts:
+    its own heads where ``model`` splits them; where it does not (heads
+    that do not divide the axis) a block of the flattened H hd when that
+    divides, the product then a partial sum over ``model`` as where the
+    heads split; else every column."""
+    h, hd = wo.to_local().shape[:2]
+    mesh = wo.device_mesh
+    m = mesh.size(mesh.mesh_dim_names.index(sh.MODEL_AXIS))
+    if sh.model_split_dim(wo) is not None or m == 1 or (h * hd) % m:
+        return 0, h * hd
+    cols = h * hd // m
+    return mesh.get_local_rank(sh.MODEL_AXIS) * cols, cols
+
+
+def _out_rows(out, wo, split):
+    """``einsum("bshk,hkd->bsd", out, wo)`` with ``wo`` (H, hd, d) whose
+    output ``d`` is split over ``split`` (FSDP), the weight staying where
+    it lies: the attention outputs of every rank's rows (B, S, H, hd),
+    each rank's heads as ``wo`` splits them over ``model``, are
+    all-gathered (only the columns ``_wo_cols`` gives this rank), each
+    rank forms its block of ``d`` for all of them, and an all-to-all
+    returns each rank its own rows' blocks. A DTensor (B, S, d) placed as
+    the rows, a partial sum over ``model`` where the ranks of ``model``
+    contract different columns (the row-parallel product). What moves is
+    a token's columns and its output's block (``out_elems``)."""
+    from torch.distributed.tensor import Partial
+
+    mesh = out.device_mesh
+    i = mesh.mesh_dim_names.index(sh.MODEL_AXIS)
+    rows = tuple(out.placements)
+    split_heads = sh.model_split_dim(wo) == 0
+    ol = sh.local_as(out, mesh, sh.split_over(rows, mesh, 2) if split_heads else rows)
+    b, s, h, hd = ol.shape
+    first, cols = _wo_cols(wo)
+    wl = wo.to_local().reshape(h * hd, -1)[first:first + cols]
+    acts = split.all_gather(ol.reshape(b * s, h * hd)[:, first:first + cols])  # (n, t, cols)
+    y = torch.matmul(acts, wl.to(ol.dtype))  # (n, t, d / n): every rank's rows
+    own = split.all_to_all(y).permute(1, 0, 2).reshape(b, s, -1)  # block j from rank j
+    partial = cols < h * hd or split_heads
+    pls = rows[:i] + (Partial() if partial else rows[i],) + rows[i + 1:]
+    return sh.from_local(own, mesh, pls, (out.shape[0], s, wo.shape[2]))
+
+
+def _out_proj(p: Attention, out, cdt):
+    """The attention's output projection, out (B, S, H, hd) -> (B, S, d):
+    ``_out_rows`` where ``_rows_split`` says the rows move, else the
+    row-parallel product on out's heads split as ``wo``'s
+    (``sharding.heads_like``; DTensor gathering ``wo``'s FSDP blocks)."""
+    split = _rows_split(out, (p.wo,), 2)
+    if split is not None:
+        return _out_rows(out, p.wo, split)
+    out = sh.heads_like(out, p.wo)
+    return torch.einsum("bshk,hkd->bsd", out, p.wo.to(cdt))
+
+
+def _qk_normed(p: Attention, q: torch.Tensor, k: torch.Tensor):
+    """q and k normed under ``qk_norm`` (the config gives the layer
+    ``q_norm`` and ``k_norm``), else as they are."""
+    if hasattr(p, "q_norm"):
+        return rmsnorm(p.q_norm, q), rmsnorm(p.k_norm, k)
+    return q, k
+
+
 def _qkv(p: Attention, x: torch.Tensor, cdt, kv_x: torch.Tensor | None = None):
+    """The query, key and value projections of x (B, S, d), each (B, S,
+    heads, hd), normed under ``qk_norm``; keys and values from ``kv_x``
+    when given. On DTensors whose weights' ``d`` is split over data (FSDP)
+    the ranks move their rows where that is fewer bytes (``_rows_split``,
+    ``_project_rows``); otherwise DTensor's products, FSDP's blocks
+    gathered (``sharding.fsdp_whole``)."""
+    xq = x.to(cdt)
+    split = _rows_split(xq, (p.wq, p.wk, p.wv), 0) if kv_x is None else None
+    if split is not None:
+        q, k, v = _project_rows(xq, (p.wq, p.wk, p.wv), split)
+    else:
+        q = torch.einsum("bsd,dhk->bshk", xq, sh.fsdp_whole(p.wq).to(cdt))
+        if kv_x is None:
+            k, v = _kv(p, xq, cdt)
+        else:
+            # A DTensor memory (B, T, d): each rank projects its own rows with
+            # whole wk and wv (DTensor cannot unflatten the batch-by-patches
+            # product its einsum makes when the KV heads do not split).
+            k, v = sh.local_rows(_kv, p, kv_x.to(cdt), cdt, params=("wk", "wv"))
+    return (*_qk_normed(p, q, k), v)
+
+
+def _own_qkv(p: Attention, x: torch.Tensor, cdt):
+    """``_qkv`` of a self-attention core whose K and V weights are whole
+    over ``model`` while its query heads split there
+    (``sharding.kv_whole_under_split_queries``): each model rank projects
+    only the KV heads its own query heads read, aligned with them
+    (``sharding.own_kv_heads``), so neither a whole K/V product nor
+    ``expand_kv`` runs."""
     xq = x.to(cdt)
     q = torch.einsum("bsd,dhk->bshk", xq, sh.fsdp_whole(p.wq).to(cdt))
-    if kv_x is None:
-        k, v = _kv(p, xq, cdt)
-    else:
-        # A DTensor memory (B, T, d): each rank projects its own rows with
-        # whole wk and wv (DTensor cannot unflatten the batch-by-patches
-        # product its einsum makes when the KV heads do not split).
-        k, v = sh.local_rows(_kv, p, kv_x.to(cdt), cdt, params=("wk", "wv"))
-    if hasattr(p, "q_norm"):
-        q = rmsnorm(p.q_norm, q)
-        k = rmsnorm(p.k_norm, k)
-    return q, k, v
+    k, v = (sh.own_kv_heads(xq, sh.fsdp_whole(w), p.wq) for w in (p.wk, p.wv))
+    return (*_qk_normed(p, q, k), v)
 
 
 def _masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, positions, causal: bool,
@@ -202,14 +374,21 @@ def attention(p: Attention, x: torch.Tensor, *, cfg, positions: torch.Tensor,
     ``banded_attention`` (K5 on the card); the other layers take the plain
     masked path (``_masked_attention``). On DTensors either runs on each
     rank's rows and heads (``sharding.local_heads``), so its backward
-    does too."""
+    does too; where the KV heads do not split over ``model`` as the query
+    heads do, each rank projects only the KV heads its query heads read
+    (``_own_qkv``; with ``return_kv`` every KV head, which the caller's
+    cache takes). The projections and the output projection move the
+    rows instead of FSDP's blocks where ``_rows_split`` says so."""
     if kv_x is None and sh.split_over_model(x := sh.rows_over_model(x, p.wq)):
         # Heads whole over model: each model rank runs the whole block on its
         # own rows, the weights whole (their gradients partial sums).
         return sh.local_rows(_attention_rows, p, x, sh.rows_like(positions, x).to_local(), cfg, causal,
                              window, use_rope, return_kv)
     cdt = cfg.compute_dtype
-    q, k, v = _qkv(p, x, cdt, kv_x)
+    if kv_x is None and not return_kv and sh.kv_whole_under_split_queries(x, p.wk, p.wq):
+        q, k, v = _own_qkv(p, x, cdt)
+    else:
+        q, k, v = _qkv(p, x, cdt, kv_x)
     if use_rope:
         q = rope(q, positions, cfg.rope_theta)
         if kv_x is None:
@@ -220,13 +399,80 @@ def attention(p: Attention, x: torch.Tensor, *, cfg, positions: torch.Tensor,
     else:
         rows = None if kv_x is not None else sh.rows_like(positions, q)
         out = sh.local_heads(_masked_attention, q, k, v, rows, causal, window, cdt)
-    y = torch.einsum("bshk,hkd->bsd", out, p.wo.to(cdt))
+    y = _out_proj(p, out, cdt)
     return (y, k, v) if return_kv else y
 
 
 def _attention_rows(p: Attention, x, positions, cfg, causal, window, use_rope, return_kv):
     return attention(p, x, cfg=cfg, positions=positions, causal=causal, window=window,
                      use_rope=use_rope, return_kv=return_kv)
+
+
+def cache_layout(t: torch.Tensor, window: int | None, length: int) -> torch.Tensor:
+    """t (B, S, ...) laid out along dimension 1 as a prefill of S tokens
+    leaves its decode cache of ``length`` slots: a full layer's positions
+    in order, zero-padded; a window's ring holds position p at slot p mod
+    W, the last W positions rolled into place (S >= W) or the S < W
+    positions zero-padded."""
+    s = t.shape[1]
+    if window:
+        t = t[:, s - min(s, window):]
+        if s >= window:
+            return torch.roll(t, s % window, dims=1)
+    return F.pad(t, (0, 0) * (t.dim() - 2) + (0, length - t.shape[1]))
+
+
+def cache_slots(s: int, window: int | None, length: int) -> torch.Tensor:
+    """(length,) int64: the position of a prompt of ``s`` tokens that each
+    slot of a prefill's decode cache holds, -1 for an empty slot
+    (``cache_layout`` of the positions)."""
+    return cache_layout(torch.arange(1, s + 1)[None], window, length)[0] - 1
+
+
+def own_cache(p: Attention, x, cfg, positions: torch.Tensor, window: int | None, length: int):
+    """A prefill's decode cache {"k", "v"} (B, length, KV, hd) built where
+    ``sharding.cache_pspecs`` places it, each rank its own block of the
+    slots (``cache_slots``) with every KV head, from its own rows of x (B,
+    S, d): the keys and values of the positions its slots hold, projected,
+    normed and rotated as ``attention`` does, zero in an empty slot;
+    nothing moves but FSDP's gather of wk and wv. For a prefill on
+    DTensors whose K and V weights are whole over ``model`` while the
+    query heads split there (``sharding.kv_whole_under_split_queries``):
+    the attention then projects only each rank's own KV heads
+    (``sharding.own_kv_heads``) and the cache, whose sequence ``model``
+    splits, only its block, where every rank would otherwise project every
+    KV head of every position. Returns (cache, the layer with wk and wv
+    gathered, on which the attention reads them without a second
+    gather), or None in any other case (the cache then comes from the
+    attention's K/V)."""
+    if not sh.kv_whole_under_split_queries(x, p.wk, p.wq):
+        return None
+    from repro_torch.launch.mesh import describe
+
+    mesh, b = x.device_mesh, x.shape[0]
+    shape = (b, length) + tuple(p.wk.shape[1:])
+    spec = sh.cache_pspecs(describe(mesh), {"k": types.SimpleNamespace(shape=shape)}, b)["k"]
+    pls = sh.to_placements(spec, mesh)
+    i = mesh.mesh_dim_names.index(sh.MODEL_AXIS)
+    if spec[1] != sh.MODEL_AXIS or pls[:i] + pls[i + 1:] != tuple(x.placements[:i] + x.placements[i + 1:]):
+        return None
+    cdt, per = cfg.compute_dtype, length // mesh.size(i)
+    slots = cache_slots(x.shape[1], window, length)
+    mine = slots[mesh.get_local_rank(sh.MODEL_AXIS) * per:][:per].to(x.device)
+    here = mine.clamp(min=0)
+    xl = x.to_local().to(cdt)[:, here]  # (b, per, d): the rows of the positions the slots hold
+    pos = sh.rows_like(positions, x).to_local()[:, here]
+    wk, wv = sh.fsdp_whole(p.wk), sh.fsdp_whole(p.wv)
+    k, v = (torch.einsum("btd,dhk->bthk", xl, w.to_local().to(cdt)) for w in (wk, wv))
+    if hasattr(p, "k_norm"):
+        k = scaled_rmsnorm(k, sh.local_as(p.k_norm.scale, mesh))
+    k = rope(k, pos, cfg.rope_theta)
+    empty = (mine < 0)[None, :, None, None]
+    cache = {name: sh.from_local(torch.where(empty, torch.zeros_like(t), t), mesh, pls, shape)
+             for name, t in (("k", k), ("v", v))}
+    gathered = types.SimpleNamespace(**{n: getattr(p, n) for n in ("wq", "wo", "q_norm", "k_norm")
+                                        if hasattr(p, n)}, wk=wk, wv=wv)
+    return cache, gathered
 
 
 def init_attn_cache(cfg, batch: int, max_len: int, window: int | None, dtype,
@@ -330,7 +576,10 @@ def decode_attention(p: Attention, x: torch.Tensor, cache: dict[str, torch.Tenso
     does, full and ring layers alike: the cache never moves, only the
     token's q, k and v (every head of the rank's rows), and the softmax is
     combined by all-reduces over ``model`` (``_decode_core``). A cache
-    placed otherwise raises (``sharding.cache_rows``)."""
+    placed otherwise raises (``sharding.cache_rows``). Where the
+    attention's weights have their ``d`` split over data (FSDP) the data
+    ranks exchange the token's rows instead of gathering the weights'
+    blocks, when that moves fewer bytes (``_qkv``, ``_out_proj``)."""
     cdt = cfg.compute_dtype
     q, k, v = _qkv(p, x, cdt)
     posv = torch.full((x.shape[0], 1), pos, dtype=torch.int32, device=x.device)
@@ -339,11 +588,9 @@ def decode_attention(p: Attention, x: torch.Tensor, cache: dict[str, torch.Tenso
     if sh.is_dtensor(cache["k"]):
         out = _decode_on_shards(q, k, v, cache, pos, window, cdt, sh.cache_rows(cache["k"]),
                                 sh.MODEL_AXIS)
-        out = sh.heads_like(out, p.wo)
     else:
         out = _decode_core(q, k, v, cache["k"], cache["v"], pos, window, cdt)
-    y = torch.einsum("bshk,hkd->bsd", out, p.wo.to(cdt))
-    return y, cache
+    return _out_proj(p, out, cdt), cache
 
 
 def flash_decode_attention(p: Attention, x: torch.Tensor, cache: dict, pos: int, *, cfg, mesh,
@@ -364,7 +611,8 @@ def flash_decode_attention(p: Attention, x: torch.Tensor, cache: dict, pos: int,
     place. ``x`` and the parameters may be plain tensors (whole on every
     rank; the output is gathered whole again) or DTensors. Every rank of
     the mesh must call it. No sliding window: ring caches stay on the
-    plain path, as in the reference."""
+    plain path, as in the reference. Under FSDP the projections exchange
+    the token's rows as ``decode_attention``'s do."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
     cdt = cfg.compute_dtype
@@ -385,8 +633,7 @@ def flash_decode_attention(p: Attention, x: torch.Tensor, cache: dict, pos: int,
     out = _decode_on_shards(q, k_new, v_new, cache, pos, None, cdt, rows, seq_axis)
     if not isinstance(x, DTensor):
         out = out.full_tensor() if any(isinstance(r, Shard) for r in rows) else out.to_local()
-    y = torch.einsum("bshk,hkd->bsd", out, p.wo.to(cdt))
-    return y, cache
+    return _out_proj(p, out, cdt), cache
 
 
 def cross_decode_attention(p: Attention, x: torch.Tensor, cache: dict[str, torch.Tensor], *,
@@ -394,9 +641,16 @@ def cross_decode_attention(p: Attention, x: torch.Tensor, cache: dict[str, torch
     """One query token against a cross K/V computed once at prefill (the
     memory's keys and values, (B, T, KV, hd), unrotated). x (B, 1, d) ->
     (B, 1, d); no mask, no RoPE. Like the reference's decode, it applies no
-    ``q_norm``: no config sets ``qk_norm`` with cross-attention."""
+    ``q_norm``: no config sets ``qk_norm`` with cross-attention. Under FSDP
+    the query and output projections exchange the token's rows as
+    ``decode_attention``'s do."""
     cdt = cfg.compute_dtype
-    q = torch.einsum("bsd,dhk->bshk", x.to(cdt), p.wq.to(cdt))
+    xq = x.to(cdt)
+    split = _rows_split(xq, (p.wq,), 0)
+    if split is not None:
+        (q,) = _project_rows(xq, (p.wq,), split)
+    else:
+        q = torch.einsum("bsd,dhk->bshk", xq, p.wq.to(cdt))
     ck, cv = cache["k"].to(cdt), cache["v"].to(cdt)
     q = sh.replicate_dim(q, 2)
     b, _, h, hd = q.shape
@@ -405,7 +659,7 @@ def cross_decode_attention(p: Attention, x: torch.Tensor, cache: dict[str, torch
     scores = torch.einsum("bskgd,btkd->bkgst", qr, ck).float() * hd**-0.5
     w = torch.softmax(scores, dim=-1).to(cdt)
     out = torch.einsum("bkgst,btkd->bskgd", w, cv).reshape(b, 1, h, hd)
-    return torch.einsum("bshk,hkd->bsd", out, p.wo.to(cdt))
+    return _out_proj(p, out, cdt)
 
 
 # -- gated MLP ----------------------------------------------------------------
@@ -519,20 +773,6 @@ def moe_route(p: MoE, xt: torch.Tensor, cfg):
 _STACKS = ("w_gate", "w_in", "w_out")
 
 
-def _moves_rows(split, t: int, k: int, n: int, d: int, f: int, cdt, pdt) -> bool:
-    """Whether a rank of an FSDP slab moves its rows' activations
-    (``_exchange_rows``) rather than gathering its stacks' blocks of ``d``
-    whole: true when, counted from the shapes every rank of the split
-    shares, the activations are fewer bytes (the tokens, the gate and
-    input products, the activation and the output's blocks, a rank's
-    ``t`` tokens and ``t k`` choices) than the three stacks' blocks of its
-    ``n`` experts. A decode step's few tokens move; a training or prefill
-    batch's many tokens gather the weights, as FSDP does."""
-    blk = d // split.count
-    rows = t * (d + 3 * k * f + k * blk) * cdt.itemsize
-    return rows <= 3 * n * f * blk * pdt.itemsize
-
-
 def _exchange_rows(p: MoE, xt: torch.Tensor, kept: torch.Tensor, where, rows: int, k: int,
                    t_max: int, cdt, split) -> torch.Tensor:
     """The three expert products for a rank's kept choices when the slab's
@@ -588,7 +828,8 @@ def _experts(p: MoE, x: torch.Tensor, cfg, cap: int, slab=None) -> torch.Tensor:
     bound min(cap, T k), every choice kept). When the slab's ``d`` is split
     over data (``slab.split``, FSDP) the rank either moves its rows
     (``_exchange_rows``, R the largest over the split's ranks) or gathers
-    the stacks' blocks, as ``_moves_rows`` picks."""
+    the stacks' blocks, as ``sharding.moves_rows`` picks from
+    ``experts_elems``."""
     cdt = cfg.compute_dtype
     b, s, d = x.shape
     t, k = b * s, cfg.moe_top_k
@@ -612,7 +853,8 @@ def _experts(p: MoE, x: torch.Tensor, cfg, cap: int, slab=None) -> torch.Tensor:
     w_gate, w_in, w_out = p.w_gate, p.w_in, p.w_out
     if split is not None:
         rows_max, t_max = (rows, t) if xt.is_meta else split.max_of(rows, t, device=x.device)
-        if _moves_rows(split, t_max, k, n, d, p.w_gate.shape[2], cdt, p.w_gate.dtype):
+        elems = experts_elems(d, split.count, k, n, p.w_gate.shape[2])
+        if sh.moves_rows(t_max, *elems, cdt, p.w_gate.dtype):
             gathered = _exchange_rows(p, xt, kept, where, rows_max, k, t_max, cdt, split)
             y = (gathered.reshape(t, k, d) * (gates * mine.reshape(t, k))[..., None].to(cdt)).sum(dim=1)
             return y.reshape(b, s, d)

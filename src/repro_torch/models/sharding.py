@@ -32,10 +32,14 @@ replicated). Where the model needs a layout of its own it asks here:
 Megatron's), ``lookup`` (the embedding on a split vocabulary),
 ``rows_over_model`` (the LM head's tokens when its vocabulary is whole),
 ``replicate_dim`` (the loss's vocabulary), ``expand_kv`` (KV heads that
-do not split as the query heads do), ``local_heads`` (the attention core
-and K5 on each rank's heads, through ``local_map``), ``local_rows`` (the
-SSD and the cross K/V projection on each rank's rows), ``local_experts``
-(the MoE's dispatch on each rank's rows and expert slab), and for decode
+do not split as the query heads do), ``own_kv_heads`` (K and V projected
+for a rank's own query heads where the KV heads do not divide
+``model``), ``local_heads`` (the attention core and K5 on each rank's
+heads, through ``local_map``), ``local_rows`` (the SSD and the cross K/V
+projection on each rank's rows), ``local_experts`` (the MoE's dispatch on
+each rank's rows and expert slab), ``fsdp_split`` and ``moves_rows`` (an
+FSDP weight's data ranks exchanging their rows instead of gathering its
+blocks, one rule for the MoE and the attention's decode), and for decode
 ``place_caches``, ``cache_rows`` and ``ssm_cache_rows`` (the caches
 placed as ``cache_pspecs`` says, each rank stepping its own block).
 """
@@ -637,6 +641,118 @@ class DataSplit(NamedTuple):
         t = torch.tensor(values, dtype=torch.int64, device=device)
         dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.mesh.get_group(self.dim))
         return tuple(int(v) for v in t)
+
+
+def moves_rows(tokens: int, row_elems: int, block_elems: int, cdt, pdt) -> bool:
+    """Whether the ranks of a ``DataSplit`` (FSDP: a weight's ``d`` split
+    over them) move their tokens' rows rather than gather the weights'
+    blocks of ``d`` whole: true when the rows are no more bytes. Both sides
+    count what a rank puts on the link in the ring model
+    (``roofline.collective_traffic``) over ``count - 1``: ``tokens`` rows
+    of ``row_elems`` elements in the compute type ``cdt`` against
+    ``block_elems`` elements of the rank's blocks in the parameter type
+    ``pdt`` (an all-gather of blocks moves each rank's block once to each
+    other rank). The callers count their own exchanges' elements from
+    shapes every rank of the split shares, so every rank picks the same
+    way (``layers.qkv_elems``, ``out_elems``, ``experts_elems``): a decode
+    step's few tokens move, a training or prefill batch's many tokens
+    gather the blocks, as FSDP does."""
+    return tokens * row_elems * cdt.itemsize <= block_elems * pdt.itemsize
+
+
+def fsdp_split(rows, w, dim: int) -> DataSplit | None:
+    """The ``DataSplit`` of a weight ``w`` whose dimension ``dim`` (its
+    ``d``) is split over one non-model mesh dimension (FSDP) that splits
+    ``rows`` (a DTensor, batch first, whole over ``model``) evenly too:
+    the ranks of that dimension each hold a block of ``d`` and rows of
+    their own, so they may exchange rows instead of gathering the blocks.
+    None when either is a plain tensor, ``w`` is not split so, or the
+    rows do not split evenly over their mesh dimensions."""
+    if not (is_dtensor(rows) and is_dtensor(w)):
+        return None
+    _, Replicate, Shard = _dtensor_types()
+    mesh, names = w.device_mesh, w.device_mesh.mesh_dim_names
+    hits = [i for i, p in enumerate(w.placements) if names[i] != MODEL_AXIS and p == Shard(dim)]
+    if len(hits) != 1 or rows.placements[hits[0]] != Shard(0):
+        return None
+    if rows.placements[names.index(MODEL_AXIS)] != Replicate():
+        return None
+    shards = math.prod(mesh.size(i) for i, p in enumerate(rows.placements) if p == Shard(0))
+    if rows.shape[0] % shards or any(not (p == Shard(0) or isinstance(p, Replicate))
+                                     for p in rows.placements):
+        return None
+    (i,) = hits
+    return DataSplit(mesh, i, mesh.get_local_rank(i), mesh.size(i))
+
+
+def model_split_dim(w) -> int | None:
+    """The dimension of a DTensor weight that ``model`` splits, or None
+    (whole there, or a plain tensor)."""
+    if not is_dtensor(w):
+        return None
+    p = w.placements[w.device_mesh.mesh_dim_names.index(MODEL_AXIS)]
+    return p.dim if p.is_shard() else None
+
+
+def kv_whole_under_split_queries(x, w, wq) -> bool:
+    """Whether a K or V weight ``w`` (d, KV, hd) is whole over ``model``
+    (its ``d`` may be split over data, FSDP) while ``wq``'s query heads
+    (d, H, hd) are split there, for rows x (a DTensor, batch first) split
+    only over the data axes: the case where each model rank needs only
+    its own query heads' KV heads (``own_kv_heads``)."""
+    if not (is_dtensor(x) and is_dtensor(w) and is_dtensor(wq)):
+        return False
+    _, Replicate, Shard = _dtensor_types()
+    i = x.device_mesh.mesh_dim_names.index(MODEL_AXIS)
+    return (wq.placements[i] == Shard(1) and w.placements[i] == Replicate()
+            and x.placements[i] == Replicate()
+            and all(p == Shard(0) or isinstance(p, Replicate) for p in x.placements))
+
+
+def own_kv_heads(x, w, wq):
+    """``einsum("bsd,dhk->bshk", x, w)`` for a K or V weight ``w`` (d, KV,
+    hd) whole over ``model`` while the query heads of ``wq`` (d, H, hd)
+    are split there (``kv_whole_under_split_queries``: KV heads that do
+    not divide the axis, as 8 on a 16-way one), ``w`` given with FSDP's
+    split gathered: each model rank contracts its rows of x with only the
+    KV heads its own block of query heads reads (query head h reads KV
+    head h // (H / KV)) and repeats each for its query heads, so the
+    result is a DTensor (B, S, H, hd) placed as the queries (``Shard(2)``
+    on ``model``), which ``local_heads`` takes as it is. A local slice of
+    a whole weight: no collective. Under autograd ``w``'s gradient is a
+    partial sum over ``model`` and over the mesh dimensions that split the
+    rows, x's a partial sum over ``model``, as DTensor's own product
+    leaves them. Any other placement raises."""
+    if not kv_whole_under_split_queries(x, w, wq) or any(p.is_shard() for p in w.placements):
+        raise ValueError(f"own_kv_heads: K/V placed {tuple(w.placements)}, queries "
+                         f"{tuple(wq.placements)}, rows {tuple(x.placements)}")
+    from torch.distributed.tensor import Partial
+
+    _, Replicate, Shard = _dtensor_types()
+    mesh = x.device_mesh
+    i = mesh.mesh_dim_names.index(MODEL_AXIS)
+    h, kvh = wq.shape[1], w.shape[1]
+    per = h // mesh.size(i)
+    heads = torch.arange(mesh.get_local_rank(i) * per, (mesh.get_local_rank(i) + 1) * per) // (h // kvh)
+    lo, hi = int(heads[0]), int(heads[-1]) + 1
+    rows = tuple(Partial() if p == Shard(0) else Replicate() for p in x.placements)
+    w_local = w.to_local(grad_placements=rows[:i] + (Partial(),) + rows[i + 1:])
+    x_local = x.to_local(grad_placements=tuple(x.placements[:i]) + (Partial(),) + tuple(x.placements[i + 1:]))
+    kv = torch.einsum("bsd,dhk->bshk", x_local, w_local[:, lo:hi].to(x_local.dtype))
+    out = kv[:, :, (heads - lo).to(kv.device)]
+    return from_local(out, mesh, split_over(tuple(x.placements), mesh, 2),
+                      (x.shape[0], x.shape[1], h, w.shape[2]))
+
+
+def from_local(t: torch.Tensor, mesh, placements: tuple, shape: tuple):
+    """``DTensor.from_local`` of a rank's block with the global ``shape``
+    given (contiguous strides), so rows split unevenly keep their global
+    count."""
+    from torch.distributed.tensor import DTensor
+
+    stride = tuple(math.prod(shape[k + 1:]) for k in range(len(shape)))
+    return DTensor.from_local(t, mesh, placements, run_check=False, shape=torch.Size(shape),
+                              stride=stride)
 
 
 def _count_exchange(mesh, row_dims: tuple[int, ...]):

@@ -336,21 +336,27 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None, device=Non
 
 def _attn_cache(k: torch.Tensor, v: torch.Tensor, window: int | None,
                 max_len: int | None) -> dict[str, torch.Tensor]:
-    """The decode cache from a prefill's keys and values (B, S, KV, hd)."""
-    s = k.shape[1]
-    if window:
-        # Ring layout: position p lives at slot p % w. The last min(s, w)
-        # positions are a contiguous run, so a roll (s >= w) or
-        # right-padding (s < w) produces the ring.
-        cov = min(s, window)
-        ks_, vs_ = k[:, -cov:], v[:, -cov:]
-        if s >= window:
-            return {"k": torch.roll(ks_, s % window, dims=1), "v": torch.roll(vs_, s % window, dims=1)}
-        pad = (0, 0, 0, 0, 0, window - s)
-    else:
-        ks_, vs_ = k, v
-        pad = (0, 0, 0, 0, 0, (max_len or s) - s)
-    return {"k": torch.nn.functional.pad(ks_, pad), "v": torch.nn.functional.pad(vs_, pad)}
+    """The decode cache from a prefill's keys and values (B, S, KV, hd),
+    laid out by ``layers.cache_layout`` (the layout ``layers.own_cache``
+    builds on each rank)."""
+    length = window or max_len or k.shape[1]
+    return {"k": L.cache_layout(k, window, length), "v": L.cache_layout(v, window, length)}
+
+
+def _attention_with_cache(p: L.Attention, x: torch.Tensor, cfg: ArchConfig, positions,
+                          window: int | None, max_len: int | None) -> tuple[torch.Tensor, dict]:
+    """A self-attention layer's output and decode cache: the cache from
+    the keys and values the attention computed (``_attn_cache``), or on
+    DTensors whose K and V weights are whole over ``model`` while the
+    query heads split there, built on each rank where the decode takes
+    it (``layers.own_cache``), the attention then projecting only each
+    rank's own KV heads from the weights ``own_cache`` gathered."""
+    made = L.own_cache(p, x, cfg, positions, window, window or max_len or x.shape[1])
+    if made is not None:
+        cache, gathered = made
+        return L.attention(gathered, x, cfg=cfg, positions=positions, window=window), cache
+    a, k, v = L.attention(p, x, cfg=cfg, positions=positions, window=window, return_kv=True)
+    return a, _attn_cache(k, v, window, max_len)
 
 
 def _block_with_cache(bd: BlockDef, p: Block, h: torch.Tensor, cfg: ArchConfig, positions,
@@ -364,9 +370,7 @@ def _block_with_cache(bd: BlockDef, p: Block, h: torch.Tensor, cfg: ArchConfig, 
         a, k, v = _cross(p, x, cfg, positions, extras, return_kv=True)
         cache["cross"] = {"k": k, "v": v}
     if bd.mixer in ("attn", "hybrid"):
-        a, k, v = L.attention(p.attn, x, cfg=cfg, positions=positions, window=bd.window,
-                              return_kv=True)
-        cache["attn"] = _attn_cache(k, v, bd.window, max_len)
+        a, cache["attn"] = _attention_with_cache(p.attn, x, cfg, positions, bd.window, max_len)
     if bd.mixer in ("ssm", "hybrid"):
         m, (state, conv) = S.ssd(p.ssm, x, cfg, return_final_state=True)
         cache["ssm"] = {"state": state, "conv": conv}

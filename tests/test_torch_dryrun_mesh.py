@@ -89,15 +89,22 @@ def test_counts_split_with_the_shards(records, kind):
     # products as the forward's (the residual stream's gradient reduced
     # between layers, the attention core on each rank's heads): exactly a
     # quarter at 2x2. At 1x4 the cell's 2 KV heads do not divide the model
-    # axis, so each rank runs the K and V projections whole, the
-    # reference's placement: a quarter plus 3/4 of their products, in the
-    # forward and, for train, the backward's dx and dW.
+    # axis (make_pspecs keeps wk and wv whole there). Each rank projects
+    # only the KV head its one query head reads (sharding.own_kv_heads): 1
+    # of the 2, in training's forward and backward (dx and dW) a quarter
+    # plus 1/4 of the K and V products. A prefill also builds its block of
+    # the cache's sequence with every KV head (layers.own_cache: a quarter
+    # of the products more); a decode step projects every KV head of the
+    # new token (a quarter plus 3/4).
     quarter = one["flops_per_device"] / 4
     assert records[(kind, (2, 2))]["flops_per_device"] == quarter
     c = cfg()
     tokens = B * (1 if kind == "decode" else S)
     kv_products = c.num_layers * 2 * 2 * tokens * c.d_model * c.kv_heads * c.head_dim
-    kv_term = kv_products * (3 if kind == "train" else 1) * 3 // 4
+    own = len({h // (c.q_heads // c.kv_heads) for h in range(c.q_heads // 4)})  # rank 0's: 1 of 2
+    share = {"train": (own * 4 - c.kv_heads, 4 * c.kv_heads), "prefill": (own, c.kv_heads),
+             "decode": (3, 4)}[kind]  # the rank's share of the products less the quarter
+    kv_term = kv_products * (3 if kind == "train" else 1) * share[0] // share[1]
     assert records[(kind, (1, 4))]["flops_per_device"] == quarter + kv_term
 
 
@@ -157,15 +164,13 @@ def test_tensor_parallel_block_collectives_equal_a_hand_count(shape, block):
     output (``wo``, ``w_out``) is a partial sum, one all-reduce forward;
     the column-parallel inputs (``wq``/``wk``/``wv``, ``w_gate``/``w_in``)
     give dx as a partial sum, one all-reduce backward. The cell has 2 KV
-    heads: on a 4-way model axis they do not divide, so K and V are
-    replicated and repeated for the local query heads (``expand_kv``), and
-    their gradients come back by one all-gather each; on 2x2 they divide."""
+    heads: on a 4-way model axis they do not divide, so wk and wv are
+    whole there and each rank projects only the KV head its query head
+    reads (``sharding.own_kv_heads``): their dx joins the same partial sum,
+    and nothing else moves; on 2x2 they divide."""
     fwd, bwd = tp_block_counts(shape, block)
     assert fwd == {"all_reduce": 1}
-    want = {"all_reduce": 1}
-    if block == "attn" and shape == (1, 4):
-        want["all_gather_into_tensor"] = 2
-    assert bwd == want
+    assert bwd == {"all_reduce": 1}
 
 
 def test_cli_writes_mesh_records_and_the_report_reads_them(tmp_path):

@@ -13,7 +13,11 @@ rtol 1e-5, atol 1e-6, and bitwise on 1x1). The model is the reference
 test's reduced granite (``tests/test_mesh_multidevice.py:38-40``). The
 elastic restore is the reference's case (l.57-83) at 4 ranks: saved from
 a (2, 2) world, restored in a (2, 1) world with the placements swapped,
-bitwise."""
+bitwise. Where the KV heads do not divide the model axis while the query
+heads do (``sharding.own_kv_heads``), the same holds of a reduced granite
+with 1 KV head at 1x2 and 2x2 (also under FSDP) and of the reduced
+gemma3-12b with its banded windows at 1x4, each from the reference's
+weights and against its loss."""
 
 import dataclasses
 from pathlib import Path
@@ -28,6 +32,13 @@ TIMEOUT = 300
 LOSS_TOL = dict(rtol=1e-5, atol=0.0)
 STEP_TOL = dict(rtol=1e-5, atol=1e-6)
 BATCH, SEQ = 4, 32
+# The reduced gemma3-12b keeps the registry's window of 1,024; the CPU
+# case cuts it to 8, so SEQ = 32 tokens span 4 windows.
+GEMMA3_WINDOW = 8
+# (config, mesh) whose KV heads do not divide the model axis while the
+# query heads do, so that each model rank projects only its own query
+# heads' KV heads (sharding.own_kv_heads): own_kv_cfgs' configs.
+OWN_CASES = [("kv1", (1, 2)), ("kv1", (2, 2)), ("kv1-fsdp", (2, 2)), ("gemma3", (1, 4))]
 
 
 def reference_cfg():
@@ -68,6 +79,41 @@ def reference():
     return jax.tree.map(np.asarray, jp), float(loss), jcfg
 
 
+def own_kv_cfgs():
+    """label -> (the reference's config, the port's knobs beyond it) of
+    OWN_CASES: ``reference_cfg`` with 4 query heads and 1 KV head, alone
+    and under FSDP (``d`` over ``data``), and the reduced gemma3-12b (4
+    query heads, 2 KV heads; 5 windowed layers and 1 global a pattern)
+    with ``block_local_attn`` on and its window cut to GEMMA3_WINDOW."""
+    from repro.configs import registry as jregistry
+
+    kv1 = reference_cfg().replace(q_heads=4, kv_heads=1)
+    g = jregistry.get("gemma3-12b").reduced()
+    pattern = tuple(dataclasses.replace(b, window=GEMMA3_WINDOW) if b.window else b for b in g.pattern)
+    return {"kv1": (kv1, {}), "kv1-fsdp": (kv1, {"fsdp": True}),
+            "gemma3": (g.replace(pattern=pattern, block_local_attn=True), {})}
+
+
+@pytest.fixture(scope="module")
+def own_references():
+    """label -> (the reference's weights (numpy, seed 0), its one-device
+    loss on them, the port's config) for ``own_kv_cfgs``."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.models import transformer as JT
+
+    toks, tgts = tokens()
+    out, done = {}, {}
+    for label, (jcfg, knobs) in own_kv_cfgs().items():
+        if id(jcfg) not in done:
+            jp = JT.init_params(jcfg, jax.random.PRNGKey(0))
+            loss = jax.jit(lambda p, jcfg=jcfg: JT.loss_fn(p, jnp.asarray(toks), jnp.asarray(tgts), jcfg))(jp)
+            done[id(jcfg)] = (jax.tree.map(np.asarray, jp), float(loss))
+        out[label] = done[id(jcfg)] + (port_cfg(jcfg, **knobs),)
+    return out
+
+
 def one_step(tree, cfg, dmesh=None):
     """(loss, {name: parameter after one step}) of the port's step from
     ``tree``, on ``dmesh`` when given (DTensor parameters, the batch over
@@ -95,10 +141,12 @@ def one_step(tree, cfg, dmesh=None):
     return float(whole(loss)), {n: whole(p) for n, p in model.named_parameters()}, moments
 
 
-def step_world(rank, world_size, tree, cfgs, shapes, ckpt_dir):
+def step_world(rank, world_size, tree, cfgs, shapes, own, ckpt_dir):
     """For each config and mesh shape: the one-device step and the sharded
-    step on this rank. In the world of 4, also a sharded checkpoint save and
-    the trainer's --mesh 2x2 over two steps."""
+    step on this rank; for each of OWN_CASES on this world's size, the
+    one-device step and ``own_steps`` on its mesh (``own``: label -> the
+    reference's weights and the port's config). In the world of 4, also a
+    sharded checkpoint save and the trainer's --mesh 2x2 over two steps."""
     from repro_torch.launch import train
 
     out = {}
@@ -107,6 +155,11 @@ def step_world(rank, world_size, tree, cfgs, shapes, ckpt_dir):
         for shape in shapes:
             dm = M.device_mesh(M.make_mesh(shape, ("data", "model")), "cpu")
             out[(label, shape)] = one_step(tree, cfg, dm)
+    for label, shape in OWN_CASES:
+        if shape[0] * shape[1] == world_size:
+            if ("own", label, None) not in out:
+                out[("own", label, None)] = one_step(*own[label])
+            out[("own", label, shape)] = own_steps(*own[label], shape)
     if world_size == 4:
         out["saved"] = save_sharded(ckpt_dir)
         argv = ["--arch", "granite-3-8b", "--reduced", "--device", "cpu", "--steps", "2",
@@ -117,8 +170,9 @@ def step_world(rank, world_size, tree, cfgs, shapes, ckpt_dir):
 
 
 @pytest.fixture(scope="module")
-def worlds(reference, tmp_path_factory):
+def worlds(reference, own_references, tmp_path_factory):
     tree, _, jcfg = reference
+    own = {label: (t, cfg) for label, (t, _, cfg) in own_references.items()}
     ckpt = tmp_path_factory.mktemp("ckpt")
     cfgs = {"adamw": port_cfg(jcfg), "adamw_bf16": port_cfg(jcfg, adam_moments_bf16=True),
             "adafactor": port_cfg(jcfg, use_adafactor=True)}
@@ -127,7 +181,7 @@ def worlds(reference, tmp_path_factory):
     for n, shapes in run.items():
         use = cfgs if n == 4 else {"adamw": cfgs["adamw"]}
         out[n] = M.run_world(step_world, n, "gloo", tmp_path_factory.mktemp(f"world{n}"),
-                             args=(tree, use, shapes, ckpt), timeout=TIMEOUT)
+                             args=(tree, use, shapes, own, ckpt), timeout=TIMEOUT)
     return out, ckpt
 
 
@@ -153,6 +207,85 @@ def test_sharded_step(worlds, reference, n, shape):
                 torch.testing.assert_close(mu[name], mu1[name], rtol=1e-4, atol=1e-5, msg=name)
         if shape == (1, 1):
             assert loss == loss1
+
+
+def own_steps(tree, cfg, shape):
+    """The step of ``one_step`` on a mesh of ``shape``, and the local
+    shapes of q and k at each ``banded_attention`` call and of the K and V
+    projections ``sharding.own_kv_heads`` made."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import sharding as sh
+
+    dm = M.device_mesh(M.make_mesh(shape, ("data", "model")), "cpu")
+    calls, own, saved = [], [], (L.banded_attention, sh.own_kv_heads)
+
+    def recorded(q, k, v, window):
+        calls.append((tuple(q.shape), tuple(k.shape), window))
+        return saved[0](q, k, v, window)
+
+    def counted(*args):
+        out = saved[1](*args)
+        own.append(tuple(out.to_local().shape))
+        return out
+
+    L.banded_attention, sh.own_kv_heads = recorded, counted
+    try:
+        return one_step(tree, cfg, dm), calls, own
+    finally:
+        L.banded_attention, sh.own_kv_heads = saved
+
+
+def check_own_step(worlds, own_references, label, shape):
+    """On every rank of ``label``'s world on ``shape``: each K and V
+    projection of each attention layer was each rank's own query heads'
+    (``sharding.own_kv_heads``: its rows, H / model heads); the loss
+    within LOSS_TOL of the reference's one-device loss; the parameters and
+    first moments after one AdamW step as in ``test_sharded_step``,
+    against the one-device step. Returns each rank's ``banded_attention``
+    calls."""
+    _, jloss, cfg = own_references[label]
+    layers = sum(1 for bd in cfg.layer_defs() if bd.mixer == "attn")
+    heads = (BATCH // shape[0], SEQ, cfg.q_heads // shape[1], cfg.head_dim)
+    out = []
+    for rank_out in worlds[0][shape[0] * shape[1]]:
+        loss1, params1, mu1 = rank_out[("own", label, None)]
+        (loss, params, mu), calls, own = rank_out[("own", label, shape)]
+        assert len(own) >= 2 * layers and all(o == heads for o in own), own
+        np.testing.assert_allclose(loss, jloss, **LOSS_TOL)
+        for name, p in params.items():
+            torch.testing.assert_close(p, params1[name], **STEP_TOL, msg=name)
+            torch.testing.assert_close(mu[name], mu1[name], rtol=1e-4, atol=1e-5, msg=name)
+        out.append(calls)
+    return out
+
+
+KV1_CASES = [(label, shape) for label, shape in OWN_CASES if label != "gemma3"]
+
+
+@pytest.mark.parametrize("label,shape", KV1_CASES, ids=[f"{c}-{s[0]}x{s[1]}" for c, s in KV1_CASES])
+def test_own_kv_heads_step(worlds, own_references, label, shape):
+    """``reference_cfg`` with 4 query heads and 1 KV head: the KV head does
+    not divide the 2-way model axis (wk and wv whole there, as 8 KV heads
+    on a 16-way axis), so each rank projects it for its 2 query heads
+    only, with the batch over ``data`` at 2x2 and, under FSDP, wk and wv
+    split over ``data`` too; their gradients partial sums over ``model``
+    and the rows' ``data``. ``check_own_step``."""
+    assert not any(check_own_step(worlds, own_references, label, shape))
+
+
+def test_gemma3_own_kv_heads_through_k5(worlds, own_references):
+    """The reduced gemma3-12b at 1x4 with ``block_local_attn`` and a
+    sequence of 4 windows, from the reference's weights: its 2 KV heads do
+    not divide the model axis, so each rank projects only the KV head its
+    one query head reads and its windowed layers reach
+    ``banded_attention`` through ``local_heads`` on that head's q, k and v.
+    ``check_own_step``."""
+    cfg = own_references["gemma3"][2]
+    windowed = sum(1 for bd in cfg.layer_defs() if bd.window)
+    local = (BATCH, SEQ, 1, cfg.head_dim)
+    for calls in check_own_step(worlds, own_references, "gemma3", (1, 4)):
+        assert windowed and len(calls) >= windowed
+        assert all(c == (local, local, GEMMA3_WINDOW) for c in calls), calls
 
 
 @pytest.mark.parametrize("label", ["adamw_bf16", "adafactor"])
