@@ -57,7 +57,7 @@ def histogram_scatter(
     flat = values.reshape(-1, values.shape[-1])
     idx = _bin_index(flat, vmin.reshape(-1), vmax.reshape(-1), num_bins)
     out = torch.zeros((flat.shape[0], num_bins), dtype=values.dtype, device=values.device)
-    out.scatter_add_(1, idx, torch.ones_like(flat))
+    out.scatter_add_(1, idx, torch.ones_like(flat))  # repro: allow[DET]: adds ones, exact below 2^24 counts
     return out.reshape(p + (num_bins,))
 
 

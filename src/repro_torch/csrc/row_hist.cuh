@@ -56,9 +56,9 @@ __device__ __forceinline__ void block_row_histogram(const float* __restrict__ xr
   auto count = [&](float v) {
     const int b = interval_bin(v, lo, span, fl, top);
     if constexpr (kChunked) {
-      if ((unsigned)(b - c0) < (unsigned)C) atomicAdd(hist + (b - c0), 1);
+      if ((unsigned)(b - c0) < (unsigned)C) atomicAdd(hist + (b - c0), 1);  // repro: allow[DET]: int count, exact in any order
     } else {
-      atomicAdd(hist + b, 1);
+      atomicAdd(hist + b, 1);  // repro: allow[DET]: int count, exact in any order
     }
   };
 

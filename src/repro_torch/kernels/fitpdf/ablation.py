@@ -55,9 +55,9 @@ _NO_EPILOGUE = ("  if (threadIdx.x < T) err[row * T + threadIdx.x] = (float)hist
 _COUNT = """  auto count = [&](float v) {
     const int b = interval_bin(v, lo, span, fl, top);
     if constexpr (kChunked) {
-      if ((unsigned)(b - c0) < (unsigned)C) atomicAdd(hist + (b - c0), 1);
+      if ((unsigned)(b - c0) < (unsigned)C) atomicAdd(hist + (b - c0), 1);  // repro: allow[DET]: int count, exact in any order
     } else {
-      atomicAdd(hist + b, 1);
+      atomicAdd(hist + b, 1);  // repro: allow[DET]: int count, exact in any order
     }
   };"""
 _END = "  __syncthreads();\n}\n"  # the histogram's last statement

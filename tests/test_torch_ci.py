@@ -302,6 +302,7 @@ def test_workflow_runs_only_the_port_on_the_cpu(workflows):
     modules, launches = set(), 0
     for name, job in port["jobs"].items():
         for line in _commands(job):
+            assert not re.search(r"-m\s+repro\.", line), (name, line)
             assert not re.search(r"\brepro\.(launch|runtime)\b", line), (name, line)
             assert not re.search(r"(?<!repro_torch/)\blaunch/cluster\.sh", line), (name, line)
             modules.update(re.findall(r"-m (repro_torch[\w.]*)", line))
@@ -310,6 +311,10 @@ def test_workflow_runs_only_the_port_on_the_cpu(workflows):
                 assert "--device cpu" in line, (name, line)
     assert launches >= 10
     assert {"repro_torch.launch.run_pdf", "repro_torch.launch.serve_pdf",
-            "repro_torch.launch.dryrun_pdf", "repro_torch.api.cli"} <= modules
+            "repro_torch.launch.dryrun_pdf", "repro_torch.api.cli",
+            "repro_torch.analysis"} <= modules
+    lint = _commands(port["jobs"]["lint-invariants-torch"])
+    assert {"python -m repro_torch.analysis",
+            "python -m repro_torch.analysis --self-check"} <= {line.strip() for line in lint}
     for m in sorted(modules):
         importlib.import_module(m)

@@ -126,17 +126,16 @@ def test_multi_device_modules_are_covered():
     """The multi-device half (the pipeline stages beside the mesh,
     placements, compression, grouping and loader modules it extends) is
     among the modules checked above, and the port's module list now holds
-    every module of the reference's but ``analysis`` (its lint runs on the
-    port as it is) and two plain versions that live in the port's
-    ``kernel.py`` files."""
+    every module of the reference's, its invariant lint ``analysis``
+    included, but two plain versions that live in the port's ``kernel.py``
+    files."""
     assert {"repro_torch.launch.pipeline_pp", "repro_torch.launch.mesh",
             "repro_torch.models.sharding", "repro_torch.optim.compression",
             "repro_torch.core.grouping", "repro_torch.data.loader"} <= set(MODULES)
     ref = {".".join(p.relative_to(ROOT / "src" / "repro").with_suffix("").parts).removesuffix(
         ".__init__") for p in (ROOT / "src" / "repro").rglob("*.py")}
     port = {m.removeprefix("repro_torch.") for m in MODULES}
-    missing = {m for m in ref - port if not m.startswith("analysis")}
-    assert missing == {"kernels.hist.ref", "kernels.moments.ref"}
+    assert ref - port == {"kernels.hist.ref", "kernels.moments.ref"}
 
 
 TEST_FILES = sorted((ROOT / "tests").glob("test_torch_*.py"))
