@@ -2688,6 +2688,25 @@ def device_total_us(e) -> float:
     return 0.0
 
 
+def device_busy_ms(prof) -> float:
+    """The union of the profile's device intervals (kernels, copies, sets)
+    in ms, as ``portbench/trace.py`` takes it: where launches overlap their
+    time counts once. A host range's annotation on the device's timeline
+    (a ``record_function``) is not device work and is left out."""
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    ranges = {e.name for e in events if e.device_type != DeviceType.CUDA}
+    busy, end = 0.0, None
+    for s, e in sorted((e.time_range.start, e.time_range.end) for e in events
+                       if e.device_type == DeviceType.CUDA and e.name not in ranges):
+        if end is None or s > end:
+            busy, end = busy + (e - s), e
+        elif e > end:
+            busy, end = busy + (e - end), e
+    return busy / 1e3
+
+
 def device_events(prof) -> list:
     """The profile's device-side rows (kernels, copies), longest first."""
     from torch.autograd import DeviceType
@@ -3221,38 +3240,27 @@ def xmodel_phase(np, torch, dev, smi, label, arch, layers, bf16_params, batch):
 
 
 def ssd_event_times(torch, model, cfg, prompt, dev) -> dict:
-    """The SSD's device time in one prefill, by CUDA events recorded around
-    each ``ssd`` call and each inter-chunk scan (the functions wrapped for
-    this prefill only). The host runs ahead of the card in a prefill (the
-    profile's idle share ~0), so each pair brackets that call's kernels."""
-    from repro_torch.models import ssm as S
+    """The SSD's device time in one prefill, by the program's own spans
+    (``runtime.trace``, on for this prefill only): ``ssd`` around each
+    call and ``ssd.scan`` around its inter-chunk scan, each a pair of CUDA
+    events. The host runs ahead of the card in a prefill (the profile's
+    idle share ~0), so each pair brackets that call's kernels."""
     from repro_torch.models import transformer as T
+    from repro_torch.runtime import trace
 
-    spans = {"ssd": [], "scan": []}
-
-    def timed(fn, name):
-        def call(*args, **kw):
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            out = fn(*args, **kw)
-            b.record()
-            spans[name].append((a, b))
-            return out
-        return call
-
-    saved = S.ssd, S._chunk_scan
-    S.ssd, S._chunk_scan = timed(saved[0], "ssd"), timed(saved[1], "scan")
+    sync(torch, dev)
+    trace.enable(dev)
     try:
-        sync(torch, dev)
         t0 = time.perf_counter()
         T.prefill(model, prompt, cfg, max_len=LM_PROMPT + LM_TOKENS)
         sync(torch, dev)
         wall_ms = (time.perf_counter() - t0) * 1e3
     finally:
-        S.ssd, S._chunk_scan = saved
-    ms = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
-    return dict(prefill_ms=wall_ms, ssd_calls=len(spans["ssd"]), ssd_ms=ms["ssd"], scan_ms=ms["scan"],
-                ssd_share=ms["ssd"] / wall_ms)
+        trace.disable()
+        spans = trace.drain()
+    ms = {k: sum(s.ms for s in spans if s.name == k) for k in ("ssd", "ssd.scan")}
+    return dict(prefill_ms=wall_ms, ssd_calls=sum(s.name == "ssd" for s in spans), ssd_ms=ms["ssd"],
+                scan_ms=ms["ssd.scan"], ssd_share=ms["ssd"] / wall_ms)
 
 
 def profile_lm(torch, model, cfg, prompt, dev, prefill_s, decode_ms, label="lm", extras=None):
@@ -3278,7 +3286,7 @@ def profile_lm(torch, model, cfg, prompt, dev, prefill_s, decode_ms, label="lm",
     for what, p, wall_ms in (("prefill", prof, prefill_s * 1e3), ("decode step", prof_d, decode_ms)):
         tag = f"[profile {label} {what}]"
         kern = device_events(p)
-        busy_ms = sum(device_us(e) for e in kern) / 1e3
+        busy_ms = device_busy_ms(p)
         if not kern or busy_ms == 0:
             log(f"{tag} the profiler saw no device time: device busy share not measured")
             continue
@@ -3416,29 +3424,20 @@ def live_state(model, opt) -> dict:
 
 
 def banded_backward_times(torch, fn):
-    """Run ``fn()`` with CUDA events around each call of K5's backward
-    (``band_attn.ops.banded_attention_backward``, wrapped for this call
-    only); returns (fn's result, the backward's calls, its device ms)."""
-    from repro_torch.kernels.band_attn import ops
+    """Run ``fn()`` with the program's spans on (``runtime.trace``) and
+    read its ``band_bwd`` spans, CUDA events around each call of K5's
+    backward (``band_attn.ops.BandedAttention.backward``); returns (fn's
+    result, the backward's calls, its device ms)."""
+    from repro_torch.runtime import trace
 
-    spans = []
-    real = ops.banded_attention_backward
-
-    def timed(*args):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        out = real(*args)
-        b.record()
-        spans.append((a, b))
-        return out
-
-    ops.banded_attention_backward = timed
+    trace.enable()
     try:
         out = fn()
         torch.cuda.synchronize()
     finally:
-        ops.banded_attention_backward = real
-    return out, len(spans), sum(a.elapsed_time(b) for a, b in spans)
+        trace.disable()
+        spans = [s for s in trace.drain() if s.name == "band_bwd"]
+    return out, len(spans), sum(s.ms for s in spans)
 
 
 def profile_train_step(torch, fn, step_ms, label):
@@ -3453,7 +3452,7 @@ def profile_train_step(torch, fn, step_ms, label):
         torch.cuda.synchronize()
     tag = f"[profile {label} step]"
     kern = device_events(prof)
-    busy_ms = sum(device_us(e) for e in kern) / 1e3
+    busy_ms = device_busy_ms(prof)
     if not kern or busy_ms == 0:
         log(f"{tag} the profiler saw no device time: device busy share not measured")
         return result, {}

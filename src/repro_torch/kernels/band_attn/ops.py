@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.kernels.band_attn.kernel import banded_attention_kernel
 from repro_torch.kernels.band_attn.ref import block_local_attention
+from repro_torch.runtime import trace
 
 
 def banded_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int,
@@ -46,7 +47,8 @@ class BandedAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         q, k, v = ctx.saved_tensors
-        return (*banded_attention_backward(q, k, v, ctx.window, grad), None)
+        with trace.span("band_bwd", phase="backward"):
+            return (*banded_attention_backward(q, k, v, ctx.window, grad), None)
 
 
 def banded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -57,7 +57,7 @@ from repro_torch.models import sharding as sh
 from repro_torch.models import transformer as T
 from repro_torch.optim import (AdamWConfig, adafactor_init, adafactor_update, adamw_init,
                                adamw_update, cosine_schedule, global_norm)
-from repro_torch.runtime import StepMonitor
+from repro_torch.runtime import StepMonitor, trace
 
 
 def adamw_config(cfg: ArchConfig, opt_cfg: AdamWConfig) -> AdamWConfig:
@@ -84,8 +84,10 @@ def value_and_grad(model, batch: dict, cfg: ArchConfig) -> tuple[torch.Tensor, d
     gradients."""
     names, params = zip(*model.named_parameters())
     with torch.enable_grad():
-        loss = loss_of(model, batch, cfg)
-        grads = torch.autograd.grad(loss, params, allow_unused=True, materialize_grads=True)
+        with trace.span("train.forward", phase="forward"):
+            loss = loss_of(model, batch, cfg)
+        with trace.span("train.backward", phase="backward"):
+            grads = torch.autograd.grad(loss, params, allow_unused=True, materialize_grads=True)
     return loss.detach(), dict(zip(names, grads))
 
 
@@ -98,7 +100,9 @@ def build_step(cfg: ArchConfig, opt_cfg: AdamWConfig, total_steps: int, accum: i
     optimizer's step before the update. On DTensor parameters
     (``sharding.distribute_params``) the same code runs under
     ``implicit_replication``, each gradient placed as its parameter before
-    the update, and the loss and norm come back whole."""
+    the update, and the loss and norm come back whole. Traced as a unit,
+    the span ``train.step``: ``train.forward``, ``train.backward`` (each
+    micro-batch's) and ``train.optimizer``."""
     adamw_cfg = adamw_config(cfg, opt_cfg)
 
     def step(model, opt, batch):
@@ -107,7 +111,8 @@ def build_step(cfg: ArchConfig, opt_cfg: AdamWConfig, total_steps: int, accum: i
         sharded = sh.is_dtensor(next(iter(params.values())))
         # implicit_replication: the plain tensors the model makes (positions,
         # masks, the step counter) count as replicated beside the DTensors.
-        with sh.implicit_replication() if sharded else contextlib.nullcontext():
+        with trace.span("train.step", unit=True), \
+                sh.implicit_replication() if sharded else contextlib.nullcontext():
             return _step(model, opt, batch, params, sharded)
 
     def _step(model, opt, batch, params, sharded):
@@ -125,12 +130,13 @@ def build_step(cfg: ArchConfig, opt_cfg: AdamWConfig, total_steps: int, accum: i
             grads = {n: g / accum for n, g in grads.items()}
         if sharded:
             grads = {n: _placed_as(g, params[n]) for n, g in grads.items()}
-        lr_scale = cosine_schedule(opt.step, warmup=max(total_steps // 20, 1), total=total_steps)
-        if cfg.use_adafactor:
-            _, opt = adafactor_update(grads, opt, params, lr=opt_cfg.lr * lr_scale)
-            gnorm = global_norm(grads.values())
-        else:
-            _, opt, gnorm = adamw_update(grads, opt, params, adamw_cfg, lr_scale)
+        with trace.span("train.optimizer"):
+            lr_scale = cosine_schedule(opt.step, warmup=max(total_steps // 20, 1), total=total_steps)
+            if cfg.use_adafactor:
+                _, opt = adafactor_update(grads, opt, params, lr=opt_cfg.lr * lr_scale)
+                gnorm = global_norm(grads.values())
+            else:
+                _, opt, gnorm = adamw_update(grads, opt, params, adamw_cfg, lr_scale)
         if sharded:  # the loss and the norm whole on every rank, as plain tensors
             loss, gnorm = (t.full_tensor() if sh.is_dtensor(t) else t for t in (loss, gnorm))
         return model, opt, loss, gnorm

@@ -36,6 +36,7 @@ from torch import nn
 
 from repro_torch.kernels.band_attn.ops import banded_attention
 from repro_torch.models import sharding as sh
+from repro_torch.runtime import trace
 
 
 def empty_param(shape, dtype, device) -> nn.Parameter:
@@ -395,10 +396,16 @@ def attention(p: Attention, x: torch.Tensor, *, cfg, positions: torch.Tensor,
             k = rope(k, positions, cfg.rope_theta)
 
     if kv_x is None and window is not None and cfg.block_local_attn and q.shape[1] > window:
-        out = sh.local_heads(banded_attention, q, k, v, window)
+        with trace.span("attn.band"):
+            out = sh.local_heads(banded_attention, q, k, v, window)
     else:
         rows = None if kv_x is not None else sh.rows_like(positions, q)
-        out = sh.local_heads(_masked_attention, q, k, v, rows, causal, window, cdt)
+        # The span attn.global, its backward too: a self-attention layer without a window.
+        sp = trace.span("attn.global") if kv_x is None and window is None else trace.OFF
+        q, k, v = sp.grad_in(q, k, v)
+        with sp:
+            out = sh.local_heads(_masked_attention, q, k, v, rows, causal, window, cdt)
+        out = sp.grad_out(out)
     y = _out_proj(p, out, cdt)
     return (y, k, v) if return_kv else y
 

@@ -34,6 +34,7 @@ from torch import nn
 
 from repro_torch.models.layers import RMSNorm, dense_init_, empty_param, rmsnorm, scaled_rmsnorm
 from repro_torch.models import sharding as sh
+from repro_torch.runtime import trace
 
 
 def ssm_dims(cfg) -> tuple[int, int]:
@@ -143,64 +144,83 @@ def ssd(p: SSD, x_in: torch.Tensor, cfg, return_final_state: bool = False):
 
 
 def _ssd(p: SSD, x_in: torch.Tensor, cfg, return_final_state: bool = False):
-    cdt = cfg.compute_dtype
-    b, orig_s, _ = x_in.shape
-    g, n, q, k = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_chunk, cfg.ssm_conv
-    d_inner, h = ssm_dims(cfg)
-    pdim, hpg = cfg.ssm_head_dim, h // g
-    # Pad S to a chunk multiple; padded steps get dt = 0 (identity state
-    # transition, zero input), so the outputs and the final state do not
-    # see them.
-    pad = (-orig_s) % q
-    if pad:
-        x_in = F.pad(x_in, (0, 0, 0, pad))
-    s = orig_s + pad
-    nc = s // q
+    """``ssd`` on plain tensors, traced as the span ``ssd``, its backward
+    too (on DTensors: each rank's, on its own rows). The backward's
+    boundaries sit just outside the span, so its parts cover it."""
+    sp = trace.span("ssd")
+    (x_in,) = sp.grad_in(x_in)
+    with sp:
+        out = _ssd_parts(p, x_in, cfg, return_final_state)
+    return out if return_final_state else sp.grad_out(out)
 
-    z, xbc_raw, dt_raw = _split_proj(p, x_in.to(cdt), cfg)
-    xbc = _causal_conv(p, xbc_raw)
-    x, bmat, cmat = torch.split(xbc, [d_inner, g * n, g * n], dim=-1)
 
-    dt = F.softplus(dt_raw.float() + p.dt_bias)  # (B, S, H)
-    if pad:
-        valid = (torch.arange(s, device=dt.device) < orig_s)[None, :, None]
-        dt = torch.where(valid, dt, torch.zeros((), dtype=dt.dtype, device=dt.device))
-    da = dt * -torch.exp(p.a_log)  # (B, S, H) log-decay a step
+def _ssd_parts(p: SSD, x_in: torch.Tensor, cfg, return_final_state: bool):
+    """The SSD's six parts, each a span: ssd.proj ... ssd.out cover it whole."""
+    with trace.span("ssd.proj"):
+        cdt = cfg.compute_dtype
+        b, orig_s, _ = x_in.shape
+        g, n, q, k = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_chunk, cfg.ssm_conv
+        d_inner, h = ssm_dims(cfg)
+        pdim, hpg = cfg.ssm_head_dim, h // g
+        # Pad S to a chunk multiple; padded steps get dt = 0 (identity state
+        # transition, zero input), so the outputs and the final state do not
+        # see them.
+        pad = (-orig_s) % q
+        if pad:
+            x_in = F.pad(x_in, (0, 0, 0, pad))
+        s = orig_s + pad
+        nc = s // q
 
-    xh = x.reshape(b, nc, q, h, pdim)
-    bm = bmat.reshape(b, nc, q, g, n)
-    cm = cmat.reshape(b, nc, q, g, n)
-    ca = torch.cumsum(da.reshape(b, nc, q, h), dim=2)  # inclusive, float32
-    xdt = xh * dt.reshape(b, nc, q, h)[..., None].to(cdt)
+        z, xbc_raw, dt_raw = _split_proj(p, x_in.to(cdt), cfg)
+        xbc = _causal_conv(p, xbc_raw)
+        x, bmat, cmat = torch.split(xbc, [d_inner, g * n, g * n], dim=-1)
 
-    cb = torch.einsum("bcqgn,bckgn->bcgqk", cm, bm).repeat_interleave(hpg, dim=2)  # (B,Nc,H,Q,Q)
-    m = _intra_chunk(cb, ca).to(cdt)
-    del cb
-    y_intra = torch.einsum("bchqk,bckhp->bcqhp", m, xdt)
-    del m
+        dt = F.softplus(dt_raw.float() + p.dt_bias)  # (B, S, H)
+        if pad:
+            valid = (torch.arange(s, device=dt.device) < orig_s)[None, :, None]
+            dt = torch.where(valid, dt, torch.zeros((), dtype=dt.dtype, device=dt.device))
+        da = dt * -torch.exp(p.a_log)  # (B, S, H) log-decay a step
+
+        xh = x.reshape(b, nc, q, h, pdim)
+        bm = bmat.reshape(b, nc, q, g, n)
+        cm = cmat.reshape(b, nc, q, g, n)
+        ca = torch.cumsum(da.reshape(b, nc, q, h), dim=2)  # inclusive, float32
+        xdt = xh * dt.reshape(b, nc, q, h)[..., None].to(cdt)
+
+    with trace.span("ssd.intra"):
+        cb = torch.einsum("bcqgn,bckgn->bcgqk", cm, bm).repeat_interleave(hpg, dim=2)  # (B,Nc,H,Q,Q)
+        m = _intra_chunk(cb, ca).to(cdt)
+        del cb
+        y_intra = torch.einsum("bchqk,bckhp->bcqhp", m, xdt)
+        del m
 
     # Chunk states S_c = sum_j exp(ca_last - ca_j) B_j (dt_j x_j)^T, in
     # float32 from here to the scan.
-    tail = torch.exp(ca[..., -1:, :] - ca)  # (B, Nc, Q, H)
-    bx = torch.einsum("bcqhn,bcqhp->bchnp", bm.repeat_interleave(hpg, dim=3),
-                      xdt * tail[..., None].to(cdt)).float()
-    gamma = torch.exp(ca[:, :, -1, :])  # (B, Nc, H) a chunk's total decay
+    with trace.span("ssd.states"):
+        tail = torch.exp(ca[..., -1:, :] - ca)  # (B, Nc, Q, H)
+        bx = torch.einsum("bcqhn,bcqhp->bchnp", bm.repeat_interleave(hpg, dim=3),
+                          xdt * tail[..., None].to(cdt)).float()
+        gamma = torch.exp(ca[:, :, -1, :])  # (B, Nc, H) a chunk's total decay
 
-    states = _chunk_scan(bx, gamma)
-    h_before = torch.cat([torch.zeros_like(states[:, :1]), states[:, :-1]], dim=1).to(cdt)
+    with trace.span("ssd.scan"):
+        states = _chunk_scan(bx, gamma)
 
-    y_inter = torch.einsum("bcqhn,bchnp->bcqhp", cm.repeat_interleave(hpg, dim=3),
-                           h_before) * torch.exp(ca)[..., None].to(cdt)
-    y = (y_intra + y_inter + xh * p.d_skip.to(cdt)[:, None]).reshape(b, s, d_inner)
-    y = rmsnorm(p.norm, y * F.silu(z))
-    out = (y @ p.out_proj.to(cdt))[:, :orig_s]
+    with trace.span("ssd.inter"):
+        h_before = torch.cat([torch.zeros_like(states[:, :1]), states[:, :-1]], dim=1).to(cdt)
+        y_inter = torch.einsum("bcqhn,bchnp->bcqhp", cm.repeat_interleave(hpg, dim=3),
+                               h_before) * torch.exp(ca)[..., None].to(cdt)
 
-    if not return_final_state:
-        return out
-    final_state = states[:, -1].to(cdt)  # (B, H, N, P): padded steps have dt = 0
-    # The last K - 1 pre-conv inputs, zeros before the first token.
-    conv_tail = F.pad(xbc_raw[:, :orig_s], (0, 0, k - 1, 0))[:, orig_s:orig_s + k - 1]
-    return out, (final_state, conv_tail)
+    with trace.span("ssd.out"):
+        y = (y_intra + y_inter + xh * p.d_skip.to(cdt)[:, None]).reshape(b, s, d_inner)
+        y = rmsnorm(p.norm, y * F.silu(z))
+        out = (y @ p.out_proj.to(cdt))[:, :orig_s]
+
+        if not return_final_state:
+            return out
+        final_state = states[:, -1].to(cdt)  # (B, H, N, P): padded steps have dt = 0
+        # The last K - 1 pre-conv inputs, zeros before the first token.
+        conv_tail = F.pad(xbc_raw[:, :orig_s], (0, 0, k - 1, 0))[:, orig_s:orig_s + k - 1]
+        return out, (final_state, conv_tail)
 
 
 def init_ssd_cache(cfg, batch: int, dtype, device=None) -> dict[str, torch.Tensor]:

@@ -46,6 +46,7 @@ from repro_torch.core.pipeline import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import sharding as sh
 from repro_torch.models import ssm as S
+from repro_torch.runtime import trace
 
 
 def _mask_padded_logits(logits: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
@@ -150,13 +151,14 @@ def _with_ffn(bd: BlockDef, p: Block, h: torch.Tensor, cfg: ArchConfig) -> torch
     h = sh.as_rows(h)
     if bd.ffn == "none":
         return h
-    x = L.rmsnorm(p.ln2, h, cfg.norm_eps)
-    if bd.ffn == "dense":
-        return sh.as_rows(h + L.mlp(p.mlp, x, cfg))
-    f = L.moe(p.moe, x, cfg)
-    if bd.ffn == "moe_dense":
-        f = f + L.mlp(p.mlp, x, cfg)
-    return sh.as_rows(h + f)
+    with trace.span("ffn"):
+        x = L.rmsnorm(p.ln2, h, cfg.norm_eps)
+        if bd.ffn == "dense":
+            return sh.as_rows(h + L.mlp(p.mlp, x, cfg))
+        f = L.moe(p.moe, x, cfg)
+        if bd.ffn == "moe_dense":
+            f = f + L.mlp(p.mlp, x, cfg)
+        return sh.as_rows(h + f)
 
 
 def apply_block(bd: BlockDef, p: Block, h: torch.Tensor, cfg: ArchConfig, positions,
@@ -258,10 +260,12 @@ def _aux(bd: BlockDef, p: Block, h: torch.Tensor, cfg: ArchConfig) -> torch.Tens
 
 
 def _train_block(bd: BlockDef, p: Block, h: torch.Tensor, cfg: ArchConfig, positions,
-                extras=None) -> tuple[torch.Tensor, torch.Tensor]:
-    """``apply_block`` that also returns the layer's aux loss."""
-    h = h + _mixer(bd, p, h, cfg, positions, extras)
-    return _with_ffn(bd, p, h, cfg), _aux(bd, p, h, cfg)
+                 extras=None, layer: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """``apply_block`` that also returns the layer's aux loss; the span
+    ``block`` of layer ``layer``."""
+    with trace.span("block", layer=layer):
+        h = h + _mixer(bd, p, h, cfg, positions, extras)
+        return _with_ffn(bd, p, h, cfg), _aux(bd, p, h, cfg)
 
 
 def _ce_terms(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -292,7 +296,8 @@ def loss_fn(params: Transformer, tokens: torch.Tensor, targets: torch.Tensor, cf
     aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
     n_pre = len(cfg.prefix)
     for i, (bd, p) in enumerate(zip(cfg.layer_defs(), params.layers)):
-        fn = functools.partial(_train_block, bd, p, cfg=cfg, positions=positions, extras=extras)
+        fn = functools.partial(_train_block, bd, p, cfg=cfg, positions=positions, extras=extras,
+                               layer=i)
         h, aux = (fn if i < n_pre else _remat(fn, cfg))(h)
         aux_total = aux_total + aux
     h = L.rmsnorm(params.final_norm, h, cfg.norm_eps)
@@ -360,21 +365,23 @@ def _attention_with_cache(p: L.Attention, x: torch.Tensor, cfg: ArchConfig, posi
 
 
 def _block_with_cache(bd: BlockDef, p: Block, h: torch.Tensor, cfg: ArchConfig, positions,
-                      max_len: int | None, extras) -> tuple[torch.Tensor, dict]:
+                      max_len: int | None, extras, layer: int | None = None) -> tuple[torch.Tensor, dict]:
     """``apply_block`` that also returns the layer's cache, built from the
     keys and values its attention computed (the memory's for a cross
-    layer) and its SSD's final state and conv tail."""
-    x = L.rmsnorm(p.ln1, h, cfg.norm_eps)
-    cache, a, m = {}, None, None
-    if bd.mixer == "cross_attn":
-        a, k, v = _cross(p, x, cfg, positions, extras, return_kv=True)
-        cache["cross"] = {"k": k, "v": v}
-    if bd.mixer in ("attn", "hybrid"):
-        a, cache["attn"] = _attention_with_cache(p.attn, x, cfg, positions, bd.window, max_len)
-    if bd.mixer in ("ssm", "hybrid"):
-        m, (state, conv) = S.ssd(p.ssm, x, cfg, return_final_state=True)
-        cache["ssm"] = {"state": state, "conv": conv}
-    return _with_ffn(bd, p, h + _fuse(p, a, m, cfg), cfg), cache
+    layer) and its SSD's final state and conv tail; the span ``block`` of
+    layer ``layer``."""
+    with trace.span("block", layer=layer):
+        x = L.rmsnorm(p.ln1, h, cfg.norm_eps)
+        cache, a, m = {}, None, None
+        if bd.mixer == "cross_attn":
+            a, k, v = _cross(p, x, cfg, positions, extras, return_kv=True)
+            cache["cross"] = {"k": k, "v": v}
+        if bd.mixer in ("attn", "hybrid"):
+            a, cache["attn"] = _attention_with_cache(p.attn, x, cfg, positions, bd.window, max_len)
+        if bd.mixer in ("ssm", "hybrid"):
+            m, (state, conv) = S.ssd(p.ssm, x, cfg, return_final_state=True)
+            cache["ssm"] = {"state": state, "conv": conv}
+        return _with_ffn(bd, p, h + _fuse(p, a, m, cfg), cfg), cache
 
 
 @sh.serving
@@ -384,16 +391,18 @@ def prefill(params: Transformer, tokens: torch.Tensor, cfg: ArchConfig, extras=N
     last position (B, V) f32, caches). ``max_len`` sizes full-attention
     caches for later ``decode_step`` writes (default: the prompt length).
     On DTensors the attention and SSD caches leave placed as the decode
-    steps take them (``sharding.place_caches``)."""
-    b, s = tokens.shape
-    positions = _positions(b, s, tokens.device)
-    h = sh.as_rows(sh.lookup(params, tokens).to(cfg.compute_dtype))
-    caches = []
-    for bd, p in zip(cfg.layer_defs(), params.layers):
-        h, c = _block_with_cache(bd, p, h, cfg, positions, max_len, extras)
-        caches.append(c)
-    h = L.rmsnorm(params.final_norm, h, cfg.norm_eps)
-    return _logits(params, h[:, -1], cfg), sh.place_caches(caches)
+    steps take them (``sharding.place_caches``). Traced as a unit, the
+    span ``prefill``."""
+    with trace.span("prefill", unit=True, phase="forward"):
+        b, s = tokens.shape
+        positions = _positions(b, s, tokens.device)
+        h = sh.as_rows(sh.lookup(params, tokens).to(cfg.compute_dtype))
+        caches = []
+        for i, (bd, p) in enumerate(zip(cfg.layer_defs(), params.layers)):
+            h, c = _block_with_cache(bd, p, h, cfg, positions, max_len, extras, layer=i)
+            caches.append(c)
+        h = L.rmsnorm(params.final_norm, h, cfg.norm_eps)
+        return _logits(params, h[:, -1], cfg), sh.place_caches(caches)
 
 
 def _flash(bd: BlockDef, cfg: ArchConfig, extras) -> bool:

@@ -16,6 +16,8 @@ from typing import Any, Mapping, NamedTuple
 
 import torch
 
+from repro_torch.runtime import trace
+
 
 @dataclasses.dataclass(frozen=True)
 class AdamWConfig:
@@ -57,22 +59,27 @@ def adamw_update(grads: Mapping[str, torch.Tensor], state: OptState,
                  params: Mapping[str, torch.Tensor], cfg: AdamWConfig, lr_scale=1.0):
     """One AdamW step: clip by the global norm, bias corrections with the
     step incremented first. Returns (params, state, gnorm): ``params`` and
-    the moments updated in place, ``state`` with the new step."""
-    gnorm = global_norm(grads[n] for n in params)
-    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
-    step = state.step + 1
-    stepf = step.float()
-    b1c = 1.0 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32, device=stepf.device), stepf)
-    b2c = 1.0 - torch.pow(torch.tensor(cfg.b2, dtype=torch.float32, device=stepf.device), stepf)
-    lr = cfg.lr * torch.as_tensor(lr_scale, dtype=torch.float32, device=stepf.device)
-    for n, p in params.items():
-        m, v = state.mu[n], state.nu[n]
-        g = grads[n].float() * scale
-        m32 = m.float() * cfg.b1 + g * (1.0 - cfg.b1)
-        v32 = v.float() * cfg.b2 + g * g * (1.0 - cfg.b2)
-        update = (m32 / b1c) / (torch.sqrt(v32 / b2c) + cfg.eps)
-        update += cfg.weight_decay * p.float()
-        p.copy_(p.float() - lr * update)
-        m.copy_(m32)
-        v.copy_(v32)
+    the moments updated in place, ``state`` with the new step. Traced as
+    the span ``optim``: ``optim.norm`` (the norm and the clip's scale),
+    then ``optim.update``."""
+    with trace.span("optim"):
+        with trace.span("optim.norm"):
+            gnorm = global_norm(grads[n] for n in params)
+            scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
+        with trace.span("optim.update"):
+            step = state.step + 1
+            stepf = step.float()
+            b1c = 1.0 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32, device=stepf.device), stepf)
+            b2c = 1.0 - torch.pow(torch.tensor(cfg.b2, dtype=torch.float32, device=stepf.device), stepf)
+            lr = cfg.lr * torch.as_tensor(lr_scale, dtype=torch.float32, device=stepf.device)
+            for n, p in params.items():
+                m, v = state.mu[n], state.nu[n]
+                g = grads[n].float() * scale
+                m32 = m.float() * cfg.b1 + g * (1.0 - cfg.b1)
+                v32 = v.float() * cfg.b2 + g * g * (1.0 - cfg.b2)
+                update = (m32 / b1c) / (torch.sqrt(v32 / b2c) + cfg.eps)
+                update += cfg.weight_decay * p.float()
+                p.copy_(p.float() - lr * update)
+                m.copy_(m32)
+                v.copy_(v32)
     return params, OptState(step, state.mu, state.nu), gnorm

@@ -106,7 +106,8 @@ def test_training_modules_are_covered():
     assert {"repro_torch.optim", "repro_torch.optim.adamw", "repro_torch.optim.adafactor",
             "repro_torch.optim.schedule", "repro_torch.optim.compression",
             "repro_torch.checkpoint", "repro_torch.checkpoint.manager",
-            "repro_torch.data.tokens", "repro_torch.launch.train"} <= set(MODULES)
+            "repro_torch.data.tokens", "repro_torch.launch.train",
+            "repro_torch.runtime.trace"} <= set(MODULES)
 
 
 def test_accounting_modules_are_covered():
