@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``src/repro_torch/csrc`` (``fitpdf``,
-``moments``, ``hist`` and ``band_attn``, one ``nvcc`` each, all at once, into
+``moments``, ``hist``, ``band_attn`` and ``ssd_intra``, one ``nvcc`` each, all at once, into
 ``build/kernels/``), holds each kernel against its plain PyTorch version on
 the card, then drives the paths through the entry point, each on one full
 Set1 slice (501 lines x 251 points x 1,000 observations, slice 201, 21
@@ -188,7 +188,17 @@ Last comes the LM serving path (``band_attn``, K5):
   (device time by kernel and by operator, K5's share, the device idle
   share) and, for mamba2 and hymba, the SSD's device time in a prefill by
   CUDA events around its calls; then K5's time at both shapes beside its
-  bound, its plain version and SDPA with the band as a mask.
+  bound, its plain version and SDPA with the band as a mask;
+* ``[ssd intra]``: K6, the SSD's intra-chunk kernel (``csrc/ssd_intra.cu``),
+  at both prefill cells' shapes (``SSD_INTRA_SHAPES``): bitwise repeat, the
+  gate against the plain version on float32 operands, kernel ms, call ms
+  and the plain version's ms beside its bound (``[time]``, ``[roofline
+  kernels]``); mamba2-780m and hymba-1.5b at full depth, one prefill each
+  of 4 x 4,096 tokens, timed, with K6 launched 48 and 32 times; a
+  training step of mamba2-780m at 2 layers launching none. Every LM
+  phase's ``generate`` and prefill launch K6 once a layer with an SSD in
+  bf16 (12 in ``[lm ssm]``, 8 in ``[lm hybrid]``), none in decode; the
+  training phases none (grad is on).
 
 The accounting layer (``repro_torch.launch.roofline``, ``dryrun``,
 ``dryrun_pdf``, ``report``) is held against the card:
@@ -281,7 +291,9 @@ shape), ``launches_train`` (a ``[train hymba]`` step's, the grad phase's
 K5 way's, ``[train reduced]``'s) and ``train_hymba`` (the step's time,
 K5's device time in the profiled step, the banded backward's); K1 and K2
 carry ``launches_mesh`` (each rank's in the split stager), K5 a sharded
-step's in ``[mesh 1x1]``. Every phase logs its wall as ``[phase] <label>
+step's in ``[mesh 1x1]``; the K6 row carries ``at_hymba_shape``,
+``launches_lm_paths``, ``launches_train`` and ``full_depth``. Every phase
+logs its wall as ``[phase] <label>
 <s>``, and a ``[phases]`` line sums them. Any failed check raises, so the
 exit code is non-zero. The line before the last is a JSON object of
 per-kernel numbers; the last line is
@@ -341,7 +353,7 @@ SET1_WINDOWS = 21  # ceil(501 lines / 25 lines per window)
 # k-means sampling's fraction: 125 clusters a window of 6,275 points (the
 # random sampler keeps the reference's 0.1); host Lloyd's time grows with it.
 KMEANS_FRAC = 0.02
-KERNEL_SOURCES = ("fitpdf", "moments", "hist", "band_attn")  # src/repro_torch/csrc/<name>.cu
+KERNEL_SOURCES = ("fitpdf", "moments", "hist", "band_attn", "ssd_intra")  # src/repro_torch/csrc/<name>.cu
 
 # The LM serving path: gemma3-12b at full width (configs/gemma3_12b.py) with
 # the banded path on, cut to 12 of its 48 layers (two repeats of the 5 local
@@ -368,6 +380,17 @@ K5_TOL = 2.0
 K5_CASES = ((4, 4096, 16, 8, 256, 1024), (4, 4000, 16, 8, 256, 1024), (4, 700, 16, 8, 256, 1024),
             (4, 4096, 25, 5, 64, 1024))
 K5_GEMMA, K5_HYMBA = (4, 16, 8, 256), (4, 25, 5, 64)  # (B, H, KV, hd) of each model's launches
+# K6, the SSD's intra-chunk kernel, at the two prefill cells' shapes, (B,
+# Nc, Q, H, P, N, G) at 4 x 4,096 tokens: mamba2-780m and hymba-1.5b (P 50:
+# no 16-byte row). Its gate against the plain version on float32 operands:
+# at most SSD_INTRA_TOL times the plain bf16 path's relative 2-norm distance
+# (both round the decay matrix to bf16 and sum in float32; as
+# tests/test_torch_kernels_cuda.py holds it).
+SSD_INTRA_SHAPES = {"mamba2-780m": (4, 16, 256, 48, 64, 128, 1), "hymba-1.5b": (4, 16, 256, 64, 50, 16, 1)}
+SSD_INTRA_TOL = 1.25
+# [ssd intra]'s training step: mamba2-780m at full width cut to this many
+# layers, one step of batch 2 x LM_PROMPT (no SSD kernel launch: grad is on).
+SSD_INTRA_TRAIN_LAYERS = 2
 # The SSM and hybrid serving paths at full width (configs/mamba2_780m.py,
 # configs/hymba_1_5b.py), cut to SSM_LAYERS of 48 and HYBRID_LAYERS of 32
 # layers (hymba: its global layer and 7 windowed ones, which run K5; the
@@ -413,7 +436,8 @@ LM_PREFILL_TOL = dict(rtol=1e-4, atol=1e-4)
 # phase's TRAIN_STEPS), TokenPipeline(32,001, LM_PROMPT, batch, seed 0).
 # Batch TRAIN_BATCH (serving's) if it fits, else half. K5 runs in each
 # windowed layer's forward and again in its recompute, never in the
-# backward (the blocked plain form's gradient): 14 launches a step.
+# backward (the blocked plain form's gradient): 14 launches a step. K6
+# none: grad is on.
 TRAIN_STEPS = 6
 TRAIN_BATCH = LM_BATCH
 TRAIN_LR = 3e-4
@@ -705,13 +729,15 @@ def launch_counters():
     from repro_torch.kernels.fitpdf import kernel
     from repro_torch.kernels.hist import kernel as hk
     from repro_torch.kernels.moments import kernel as mk
+    from repro_torch.kernels.ssd_intra import kernel as sk
 
     return {"moments_edges_stats": (kernel.moments_edges_stats, "launches"),
             "fit_error_counts": (kernel.fit_error_counts, "launches"),
             "fit_error_counts_row_indices": (kernel.fit_error_counts, "row_index_launches"),
             "moments_stats": (mk.moments_stats, "launches"),
             "hist_counts": (hk.hist_counts, "launches"),
-            "banded_attention_kernel": (bk.banded_attention_kernel, "launches")}
+            "banded_attention_kernel": (bk.banded_attention_kernel, "launches"),
+            "ssd_intra_kernel": (sk.ssd_intra_kernel, "launches")}
 
 
 def zero_counts() -> None:
@@ -2888,16 +2914,32 @@ def trim_extras(extras, s: int):
     return {k: (v[:, :s] if k == "frames" else v) for k, v in extras.items()}
 
 
+def ssd_layers(cfg) -> int:
+    """Layers with an SSD (``ssm`` or ``hybrid`` mixers)."""
+    if cfg.family == "encdec":
+        return 0
+    return sum(bd.mixer in ("ssm", "hybrid") for bd in cfg.layer_defs())
+
+
+def ssd_intra_per_prefill(cfg) -> int:
+    """The SSD kernel's launches a prefill on the card: one a layer with an
+    SSD, where the SSD takes the kernel (``ssd_intra.ops.kernel_takes``)."""
+    from repro_torch.kernels.ssd_intra.ops import kernel_takes
+
+    return ssd_layers(cfg) if kernel_takes(cfg.compute_dtype, cfg.ssm_chunk) else 0
+
+
 def lm_generate(np, torch, dev, smi, cfg, label, k5_per_prefill, shape_note, batch=LM_BATCH):
     """``cfg`` with random weights from a seeded generator on the card (seed
     0), ``batch`` prompts of LM_PROMPT random tokens and the stub frontend's
     input (``serve_decode.stub_extras``: the VLM's patches, the enc-dec's
     frames). Drives ``generate`` (prefill + LM_TOKENS greedy steps) once
-    with the counts set to 0 (``k5_per_prefill`` K5 launches, nothing
-    else); then a prefill alone twice (as many launches, bitwise equal
-    logits) and the decode steps alone (no launch, generate's tokens
-    again), each step timed. Returns the model, the prompt, the extras, the
-    prefill's logits, generate's launches and the numbers."""
+    with the counts set to 0 (``k5_per_prefill`` K5 launches, one SSD
+    kernel launch a layer with an SSD, nothing else); then a prefill alone
+    twice (as many launches, bitwise equal logits) and the decode steps
+    alone (no launch, generate's tokens again), each step timed. Returns
+    the model, the prompt, the extras, the prefill's logits, generate's
+    launches and the numbers."""
     from repro_torch.launch import serve_decode as sd
 
     t0 = time.perf_counter()
@@ -2925,7 +2967,9 @@ def lm_generate(np, torch, dev, smi, cfg, label, k5_per_prefill, shape_note, bat
     wall = time.perf_counter() - t0
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated(dev)
-    check_launches(launches, {"banded_attention_kernel": k5_per_prefill}, f"{label} generate")
+    ssd_per_prefill = ssd_intra_per_prefill(cfg)
+    check_launches(launches, {"banded_attention_kernel": k5_per_prefill, "ssd_intra_kernel": ssd_per_prefill},
+                   f"{label} generate")
     check(tokens.shape == (batch, LM_TOKENS) and tokens.dtype == torch.int32, f"[{label}] tokens shape")
     check(bool(((tokens >= 0) & (tokens < cfg.vocab)).all()), f"[{label}] token out of range")
 
@@ -2936,6 +2980,7 @@ def lm_generate(np, torch, dev, smi, cfg, label, k5_per_prefill, shape_note, bat
     sync(torch, dev)
     prefill_s = time.perf_counter() - t0
     check(read_counts()["banded_attention_kernel"] == k5_per_prefill, f"[{label}] K5 launches per prefill")
+    check(read_counts()["ssd_intra_kernel"] == ssd_per_prefill, f"[{label}] SSD kernel launches per prefill")
     again, _ = sd.prefill(cfg, model, prompt, extras, max_len)
     check(logits.shape == (batch, cfg.vocab) and bool(torch.isfinite(logits).all()),
           f"[{label}] prefill logits shape or finiteness")
@@ -2954,7 +2999,8 @@ def lm_generate(np, torch, dev, smi, cfg, label, k5_per_prefill, shape_note, bat
         sync(torch, dev)
         steps_ms.append((time.perf_counter() - t0) * 1e3)
         check(bool(torch.isfinite(step_logits).all()), f"[{label}] decode step {i}: non-finite logits")
-    check(read_counts()["banded_attention_kernel"] == 0, f"[{label}] K5 launched by a decode step")
+    check(read_counts()["banded_attention_kernel"] == 0 and read_counts()["ssd_intra_kernel"] == 0,
+          f"[{label}] K5 or the SSD kernel launched by a decode step")
     check(torch.equal(torch.stack(decoded, 1), tokens), f"[{label}] decode steps differ from generate's "
                                                         f"tokens")
     n_cache = cache_bytes(caches)
@@ -3394,6 +3440,142 @@ def time_band_attn(np, torch, qkv, dev, launches, max_abs_err):
                 bound_share=bound / ms, tflops=tflops, library_kernels=lib_backends["kernels"], **attrs)
 
 
+def ssd_intra_inputs(torch, dev, shape, seed=0):
+    """K6's operands at ``shape`` (B, Nc, Q, H, P, N, G), drawn on the card
+    from ``seed``: cb from C and B as ``ssd.intra`` makes it (a bf16
+    einsum), ca the cumulative sums of log-decays -0.05 dt with dt in
+    [0.01, 1), xdt = dt x."""
+    b, nc, q, h, p, n, g = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cm = (torch.randn(b, nc, q, g, n, generator=gen, device=dev) * n ** -0.5).bfloat16()
+    bm = torch.randn(b, nc, q, g, n, generator=gen, device=dev).bfloat16()
+    cb = torch.einsum("bcqgn,bckgn->bcgqk", cm, bm).contiguous()
+    dt = torch.rand(b, nc, q, h, generator=gen, device=dev) * 0.99 + 0.01
+    ca = torch.cumsum(-0.05 * dt, 2)
+    xdt = (torch.randn(b, nc, q, h, p, generator=gen, device=dev) * dt[..., None]).bfloat16()
+    return cb, ca, xdt
+
+
+def time_ssd_intra(torch, dev, arch) -> dict:
+    """K6 at ``arch``'s prefill shape (SSD_INTRA_SHAPES): two launches
+    counted and bitwise equal, the gate against the plain version on float32
+    operands, then kernel ms (``_timing.kernel_times``), call ms and the
+    plain version's ms beside the bound of ``roofline.ssd_intra_work``
+    ([time], [roofline kernels]) and the instantiation's registers."""
+    from repro_torch.kernels.ssd_intra import kernel as sk
+    from repro_torch.kernels.ssd_intra.ref import ssd_intra_ref
+    from repro_torch.launch import roofline as rl
+
+    shape = SSD_INTRA_SHAPES[arch]
+    b, nc, q, h, p, n, g = shape
+    cb, ca, xdt = ssd_intra_inputs(torch, dev, shape)
+    before = sk.ssd_intra_kernel.launches
+    got = sk.ssd_intra_kernel(cb, ca, xdt)
+    again = sk.ssd_intra_kernel(cb, ca, xdt)
+    sync(torch, dev)
+    check(sk.ssd_intra_kernel.launches == before + 2, f"[K6] {arch}: launches not counted")
+    check(torch.equal(got, again), f"[K6] {arch}: a repeat differs")
+    truth = ssd_intra_ref(cb.float(), ca, xdt.float())
+    plain = ssd_intra_ref(cb, ca, xdt)
+    err, err_plain = (float((t.float() - truth).norm() / truth.norm()) for t in (got, plain))
+    limit = SSD_INTRA_TOL * err_plain
+    check(err <= limit, f"[K6] {arch}: relative error {err} above {SSD_INTRA_TOL} x the plain bf16 path's "
+                        f"{err_plain}")
+    max_abs = float((got.float() - plain.float()).abs().max())
+    del truth, plain, again, got
+    flush = torch.empty(128 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
+
+    def kernel():
+        return sk.ssd_intra_kernel(cb, ca, xdt)
+
+    ms = time_kernel(kernel, flush)
+    call = time_cuda(torch, kernel, 20, flush)
+    plain_ms = time_cuda(torch, lambda: ssd_intra_ref(cb, ca, xdt), 5, flush)
+    work = rl.ssd_intra_work(b, nc, q, h, p, g)
+    bound, by = rl.bound_ms(*work)
+    share = roofline_line(f"K6 {arch} (B, Nc, Q, H, P, G) = {(b, nc, q, h, p, g)} bf16", bound,
+                          premove_bound_ms(work.bytes, bf16_ops=work.bf16_ops), ms)
+    attrs = sk.attributes(p, q)
+    log(f"[time] K6 ssd_intra_kernel {arch} (B, Nc, Q, H, P, G) = {(b, nc, q, h, p, g)} bf16: kernel {ms} ms, "
+        f"call {call} ms, plain {plain_ms} ms; bound {bound} ms by {by} ({work.bytes} B, {work.bf16_ops} "
+        f"FLOPs); {100 * share} % of bound; relative error against float32 operands {err} (plain bf16 "
+        f"{err_plain}, limit {limit}); max abs from the plain bf16 path {max_abs}; instantiation "
+        f"{json.dumps(attrs)} (registers a thread, local memory bytes a thread: 0 means no spills, "
+        f"dynamic shared memory bytes a block)")
+    return dict(ms=call, kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, bound_share=share,
+                rel_err=err, rel_err_plain=err_plain, max_abs_vs_plain=max_abs, **attrs)
+
+
+def ssd_intra_phase(np, torch, dev, smi, launches_lm, launches_train) -> dict:
+    """[ssd intra]: K6 at both prefill cells' shapes (``time_ssd_intra``);
+    then mamba2-780m and hymba-1.5b at full depth and width, as the
+    benchmark's prefill cells run them: one prefill of LM_BATCH x LM_PROMPT
+    each, after a warm-up, launching K6 once a layer with an SSD (48 and 32)
+    and timed; then a training step of mamba2-780m cut to
+    SSD_INTRA_TRAIN_LAYERS layers, which launches none. Returns the kernels
+    line's row."""
+    import math
+
+    from repro_torch.configs import registry
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch import serve_decode as sd
+    from repro_torch.launch import train
+    from repro_torch.optim import AdamWConfig
+
+    row = dict(name="ssd_intra_kernel", route="cuda", source="src/repro_torch/csrc/ssd_intra.cu",
+               replaces="none (the einsums of src/repro/models/ssm.py)")
+    row.update(time_ssd_intra(torch, dev, SSM_ARCH))
+    row["at_hymba_shape"] = time_ssd_intra(torch, dev, HYBRID_ARCH)
+    torch.cuda.empty_cache()
+
+    full = {}
+    for arch, cfg in ((SSM_ARCH, registry.get(SSM_ARCH)),
+                      (HYBRID_ARCH, registry.get(HYBRID_ARCH).replace(block_local_attn=True))):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        model = sd.init_params(cfg, gen, dev)
+        prompt = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), generator=gen, device=dev)
+        sd.prefill(cfg, model, prompt[:, :LM_PROMPT // 2], None)
+        sync(torch, dev)
+        zero_counts()
+        t0 = time.perf_counter()
+        logits, _ = sd.prefill(cfg, model, prompt, None, LM_PROMPT + LM_TOKENS)
+        sync(torch, dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = read_counts()
+        want = ssd_layers(cfg)
+        check(want == cfg.num_layers and bool(torch.isfinite(logits).all()), f"[ssd intra] {arch} prefill")
+        check_launches(launches, {"ssd_intra_kernel": want,
+                                  "banded_attention_kernel": sum(bool(bd.window) for bd in cfg.layer_defs())},
+                       f"ssd intra {arch} full depth")
+        full[arch] = dict(layers=cfg.num_layers, prefill_ms=wall_ms, launches=launches["ssd_intra_kernel"])
+        log(f"[ssd intra] {arch} at full depth ({cfg.num_layers} layers), one prefill of {LM_BATCH} x "
+            f"{LM_PROMPT} tokens: {wall_ms} ms, {launches['ssd_intra_kernel']} SSD kernel launches; {smi}")
+        del model, prompt, logits
+        torch.cuda.empty_cache()
+
+    cfg = registry.get(SSM_ARCH).replace(num_layers=SSD_INTRA_TRAIN_LAYERS)
+    model = train.init_model(cfg, dev)
+    opt_cfg = AdamWConfig(lr=TRAIN_LR)
+    opt = train.init_optimizer(cfg, dict(model.named_parameters()), opt_cfg)
+    step_fn = train.build_step(cfg, opt_cfg, 1)
+    tokens, targets = TokenPipeline(cfg.vocab, LM_PROMPT, 2, seed=0).next_batch()
+    batch = train.make_batch(cfg, tokens, targets, 0, dev)
+    zero_counts()
+    model, opt, loss, _ = step_fn(model, opt, batch)
+    sync(torch, dev)
+    check(math.isfinite(float(loss)), f"[ssd intra] training step loss {float(loss)}")
+    check_launches(read_counts(), {}, "ssd intra training step")
+    log(f"[ssd intra] {SSM_ARCH} at {SSD_INTRA_TRAIN_LAYERS} layers, a training step of 2 x {LM_PROMPT} "
+        f"tokens (grad on): loss {float(loss)}, no SSD kernel launch")
+    del model, opt, batch
+    torch.cuda.empty_cache()
+    row["launches"] = launches_lm["lm ssm"]["ssd_intra_kernel"]
+    row["launches_lm_paths"] = {label: n["ssd_intra_kernel"] for label, n in launches_lm.items()}
+    row["launches_train"] = {label: n["ssd_intra_kernel"] for label, n in launches_train.items()}
+    row["full_depth"] = full
+    return row
+
+
 def hymba_train_config():
     """hymba-1.5b as [lm hybrid] has it (HYBRID_LAYERS layers, the
     registry's remat "full", the banded path on)."""
@@ -3540,7 +3722,7 @@ def _train_hymba(np, torch, dev, smi, cfg, batch_size):
     log(f"[train hymba] {smi}: step {step_s} s (median of steps 2-{TRAIN_STEPS}), {nums['tokens_per_s']} "
         f"tokens/s, max_memory_allocated {peak} B; loss {nums['losses'][0]} -> {nums['losses'][-1]}; "
         f"6 N T = {flops} FLOPs a step, {nums['model_flops_share_of_bf16_peak']} of the bf16 peak; K5 "
-        f"{TRAIN_K5_PER_STEP} launches a step")
+        f"{TRAIN_K5_PER_STEP} launches a step, K6 none")
 
     # The banded backward's share of a step, by CUDA events around its calls.
     batch = batch_at(TRAIN_STEPS)
@@ -3637,6 +3819,7 @@ def train_grad_phase(np, torch, dev, smi, batch_size):
         torch.cuda.empty_cache()
     check_launches(launches["k5"], {"banded_attention_kernel": 2 * local}, "train hymba grad k5")
     check_launches(launches["plain_bf16"], {}, "train hymba grad plain")
+    check_launches(launches["plain_f32"], {}, "train hymba grad float32")
     worst, ratios = 0.0, {}
     for n in ways["k5"][1]:
         k5, plain, f32 = (ways[w][1][n] for w in ("k5", "plain_bf16", "plain_f32"))
@@ -4878,6 +5061,7 @@ def main() -> int:
                               k5_ms_in_step=hymba_train["profile"].get("k5_ms"),
                               banded_backward_ms=hymba_train["banded_backward_ms"])
     rows.append(row)
+    rows.append(phase("ssd intra", ssd_intra_phase, np, torch, dev, smi, launches_lm, launches_train))
 
     log(f"[phases] {smi}: {len(PHASE_WALLS)} phases {sum(PHASE_WALLS.values())} s of "
         f"{time.perf_counter() - T_START} s since the script started; wall s "

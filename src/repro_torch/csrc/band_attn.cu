@@ -89,6 +89,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tma.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -324,37 +325,15 @@ constexpr int kRows = 64;  // query rows of a warpgroup's tile; keys of a K/V ti
 constexpr int kWgThreads = 128;
 constexpr int kBox = 64;                          // columns of a TMA box: one 128-byte row
 constexpr uint32_t kBoxBytes = kRows * kBox * 2;  // 8 KB: 64 rows of 128 bytes
-constexpr uint32_t kAtom = 1024;                  // 8 rows of 128 bytes: one swizzle atom
 
-// A wgmma matrix descriptor for a tile in the 128-byte swizzle layout that
-// TMA writes (CU_TENSOR_MAP_SWIZZLE_128B): start address, the leading and
-// stride byte offsets, layout type 1.
-__device__ __forceinline__ uint64_t descriptor(uint32_t addr, uint32_t lead, uint32_t stride) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lead >> 4) << 16) |
-         ((uint64_t)(stride >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-// This thread arrives on the barrier and tells it to expect `bytes` more of
-// TMA writes before its phase completes.
-__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-// Waits until the barrier's phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
+// The swizzle atom, the wgmma descriptor of a 128-byte swizzled tile, the
+// mbarriers and the bf16 packing (csrc/tma.cuh).
+using tma::kAtom;
+using tma::descriptor;
+using tma::mbar_expect;
+using tma::mbar_init;
+using tma::mbar_wait;
+using tma::pack_bf16;
 
 // One TMA box {64 columns, 1 head, 64 rows, 1 batch} of a (B, S, heads, hd)
 // tensor into shared memory, completing on `bar`; out-of-bounds columns and
@@ -382,11 +361,6 @@ __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map, i
 template <int HDP>
 __device__ __forceinline__ uint32_t cm_offset(int r, int c) {
   return (uint32_t)((((r >> 3) * (HDP / 8) + (c >> 3)) * 8 + (r & 7)) * 16 + (c & 7) * 2);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&p);
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -574,32 +548,11 @@ size_t smem_bytes(int hd, int nwg) {
   return (size_t)(nwg + 4) * kRows * ((hd + kBox - 1) / kBox * kBox) * 2 + 3 * 8;
 }
 
-// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime
-// (no link against libcuda).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-cudaError_t encode_tiled(EncodeTiled* fn) {
-  static EncodeTiled cached = nullptr;
-  if (cached == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-    if (e != cudaSuccess) return e;
-    if (found != cudaDriverEntryPointSuccess || p == nullptr) return cudaErrorSymbolNotFound;
-    cached = reinterpret_cast<EncodeTiled>(p);
-  }
-  *fn = cached;
-  return cudaSuccess;
-}
-
 // The tensor map of a (B, S, heads, hd) bf16 tensor read in boxes of
 // {64 columns, 1 head, 64 rows, 1 batch}, 128-byte swizzled.
 cudaError_t tensor_map(CUtensorMap* map, const void* base, int B, int S, int heads, int hd) {
-  EncodeTiled encode;
-  cudaError_t e = encode_tiled(&encode);
+  tma::EncodeTiled encode;
+  cudaError_t e = tma::encode_tiled(&encode);
   if (e != cudaSuccess) return e;
   const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)hd * 2, (cuuint64_t)heads * hd * 2,

@@ -9,10 +9,12 @@ def launch_counts() -> dict[str, int]:
     from repro_torch.kernels.fitpdf.kernel import fit_error_counts, moments_edges_stats
     from repro_torch.kernels.hist.kernel import hist_counts
     from repro_torch.kernels.moments.kernel import moments_stats
+    from repro_torch.kernels.ssd_intra.kernel import ssd_intra_kernel
 
     return {"moments_edges_stats": moments_edges_stats.launches,
             "fit_error_counts": fit_error_counts.launches,
             "fit_error_counts_row_indices": fit_error_counts.row_index_launches,
             "moments_stats": moments_stats.launches,
             "hist_counts": hist_counts.launches,
-            "banded_attention_kernel": banded_attention_kernel.launches}
+            "banded_attention_kernel": banded_attention_kernel.launches,
+            "ssd_intra_kernel": ssd_intra_kernel.launches}

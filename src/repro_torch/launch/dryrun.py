@@ -11,15 +11,15 @@ counting mode, a ``Meter`` inside ``torch.utils.flop_counter.FlopCounterMode``:
 
 * **FLOPs**: ``FlopCounterMode``'s count (matrix products), charged at the
   bf16 peak, plus the operations of each hand-written kernel the step
-  launches, charged by its work model (``roofline.KERNEL_WORK``: K5's bf16
-  products at the bf16 peak, K1-K4's float32 and float64 operations at
-  theirs).
+  launches, charged by its work model (``roofline.KERNEL_WORK``: K5's and
+  K6's bf16 products at the bf16 peak, K1-K4's float32 and float64
+  operations at theirs).
 * **Bytes**: each operator's input and output bytes, counted op by op with
   no fusion (the port's counterpart of XLA's "bytes accessed"; eager
   PyTorch fuses nothing either). A view moves nothing; an input broadcast
   along a dimension is read once along it; a gather reads the rows it
   gathers, a scatter writes the rows it scatters; ``copy_`` and fills do
-  not read what they overwrite. A kernel launched on meta tensors (K1-K5)
+  not read what they overwrite. A kernel launched on meta tensors (K1-K6)
   is charged its work model's bytes, never its plain version's operators.
 * **Memory**: ``argument_size_in_bytes`` is exact (parameters, optimizer
   state, batch and caches of the meta tensors, split in ``arguments``);

@@ -13,9 +13,9 @@ no HLO. What it keeps:
   collective (``collective_traffic``), which prices the collectives the
   dry run counts in a sharded step (``launch/dryrun.py``'s ``LocalMeter``
   beside DTensor's ``CommDebugMode``);
-* the work models of the hand-written kernels K1-K5, as functions of shapes
-  (``k1_work`` ... ``k5_work``; ``special_function_ops`` counts K2's
-  float64 work on given data) and ``bound_ms``: the least time the card
+* the work models of the hand-written kernels K1-K6, as functions of shapes
+  (``k1_work`` ... ``k5_work``, ``ssd_intra_work``; ``special_function_ops``
+  counts K2's float64 work on given data) and ``bound_ms``: the least time the card
   could take for that work. ``chip_smoke.py`` prints each kernel's time
   beside this bound, and ``launch/dryrun.py`` charges a kernel launched on
   meta tensors by its work model.
@@ -302,6 +302,18 @@ def k5_work(b: int, s: int, h: int, kv: int, hd: int, window: int, dtype) -> Wor
     return Work(nbytes, bf16_ops=ops) if itemsize == 2 else Work(nbytes, f32_ops=ops)
 
 
+def ssd_intra_work(b: int, nc: int, q: int, h: int, p: int, g: int) -> Work:
+    """``ssd_intra_kernel``: xdt (B, Nc, Q, H, P) bf16 read and y_intra of
+    the same shape written once, C.B (B, Nc, G, Q, Q) bf16 and the
+    log-decays (B, Nc, Q, H) float32 read once; 2 P bf16 tensor-core
+    operations a (i, j) pair of the 64 x 64 tiles on and below each
+    chunk's diagonal, the tiles the kernel computes."""
+    tiles = q // 64
+    pairs = tiles * (tiles + 1) // 2 * 64 * 64
+    nbytes = 2 * 2 * b * nc * q * h * p + 2 * b * nc * g * q * q + 4 * b * nc * q * h
+    return Work(nbytes, bf16_ops=2 * p * pairs * b * nc * h)
+
+
 # Each wrapper's name -> its work model (launch/dryrun.py's meter).
 KERNEL_WORK = {
     "moments_edges_stats": k1_work,
@@ -309,6 +321,7 @@ KERNEL_WORK = {
     "moments_stats": k3_work,
     "hist_counts": k4_work,
     "banded_attention_kernel": k5_work,
+    "ssd_intra_kernel": ssd_intra_work,
 }
 
 

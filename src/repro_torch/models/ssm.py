@@ -10,11 +10,14 @@ plus the last K - 1 inputs of the causal convolution, so the cache's size
 does not depend on the sequence length.
 
 The SSD has no Pallas kernel in the reference (einsums, cumsum, exp and the
-scan), so it is plain PyTorch here too. The casts are the reference's, so
-bf16 compute rounds where JAX rounds: ``dt`` goes to the compute type before
-it scales x, the intra-chunk matrix is built in float32 and then cast, the
-chunk states and the scan are float32, and the state before each chunk is
-cast back.
+scan), so it is plain PyTorch here too, but for the intra-chunk product
+where no gradient is asked for: on the card in bf16 that is a hand-written
+kernel (``kernels/ssd_intra``), which keeps the (B, Nc, H, Q, Q) decay
+matrix out of device memory. The casts are the reference's, so bf16 compute
+rounds where JAX rounds: ``dt`` goes to the compute type before it scales
+x, the intra-chunk matrix is built in float32 and then cast, the chunk
+states and the scan are float32, and the state before each chunk is cast
+back.
 
 One difference from the reference, on purpose: after a prompt shorter than
 K - 1 tokens the reference's conv tail (``xbc_raw[:, s-(K-1):s]``) has a
@@ -32,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.kernels.ssd_intra.ops import ssd_intra
 from repro_torch.models.layers import RMSNorm, dense_init_, empty_param, rmsnorm, scaled_rmsnorm
 from repro_torch.models import sharding as sh
 from repro_torch.runtime import trace
@@ -113,27 +117,6 @@ def _chunk_scan(bx: torch.Tensor, gamma: torch.Tensor) -> torch.Tensor:
     return torch.stack(states, dim=1)
 
 
-def _intra_chunk(cb: torch.Tensor, ca: torch.Tensor) -> torch.Tensor:
-    """The intra-chunk matrix M[i, j] = (C_i . B_j) exp(ca_i - ca_j) for
-    j <= i, else 0, in float32. cb (B, Nc, H, Q, Q), ca (B, Nc, Q, H).
-
-    Above the diagonal the exponent is positive and overflows to inf once
-    a chunk's decay passes ~88; the ``where`` drops those entries. Under
-    autograd the exponent is also masked to -inf there before the exp,
-    which gives 0 with a zero gradient: the reference masks only after the
-    exp, so its backward multiplies that inf by the ``where``'s zero
-    cotangent and its gradients turn NaN (ROADMAP queue 3). The forward is
-    the same bits either way; serving skips the extra pass over the
-    (B, Nc, H, Q, Q) exponents (~5 % of an SSM prefill)."""
-    q = ca.shape[2]
-    causal = torch.ones((q, q), dtype=torch.bool, device=ca.device).tril()
-    decay = (ca[..., :, None, :] - ca[..., None, :, :]).movedim(-1, 2)  # (B,Nc,H,Q,Q) i, j
-    if decay.requires_grad:
-        decay.masked_fill_(~causal, float("-inf"))  # the subtraction's backward saves nothing
-    return torch.where(causal, cb.float() * torch.exp(decay),
-                       torch.zeros((), dtype=torch.float32, device=ca.device))
-
-
 def ssd(p: SSD, x_in: torch.Tensor, cfg, return_final_state: bool = False):
     """Chunked SSD forward. x_in (B, S, d) -> (B, S, d) [+ (state (B, H, N,
     P), conv_tail (B, K - 1, conv_dim)) if requested, both in the compute
@@ -188,11 +171,7 @@ def _ssd_parts(p: SSD, x_in: torch.Tensor, cfg, return_final_state: bool):
         xdt = xh * dt.reshape(b, nc, q, h)[..., None].to(cdt)
 
     with trace.span("ssd.intra"):
-        cb = torch.einsum("bcqgn,bckgn->bcgqk", cm, bm).repeat_interleave(hpg, dim=2)  # (B,Nc,H,Q,Q)
-        m = _intra_chunk(cb, ca).to(cdt)
-        del cb
-        y_intra = torch.einsum("bchqk,bckhp->bcqhp", m, xdt)
-        del m
+        y_intra = ssd_intra(torch.einsum("bcqgn,bckgn->bcgqk", cm, bm), ca, xdt)  # C.B (B, Nc, G, Q, Q)
 
     # Chunk states S_c = sum_j exp(ca_last - ca_j) B_j (dt_j x_j)^T, in
     # float32 from here to the scan.

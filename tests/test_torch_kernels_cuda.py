@@ -20,6 +20,8 @@ from repro_torch.kernels.band_attn.ref import row_errors
 from repro_torch.kernels.fitpdf import kernel as tk
 from repro_torch.kernels.hist import kernel as thk
 from repro_torch.kernels.moments import kernel as tmk
+from repro_torch.kernels.ssd_intra import kernel as tsk
+from repro_torch.kernels.ssd_intra import ssd_intra, ssd_intra_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -622,6 +624,175 @@ def test_banded_attention_kernel_rejects(dev):
     with pytest.raises(ValueError):
         banded_attention(q, k.cpu(), v, 16)
     assert tbk.banded_attention_kernel.launches == before
+
+
+# The SSD's intra-chunk kernel against its plain version (the plain path of
+# ``models/ssm.py``'s ``ssd.intra``). (H, P, N) of mamba2-780m and
+# hymba-1.5b (P 50: no 16-byte row), G 1 and 2, Q 64 and 256; then wider P.
+# Gate: the kernel's relative 2-norm distance from the plain version on
+# float32 operands at most SSD_INTRA_TOL times that of the plain bf16 path:
+# both round the decay matrix to bf16 and sum in float32, only the order
+# of the sums differs.
+SSD_INTRA_WIDTHS = {"mamba2": (48, 64, 128), "hymba": (64, 50, 16)}
+SSD_INTRA_CASES = [(w, g, q) for w in SSD_INTRA_WIDTHS for g in (1, 2) for q in (64, 256)]
+SSD_INTRA_TOL = 1.25
+
+
+def _ssd_intra_inputs(dev, h, p, n, g, q, b=2, nc=3, step=-0.05, seed=0):
+    """cb from C and B as ``ssd.intra`` makes it (a bf16 einsum), ca the
+    cumulative sums of log-decays dt A (dt softplus-like in (0, 1], A
+    ``step`` scaled), xdt (B, Nc, Q, H, P): all drawn with numpy."""
+    rng = np.random.default_rng(seed + 1000 * h + p + q + g)
+
+    def draw(shape, std=1.0):
+        return torch.from_numpy((std * rng.standard_normal(shape)).astype(np.float32)).to(dev)
+
+    cm = draw((b, nc, q, g, n), n ** -0.5).bfloat16()
+    bm = draw((b, nc, q, g, n), 1.0).bfloat16()
+    cb = torch.einsum("bcqgn,bckgn->bcgqk", cm, bm).contiguous()
+    dt = torch.from_numpy(rng.uniform(0.01, 1.0, (b, nc, q, h)).astype(np.float32)).to(dev)
+    ca = torch.cumsum(dt * step * torch.from_numpy(rng.uniform(0.5, 2.0, h).astype(np.float32)).to(dev), 2)
+    xdt = (draw((b, nc, q, h, p)) * dt[..., None]).bfloat16()
+    return cb, ca, xdt
+
+
+def _rel(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def _ssd_intra_gate(got, cb, ca, xdt):
+    """(the kernel's error, its limit) against the plain version on the
+    float32 operands."""
+    truth = ssd_intra_ref(cb.float(), ca, xdt.float())
+    return _rel(got, truth), SSD_INTRA_TOL * _rel(ssd_intra_ref(cb, ca, xdt), truth)
+
+
+@pytest.mark.parametrize("widths,g,q", SSD_INTRA_CASES)
+def test_ssd_intra_kernel(dev, widths, g, q):
+    h, p, n = SSD_INTRA_WIDTHS[widths]
+    cb, ca, xdt = _ssd_intra_inputs(dev, h, p, n, g, q)
+    before = tsk.ssd_intra_kernel.launches
+    got = ssd_intra(cb, ca, xdt)
+    again = tsk.ssd_intra_kernel(cb, ca, xdt)
+    torch.cuda.synchronize()
+    assert tsk.ssd_intra_kernel.launches == before + 2
+    assert got.dtype == torch.bfloat16 and got.shape == xdt.shape
+    assert torch.equal(got, again)
+    err, limit = _ssd_intra_gate(got, cb, ca, xdt)
+    assert err <= limit, (err, limit)
+    # a decay off by one step must not pass
+    assert _ssd_intra_gate(ssd_intra_ref(cb, torch.roll(ca, 1, 2), xdt), cb, ca, xdt)[0] > limit
+
+
+@pytest.mark.parametrize("p", [8, 62, 100, 128, 192, 250, 256])
+def test_ssd_intra_kernel_wider_heads(dev, p):
+    """P of one to four TMA boxes; P no multiple of 8, whose boxes start up
+    to 6 columns before a head's first (62 and 250: into the next box); the
+    same gate."""
+    cb, ca, xdt = _ssd_intra_inputs(dev, 4, p, 32, 2, 128)
+    got = tsk.ssd_intra_kernel(cb, ca, xdt)
+    err, limit = _ssd_intra_gate(got, cb, ca, xdt)
+    assert err <= limit, (err, limit)
+
+
+def test_ssd_intra_kernel_steep_decay_is_finite(dev):
+    """A chunk whose decay passes 88 (1,000 over 256 steps here): the
+    exponents above the diagonal would overflow to inf; the kernel never
+    uses them, as the plain version's ``where`` drops them."""
+    cb, ca, xdt = _ssd_intra_inputs(dev, 48, 64, 128, 1, 256, step=-4.0)
+    assert float(ca[:, :, -1].max()) < -88.0
+    got = tsk.ssd_intra_kernel(cb, ca, xdt)
+    assert bool(torch.isfinite(got).all())
+    err, limit = _ssd_intra_gate(got, cb, ca, xdt)
+    assert err <= limit, (err, limit)
+
+
+@pytest.mark.parametrize("p,q", [(50, 256), (64, 256), (62, 256), (128, 256), (250, 256), (256, 256),
+                                 (64, 1024)])
+def test_ssd_intra_kernel_no_spills(dev, p, q):
+    attrs = tsk.attributes(p, q)
+    assert attrs["local_bytes"] == 0, attrs
+    assert 0 < attrs["registers"] <= 255 and attrs["smem_bytes"] <= 232448, attrs
+
+
+def test_ssd_intra_kernel_rejects(dev):
+    """A CUDA tensor the kernel does not take raises; nothing falls back,
+    and nothing launches."""
+    cb, ca, xdt = _ssd_intra_inputs(dev, 8, 16, 16, 2, 64)
+    before = tsk.ssd_intra_kernel.launches
+    with pytest.raises(TypeError):
+        tsk.ssd_intra_kernel(cb, ca, xdt.float())
+    with pytest.raises(TypeError):
+        tsk.ssd_intra_kernel(cb.half(), ca, xdt)
+    with pytest.raises(TypeError):
+        tsk.ssd_intra_kernel(cb, ca.double(), xdt)
+    with pytest.raises(ValueError):
+        tsk.ssd_intra_kernel(cb, ca.cpu(), xdt)
+    with pytest.raises(ValueError):  # the chunk is no multiple of 64
+        tsk.ssd_intra_kernel(*_ssd_intra_inputs(dev, 8, 16, 16, 2, 96))
+    with pytest.raises(ValueError):  # odd P
+        tsk.ssd_intra_kernel(*_ssd_intra_inputs(dev, 8, 15, 16, 2, 64))
+    with pytest.raises(ValueError):  # H P no multiple of 8
+        tsk.ssd_intra_kernel(*_ssd_intra_inputs(dev, 3, 10, 16, 1, 64))
+    with pytest.raises(ValueError):
+        tsk.ssd_intra_kernel(cb[:, :2], ca, xdt)
+    with pytest.raises(ValueError):
+        tsk.ssd_intra_kernel(cb, ca, xdt.transpose(3, 4).contiguous().transpose(3, 4))
+    assert tsk.ssd_intra_kernel.launches == before
+
+
+def test_ssd_intra_dispatch_on_card(dev):
+    """``ssd_intra`` on the card: float32, a chunk of 32 and inputs that
+    require grad (with grad on) take the plain path; under ``no_grad`` the
+    same inputs take the kernel."""
+    cb, ca, xdt = _ssd_intra_inputs(dev, 8, 16, 16, 2, 64)
+    before = tsk.ssd_intra_kernel.launches
+    assert torch.equal(ssd_intra(cb.float(), ca, xdt.float()), ssd_intra_ref(cb.float(), ca, xdt.float()))
+    short = [t[:, :, :32] if t is not cb else t[:, :, :, :32, :32] for t in (cb, ca, xdt)]
+    assert torch.equal(ssd_intra(*short), ssd_intra_ref(*short))
+    x = xdt.detach().requires_grad_()
+    y = ssd_intra(cb, ca, x)
+    y.float().sum().backward()
+    assert x.grad is not None and bool(torch.isfinite(x.grad).all())
+    assert tsk.ssd_intra_kernel.launches == before
+    with torch.no_grad():
+        ssd_intra(cb, ca, x)
+    assert tsk.ssd_intra_kernel.launches == before + 1
+
+
+@pytest.mark.parametrize("widths", ["mamba2", "hymba"])
+def test_ssd_bf16_with_kernel_on_card(dev, widths):
+    """A whole bf16 ``ssd`` (2 x 512 tokens, two chunks of 256) under
+    ``no_grad`` launches the kernel once; its output's distance from
+    float32 compute is at most SSD_INTRA_TOL times that of the plain bf16
+    path (the same call with grad on)."""
+    import types
+
+    from repro_torch.models import ssm as S
+
+    h, p, n = SSD_INTRA_WIDTHS[widths]
+    cfg = types.SimpleNamespace(d_model=h * p // 2, ssm_expand=2, ssm_head_dim=p, ssm_state=n, ssm_groups=1,
+                                ssm_conv=4, ssm_chunk=256, param_dtype=torch.float32,
+                                compute_dtype=torch.bfloat16)
+    mod = S.SSD(cfg, device=dev)
+    mod.reset_parameters(torch.Generator(device=dev).manual_seed(0))
+    rng = np.random.default_rng(1)
+    with torch.no_grad():
+        for name in ("a_log", "dt_bias", "conv_b"):
+            getattr(mod, name).copy_(torch.from_numpy(rng.normal(0, 0.3, getattr(mod, name).shape)
+                                                      .astype(np.float32)))
+    x = torch.from_numpy(rng.standard_normal((2, 512, cfg.d_model)).astype(np.float32)).to(dev)
+    before = tsk.ssd_intra_kernel.launches
+    with torch.no_grad():
+        got = S.ssd(mod, x, cfg)
+        again = S.ssd(mod, x, cfg)
+        truth = S.ssd(mod, x, types.SimpleNamespace(**{**vars(cfg), "compute_dtype": torch.float32}))
+    assert tsk.ssd_intra_kernel.launches == before + 2
+    assert torch.equal(got, again)
+    plain = S.ssd(mod, x.requires_grad_(), cfg).detach()
+    assert tsk.ssd_intra_kernel.launches == before + 2
+    err, limit = _rel(got, truth), SSD_INTRA_TOL * _rel(plain, truth)
+    assert err <= limit, (err, limit)
 
 
 # -- the load stage's pinned staging and the batched window path ----------------
